@@ -8,23 +8,30 @@ kernels compile for sm_90a) and the CUDA toolkit:
 
   (a) device: the card's name and power limit (nvidia-smi), the torch,
       CUDA, nvcc and triton versions; TF32 off for matmul and cuDNN;
-  (b) build: compiles csrc/*.cu with nvcc at first use;
-  (c) kernels: K1 flash_attention_packed and K6 focal_attention_fused at
-      the slice shapes against their plain PyTorch versions, each error
-      printed beside its stated tolerance;
-  (d) slice: guided ViT-B 518x518 inference (2 focal iterations, default
-      bf16 policy, random weights from a seeded torch.Generator) answering
-      a 9-instruction batch, a mixed batch of 8 and an unguided request
-      through uint8 -> resize_normalize -> CognitiveAimModel; checks the
-      outputs and that K1 ran 12 and K6 2 times per forward; then the same
-      requests through the plain versions, and a strict-f32 forward at
-      224x224 against its plain twin;
-  (e) times: K1, K6 and the B=8 forward against their plain versions,
-      with CUDA events.
+  (b) build: compiles csrc/*.cu with nvcc at first use (one process per
+      source, side by side);
+  (c) kernels: K1 flash_attention_packed and K6 focal_attention_fused, and
+      the int8 kernels K2, K3, K4a, K4b, K4 and K5, at the slice shapes, at
+      the ragged N 257 and 481 and at ViT-L widths, against their plain
+      PyTorch versions, each error printed beside its stated tolerance;
+  (d) slices: guided ViT-B 518x518 inference (2 focal iterations, random
+      weights from a seeded torch.Generator) answering a 9-instruction
+      batch, a mixed batch of 8 and an unguided request through uint8 ->
+      resize_normalize -> CognitiveAimModel, under the default bf16 policy
+      (K1 12 and K6 2 launches per forward) and under the int8 policy (K2,
+      K1, K3, K4, K4a, K4b 12 and K5, K6 2 per forward); checks the outputs
+      and the launch counts; then the same requests through the plain
+      versions on the same weights, int8 against the default policy, and a
+      strict-f32 forward at 224x224 against its plain twin;
+  (e) times with CUDA events: every kernel beside its plain version and
+      its bound, K1 beside scaled_dot_product_attention, the B=8 forward
+      under both policies, and the host time to enqueue one forward.
 
 The line before the last is one JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}. Any
-failure raises and exits non-zero. Without a CUDA device it exits 2.
+error, times and bound; the last line is {"ok": true, "device": {...}}.
+Any failure raises and exits non-zero. Without a CUDA device it exits 2.
+``--kernels-only`` checks and times the kernels alone, drives no slice and
+prints no result.
 """
 
 from __future__ import annotations
@@ -44,9 +51,28 @@ TOL_BF16_OUT = 2e-2  # bf16 outputs of magnitude <~2: bf16 spacing there is
 #                      <=2^-7, plus P rounded to bf16 before the PV product
 TOL_F32_OUT = 1e-4  # f32 kernel vs f32 plain: summation order only
 TOL_VIEWS = 1e-5  # K6's f32 row views (colmean, diag, rowmax), values <= 1
+# int8 kernels: a bf16 output may round the other way than the plain
+# version's (one bf16 step is 2^-7 = 7.8e-3 of the value) and an int8
+# activation may differ by 1 where the layernorm's summation order moves a
+# value across a rounding boundary: max |kernel - plain| <= 1e-2 max(1, |plain|)
+TOL_INT8_REL = 1e-2
+TOL_INT8_SHARE = 1e-2  # share of int8 outputs that differ, each by at most 1
+# the f32 row scales, relative: 2e-4, but for a row whose quantised layernorm
+# output differs from the plain version's in one element (see above), which
+# moves that row's maximum by one int8 step of one input, ~1e-3 of it: under
+# 1e-3 of the rows may exceed 2e-4, none 5e-3
+TOL_INT8_SCALE = 2e-4
+TOL_INT8_SCALE_ROWS = 1e-3
+TOL_INT8_SCALE_WORST = 5e-3
 # slice (phase d): kernel path vs plain path on the same weights and inputs
 TOL_SLICE_BF16 = 2e-2  # relative, depth and confidence, bf16 backbone
 TOL_SLICE_F32 = 1e-4  # relative, strict-f32 policy
+TOL_POLICY = 2e-2  # relative depth, int8 policy against the default policy
+POLICY_BUDGET = 1e-2  # the 1% AbsRel budget of scripts/policy_delta.py, for scale
+
+# the card's published dense peaks (NVIDIA H100 SXM data sheet)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 
 
 def log(*a):
@@ -88,6 +114,13 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def bound(n_bytes: float, n_ops: float, kind: str):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move n_bytes once or to do n_ops at its peak rate, whichever is larger."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 # ----------------------------------------------------------------- phases ----
 def phase_device():
     import torch
@@ -117,6 +150,15 @@ def phase_build():
     secs = time.perf_counter() - t0
     log(f"(b) build: {secs:.1f} s (nvcc {_build.build_seconds} s; "
         f"{'built' if _build.build_seconds is not None else 'cached'}) -> {lib._name}")
+    ptxas = os.path.join(os.path.dirname(lib._name), "ptxas.log")
+    if os.path.exists(ptxas):  # registers and spills of each kernel
+        import re
+
+        text = open(ptxas).read()
+        for m in re.finditer(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+                             r"(\d+) bytes spill loads.*?Used (\d+) registers", text, re.S):
+            log(f"  {m.group(1)[:72]}: {m.group(4)} registers, spills "
+                f"{m.group(2)}/{m.group(3)} bytes")
 
 
 def _rand(shape, g, dtype, scale=1.0):
@@ -132,7 +174,6 @@ def phase_kernels():
     from cognitive_aim_tpu_torch.kernels import flash_attention as FA
     from cognitive_aim_tpu_torch.kernels import focal_attention as FO
 
-    log("(c) kernels vs plain versions")
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = {}
     B, H, Dh = 8, 12, 64
@@ -175,6 +216,102 @@ def phase_kernels():
     return worst
 
 
+# ------------------------------------------------------- int8 kernels (c) ----
+def _int8_inputs(B, N, D, F, g):
+    """Seeded inputs of one transformer block's int8 kernels: bf16
+    activations, int8 weights with f32 scales, and f32 vectors holding
+    bf16-rounded values, as ``prepare_params`` leaves them."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels.int8_ops import quantize_weight
+    from cognitive_aim_tpu_torch.nn.layers import round_through
+
+    def vec(n, scale, shift=0.0):
+        return round_through(_rand((n,), g, torch.float32, scale) + shift, torch.bfloat16)
+
+    t = {"x": _rand((B, N, D), g, torch.bfloat16), "ctx": _rand((B, N, D), g, torch.bfloat16),
+         "gamma": vec(D, 0.1, 1.0), "beta": vec(D, 0.05), "ls": vec(D, 0.1, 0.9)}
+    for name, n, k in (("qkv", 3 * D, D), ("out", D, D), ("fc1", F, D), ("fc2", D, F)):
+        w = quantize_weight(_rand((n, k), g, torch.float32, 0.05))
+        t[name] = (w["q"], w["s"], vec(n, 0.01))
+    return t
+
+
+def _int8_calls(t, eps=1e-6):
+    """name -> (wrapper call, plain call) of each int8 kernel on inputs t;
+    K4b reads the plain K4a's int8 hidden on both sides."""
+    from cognitive_aim_tpu_torch.kernels import int8_block as IB
+
+    x, ctx, ga, be, ls = t["x"], t["ctx"], t["gamma"], t["beta"], t["ls"]
+    h8, sh = IB.int8_fc1_gelu_ln_plain(x, ga, be, *t["fc1"], eps)
+    return {
+        "K2": (lambda: IB.int8_qkv_proj_ln(x, ga, be, *t["qkv"], eps),
+               lambda: IB.int8_qkv_proj_ln_plain(x, ga, be, *t["qkv"], eps)),
+        "K5": (lambda: IB.int8_qkv_proj(x, *t["qkv"]),
+               lambda: IB.int8_qkv_proj_plain(x, *t["qkv"])),
+        "K3": (lambda: IB.int8_out_residual(ctx, *t["out"], ls, x),
+               lambda: IB.int8_out_residual_plain(ctx, *t["out"], ls, x)),
+        "K4a": (lambda: IB.int8_fc1_gelu_ln(x, ga, be, *t["fc1"], eps),
+                lambda: IB.int8_fc1_gelu_ln_plain(x, ga, be, *t["fc1"], eps)),
+        "K4b": (lambda: IB.int8_out_residual_prequant(h8, sh, *t["fc2"], ls, x),
+                lambda: IB.int8_out_residual_prequant_plain(h8, sh, *t["fc2"], ls, x)),
+        "K4": (lambda: IB.int8_mlp_ln(x, ga, be, *t["fc1"], *t["fc2"], ls, eps),
+               lambda: IB.int8_mlp_ln_plain(x, ga, be, *t["fc1"], *t["fc2"], ls, eps)),
+    }
+
+
+def _check_int8_case(tag, t):
+    """Every int8 kernel against its plain version on inputs t; returns
+    name -> max abs error (K4a: of the dequantised hidden)."""
+    import torch
+
+    errs = {}
+    for name, (kernel, plain) in _int8_calls(t).items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if name == "K4a":
+            (h8, sh), (h8p, shp) = got, want
+            diff = (h8.int() - h8p.int()).abs()
+            share, worst = float((diff > 0).float().mean()), int(diff.max())
+            srel = (sh - shp).abs() / shp
+            srows, sworst = float((srel > TOL_INT8_SCALE).float().mean()), float(srel.max())
+            errs[name] = max_err(h8.float() * sh, h8p.float() * shp)
+            ok = (share < TOL_INT8_SHARE and worst <= 1
+                  and srows < TOL_INT8_SCALE_ROWS and sworst <= TOL_INT8_SCALE_WORST)
+            detail = (f"int8 differ {share:.2e} (tol {TOL_INT8_SHARE:.0e}) by at most "
+                      f"{worst} (tol 1), scales rel > {TOL_INT8_SCALE:.0e} in {srows:.2e} of "
+                      f"rows (tol {TOL_INT8_SCALE_ROWS:.0e}), worst {sworst:.2e} "
+                      f"(tol {TOL_INT8_SCALE_WORST:.0e})")
+        else:
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(max_err(a, b) for a, b in zip(got, want))
+            lim = TOL_INT8_REL * max(1.0, max(float(b.float().abs().max()) for b in want))
+            ok = err <= lim and all(a.is_contiguous() and bool(torch.isfinite(a).all())
+                                    for a in got)
+            errs[name] = err
+            detail = f"max_abs_err {err:.3e} (tol {lim:.2e})"
+        log(f"  {name} {tag}: {detail} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at {tag}")
+    return errs
+
+
+def phase_int8_kernels():
+    """K2, K3, K4a, K4b, K4, K5 against their plain versions: the slice
+    shape, the ragged N 257 and 481, and ViT-L widths."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    errs = _check_int8_case("B8 N1370 D768 F3072", _int8_inputs(8, 1370, 768, 3072, g))
+    errs["K5"] = _check_int8_case("B8 N1369 D768 F3072",
+                                  _int8_inputs(8, 1369, 768, 3072, g))["K5"]
+    for B, N, D, F in ((8, 257, 768, 3072), (8, 481, 768, 3072), (2, 257, 1024, 4096)):
+        _check_int8_case(f"B{B} N{N} D{D} F{F}", _int8_inputs(B, N, D, F, g))
+    return errs
+
+
+# ------------------------------------------------------------- slices (d) ----
 def _requests(image_size: int, g):
     """(name, uint8 images, exif, guidance) for the three requests."""
     import torch
@@ -235,47 +372,59 @@ def _rel(a, b) -> float:
     return float(((a - b).abs() / b.abs().clamp(min=1e-6)).max())
 
 
-def phase_slice():
-    import torch
-
-    from cognitive_aim_tpu.models.config import ModelArchConfig
-    from cognitive_aim_tpu_torch.core.precision import DEFAULT_POLICY, STRICT_F32
+def _wrappers():
+    """Kernel id -> the wrapper that counts its launches."""
     from cognitive_aim_tpu_torch.kernels import flash_attention as FA
     from cognitive_aim_tpu_torch.kernels import focal_attention as FO
-    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.kernels import int8_block as IB
 
-    log("(d) slice: ViT-B 518x518, 2 focal iterations, default policy, pallas_packed")
-    S = 518
-    arch = ModelArchConfig(num_iterations=2, image_size=S)
+    return {"K1": FA.flash_attention_packed, "K2": IB.int8_qkv_proj_ln,
+            "K3": IB.int8_out_residual, "K4": IB.int8_mlp_ln,
+            "K4a": IB.int8_fc1_gelu_ln, "K4b": IB.int8_out_residual_prequant,
+            "K5": IB.int8_qkv_proj, "K6": FO.focal_attention_fused}
+
+
+def _build_model(policy, image_size, seed):
+    import torch
+
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig
+
+    arch = ModelArchConfig(num_iterations=2, image_size=image_size)
     t0 = time.perf_counter()
-    model = CognitiveAimModel(arch, DEFAULT_POLICY, "pallas_packed", device="cuda")
-    model.init(torch.Generator(device="cuda").manual_seed(0)).prepare_params()
+    model = CognitiveAimModel(arch, policy, "pallas_packed")  # on the card
+    model.init(torch.Generator(device="cuda").manual_seed(seed)).prepare_params()
     torch.cuda.synchronize()
     log(f"  model built and initialized in {time.perf_counter() - t0:.1f} s "
-        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
-    reqs = _requests(S, torch.Generator(device="cuda").manual_seed(2))
-    n_layers, n_iters = model.vit_cfg.num_layers, arch.num_iterations
-    N = (S // 14) ** 2
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M float parameters)")
+    return model
 
-    FA.flash_attention_packed.launches = 0
-    FO.focal_attention_fused.launches = 0
+
+def _drive(model, reqs, S, per_forward):
+    """Serve the requests through the kernels with the launch counts set to
+    0 just before and read just after; check outputs and counts; then serve
+    them through the plain versions on the same weights and compare."""
+    import torch
+
+    N = (S // 14) ** 2
+    wrappers = _wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
     outs = _serve(model, reqs, S)
     torch.cuda.synchronize()
-    launches = {"K1": FA.flash_attention_packed.launches,
-                "K6": FO.focal_attention_fused.launches}
-    n_fwd = len(reqs)
-    want = {"K1": n_layers * n_fwd, "K6": n_iters * n_fwd}
+    launches = {k: w.launches for k, w in wrappers.items()}
+    want = {k: per_forward.get(k, 0) * len(reqs) for k in wrappers}
     for (name, imgs, _, _), out in zip(reqs, outs):
         row_err = _check_outputs(name, out, imgs.shape[0], N)
         log(f"  {name}: B={imgs.shape[0]} depth {out.depth.min().item():.4f}.."
             f"{out.depth.max().item():.4f} confidence {out.confidence.min().item():.4f}.."
             f"{out.confidence.max().item():.4f} attention rows sum to 1 +- {row_err:.1e}")
-    log(f"  launches in {n_fwd} forwards: K1 {launches['K1']} (want {want['K1']}), "
-        f"K6 {launches['K6']} (want {want['K6']})")
+    log(f"  launches in {len(reqs)} forwards: "
+        + ", ".join(f"{k} {launches[k]} (want {want[k]})" for k in wrappers))
     if launches != want:
         raise AssertionError(f"kernel launch counts {launches} != {want}")
 
-    # the same requests through the plain versions, same weights
     model.attn_impl = "plain"
     plain = _serve(model, reqs, S)
     model.attn_impl = "pallas_packed"
@@ -286,10 +435,45 @@ def phase_slice():
             f"(tol {TOL_SLICE_BF16:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name}: kernel path disagrees with the plain path")
+    return outs, launches
+
+
+def phase_slices():
+    import torch
+
+    from cognitive_aim_tpu_torch.core.precision import (
+        DEFAULT_POLICY,
+        STRICT_F32,
+        policy_from_name,
+    )
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig
+
+    S = 518
+    reqs = _requests(S, torch.Generator(device="cuda").manual_seed(2))
+    log("(d) slice: ViT-B 518x518, 2 focal iterations, default policy, pallas_packed")
+    default = _build_model(DEFAULT_POLICY, S, seed=0)
+    n_layers, n_iters = default.vit_cfg.num_layers, default.arch.num_iterations
+    outs_default, launches_default = _drive(default, reqs, S, {"K1": n_layers, "K6": n_iters})
+
+    log("(d) slice: ViT-B 518x518, 2 focal iterations, int8 policy, pallas_packed "
+        "(the same seeded weights, quantised)")
+    int8 = _build_model(policy_from_name("int8"), S, seed=0)
+    chained = {k: n_layers for k in ("K1", "K2", "K3", "K4", "K4a", "K4b")}
+    outs_int8, launches = _drive(int8, reqs, S, {**chained, "K5": n_iters, "K6": n_iters})
+    worst = 0.0
+    for (name, *_), a, b in zip(reqs, outs_int8, outs_default):
+        rd, rc = _rel(a.depth, b.depth), _rel(a.confidence, b.confidence)
+        worst = max(worst, rd)
+        log(f"  {name} int8 vs default policy: worst depth rel {rd:.2e}, confidence rel "
+            f"{rc:.2e} (tol {TOL_POLICY:.0e}; the AbsRel budget on trained weights is "
+            f"{POLICY_BUDGET:.0e})")
+    if worst > TOL_POLICY:
+        raise AssertionError("the int8 policy disagrees with the default policy")
 
     # strict f32 at 224x224: exercises the f32 kernels inside the model
     arch224 = ModelArchConfig(num_iterations=2, image_size=224)
-    f32m = CognitiveAimModel(arch224, STRICT_F32, "pallas_packed", device="cuda")
+    f32m = CognitiveAimModel(arch224, STRICT_F32, "pallas_packed")
     f32m.init(torch.Generator(device="cuda").manual_seed(3)).prepare_params()
     x = _rand((2, 224, 224, 3), torch.Generator(device="cuda").manual_seed(4),
               torch.float32)
@@ -303,49 +487,135 @@ def phase_slice():
     if rd > TOL_SLICE_F32 or ra > TOL_SLICE_F32:
         raise AssertionError("strict-f32 kernel path disagrees with the plain path")
     del f32m
-    return model, reqs, launches
+    return default, int8, launches, launches_default
 
 
-def phase_times(model, smi):
+# -------------------------------------------------------------- times (e) ----
+def _host_enqueue_ms(fn, iters: int = 5) -> float:
+    """Host clock from the call to its return (no synchronise inside), the
+    device drained before each call."""
     import torch
+
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / iters * 1e3
+
+
+def phase_kernel_times(smi):
+    """name -> {ms, plain_ms, bound_ms, bound_by, library_ms} at the slice's
+    shapes (B 8, N 1370, K5 and K6 N 1369)."""
+    import torch
+    import torch.nn.functional as F
 
     from cognitive_aim_tpu_torch.kernels import flash_attention as FA
     from cognitive_aim_tpu_torch.kernels import focal_attention as FO
 
     log(f"(e) times with CUDA events on {smi}")
     g = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v = (_rand((8, 1370, 768), g, torch.bfloat16) for _ in range(3))
-    k1 = (cuda_ms(lambda: FA.flash_attention_packed(q, k, v, 0.125, 12)),
-          cuda_ms(lambda: FA.flash_attention_packed_plain(q, k, v, 0.125, 12)))
-    q, k, v = (_rand((8, 1369, 768), g, torch.bfloat16, 0.5) for _ in range(3))
+    B, N, D, Fh, H = 8, 1370, 768, 3072, 12
+    times = {}
+
+    def record(name, shape, kernel, plain, bound_, library=None):
+        t = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+             "bound_ms": bound_[0], "bound_by": bound_[1],
+             "library_ms": cuda_ms(library) if library else None}
+        lib = f", library call {t['library_ms']:.3f} ms" if library else ""
+        log(f"  {name} {shape}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms{lib}, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+        times[name] = t
+
+    q, k, v = (_rand((B, N, D), g, torch.bfloat16) for _ in range(3))
+
+    def heads(t):
+        return t.view(B, N, H, D // H).transpose(1, 2)
+
+    # K1: 4 B H N^2 Dh operations; q, k, v read and out written once
+    record("K1", f"B{B} N{N} H{H} bf16",
+           lambda: FA.flash_attention_packed(q, k, v, 0.125, H),
+           lambda: FA.flash_attention_packed_plain(q, k, v, 0.125, H),
+           bound(4 * B * N * D * 2, 4 * B * N * N * D, "bf16"),
+           lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), scale=0.125))
+    Nf = N - 1
+    q, k, v = (_rand((B, Nf, D), g, torch.bfloat16, 0.5) for _ in range(3))
     scale = 96 ** 0.5
-    k6 = (cuda_ms(lambda: FO.focal_attention_fused(q, k, v, scale)),
-          cuda_ms(lambda: FO.focal_attention_plain(q, k, v, scale)))
-    log(f"  K1 B8 N1370 H12 bf16: kernel {k1[0]:.3f} ms, plain {k1[1]:.3f} ms")
-    log(f"  K6 B8 N1369 D768 bf16: kernel {k6[0]:.3f} ms, plain {k6[1]:.3f} ms")
+    # K6: 4 B N^2 D operations; q, k, v, attended once (the three views are 3 B N f32)
+    record("K6", f"B{B} N{Nf} D{D} bf16",
+           lambda: FO.focal_attention_fused(q, k, v, scale),
+           lambda: FO.focal_attention_plain(q, k, v, scale),
+           bound(4 * B * Nf * D * 2 + 3 * B * Nf * 4, 4 * B * Nf * Nf * D, "bf16"))
+
+    # int8 kernels: 2 M K N int8 operations; bytes: activations in and out
+    # once (bf16 2 bytes, int8 1), the int8 weight, the f32 vectors
+    t = _int8_inputs(B, N, D, Fh, g)
+    calls = _int8_calls(t)
+    M = B * N
+    act = M * D * 2
+    int8_bounds = {
+        "K2": bound(act + 3 * D * D + 3 * act + 8 * D + 24 * D, 2 * M * D * 3 * D, "int8"),
+        "K3": bound(3 * act + D * D + 12 * D, 2 * M * D * D, "int8"),
+        "K4a": bound(act + Fh * D + M * Fh + 4 * M + 8 * D + 8 * Fh, 2 * M * D * Fh, "int8"),
+        "K4b": bound(M * Fh + 4 * M + Fh * D + 2 * act + 12 * D, 2 * M * D * Fh, "int8"),
+        "K4": bound(2 * act + 2 * Fh * D + 8 * Fh + 20 * D, 4 * M * D * Fh, "int8"),
+    }
+    for name in ("K2", "K3", "K4a", "K4b", "K4"):
+        record(name, f"B{B} N{N} D{D} F{Fh}", *calls[name], int8_bounds[name])
+    t5 = _int8_inputs(B, Nf, D, Fh, g)
+    M5 = B * Nf
+    record("K5", f"B{B} N{Nf} D{D}", *_int8_calls(t5)["K5"],
+           bound(4 * M5 * D * 2 + 3 * D * D + 24 * D, 2 * M5 * D * 3 * D, "int8"))
+    return times
+
+
+def phase_forward_times(default, int8):
+    """The B=8 guided forward under both policies, device and host."""
+    import torch
 
     from cognitive_aim_tpu_torch.core.rng import NoiseMode
 
+    g = torch.Generator(device="cuda").manual_seed(7)
     x = _rand((8, 518, 518, 3), g, torch.float32)
     gidx = torch.arange(8, device="cuda")
-
-    def fwd():
-        return model(x, guidance=gidx, noise_mode=NoiseMode.ZEROS)
-
     fw = []
-    for impl in ("plain", "pallas_packed", "pallas_packed", "plain"):
-        model.attn_impl = impl
-        fw.append((impl, cuda_ms(fwd, iters=10, warmup=2)))
-    model.attn_impl = "pallas_packed"
-    kern = [t for i, t in fw if i == "pallas_packed"]
-    plain = [t for i, t in fw if i == "plain"]
-    log(f"  forward B8 518x518 guided: kernels {kern[0]:.2f}/{kern[1]:.2f} ms, "
-        f"plain {plain[0]:.2f}/{plain[1]:.2f} ms "
-        f"(order plain, kernels, kernels, plain); "
-        f"{8e3 / min(kern):.1f} img/s with kernels")
+    for name, model in (("default", default), ("int8", int8), ("int8", int8),
+                        ("default", default)):
+        fw.append((name, cuda_ms(
+            lambda: model(x, guidance=gidx, noise_mode=NoiseMode.ZEROS), iters=10, warmup=2)))
+    host = {name: _host_enqueue_ms(
+        lambda: model(x, guidance=gidx, noise_mode=NoiseMode.ZEROS))
+        for name, model in (("default", default), ("int8", int8))}
+    d = [ms for n, ms in fw if n == "default"]
+    i8 = [ms for n, ms in fw if n == "int8"]
+    log(f"  forward B8 518x518 guided, kernels: default policy {d[0]:.2f}/{d[1]:.2f} ms, "
+        f"int8 policy {i8[0]:.2f}/{i8[1]:.2f} ms (order default, int8, int8, default); "
+        f"{8e3 / min(d):.1f} img/s default, {8e3 / min(i8):.1f} img/s int8")
+    log(f"  host time to enqueue one forward: default {host['default']:.2f} ms, "
+        f"int8 {host['int8']:.2f} ms")
+    default.attn_impl = "plain"
+    plain_ms = cuda_ms(lambda: default(x, guidance=gidx, noise_mode=NoiseMode.ZEROS),
+                       iters=5, warmup=1)
+    default.attn_impl = "pallas_packed"
+    log(f"  forward B8 518x518 guided, default policy through the plain versions: "
+        f"{plain_ms:.2f} ms")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"  peak device memory {peak:.2f} GiB")
-    return {"K1": k1, "K6": k6}
+
+
+KERNELS = {
+    # id: (wrapper name, source, TPU kernel body it replaces)
+    "K1": ("flash_attention_packed", "flash_attention_packed.cu", "flash_attention.py:388"),
+    "K2": ("int8_qkv_proj_ln", "int8_block.cu", "int8_block.py:143"),
+    "K3": ("int8_out_residual", "int8_block.cu", "int8_block.py:427"),
+    "K4": ("int8_mlp_ln", "int8_block.cu", "int8_block.py:312"),
+    "K4a": ("int8_fc1_gelu_ln", "int8_block.cu", "int8_block.py:218"),
+    "K4b": ("int8_out_residual_prequant", "int8_block.cu", "int8_block.py:256"),
+    "K5": ("int8_qkv_proj", "int8_block.cu", "int8_block.py:110"),
+    "K6": ("focal_attention_fused", "focal_attention.cu", "focal_attention.py:52"),
+}
 
 
 def main() -> int:
@@ -364,23 +634,27 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
+    log("(c) kernels vs plain versions")
     errs = phase_kernels()
-    model, _, launches = phase_slice()
-    times = phase_times(model, smi)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    errs.update(phase_int8_kernels())
+    if "--kernels-only" in sys.argv[1:]:
+        phase_kernel_times(smi)
+        log(f"kernels only: no slice was driven, {time.perf_counter() - t_start:.1f} s")
+        return 0
+    default, int8, launches, launches_default = phase_slices()
+    times = phase_kernel_times(smi)
+    phase_forward_times(default, int8)
+    foreign = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
+    if foreign:
+        raise AssertionError(f"modules of JAX or of the JAX package were imported: {foreign}")
     kernels = [
-        {"name": "flash_attention_packed", "route": "cuda",
-         "source": "cognitive_aim_tpu_torch/csrc/flash_attention_packed.cu",
-         "replaces": "cognitive_aim_tpu/kernels/flash_attention.py:388",
-         "launches": launches["K1"], "max_abs_err": errs["K1"],
-         "ms": times["K1"][0], "plain_ms": times["K1"][1]},
-        {"name": "focal_attention_fused", "route": "cuda",
-         "source": "cognitive_aim_tpu_torch/csrc/focal_attention.cu",
-         "replaces": "cognitive_aim_tpu/kernels/focal_attention.py:52",
-         "launches": launches["K6"], "max_abs_err": errs["K6"],
-         "ms": times["K6"][0], "plain_ms": times["K6"][1]},
-    ]
+        {"id": kid, "name": name, "route": "cuda",
+         "source": f"cognitive_aim_tpu_torch/csrc/{src}",
+         "replaces": f"cognitive_aim_tpu/kernels/{body}",
+         "launches": launches[kid], "launches_default_policy": launches_default[kid],
+         "max_abs_err": errs[kid], **times[kid]}
+        for kid, (name, src, body) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@ bfloat16 with tanh GELU; the small cognitive heads always run in float32
 and the parameters are stored in float32. STRICT_F32 computes everything in
 float32 with exact erf GELU; it is the parity policy.
 
-The int8 policy of the JAX package needs the int8 kernels (K2-K5), which
-this package does not have yet, so ``policy_from_name("int8")`` raises.
+INT8_BACKBONE is the default policy with the backbone's dense projections
+(qkv, attn_out, fc1, fc2) and each focal stream's fused q/k/v projection
+quantised to int8 (kernels/int8_ops.py): bf16 activations, tanh GELU,
+int32 accumulation. ``CognitiveAimModel.prepare_params`` applies it.
 """
 
 from __future__ import annotations
@@ -19,25 +21,22 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class Policy:
     backbone_compute_dtype: torch.dtype = torch.bfloat16
+    # int8 dense projections in the backbone and the focal qkv projection
+    quantize_backbone: bool = False
     # tanh-approximate GELU in the backbone; the parity policy keeps erf
     fast_gelu: bool = True
 
 
 DEFAULT_POLICY = Policy()
 STRICT_F32 = Policy(backbone_compute_dtype=torch.float32, fast_gelu=False)
-
-_INT8_TODO = (
-    "policy 'int8' needs the int8 eager reference and kernels K2-K5, "
-    "which are not ported yet (ROADMAP.md, Queue 1 item 4 and Queue 2)"
-)
+INT8_BACKBONE = Policy(quantize_backbone=True)
 
 
 def policy_from_name(name: str) -> Policy:
-    if name == "int8":
-        raise NotImplementedError(_INT8_TODO)
     return {
         "default": DEFAULT_POLICY,
         "bf16": DEFAULT_POLICY,
         "f32": STRICT_F32,
         "strict_f32": STRICT_F32,
+        "int8": INT8_BACKBONE,
     }[name]

@@ -1,8 +1,9 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-All ``csrc/*.cu`` sources compile in one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds). The library goes to ``build/kernels/<hash>/`` at the root of the
+Each ``csrc/*.cu`` source compiles in an ``nvcc`` process of its own, all
+started together, and one more links the objects into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds).
+The library goes to ``build/kernels/<hash>/`` at the root of the
 checkout, keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is loaded as is. The directory is listed in
 ``.gitignore``.
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -58,16 +59,30 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds) -> str:
+    """Run the commands side by side; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, proc, (stdout, stderr) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{stdout}\n{stderr}")
+    return "".join(stderr for _, stderr in outs)
+
+
 def _build(sources, out: Path) -> str:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [out.parent / f"{s.stem}.{pid}.o" for s in sources]
+    log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                for s, o in zip(sources, objs)])
+    tmp = out.with_suffix(f".{pid}.tmp")
+    _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, out)  # atomic: a concurrent build sees whole files only
-    return proc.stderr  # ptxas -v: registers, shared memory, spills
+    for o in objs:
+        o.unlink()
+    return log  # ptxas -v: registers, shared memory, spills
 
 
 def _declare(lib):
@@ -78,6 +93,15 @@ def _declare(lib):
     lib.caim_focal_attention.restype = i
     lib.caim_focal_q_tile.argtypes = [i, i]
     lib.caim_focal_q_tile.restype = i
+    # x, gamma, beta, eps, wq, ws, bias, qkv, xq, sx, M, D, stream
+    lib.caim_int8_qkv.argtypes = [p, p, p, f, p, p, p, p, p, p, i, i, p]
+    lib.caim_int8_qkv.restype = i
+    # x, aq, sa, wq, ws, bias, ls, res, out, M, K, N, stream
+    lib.caim_int8_out_residual.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.caim_int8_out_residual.restype = i
+    # x, gamma, beta, eps, wq, ws, bias, h8, sh, xq, sx, partial, M, K, F, stream
+    lib.caim_int8_fc1_gelu.argtypes = [p, p, p, f, p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.caim_int8_fc1_gelu.restype = i
     lib.caim_error_string.argtypes = [i]
     lib.caim_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,301 @@
+"""K2-K5: the chained int8 transformer-block GEMMs and the focal qkv GEMM.
+
+Counterpart of cognitive_aim_tpu/kernels/int8_block.py, with its names and
+argument order:
+
+  K2  int8_qkv_proj_ln            LN(f32) -> row quant -> int8 GEMM [D -> 3D]
+                                  -> dequant + bias -> q, k, v
+  K5  int8_qkv_proj               K2 without the layernorm
+  K3  int8_out_residual           row quant -> int8 GEMM -> dequant + bias
+                                  -> res + ls * y
+  K4a int8_fc1_gelu_ln            LN -> row quant -> int8 GEMM [D -> F] ->
+                                  dequant + bias -> tanh-GELU -> row requant
+                                  over the whole F row -> int8 h + f32 scales
+  K4b int8_out_residual_prequant  int8 h, scales -> int8 GEMM [F -> D] ->
+                                  dequant + bias -> res + ls * y
+  K4  int8_mlp_ln                 K4a then K4b: the whole MLP; the int8
+                                  hidden and its scales make one trip
+                                  through device memory
+
+The kernels are CUDA C++ in ``csrc/int8_block.cu``. Beside each wrapper
+stands its plain PyTorch version (``*_plain``), the JAX kernel body's
+arithmetic line by line: f32 layernorm with the variance as the mean of
+squared deviations, ``s = max(max|x| / 127, 1e-12)``,
+``q = clip(round_half_even(x / s))``, an exact integer product
+(``int8_ops.int_matmul``), ``acc * s_x * s_w + b`` and
+``res + ls * y`` in f32, one cast at the end.
+
+Weights are int8 ``[N, K]`` (PyTorch's [out, in], K contiguous) with f32
+scales ``[N]``; biases, layernorm parameters and LayerScales are used in
+f32, whatever type they arrive in.
+
+Dispatch is on the tensor's device: CPU tensors take the plain version;
+CUDA tensors launch the kernel or raise (bf16 activations, contiguous,
+widths that are multiples of 128). Each wrapper's ``.launches`` counts its
+kernel launches and nothing else; ``int8_mlp_ln`` also counts in K4a and
+K4b, which it launches.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from cognitive_aim_tpu_torch.kernels import _build
+from cognitive_aim_tpu_torch.kernels._launch import ptr, require_device, stream_of
+from cognitive_aim_tpu_torch.kernels.int8_ops import int_matmul, quantize_activations
+
+TILE_N = 128  # output columns per thread block (csrc/int8_block.cu: BN)
+TILE_K = 128  # contraction depth per pipeline stage (BK)
+MAX_QUANT_K = 1024  # widest row the quantising prologue keeps in registers
+
+
+# ---------------------------------------------------- shared arithmetic ----
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    c = math.sqrt(2.0 / math.pi)
+    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3)))
+
+
+def _ln_f32(xf: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float):
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+    return (xf - mu) * torch.rsqrt(var + eps) * g.float() + b.float()
+
+
+def _dequant(acc, sx, ws, b):
+    return acc.float() * sx * ws.float() + b.float()
+
+
+# -------------------------------------------------------- plain versions ----
+def int8_qkv_proj_plain(x, wq, ws, b, out_dtype=torch.bfloat16):
+    xq, sx = quantize_activations(x.float())
+    y = _dequant(int_matmul(xq, wq), sx, ws, b)
+    D = x.shape[-1]
+    return tuple(y[..., i * D:(i + 1) * D].to(out_dtype).contiguous() for i in range(3))
+
+
+def int8_qkv_proj_ln_plain(x, g, be, wq, ws, b, eps=1e-6, out_dtype=torch.bfloat16):
+    return int8_qkv_proj_plain(_ln_f32(x.float(), g, be, eps), wq, ws, b, out_dtype)
+
+
+def int8_out_residual_plain(x, wq, ws, b, ls, res):
+    xq, sx = quantize_activations(x.float())
+    y = _dequant(int_matmul(xq, wq), sx, ws, b)
+    return (res.float() + ls.float() * y).to(res.dtype)
+
+
+def int8_fc1_gelu_ln_plain(x, g, be, wq, ws, b, eps=1e-6):
+    xq, sx = quantize_activations(_ln_f32(x.float(), g, be, eps))
+    return quantize_activations(_gelu_tanh(_dequant(int_matmul(xq, wq), sx, ws, b)))
+
+
+def int8_out_residual_prequant_plain(h8, sh, wq, ws, b, ls, res):
+    y = _dequant(int_matmul(h8, wq), sh, ws, b)
+    return (res.float() + ls.float() * y).to(res.dtype)
+
+
+def int8_mlp_ln_plain(x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls, eps=1e-6):
+    h8, sh = int8_fc1_gelu_ln_plain(x, g, be, w1q, w1s, b1, eps)
+    return int8_out_residual_prequant_plain(h8, sh, w2q, w2s, b2, ls, x)
+
+
+# --------------------------------------------------------- CUDA plumbing ----
+def _check_act(name, t, shape, dtype=torch.bfloat16):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes {dtype} activations, "
+                        f"got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: activations must be contiguous and "
+                         f"16-byte aligned")
+
+
+def _check_weight(name, x, wq, ws, K):
+    N = wq.shape[0]
+    if wq.dtype != torch.int8 or tuple(wq.shape) != (N, K) \
+            or not wq.is_contiguous() or wq.data_ptr() % 16 or wq.device != x.device:
+        raise ValueError(f"{name}: weight must be contiguous int8 [N, {K}] on "
+                         f"{x.device}")
+    if N % TILE_N or K % TILE_K:
+        raise ValueError(f"{name}: widths N {N} and K {K} must be multiples of "
+                         f"{TILE_N} and {TILE_K}")
+    _check_vec(name, x, ws, N)
+    return N
+
+
+def _check_vec(name, x, v, n):
+    if v.dtype != torch.float32 or tuple(v.shape) != (n,) \
+            or not v.is_contiguous() or v.device != x.device:
+        raise ValueError(f"{name}: per-channel vectors must be contiguous "
+                         f"float32 [{n}] on {x.device}")
+
+
+def _check_quant_width(name, K):
+    if K > MAX_QUANT_K:
+        raise ValueError(f"{name}: the quantising prologue takes rows up to "
+                         f"{MAX_QUANT_K} wide, got {K}")
+
+
+def _scratch(x, M, K):
+    """int8 activations and their row scales: the prologue kernel's output.
+    The wrapper drops them at return; the caching allocator hands the memory
+    only to later work on the same stream, which runs after the kernels."""
+    return (torch.empty(M, K, dtype=torch.int8, device=x.device),
+            torch.empty(M, dtype=torch.float32, device=x.device))
+
+
+def _launch_qkv(name, x, g, be, wq, ws, b, eps):
+    B, N, D = x.shape
+    _check_act(name, x, (B, N, D))
+    _check_quant_width(name, D)
+    if _check_weight(name, x, wq, ws, D) != 3 * D:
+        raise ValueError(f"{name}: weight must be [3 * {D}, {D}]")
+    _check_vec(name, x, b, 3 * D)
+    if g is not None:
+        _check_vec(name, x, g, D)
+        _check_vec(name, x, be, D)
+    M = B * N
+    qkv = torch.empty(3, B, N, D, dtype=x.dtype, device=x.device)
+    xq, sx = _scratch(x, M, D)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.caim_int8_qkv(
+            ptr(x), ptr(g) if g is not None else None,
+            ptr(be) if g is not None else None, float(eps), ptr(wq), ptr(ws),
+            ptr(b), ptr(qkv), ptr(xq), ptr(sx), M, D, stream_of(x))
+    _build.check(err)
+    return qkv.unbind(0)
+
+
+# -------------------------------------------------------------- wrappers ----
+def int8_qkv_proj(x, wq, ws, b, out_dtype=torch.bfloat16):
+    """K5. x [B, N, D] -> (q, k, v), each a contiguous [B, N, D]: one GEMM
+    over the concatenated [3D, D] weight, split at columns D and 2D."""
+    require_device("int8_qkv_proj", x)
+    if x.device.type == "cpu":
+        return int8_qkv_proj_plain(x, wq, ws, b, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise TypeError("int8_qkv_proj: the CUDA kernel writes bfloat16")
+    out = _launch_qkv("int8_qkv_proj", x, None, None, wq, ws, b, 0.0)
+    int8_qkv_proj.launches += 1
+    return out
+
+
+def int8_qkv_proj_ln(x, g, be, wq, ws, b, eps=1e-6, out_dtype=torch.bfloat16):
+    """K2. The pre-layernorm fused into the qkv GEMM: the normalised
+    activation reaches device memory only as int8."""
+    require_device("int8_qkv_proj_ln", x)
+    if x.device.type == "cpu":
+        return int8_qkv_proj_ln_plain(x, g, be, wq, ws, b, eps, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise TypeError("int8_qkv_proj_ln: the CUDA kernel writes bfloat16")
+    out = _launch_qkv("int8_qkv_proj_ln", x, g, be, wq, ws, b, eps)
+    int8_qkv_proj_ln.launches += 1
+    return out
+
+
+def _launch_out_residual(name, a, sa, wq, ws, b, ls, res):
+    """a: bf16 activations (sa None: quantised by the prologue) or int8
+    activations with their row scales sa."""
+    B, N, K = a.shape
+    prequant = sa is not None
+    _check_act(name, a, (B, N, K), torch.int8 if prequant else torch.bfloat16)
+    Nout = _check_weight(name, a, wq, ws, K)
+    _check_act(name, res, (B, N, Nout))
+    for v in (b, ls):
+        _check_vec(name, a, v, Nout)
+    M = B * N
+    if prequant:
+        if sa.dtype != torch.float32 or sa.numel() != M or not sa.is_contiguous():
+            raise ValueError(f"{name}: row scales must be contiguous float32 "
+                             f"[{B}, {N}, 1]")
+        aq, sx = a, sa
+    else:
+        _check_quant_width(name, K)
+        aq, sx = _scratch(a, M, K)
+    out = torch.empty_like(res)
+    lib = _build.library()
+    with torch.cuda.device(a.device):
+        err = lib.caim_int8_out_residual(
+            None if prequant else ptr(a), ptr(aq), ptr(sx), ptr(wq), ptr(ws),
+            ptr(b), ptr(ls), ptr(res), ptr(out), M, K, Nout, stream_of(a))
+    _build.check(err)
+    return out
+
+
+def int8_out_residual(x, wq, ws, b, ls, res):
+    """K3. x bf16 [B, N, K] -> res + ls * (dequant(quant(x) @ wq^T) + b)."""
+    require_device("int8_out_residual", x)
+    if x.device.type == "cpu":
+        return int8_out_residual_plain(x, wq, ws, b, ls, res)
+    out = _launch_out_residual("int8_out_residual", x, None, wq, ws, b, ls, res)
+    int8_out_residual.launches += 1
+    return out
+
+
+def int8_out_residual_prequant(h8, sh, wq, ws, b, ls, res):
+    """K4b. (h8 int8 [B, N, F], sh f32 [B, N, 1]) ->
+    res + ls * (dequant(h8 @ wq^T) + b)."""
+    require_device("int8_out_residual_prequant", h8)
+    if h8.device.type == "cpu":
+        return int8_out_residual_prequant_plain(h8, sh, wq, ws, b, ls, res)
+    out = _launch_out_residual("int8_out_residual_prequant", h8, sh, wq, ws, b,
+                               ls, res)
+    int8_out_residual_prequant.launches += 1
+    return out
+
+
+def int8_fc1_gelu_ln(x, g, be, wq, ws, b, eps=1e-6):
+    """K4a. x [B, N, K] -> (h8 int8 [B, N, F], sh f32 [B, N, 1]): LN, quant,
+    GEMM, tanh-GELU and the requantisation over the whole F-wide row. The
+    hidden never reaches device memory in a float type: the kernel runs the
+    GEMM and the GELU twice, first for each row's maximum, then to quantise
+    with it."""
+    require_device("int8_fc1_gelu_ln", x)
+    if x.device.type == "cpu":
+        return int8_fc1_gelu_ln_plain(x, g, be, wq, ws, b, eps)
+    name = "int8_fc1_gelu_ln"
+    B, N, K = x.shape
+    _check_act(name, x, (B, N, K))
+    _check_quant_width(name, K)
+    F = _check_weight(name, x, wq, ws, K)
+    for v, n in ((b, F), (g, K), (be, K)):
+        _check_vec(name, x, v, n)
+    M = B * N
+    h8 = torch.empty(B, N, F, dtype=torch.int8, device=x.device)
+    sh = torch.empty(B, N, 1, dtype=torch.float32, device=x.device)
+    xq, sx = _scratch(x, M, K)
+    partial = torch.empty(M, F // TILE_N, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.caim_int8_fc1_gelu(
+            ptr(x), ptr(g), ptr(be), float(eps), ptr(wq), ptr(ws), ptr(b),
+            ptr(h8), ptr(sh), ptr(xq), ptr(sx), ptr(partial), M, K, F,
+            stream_of(x))
+    _build.check(err)
+    int8_fc1_gelu_ln.launches += 1
+    return h8, sh
+
+
+def int8_mlp_ln(x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls, eps=1e-6):
+    """K4. The whole transformer MLP:
+
+        x + ls * fc2(quant(gelu(fc1(quant(LN(x))))))
+
+    as K4a followed by K4b (the TPU kernel's arithmetic; its f32 hidden tile
+    does not fit an SM's shared memory)."""
+    require_device("int8_mlp_ln", x)
+    if x.device.type == "cpu":
+        return int8_mlp_ln_plain(x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls, eps)
+    h8, sh = int8_fc1_gelu_ln(x, g, be, w1q, w1s, b1, eps)
+    out = int8_out_residual_prequant(h8, sh, w2q, w2s, b2, ls, x)
+    int8_mlp_ln.launches += 1
+    return out
+
+
+WRAPPERS = (int8_qkv_proj_ln, int8_qkv_proj, int8_out_residual,
+            int8_fc1_gelu_ln, int8_out_residual_prequant, int8_mlp_ln)
+for _w in WRAPPERS:
+    _w.launches = 0

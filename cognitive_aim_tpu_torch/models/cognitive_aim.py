@@ -12,10 +12,14 @@ Softplus depth and Sigmoid confidence heads.
 ``attn_impl="pallas_packed"`` routes both attentions through the kernel
 wrappers K1 and K6, which launch the CUDA kernels for CUDA tensors and run
 their plain versions for CPU tensors; ``attn_impl="plain"`` runs the plain
-versions on any device.
+versions on any device. Under the int8 policy (``policy.quantize_backbone``,
+applied by ``prepare_params``) every backbone block is the chained int8
+block (K2, K1, K3, K4) and each focal iteration projects through K5.
 
-Not ported yet: LoRA, the token filter, pipelining, the int8 policy,
-training (dropout, entropy, the curiosity loss).
+The model is built on the CUDA device unless the caller passes ``device``.
+
+Not ported yet: LoRA, the token filter, pipelining, training (dropout,
+entropy, the curiosity loss).
 """
 
 from __future__ import annotations
@@ -27,12 +31,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cognitive_aim_tpu.models.config import ModelArchConfig
+from cognitive_aim_tpu_torch.core.device import resolve_device
 from cognitive_aim_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from cognitive_aim_tpu_torch.core.rng import NoiseMode
 from cognitive_aim_tpu_torch.models import curiosity as C
 from cognitive_aim_tpu_torch.models import guidance as G
 from cognitive_aim_tpu_torch.models import streams as S
+from cognitive_aim_tpu_torch.models.config import ModelArchConfig
 from cognitive_aim_tpu_torch.nn import dinov2
 from cognitive_aim_tpu_torch.nn import init as tinit
 from cognitive_aim_tpu_torch.nn import layers as L
@@ -58,6 +63,7 @@ class CognitiveAimModel(nn.Module):
                                       "yet (ROADMAP.md Queue 1)")
         if attn_impl not in dinov2.ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {dinov2.ATTN_IMPLS}")
+        device = resolve_device(device)
         self.arch = arch
         self.policy = policy
         self.attn_impl = attn_impl
@@ -114,14 +120,31 @@ class CognitiveAimModel(nn.Module):
         package casts them on every forward, to the same values; here that
         would cost a cast kernel per weight per forward. The position
         embeddings stay float32, since they are interpolated before the
-        cast. Call after ``init``/``load_flat_params``, before serving."""
+        cast. Call once, after ``init``/``load_flat_params``, before serving.
+
+        Under ``policy.quantize_backbone`` the backbone blocks' dense
+        projections and a fused q/k/v projection per focal stream member
+        are quantised to int8 from the float32 weights, before any cast;
+        what the int8 kernels read in f32 (biases, layernorm parameters,
+        LayerScales) keeps its compute-dtype rounding."""
         cd = self.policy.backbone_compute_dtype
+        int8 = self.policy.quantize_backbone
         bb = self.backbone
-        for mod in (*bb.layers, bb.patch_embed, bb.final_norm):
+        for blk in bb.layers:
+            if int8:
+                blk.quantize_(cd)
+            else:
+                blk.to(cd)
+        for mod in (bb.patch_embed, bb.final_norm):
             mod.to(cd)
         bb.cls_token.data = bb.cls_token.data.to(cd)
         if hasattr(self, "focal_stream"):
-            self.focal_stream.to(cd)
+            fs = self.focal_stream
+            members = list(fs.streams) if self.arch.use_iterative else [fs]
+            fused = [m.fused_qkv_int8(cd) for m in members] if int8 else []
+            fs.to(cd)
+            for m, qkv_i8 in zip(members, fused):
+                m.qkv_i8 = qkv_i8
         return self
 
     # ---------------------------------------------------------- forward ----

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cognitive_aim_tpu_torch.core.device import resolve_device
 from cognitive_aim_tpu_torch.core.rng import NoiseMode, normal_like
 from cognitive_aim_tpu_torch.nn import layers as L
 
@@ -30,6 +31,7 @@ class Curiosity(nn.Module):
                  enable_hierarchical: bool = True, device=None):
         super().__init__()
         D, latent = feature_dim, feature_dim // 4
+        device = resolve_device(device)
         self.encoder_mean = L.MLP([D, D // 2, latent], device)
         self.encoder_logvar = L.MLP([D, D // 2, latent], device)
         self.decoder = L.MLP([latent, D // 2, latent], device)

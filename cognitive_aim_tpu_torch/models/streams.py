@@ -8,6 +8,11 @@ With ``fused_attention=True`` the N x N attention goes through the K6
 wrapper (the CUDA kernel for CUDA tensors, its plain version for CPU
 tensors); otherwise through the plain version.
 
+Under the int8 policy a focal stream also carries ``qkv_i8``, its q, k and
+v projections as one int8 [3D, D] weight, and projects through K5
+``int8_qkv_proj`` (its plain version when ``fused_attention`` is off; the
+JAX package's unfused path keeps the three float projections there).
+
 ``focal_pos_encoding_np`` and ``center_bias_np`` are numpy copies of the JAX
 package's cached tables (that module imports jax at the top).
 """
@@ -22,7 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from cognitive_aim_tpu_torch.core.device import resolve_device
 from cognitive_aim_tpu_torch.core.rng import NoiseMode, normal_like
+from cognitive_aim_tpu_torch.kernels import int8_block as IB
 from cognitive_aim_tpu_torch.kernels.focal_attention import (
     focal_attention_fused,
     focal_attention_plain,
@@ -122,6 +129,7 @@ class FocalStream(nn.Module):
                  curiosity_guided: bool = True, device=None):
         super().__init__()
         D = patch_dim
+        device = resolve_device(device)
         self.query_proj = L.linear(D, D, device)
         self.key_proj = L.linear(D, D, device)
         self.value_proj = L.linear(D, D, device)
@@ -151,6 +159,16 @@ class FocalStream(nn.Module):
         nn.init.constant_(self.adaptive_weight, 0.5)
         return self
 
+    @torch.no_grad()
+    def fused_qkv_int8(self, round_dtype: torch.dtype) -> L.Int8Linear:
+        """The q, k, v projections as one int8 [3D, D] projection, quantised
+        from the float32 weights (call before any cast); attach the result
+        as ``qkv_i8`` after the cast."""
+        lins = (self.query_proj, self.key_proj, self.value_proj)
+        return L.Int8Linear.from_float(torch.cat([l.weight for l in lins], 0),
+                                       torch.cat([l.bias for l in lins], 0),
+                                       round_dtype)
+
 
 def _xavier_heads(mlps, g: torch.Generator):
     for mlp in mlps:
@@ -169,9 +187,14 @@ def focal_apply(mod: FocalStream, patch_tokens: torch.Tensor,
     dt = patch_tokens.dtype
     dev = patch_tokens.device
     x = patch_tokens + _pos_encoding(N, D, dev, dt)[None]
-    q = L.linear_apply(mod.query_proj, x, dt)
-    k = L.linear_apply(mod.key_proj, x, dt)
-    v = L.linear_apply(mod.value_proj, x, dt)
+    if hasattr(mod, "qkv_i8"):  # int8 policy: one fused quantising GEMM
+        i8 = mod.qkv_i8
+        qkv = IB.int8_qkv_proj if fused_attention else IB.int8_qkv_proj_plain
+        q, k, v = qkv(x, i8.wq, i8.ws, i8.bias, dt)
+    else:
+        q = L.linear_apply(mod.query_proj, x, dt)
+        k = L.linear_apply(mod.key_proj, x, dt)
+        v = L.linear_apply(mod.value_proj, x, dt)
     scale = math.sqrt(D // num_heads)  # a divisor, single-head
     attend = focal_attention_fused if fused_attention else focal_attention_plain
     attended, colmean, adiag, armax = attend(q, k, v, scale)
@@ -210,6 +233,7 @@ class IterativeFocalStream(nn.Module):
                  curiosity_guided: bool = True, device=None):
         super().__init__()
         out_dim = hidden_dim // 4
+        device = resolve_device(device)
         self.streams = nn.ModuleList(
             FocalStream(patch_dim, hidden_dim, 8, curiosity_guided, device)
             for _ in range(num_iterations))

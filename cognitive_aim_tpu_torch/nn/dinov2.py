@@ -17,6 +17,14 @@ tensors); ``attn_impl="plain"`` always takes the plain version, which is
 what the kernel is compared with on the card. Everything runs in the
 policy's compute dtype, as the JAX package casts the parameters to it.
 
+Under the int8 policy ``Block.quantize_`` replaces the four dense
+projections by their int8 state, and the block runs as the JAX package's
+chained int8 block: K2 ``int8_qkv_proj_ln`` -> K1 -> K3
+``int8_out_residual`` -> K4 ``int8_mlp_ln`` (kernels/int8_block.py), with no
+bare elementwise op between them. ``attn_impl="plain"`` runs the plain
+versions of the same four steps. The chained block needs tanh GELU, as in
+the JAX package; its per-projection int8 path for erf GELU is not ported.
+
 LoRA, the token filter and pipelining are not ported yet.
 """
 
@@ -28,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cognitive_aim_tpu_torch.core.device import resolve_device
+from cognitive_aim_tpu_torch.kernels import int8_block as IB
 from cognitive_aim_tpu_torch.kernels.flash_attention import (
     flash_attention_packed,
     flash_attention_packed_plain,
@@ -79,6 +89,7 @@ class Block(nn.Module):
     def __init__(self, cfg: DinoV2Config, device=None):
         super().__init__()
         D = cfg.hidden_size
+        device = resolve_device(device)
         self.cfg = cfg
         self.norm1 = L.layernorm(D, cfg.layer_norm_eps, device)
         self.qkv = L.linear(D, 3 * D, device)  # rows: q, k, v outputs
@@ -117,7 +128,51 @@ class Block(nn.Module):
         ctx = attend(q, k, v, cfg.head_dim ** -0.5, cfg.num_heads)
         return L.linear_apply(self.attn_out, ctx, ctx.dtype)
 
+    @property
+    def quantized(self) -> bool:
+        return isinstance(self.qkv, L.Int8Linear)
+
+    @torch.no_grad()
+    def quantize_(self, compute_dtype: torch.dtype) -> "Block":
+        """The int8 policy's state, from float32 parameters: qkv, attn_out,
+        fc1 and fc2 become ``Int8Linear`` (int8 weight, f32 scales). What the
+        JAX package casts to the compute dtype and its kernels then read in
+        f32 (biases, layernorm parameters, LayerScales) stays float32 at the
+        value rounded to ``compute_dtype``."""
+        if self.quantized:
+            raise RuntimeError("Block.quantize_: the block is already quantised")
+        for name in ("qkv", "attn_out", "fc1", "fc2"):
+            lin = getattr(self, name)
+            setattr(self, name, L.Int8Linear.from_float(lin.weight, lin.bias,
+                                                        compute_dtype))
+        for p in (*self.norm1.parameters(), *self.norm2.parameters(),
+                  self.ls1, self.ls2):
+            p.data = L.round_through(p.data, compute_dtype)
+        return self
+
+    def _forward_int8(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        cfg = self.cfg
+        if not cfg.gelu_approx:
+            raise NotImplementedError(
+                "the chained int8 block needs tanh GELU; the per-projection "
+                "int8 path for erf GELU is not ported yet (ROADMAP.md)")
+        fused = attn_impl == "pallas_packed"
+        n1, n2, eps = self.norm1, self.norm2, cfg.layer_norm_eps
+        qkv_ln = IB.int8_qkv_proj_ln if fused else IB.int8_qkv_proj_ln_plain
+        attend = flash_attention_packed if fused else flash_attention_packed_plain
+        out_res = IB.int8_out_residual if fused else IB.int8_out_residual_plain
+        mlp_ln = IB.int8_mlp_ln if fused else IB.int8_mlp_ln_plain
+        q, k, v = qkv_ln(x, n1.weight, n1.bias, self.qkv.wq, self.qkv.ws,
+                         self.qkv.bias, eps, x.dtype)
+        ctx = attend(q, k, v, cfg.head_dim ** -0.5, cfg.num_heads)
+        x = out_res(ctx, self.attn_out.wq, self.attn_out.ws, self.attn_out.bias,
+                    self.ls1, x)
+        return mlp_ln(x, n2.weight, n2.bias, self.fc1.wq, self.fc1.ws, self.fc1.bias,
+                      self.fc2.wq, self.fc2.ws, self.fc2.bias, self.ls2, eps)
+
     def forward(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        if self.quantized:
+            return self._forward_int8(x, attn_impl)
         dt = x.dtype
         h = L.layernorm_apply(self.norm1, x)
         x = x + self.ls1.to(dt) * self.mhsa(h, attn_impl)
@@ -131,6 +186,7 @@ class DinoV2(nn.Module):
     def __init__(self, cfg: DinoV2Config, device=None):
         super().__init__()
         D = cfg.hidden_size
+        device = resolve_device(device)
         self.cfg = cfg
         self.cls_token = nn.Parameter(torch.empty(1, 1, D, device=device))
         self.mask_token = nn.Parameter(torch.empty(1, D, device=device))

@@ -9,7 +9,8 @@ reproduces that rounding.
 
 Modules are built with ``skip_init``: no random draw happens at
 construction. ``nn/init.py`` fills them from a ``torch.Generator``, or
-``convert.load_flat_params`` from JAX weights.
+``convert.load_flat_params`` from JAX weights. ``device=None`` builds on the
+CUDA device (``core/device.py``); the CPU has to be asked for.
 """
 
 from __future__ import annotations
@@ -21,12 +22,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
+from cognitive_aim_tpu_torch.core.device import resolve_device
+from cognitive_aim_tpu_torch.kernels.int8_ops import quantize_weight
 from cognitive_aim_tpu_torch.nn import init as tinit
 
 
 # ---------------------------------------------------------------- linear ----
 def linear(in_dim: int, out_dim: int, device=None) -> nn.Linear:
-    return skip_init(nn.Linear, in_dim, out_dim, device=device or "cpu")
+    return skip_init(nn.Linear, in_dim, out_dim, device=resolve_device(device))
 
 
 def linear_apply(lin: nn.Linear, x: torch.Tensor,
@@ -38,6 +41,36 @@ def linear_apply(lin: nn.Linear, x: torch.Tensor,
         w, b = w.to(param_dtype), b.to(param_dtype)
     dt = torch.promote_types(x.dtype, w.dtype)
     return F.linear(x.to(dt), w.to(dt), b.to(dt))
+
+
+# ----------------------------------------------------------- int8 linear ----
+class Int8Linear(nn.Module):
+    """The int8 state of a dense projection (kernels/int8_ops.py): ``wq``
+    int8 [out, in], ``ws`` f32 [out] per-output-channel scales, ``bias`` f32
+    [out]. The kernels use the bias in f32 after the JAX package has cast it
+    to the compute dtype, so ``from_float`` keeps it in f32 at the value
+    rounded to ``round_dtype``; the weight is quantised from its float32
+    value, before any cast."""
+
+    def __init__(self, wq: torch.Tensor, ws: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.register_buffer("wq", wq.contiguous())
+        self.register_buffer("ws", ws.contiguous())
+        self.register_buffer("bias", bias.contiguous())
+
+    @classmethod
+    def from_float(cls, weight: torch.Tensor, bias: torch.Tensor,
+                   round_dtype: torch.dtype) -> "Int8Linear":
+        if weight.dtype != torch.float32:
+            raise TypeError("Int8Linear.from_float quantises float32 weights, "
+                            f"got {weight.dtype} (quantise before any cast)")
+        w = quantize_weight(weight.detach())
+        return cls(w["q"], w["s"], round_through(bias.detach(), round_dtype))
+
+
+def round_through(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 tensor holding ``t`` rounded to ``dtype``."""
+    return t.to(dtype).float()
 
 
 # ------------------------------------------------------------------- mlp ----
@@ -75,7 +108,7 @@ def mlp_apply(mlp: MLP, x: torch.Tensor, *, act: Callable = F.relu,
 
 # ------------------------------------------------------------- layernorm ----
 def layernorm(dim: int, eps: float = 1e-6, device=None) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=eps, device=device)
+    return nn.LayerNorm(dim, eps=eps, device=resolve_device(device))
 
 
 def layernorm_apply(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -86,7 +119,7 @@ def layernorm_apply(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------- embedding ----
 def embedding(num: int, dim: int, device=None) -> nn.Embedding:
-    return skip_init(nn.Embedding, num, dim, device=device or "cpu")
+    return skip_init(nn.Embedding, num, dim, device=resolve_device(device))
 
 
 def embedding_apply(emb: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Where one forward of the PyTorch + CUDA port spends its time on the card.
+
+    python3 scripts/profile_port_forward.py [--policy int8] [--batch 8] [--top 25]
+
+Builds the ViT-B 518x518 model (2 focal iterations, random weights from a
+seed, ``attn_impl="pallas_packed"``) under each named policy, runs guided
+forwards on device-resident images, and prints for each policy:
+
+  * the forward's time with a synchronise (host clock) and the host's time
+    to enqueue it (no synchronise), averaged over --iters forwards;
+  * from a ``torch.profiler`` trace of one forward: device time summed by
+    kernel name, the device's busy time, the span from the first kernel's
+    start to the last one's end, and the idle share of that span.
+
+Needs an NVIDIA GPU; exits 2 without one. Prints the card's name and power
+limit first; every number is that card's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def profile_policy(name: str, batch: int, iters: int, top: int):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cognitive_aim_tpu_torch.core.precision import policy_from_name
+    from cognitive_aim_tpu_torch.core.rng import NoiseMode
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig
+
+    arch = ModelArchConfig(num_iterations=2, image_size=518)
+    model = CognitiveAimModel(arch, policy_from_name(name), "pallas_packed")
+    model.init(torch.Generator(device="cuda").manual_seed(0)).prepare_params()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((batch, 518, 518, 3), generator=g, device="cuda")
+    gidx = torch.arange(batch, device="cuda") % 9
+
+    def fwd():
+        return model(x, guidance=gidx, noise_mode=NoiseMode.ZEROS)
+
+    for _ in range(3):
+        fwd()
+    wall = enqueue = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enqueue += t1 - t0
+        wall += time.perf_counter() - t0
+    print(f"[{name}] B={batch} guided forward: {wall / iters * 1e3:.2f} ms with a "
+          f"synchronise, host enqueue {enqueue / iters * 1e3:.2f} ms")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fwd()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    calls = collections.Counter()
+    first, last = float("inf"), 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.end - e.time_range.start
+            calls[e.name] += 1
+            first, last = min(first, e.time_range.start), max(last, e.time_range.end)
+    busy = sum(by_name.values())
+    if busy <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    span = last - first
+    print(f"[{name}] profiler, one forward: device busy {busy / 1e3:.2f} ms in a span of "
+          f"{span / 1e3:.2f} ms, idle share {1 - busy / span:.1%}, "
+          f"{sum(calls.values())} device operations")
+    for kname, us in by_name.most_common(top):
+        print(f"[{name}]   {us / 1e3:8.3f} ms {calls[kname]:4d} x  {kname[:100]}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--policy", action="append",
+                    help="default, int8 or f32; may repeat (default: default and int8)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_port_forward: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    for name in args.policy or ["default", "int8"]:
+        profile_policy(name, args.batch, args.iters, args.top)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 and K6 against their plain PyTorch versions, on the
-card. Every test here needs an NVIDIA Hopper GPU and skips without one.
+"""The CUDA kernels K1, K6 and the int8 kernels K2, K3, K4, K4a, K4b, K5
+against their plain PyTorch versions, on the card. Every test here needs an
+NVIDIA Hopper GPU and skips without one.
 
 This file imports no jax (the GPU machine has none). From the repository
 root on that machine:
@@ -12,6 +13,15 @@ rounded to bf16 (spacing <= 2^-7) and the kernel rounds P to bf16 before
 the PV product: atol 2e-2. The float32 kernels differ from the plain
 version only in summation order: atol 1e-4. K6's row views are f32 over
 the unrounded P, values <= 1: atol 1e-5.
+
+int8 kernels: the plain version runs the same f32 arithmetic on the same
+bf16 inputs with an exact integer product (``torch._int_mm`` or float64).
+A bf16 output may round the other way (one bf16 step, 2^-7 of the value),
+and an int8 activation may differ by 1 where the layernorm's summation
+order moves a value across a rounding boundary: outputs within
+1e-2 max(1, |plain|); int8 outputs differ by at most 1 in under 1% of the
+elements; row scales to rtol 2e-4 in all but 1e-3 of the rows (a row fed by
+such an int8 step moves by ~1e-3 of its maximum), none beyond 5e-3.
 """
 
 import numpy as np
@@ -20,6 +30,8 @@ import torch
 
 from cognitive_aim_tpu_torch.kernels import flash_attention as TFA
 from cognitive_aim_tpu_torch.kernels import focal_attention as TFO
+from cognitive_aim_tpu_torch.kernels import int8_block as TIB
+from cognitive_aim_tpu_torch.kernels.int8_ops import quantize_weight
 
 
 @pytest.fixture
@@ -77,3 +89,139 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     y = torch.zeros(1, 10, 128, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         TFA.flash_attention_packed(y, y, y, 0.125, 2)
+
+
+# ------------------------------------------------------------ int8 kernels ----
+def _int8_inputs(B, N, D, F, dev, seed=0):
+    r = np.random.RandomState(seed)
+
+    def f(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((r.randn(*shape) * scale + shift).astype(np.float32)).to(dev)
+
+    def vec(n, scale, shift=0.0):  # f32 at bf16-rounded values, as prepare_params leaves them
+        return f(n, scale=scale, shift=shift).bfloat16().float()
+
+    t = {"x": f(B, N, D).bfloat16(), "ctx": f(B, N, D).bfloat16(),
+         "g": vec(D, 0.1, 1.0), "be": vec(D, 0.05), "ls": vec(D, 0.1, 0.9)}
+    for name, n, k in (("qkv", 3 * D, D), ("out", D, D), ("fc1", F, D), ("fc2", D, F)):
+        w = quantize_weight(f(n, k, scale=0.05))
+        t[name] = (w["q"], w["s"], vec(n, 0.01))
+    return t
+
+
+def _assert_bf16_close(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.is_contiguous() and g.shape == w.shape
+        lim = 1e-2 * max(1.0, float(w.float().abs().max()))
+        assert float((g.float() - w.float()).abs().max()) <= lim
+
+
+SHAPES = [(2, 1370, 768, 3072), (3, 257, 768, 3072), (2, 481, 768, 3072),
+          (1, 100, 1024, 4096), (1, 17, 128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B%d-N%d-D%d-F%d" % s)
+@pytest.mark.parametrize("kernel", ["K2", "K5", "K3", "K4b", "K4"])
+def test_int8_kernel_matches_plain(kernel, shape, cuda_device):
+    t = _int8_inputs(*shape, cuda_device)
+    x, ctx, g, be, ls = t["x"], t["ctx"], t["g"], t["be"], t["ls"]
+    h8, sh = TIB.int8_fc1_gelu_ln_plain(x, g, be, *t["fc1"])
+    wrapper, plain, args = {
+        "K2": (TIB.int8_qkv_proj_ln, TIB.int8_qkv_proj_ln_plain, (x, g, be, *t["qkv"])),
+        "K5": (TIB.int8_qkv_proj, TIB.int8_qkv_proj_plain, (x, *t["qkv"])),
+        "K3": (TIB.int8_out_residual, TIB.int8_out_residual_plain, (ctx, *t["out"], ls, x)),
+        "K4b": (TIB.int8_out_residual_prequant, TIB.int8_out_residual_prequant_plain,
+                (h8, sh, *t["fc2"], ls, x)),
+        "K4": (TIB.int8_mlp_ln, TIB.int8_mlp_ln_plain, (x, g, be, *t["fc1"], *t["fc2"], ls)),
+    }[kernel]
+    n = wrapper.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n + 1
+    _assert_bf16_close(got, plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B%d-N%d-D%d-F%d" % s)
+def test_k4a_kernel_matches_plain(shape, cuda_device):
+    t = _int8_inputs(*shape, cuda_device, seed=1)
+    args = (t["x"], t["g"], t["be"], *t["fc1"])
+    h8, sh = TIB.int8_fc1_gelu_ln(*args)
+    torch.cuda.synchronize()
+    h8p, shp = TIB.int8_fc1_gelu_ln_plain(*args)
+    assert h8.dtype == torch.int8 and sh.dtype == torch.float32 and sh.shape == shp.shape
+    diff = (h8.int() - h8p.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-2
+    srel = (sh - shp).abs() / shp
+    assert float((srel > 2e-4).float().mean()) < 1e-3 and float(srel.max()) <= 5e-3
+
+
+@pytest.mark.cuda
+def test_k4b_is_exact_on_the_same_int8_input(cuda_device):
+    """No quantising prologue: the same integers, the same f32 epilogue."""
+    t = _int8_inputs(2, 300, 768, 3072, cuda_device, seed=2)
+    h8, sh = TIB.int8_fc1_gelu_ln_plain(t["x"], t["g"], t["be"], *t["fc1"])
+    got = TIB.int8_out_residual_prequant(h8, sh, *t["fc2"], t["ls"], t["x"])
+    want = TIB.int8_out_residual_prequant_plain(h8, sh, *t["fc2"], t["ls"], t["x"])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    t = _int8_inputs(2, 40, 256, 512, cuda_device)
+    x, g, be, ls = t["x"], t["g"], t["be"], t["ls"]
+    with pytest.raises(TypeError):  # f32 activations
+        TIB.int8_qkv_proj_ln(x.float(), g, be, *t["qkv"])
+    with pytest.raises(TypeError):
+        TIB.int8_out_residual(x.float(), *t["out"], ls, x)
+    with pytest.raises(TypeError):  # the kernel writes bf16 only
+        TIB.int8_qkv_proj(x, *t["qkv"], out_dtype=torch.float32)
+    strided = torch.empty(2, 40, 512, device=cuda_device, dtype=torch.bfloat16)[..., :256]
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError):
+        TIB.int8_qkv_proj(strided, *t["qkv"])
+    with pytest.raises(ValueError):
+        TIB.int8_fc1_gelu_ln(strided, g, be, *t["fc1"])
+    with pytest.raises(ValueError):  # bf16 vectors: the kernels read f32
+        TIB.int8_qkv_proj_ln(x, g.bfloat16(), be, *t["qkv"])
+    wq, ws, b = t["out"]
+    with pytest.raises(ValueError):  # a weight that is a transposed view
+        TIB.int8_out_residual(x, wq.t(), ws, b, ls, x)
+    narrow = _int8_inputs(1, 8, 192, 384, cuda_device)  # widths not multiples of 128
+    with pytest.raises(ValueError):
+        TIB.int8_qkv_proj(narrow["x"], *narrow["qkv"])
+    before = [w.launches for w in TIB.WRAPPERS]
+    with pytest.raises(TypeError):
+        TIB.int8_mlp_ln(x.float(), g, be, *t["fc1"], *t["fc2"], ls)
+    assert [w.launches for w in TIB.WRAPPERS] == before
+
+
+@pytest.mark.cuda
+def test_int8_model_counts_its_launches(cuda_device):
+    """A 2-layer int8 model at kernel-sized widths: every block launches K2,
+    K1, K3 and K4 (K4a + K4b), every focal iteration K5 and K6."""
+    from cognitive_aim_tpu_torch.core.precision import policy_from_name
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig
+    from cognitive_aim_tpu_torch.nn.dinov2 import DinoV2Config
+
+    vit = DinoV2Config(hidden_size=128, num_layers=2, num_heads=2, pretrain_image_size=56,
+                       gelu_approx=True)
+    arch = ModelArchConfig(num_iterations=2, image_size=70)
+    model = CognitiveAimModel(arch, policy_from_name("int8"), vit_cfg=vit)
+    assert next(model.parameters()).device.type == "cuda"  # no device argument
+    model.init(torch.Generator(device="cuda").manual_seed(0)).prepare_params()
+    x = torch.randn(3, 70, 70, 3, device=cuda_device)
+    counters = (*TIB.WRAPPERS, TFA.flash_attention_packed, TFO.focal_attention_fused)
+    for w in counters:
+        w.launches = 0
+    out = model(x, guidance=torch.tensor([0, 4, 8], device=cuda_device))
+    torch.cuda.synchronize()
+    assert [w.launches for w in counters] == [2, 2, 2, 2, 2, 2, 2, 2]
+    model.attn_impl = "plain"
+    ref = model(x, guidance=torch.tensor([0, 4, 8], device=cuda_device))
+    torch.testing.assert_close(out.depth, ref.depth, atol=0, rtol=2e-2)
+    torch.testing.assert_close(out.confidence, ref.confidence, atol=0, rtol=2e-2)

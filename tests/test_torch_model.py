@@ -16,8 +16,19 @@ Tolerances, with their reasons:
     places (layernorm statistics, bias adds, the attention's score type);
     a few rounding steps through two blocks give ~1.5e-3 in depth and
     attention here: atol 1e-2.
+  * int8 policy: the JAX package runs its chained int8 block (Pallas, in
+    interpret mode), the port the plain versions of the same kernels. The
+    int8 GEMMs agree to rounding; the bf16 steps between them (attention,
+    residual stream) round at other places, as under the default policy:
+    backbone output atol 2e-2 / rtol 5e-2, the tolerance of the JAX
+    package's own chained-against-XLA test; depth, confidence and attention
+    atol 1e-2, as under the default policy.
+
+Every module of the port is built with ``device="cpu"``: without it the
+port builds on the CUDA device and raises where there is none.
 """
 
+import dataclasses
 import functools
 import subprocess
 import sys
@@ -37,6 +48,7 @@ from cognitive_aim_tpu.models import curiosity as JC
 from cognitive_aim_tpu.models import guidance as JG
 from cognitive_aim_tpu.models import streams as JS
 from cognitive_aim_tpu.models.cognitive_aim import CognitiveAimModel as JModel
+from cognitive_aim_tpu.models import config as JCfg
 from cognitive_aim_tpu.models.config import ModelArchConfig
 from cognitive_aim_tpu.nn import dinov2 as JD
 from cognitive_aim_tpu.nn import layers as JL
@@ -47,6 +59,7 @@ from cognitive_aim_tpu_torch.core.rng import NoiseMode, normal_like
 from cognitive_aim_tpu_torch.io import preprocess as TPre
 from cognitive_aim_tpu_torch.models import curiosity as TC
 from cognitive_aim_tpu_torch.models import guidance as TG
+from cognitive_aim_tpu_torch.models import config as TCfg
 from cognitive_aim_tpu_torch.models import streams as TS
 from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel as TModel
 from cognitive_aim_tpu_torch.nn import dinov2 as TD
@@ -72,6 +85,12 @@ POLICIES = {
                  TP.Policy(backbone_compute_dtype=torch.float32), True, F32_TOL),
     "bf16_default": (JP.DEFAULT_POLICY, TP.DEFAULT_POLICY, True, BF16_TOL),
 }
+INT8_BACKBONE_TOL = dict(atol=2e-2, rtol=5e-2)
+
+
+def _tarch(arch: ModelArchConfig) -> TCfg.ModelArchConfig:
+    """The port's own config class with the same field values."""
+    return TCfg.ModelArchConfig(**dataclasses.asdict(arch))
 
 
 def _images(B, seed=0):
@@ -100,7 +119,8 @@ def _pair(policy_name, arch=None):
     jm = JModel(arch, policy=jp, attn_impl="xla",
                 vit_cfg=JD.DinoV2Config(**TINY, gelu_approx=gelu))
     params, flat = _jax_params(arch)
-    tm = TModel(arch, policy=tp, vit_cfg=TD.DinoV2Config(**TINY, gelu_approx=gelu))
+    tm = TModel(_tarch(arch), policy=tp, device="cpu",
+                vit_cfg=TD.DinoV2Config(**TINY, gelu_approx=gelu))
     load_flat_params(tm, flat)
     return jm, params, tm
 
@@ -112,7 +132,7 @@ def test_dinov2_matches_jax(gelu):
     params = JD.init(jax.random.PRNGKey(1), jcfg)
     x = _images(2, seed=1)
     want = JD.apply(params, jnp.asarray(x), jcfg, attn_impl="xla")
-    model = TD.DinoV2(TD.DinoV2Config(**TINY, gelu_approx=gelu))
+    model = TD.DinoV2(TD.DinoV2Config(**TINY, gelu_approx=gelu), device="cpu")
     flat = {f"backbone/{k}": v for k, v in flatten_tree(params).items()}
 
     class Wrap(torch.nn.Module):
@@ -130,13 +150,13 @@ def test_dinov2_matches_jax(gelu):
 def test_dinov2_runs_in_the_compute_dtype():
     """The default policy's backbone stays bf16 end to end (no silent
     promotion to the f32 parameters)."""
-    model = TD.DinoV2(TD.DinoV2Config(**TINY)).init(torch.Generator().manual_seed(0))
+    model = TD.DinoV2(TD.DinoV2Config(**TINY), device="cpu").init(torch.Generator().manual_seed(0))
     out = model(torch.from_numpy(_images(1)), compute_dtype=torch.bfloat16)
     assert out.dtype == torch.bfloat16
 
 
 def test_pos_embed_skips_at_the_pretrain_grid():
-    model = TD.DinoV2(TD.DinoV2Config(**TINY)).init(torch.Generator().manual_seed(0))
+    model = TD.DinoV2(TD.DinoV2Config(**TINY), device="cpu").init(torch.Generator().manual_seed(0))
     assert model.interpolate_pos_embed(4, 4) is model.pos_embed
     assert model.interpolate_pos_embed(5, 5).shape == (1, 26, 64)
 
@@ -215,7 +235,8 @@ def test_sampled_noise_is_drawn_from_the_generator():
 
 def test_port_init_gives_finite_outputs():
     arch = ModelArchConfig(num_iterations=2, image_size=IMG)
-    tm = TModel(arch, vit_cfg=TD.DinoV2Config(**TINY, gelu_approx=True))
+    tm = TModel(_tarch(arch), vit_cfg=TD.DinoV2Config(**TINY, gelu_approx=True),
+                device="cpu")
     tm.init(torch.Generator().manual_seed(0))
     out = tm(torch.from_numpy(_images(3)), guidance=torch.tensor([0, 4, 8]))
     assert torch.isfinite(out.depth).all() and (out.depth > 0).all()
@@ -227,7 +248,7 @@ def test_port_init_gives_finite_outputs():
 def test_converter_consumes_every_key_and_sets_every_parameter():
     arch = ModelArchConfig(num_iterations=2, image_size=IMG, curiosity_guided=True)
     _, flat = _jax_params(arch)
-    tm = TModel(arch, vit_cfg=TD.DinoV2Config(**TINY))
+    tm = TModel(_tarch(arch), vit_cfg=TD.DinoV2Config(**TINY), device="cpu")
     load_flat_params(tm, flat)  # raises on a leftover key or an unset parameter
     layer = tm.backbone.layers[1]
     D = TINY["hidden_size"]
@@ -240,7 +261,7 @@ def test_converter_consumes_every_key_and_sets_every_parameter():
 def test_converter_raises_on_leftover_keys_and_unset_parameters():
     arch = ModelArchConfig(num_iterations=2, image_size=IMG)
     _, flat = _jax_params(arch)
-    tm = TModel(arch, vit_cfg=TD.DinoV2Config(**TINY))
+    tm = TModel(_tarch(arch), vit_cfg=TD.DinoV2Config(**TINY), device="cpu")
     with pytest.raises((KeyError, ValueError)):
         load_flat_params(tm, {**flat, "backbone/layers/lora_A": np.zeros((2, 4, 64))})
     missing = dict(flat)
@@ -283,7 +304,7 @@ def test_curiosity_with_exif_matches_jax():
     """The forward passes no exif to curiosity; with exif the geometric
     term runs its MLP."""
     params, flat = _jax_params(ModelArchConfig(num_iterations=2, image_size=IMG))
-    cm = TC.Curiosity(64, 256)  # the model's hidden width
+    cm = TC.Curiosity(64, 256, device="cpu")  # the model's hidden width
 
     class Wrap(torch.nn.Module):
         def __init__(self):
@@ -329,31 +350,232 @@ def test_noise_zeros_mode_and_int8_policy():
     assert normal_like(g, (4,), torch.float32, torch.device("cpu"),
                        NoiseMode.SAMPLE).abs().sum() > 0
     assert TP.policy_from_name("f32") is TP.STRICT_F32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.policy_from_name("int8")
+    int8 = TP.policy_from_name("int8")
+    assert int8 is TP.INT8_BACKBONE and int8.quantize_backbone
+    # bf16 compute with tanh GELU, as the JAX package's INT8_BACKBONE
+    assert int8.backbone_compute_dtype == torch.bfloat16 and int8.fast_gelu
+    assert JP.policy_from_name("int8").quantize_backbone
+    assert not TP.DEFAULT_POLICY.quantize_backbone
 
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        TModel(ModelArchConfig(use_lora=True))
+        TModel(TCfg.ModelArchConfig(use_lora=True), device="cpu")
     with pytest.raises(NotImplementedError):
-        TModel(ModelArchConfig(token_filter_layer=2, token_filter_keep=0.5))
+        TModel(TCfg.ModelArchConfig(token_filter_layer=2, token_filter_keep=0.5),
+               device="cpu")
     with pytest.raises(ValueError):
-        TModel(ModelArchConfig(), attn_impl="xla", vit_cfg=TD.DinoV2Config(**TINY))
+        TModel(TCfg.ModelArchConfig(), attn_impl="xla", vit_cfg=TD.DinoV2Config(**TINY),
+               device="cpu")
+
+
+# ----------------------------------------------------------- int8 policy ----
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+
+    def interp(*a, **kw):
+        kw["interpret"] = True
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(pl, "pallas_call", interp)
+
+
+def _int8_pair(attn_impl="pallas_packed"):
+    """JAX int8 model with prepared parameters, and the port's, prepared,
+    on the same float32 weights."""
+    arch = ModelArchConfig(num_iterations=2, image_size=IMG)
+    jm = JModel(arch, policy=JP.INT8_BACKBONE, attn_impl="pallas_packed",
+                vit_cfg=JD.DinoV2Config(**TINY, gelu_approx=True))
+    params, flat = _jax_params(arch)
+    tm = TModel(_tarch(arch), policy=TP.INT8_BACKBONE, attn_impl=attn_impl, device="cpu",
+                vit_cfg=TD.DinoV2Config(**TINY, gelu_approx=True))
+    load_flat_params(tm, flat)
+    return jm, jm.prepare_params(params), tm.prepare_params()
+
+
+def _bf16_round(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def test_int8_weights_carried_across_quantise_to_the_jax_values():
+    """f32 JAX weights -> load_flat_params -> prepare_params gives the JAX
+    package's int8 values exactly (its [K, N] is the port's [N, K])."""
+    _, jq, tm = _int8_pair()
+    jl = jq["backbone"]["layers"]
+    for i, blk in enumerate(tm.backbone.layers):
+        assert blk.quantized
+        for name, jname in (("qkv", "qkv_i8"), ("attn_out", "attn_out"),
+                            ("fc1", "fc1"), ("fc2", "fc2")):
+            lin = getattr(blk, name)
+            assert lin.wq.dtype == torch.int8 and lin.ws.dtype == torch.float32
+            np.testing.assert_array_equal(lin.wq.numpy(),
+                                          np.asarray(jl[jname]["wq"]["q"][i]).T)
+            np.testing.assert_allclose(lin.ws.numpy(), np.asarray(jl[jname]["wq"]["s"][i]),
+                                       rtol=1e-6, atol=0)
+    for j, member in enumerate(tm.focal_stream.streams):
+        jw = jq["focal_stream"]["streams"][j]["qkv_i8"]
+        np.testing.assert_array_equal(member.qkv_i8.wq.numpy(), np.asarray(jw["wq"]["q"]).T)
+        np.testing.assert_allclose(member.qkv_i8.ws.numpy(), np.asarray(jw["wq"]["s"]),
+                                   rtol=1e-6, atol=0)
+
+
+def test_int8_float_leaves_follow_the_jax_cast_rule():
+    """The JAX forward casts every layer leaf to bf16 except those under a
+    'wq' key, and its kernels then read them in f32: biases, layernorm
+    parameters and LayerScales are float32 at bf16-rounded values; int8
+    weights and their f32 scales pass untouched."""
+    _, jq, tm = _int8_pair()
+    jl = jq["backbone"]["layers"]
+    i = 1
+    blk = tm.backbone.layers[i]
+    pairs = [(blk.qkv.bias, jl["qkv_i8"]["b"]), (blk.attn_out.bias, jl["attn_out"]["b"]),
+             (blk.fc1.bias, jl["fc1"]["b"]), (blk.fc2.bias, jl["fc2"]["b"]),
+             (blk.norm1.weight, jl["norm1"]["scale"]), (blk.norm1.bias, jl["norm1"]["bias"]),
+             (blk.norm2.weight, jl["norm2"]["scale"]), (blk.norm2.bias, jl["norm2"]["bias"]),
+             (blk.ls1, jl["ls1"]), (blk.ls2, jl["ls2"])]
+    rounded_something = False
+    for got, want in pairs:
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.detach().numpy(), _bf16_round(want[i]))
+        rounded_something |= not np.array_equal(_bf16_round(want[i]), np.asarray(want[i]))
+    assert rounded_something  # the rule is not vacuous on these weights
+    ws = blk.fc1.ws.numpy()
+    assert not np.array_equal(ws, _bf16_round(ws))  # scales are not rounded
+    member = tm.focal_stream.streams[0]
+    jfs = jq["focal_stream"]["streams"][0]
+    np.testing.assert_array_equal(member.qkv_i8.bias.numpy(), _bf16_round(jfs["qkv_i8"]["b"]))
+    assert member.qkv_i8.bias.dtype == member.qkv_i8.ws.dtype == torch.float32
+    # the rest of the policy's casts, as under the default policy
+    assert member.projection.fc0.weight.dtype == torch.bfloat16
+    assert tm.backbone.patch_embed.weight.dtype == torch.bfloat16
+    assert tm.backbone.final_norm.weight.dtype == torch.bfloat16
+    assert tm.backbone.pos_embed.dtype == torch.float32
+
+
+def test_int8_backbone_matches_jax_chained_block(pallas_interpret):
+    _, jq, tm = _int8_pair()
+    x = _images(2, seed=5)
+    want = JD.apply(jq["backbone"], jnp.asarray(x), JD.DinoV2Config(**TINY, gelu_approx=True),
+                    compute_dtype=jnp.bfloat16, attn_impl="pallas_packed")
+    got = tm.backbone(torch.from_numpy(x), compute_dtype=torch.bfloat16,
+                      attn_impl="pallas_packed")
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               **INT8_BACKBONE_TOL)
+
+
+def test_model_int8_matches_jax_unguided_and_all_instructions(pallas_interpret):
+    jm, jq, tm = _int8_pair()
+    n = len(JG.INSTRUCTIONS)
+    x, exif = _images(n), _exif(n)
+    jexif = {k: jnp.asarray(v) for k, v in exif.items()}
+    texif = {k: torch.from_numpy(v) for k, v in exif.items()}
+    for guidance in (None, np.arange(n, dtype=np.int32)):
+        want = jm.apply(jq, jnp.asarray(x), jexif, noise_mode=JNoise.ZEROS,
+                        guidance=None if guidance is None else jnp.asarray(guidance))
+        got = tm(torch.from_numpy(x), texif, noise_mode=NoiseMode.ZEROS,
+                 guidance=None if guidance is None else torch.from_numpy(guidance))
+        for field in ("depth", "confidence", "attention"):
+            np.testing.assert_allclose(
+                getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+                err_msg=f"int8 {field} guided={guidance is not None}", **BF16_TOL)
+
+
+def test_int8_plain_attn_impl_runs_the_same_four_steps():
+    """On CPU tensors the wrappers take their plain versions, so
+    attn_impl="plain" gives the same bits; and int8 stays close to the
+    default policy on the same weights."""
+    _, _, a = _int8_pair("pallas_packed")
+    _, _, b = _int8_pair("plain")
+    x = torch.from_numpy(_images(3, seed=6))
+    g = torch.tensor([0, 4, 8])
+    oa = a(x, guidance=g, noise_mode=NoiseMode.ZEROS)
+    ob = b(x, guidance=g, noise_mode=NoiseMode.ZEROS)
+    for field in ("depth", "confidence", "attention"):
+        assert torch.equal(getattr(oa, field), getattr(ob, field)), field
+    _, _, d = _pair("bf16_default")
+    od = d.prepare_params()(x, guidance=g, noise_mode=NoiseMode.ZEROS)
+    torch.testing.assert_close(oa.depth, od.depth, atol=0, rtol=2e-2)
+
+
+def test_int8_block_needs_tanh_gelu():
+    """The chained block is chosen by the JAX rule (quantised, packed
+    attention, tanh GELU); the erf path is not ported and says so."""
+    blk = TD.Block(TD.DinoV2Config(**TINY, gelu_approx=False), device="cpu")
+    blk.init(torch.Generator().manual_seed(0))
+    blk.quantize_(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="tanh GELU"):
+        blk(torch.zeros(1, 5, 64, dtype=torch.bfloat16), "pallas_packed")
+    with pytest.raises(RuntimeError, match="already quantised"):
+        blk.quantize_(torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        TL.Int8Linear.from_float(torch.zeros(4, 4, dtype=torch.bfloat16), torch.zeros(4),
+                                 torch.bfloat16)
+
+
+# ---------------------------------------------------------------- device ----
+def test_modules_build_on_the_card_unless_asked_for_the_cpu():
+    """device=None is the CUDA device; without one the constructors raise
+    instead of falling back to the CPU."""
+    arch = TCfg.ModelArchConfig(num_iterations=2, image_size=IMG)
+    vit = TD.DinoV2Config(**TINY)
+    if torch.cuda.is_available():
+        tm = TModel(arch, TP.policy_from_name("int8"), vit_cfg=vit)
+        assert {p.device.type for p in tm.parameters()} == {"cuda"}
+        return
+    for build in (lambda: TModel(arch, TP.policy_from_name("int8"), vit_cfg=vit),
+                  lambda: TD.DinoV2(vit), lambda: TL.linear(4, 4), lambda: TL.layernorm(4),
+                  lambda: TS.FocalStream(64), lambda: TC.Curiosity(64)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    tm = TModel(arch, TP.policy_from_name("int8"), vit_cfg=vit, device="cpu")
+    assert {p.device.type for p in tm.parameters()} == {"cpu"}
+
+
+# ---------------------------------------------------------------- config ----
+def test_config_copy_matches_the_original():
+    """The port keeps its own copy of models/config.py: same fields, same
+    defaults, same token-filter functions and resolvers."""
+    jf, tf = dataclasses.fields(JCfg.ModelArchConfig), dataclasses.fields(TCfg.ModelArchConfig)
+    assert [(f.name, f.type, f.default) for f in tf] == [(f.name, f.type, f.default) for f in jf]
+    ja, ta = JCfg.ModelArchConfig(), TCfg.ModelArchConfig()
+    for prop in ("token_filter_active", "feature_dim", "fusion_dim", "n_streams"):
+        assert getattr(ta, prop) == getattr(ja, prop)
+    specs = ["", "2:0.35", "2:0.5,4:0.25", "2:0.35@m@r0.5", "3:0.4@d", "2:0.35@s4@f4@p@c0.25"]
+    for spec in specs:
+        kw = TCfg.parse_token_filter(spec)
+        assert kw == JCfg.parse_token_filter(spec)
+        assert TCfg.token_filter_spec(TCfg.ModelArchConfig(**kw)) == \
+            JCfg.token_filter_spec(JCfg.ModelArchConfig(**kw))
+    with pytest.raises(ValueError):
+        TCfg.parse_token_filter("2:0.35@x")
+    raw = {"model": {"cognitive_modules": ["ambient_stream", "iterative_focal_stream"],
+                     "focal_hidden_dim": 128, "exif_config": {"num_cameras": 9}},
+           "focal_config": {"num_iterations": 2, "focus_strength": 0.1},
+           "dataset": {"image_size": [518, 518]}, "backbone_size": "large"}
+    for lookup in ("reference", "nested"):
+        assert dataclasses.asdict(TCfg.resolve_model_config(raw, lookup=lookup)) == \
+            dataclasses.asdict(JCfg.resolve_model_config(raw, lookup=lookup))
+    assert TCfg.resolve_num_cameras(raw) == JCfg.resolve_num_cameras(raw) == 9
+    assert TCfg.resolve_image_size(raw) == JCfg.resolve_image_size(raw) == 518
 
 
 # ------------------------------------------------------------- imports ----
 def test_port_imports_no_jax():
-    """The card's machine has no jax: the port must not import it, directly
-    or through the JAX package."""
+    """The card's machine has no jax: after importing every module of the
+    port, neither jax nor any module of the JAX package is loaded."""
     code = (
-        "import sys\n"
-        "import cognitive_aim_tpu_torch.models.cognitive_aim\n"
-        "import cognitive_aim_tpu_torch.kernels.flash_attention\n"
-        "import cognitive_aim_tpu_torch.kernels.focal_attention\n"
-        "import cognitive_aim_tpu_torch.convert\n"
-        "import cognitive_aim_tpu_torch.io.preprocess\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "import importlib, pkgutil, sys\n"
+        "import cognitive_aim_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "assert len(names) > 20, names\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'cognitive_aim_tpu' or m.startswith('cognitive_aim_tpu.')]\n"
         "assert not bad, bad\n"
     )
     root = __file__.rsplit("/tests/", 1)[0]
