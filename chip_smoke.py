@@ -12,8 +12,11 @@ kernels compile for sm_90a) and the CUDA toolkit:
       source, side by side);
   (c) kernels: K1 flash_attention_packed and K6 focal_attention_fused, and
       the int8 kernels K2, K3, K4a, K4b, K4 and K5, at the slice shapes, at
-      the ragged N 257 and 481 and at ViT-L widths, against their plain
-      PyTorch versions, each error printed beside its stated tolerance;
+      the ragged N 257 and 481 and at ViT-L widths, and the biased and
+      int8-QK^T attention kernels K7, K10 and K10b (N 481, 1370, 257, 416,
+      ViT-L width; bias rows of zeros, log counts and an empty group; K7
+      also in float32), against their plain PyTorch versions, each error
+      printed beside its stated tolerance;
   (d) slices: guided ViT-B 518x518 inference (2 focal iterations, random
       weights from a seeded torch.Generator) answering a 9-instruction
       batch, a mixed batch of 8 and an unguided request through uint8 ->
@@ -22,10 +25,18 @@ kernels compile for sm_90a) and the CUDA toolkit:
       K1, K3, K4, K4a, K4b 12 and K5, K6 2 per forward); checks the outputs
       and the launch counts; then the same requests through the plain
       versions on the same weights, int8 against the default policy, and a
-      strict-f32 forward at 224x224 against its plain twin;
+      strict-f32 forward at 224x224 against its plain twin; then the
+      token-filter fast path on the same seeded weights, a mixed batch of 8
+      through four slices: int8 2:0.35 (K1 12), int8 2:0.35@p (K1 2, K7 10;
+      also an unguided request), int8 2:0.35@p with pallas_packed_i8qk (K10
+      2, K10b 10) and default 1:0.6,2:0.3@f4 (K1 12 at N 1370, 826, 416),
+      each also through the plain versions, with the stream lengths, the
+      frozen dropped tokens and the overlap of the two paths' kept sets
+      (at least 0.98) checked;
   (e) times with CUDA events: every kernel beside its plain version and
-      its bound, K1 beside scaled_dot_product_attention, the B=8 forward
-      under both policies, and the host time to enqueue one forward.
+      its bound, K1 and K7 beside scaled_dot_product_attention, the B=8
+      forward under both policies and through the int8 filtered slices, and
+      the host time to enqueue one forward.
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -64,11 +75,19 @@ TOL_INT8_SHARE = 1e-2  # share of int8 outputs that differ, each by at most 1
 TOL_INT8_SCALE = 2e-4
 TOL_INT8_SCALE_ROWS = 1e-3
 TOL_INT8_SCALE_WORST = 5e-3
+# quantize_rows (kernel: true division; PyTorch on the card: times 1/127)
+TOL_QUANT_SCALE = 2e-7  # one f32 step, relative
+TOL_QUANT_SHARE = 1e-3  # share of int8 values that differ, each by 1 (measured 7e-5)
 # slice (phase d): kernel path vs plain path on the same weights and inputs
 TOL_SLICE_BF16 = 2e-2  # relative, depth and confidence, bf16 backbone
 TOL_SLICE_F32 = 1e-4  # relative, strict-f32 policy
 TOL_POLICY = 2e-2  # relative depth, int8 policy against the default policy
 POLICY_BUDGET = 1e-2  # the 1% AbsRel budget of scripts/policy_delta.py, for scale
+# filtered slices: the kept set is a discrete function of the importances, and
+# neighbouring importances at the keep boundary lie ~5e-7 apart at 1369 tokens,
+# so bf16 differences between kernels and plain versions move a few tokens
+# across it: share of a sample's kept set found in the other path's
+MIN_KEPT_OVERLAP = 0.98
 
 # the card's published dense peaks (NVIDIA H100 SXM data sheet)
 PEAK_BYTES = 3.35e12
@@ -114,10 +133,14 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def bound(n_bytes: float, n_ops: float, kind: str):
+def bound(n_bytes: float, n_ops, kind: str = ""):
     """(ms, "bytes" | "operations"): the least time the card could take to
-    move n_bytes once or to do n_ops at its peak rate, whichever is larger."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_OPS[kind] * 1e3
+    move n_bytes once or to do n_ops at its peak rate, whichever is larger.
+    n_ops: a count of operations of ``kind``, or {kind: count} where a
+    kernel's products are of two types."""
+    ops = n_ops if isinstance(n_ops, dict) else {kind: n_ops}
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = sum(n / PEAK_OPS[k] for k, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -213,6 +236,97 @@ def phase_kernels():
             raise AssertionError(f"K6 disagrees with its plain version at N={N} {dt}")
         if N == 1369:
             worst["K6"] = max(errs)
+    return worst
+
+
+def _bias_rows(B, N, g):
+    """name -> f32 [B, N] key-side logit bias rows of the kinds the token
+    filter makes: zeros; log of token counts (up to 890) on the 4 trailing
+    context tokens; the same with one empty group at log(1e-6); and, to
+    reach every column of the staged row, log counts on every key."""
+    import math
+
+    import torch
+
+    def counts(*shape):
+        return torch.randint(1, 891, shape, generator=g, device="cuda").float().log()
+
+    tail = torch.zeros(B, N, device="cuda")
+    tail[:, -4:] = counts(B, 4)
+    empty = tail.clone()
+    empty[:, -2] = math.log(1e-6)
+    return {"zeros": torch.zeros(B, N, device="cuda"), "counts": tail,
+            "empty_group": empty, "every_key": counts(B, N)}
+
+
+def phase_filter_kernels():
+    """K7, K10 and K10b against their plain versions: the filtered slices'
+    N 481 and 416, the unfiltered 1370, the ragged 257, ViT-L
+    width; bf16, K7 also in float32."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import flash_attention as FA
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    worst = {"K7": 0.0, "K10": 0.0, "K10b": 0.0}
+    Dh = 64
+
+    def check(name, tag, got, ref, tol, main):
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        ok = err <= tol and bool(torch.isfinite(got).all())
+        log(f"  {name} {tag}: max_abs_err {err:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at {tag}")
+        if main:
+            worst[name] = max(worst[name], err)
+
+    for B, H, N in ((8, 12, 481), (8, 12, 1370), (8, 12, 257), (8, 12, 416), (2, 16, 257)):
+        main = H == 12 and N in (481, 1370)
+        scale = Dh ** -0.5
+        q, k, v = (_rand((B, N, H * Dh), g, torch.bfloat16) for _ in range(3))
+        qf, kf, vf = q.float(), k.float(), v.float()
+        rows = _bias_rows(B, N, g)
+        shape = f"B{B} N{N} H{H}"
+        check("K10", f"flash_attention_packed_i8qk {shape} bf16",
+              FA.flash_attention_packed_i8qk(q, k, v, scale, H),
+              FA.flash_attention_packed_i8qk_plain(qf, kf, vf, scale, H), TOL_BF16_OUT, main)
+        k1 = FA.flash_attention_packed(q, k, v, scale, H)
+        for kind, bias in rows.items():
+            got = FA.flash_attention_packed_bias(q, k, v, bias, scale, H)
+            check("K7", f"flash_attention_packed_bias {shape} bf16 bias {kind}", got,
+                  FA.flash_attention_packed_bias_plain(qf, kf, vf, bias, scale, H),
+                  TOL_BF16_OUT, main)
+            got8 = FA.flash_attention_packed_i8qk_bias(q, k, v, bias, scale, H)
+            check("K10b", f"flash_attention_packed_i8qk_bias {shape} bf16 bias {kind}", got8,
+                  FA.flash_attention_packed_i8qk_bias_plain(qf, kf, vf, bias, scale, H),
+                  TOL_BF16_OUT, main)
+            if kind == "zeros":  # a zero bias is K1 / K10
+                check("K7", f"zero bias against the K1 kernel {shape}", got, k1,
+                      TOL_BF16_OUT, False)
+                check("K10b", f"zero bias against the K10 kernel {shape}", got8,
+                      FA.flash_attention_packed_i8qk(q, k, v, scale, H), TOL_BF16_OUT, False)
+        if N in (257, 481):  # the strict policy's kernel
+            for kind in ("zeros", "empty_group", "every_key"):
+                check("K7", f"flash_attention_packed_bias {shape} float32 bias {kind}",
+                      FA.flash_attention_packed_bias(qf, kf, vf, rows[kind], scale, H),
+                      FA.flash_attention_packed_bias_plain(qf, kf, vf, rows[kind], scale, H),
+                      TOL_F32_OUT, False)
+    # quantize_rows: the kernel divides by 127 where PyTorch multiplies by the
+    # rounded 1/127, so a scale may differ in its last bit and an int8 value
+    # on a rounding boundary by 1
+    x = _rand((8, 481, 768), g, torch.bfloat16, 2.0)
+    (x8, sx), (p8, ps) = FA.quantize_rows(x), FA.quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    diff = (x8.int() - p8.int()).abs()
+    share, step = float((diff > 0).float().mean()), int(diff.max())
+    srel = float(((sx - ps).abs() / ps).max())
+    ok = step <= 1 and share < TOL_QUANT_SHARE and srel <= TOL_QUANT_SCALE
+    log(f"  quantize_rows B8 N481 D768 bf16: int8 differ {share:.2e} (tol {TOL_QUANT_SHARE:.0e}) "
+        f"by at most {step} (tol 1), scales rel {srel:.2e} (tol {TOL_QUANT_SCALE:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("quantize_rows disagrees with its plain version")
     return worst
 
 
@@ -381,23 +495,39 @@ def _wrappers():
     return {"K1": FA.flash_attention_packed, "K2": IB.int8_qkv_proj_ln,
             "K3": IB.int8_out_residual, "K4": IB.int8_mlp_ln,
             "K4a": IB.int8_fc1_gelu_ln, "K4b": IB.int8_out_residual_prequant,
-            "K5": IB.int8_qkv_proj, "K6": FO.focal_attention_fused}
+            "K5": IB.int8_qkv_proj, "K6": FO.focal_attention_fused,
+            "K7": FA.flash_attention_packed_bias, "K10": FA.flash_attention_packed_i8qk,
+            "K10b": FA.flash_attention_packed_i8qk_bias}
 
 
-def _build_model(policy, image_size, seed):
+def _build_model(policy, image_size, seed, token_filter="", attn_impl="pallas_packed"):
     import torch
 
     from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
-    from cognitive_aim_tpu_torch.models.config import ModelArchConfig
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig, parse_token_filter
 
-    arch = ModelArchConfig(num_iterations=2, image_size=image_size)
+    arch = ModelArchConfig(num_iterations=2, image_size=image_size,
+                           **parse_token_filter(token_filter))
     t0 = time.perf_counter()
-    model = CognitiveAimModel(arch, policy, "pallas_packed")  # on the card
+    model = CognitiveAimModel(arch, policy, attn_impl)  # on the card
     model.init(torch.Generator(device="cuda").manual_seed(seed)).prepare_params()
     torch.cuda.synchronize()
     log(f"  model built and initialized in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M float parameters)")
     return model
+
+
+class _plain_versions:
+    """Within the block the model takes the plain versions of its route."""
+
+    def __init__(self, model):
+        self.model, self.impl = model, model.attn_impl
+
+    def __enter__(self):
+        self.model.attn_impl = self.impl.replace("pallas_packed", "plain")
+
+    def __exit__(self, *exc):
+        self.model.attn_impl = self.impl
 
 
 def _drive(model, reqs, S, per_forward):
@@ -425,9 +555,8 @@ def _drive(model, reqs, S, per_forward):
     if launches != want:
         raise AssertionError(f"kernel launch counts {launches} != {want}")
 
-    model.attn_impl = "plain"
-    plain = _serve(model, reqs, S)
-    model.attn_impl = "pallas_packed"
+    with _plain_versions(model):
+        plain = _serve(model, reqs, S)
     for (name, *_), a, b in zip(reqs, outs, plain):
         rd, rc = _rel(a.depth, b.depth), _rel(a.confidence, b.confidence)
         ok = rd <= TOL_SLICE_BF16 and rc <= TOL_SLICE_BF16
@@ -487,7 +616,107 @@ def phase_slices():
     if rd > TOL_SLICE_F32 or ra > TOL_SLICE_F32:
         raise AssertionError("strict-f32 kernel path disagrees with the plain path")
     del f32m
-    return default, int8, launches, launches_default
+    return default, int8, launches, launches_default, reqs
+
+
+# ---------------------------------------------------- filtered slices (d) ----
+FILTERED_SLICES = [
+    # name, policy, token filter, attn_impl, stream lengths, launches per forward
+    ("1", "int8", "2:0.35", "pallas_packed", (1370, 481),
+     {"K1": 12, "K2": 12, "K3": 12, "K4": 12, "K4a": 12, "K4b": 12, "K5": 2, "K6": 2}),
+    ("2", "int8", "2:0.35@p", "pallas_packed", (1370, 481),
+     {"K1": 2, "K7": 10, "K2": 12, "K3": 12, "K4": 12, "K4a": 12, "K4b": 12, "K5": 2,
+      "K6": 2}),
+    ("3", "int8", "2:0.35@p", "pallas_packed_i8qk", (1370, 481),
+     {"K10": 2, "K10b": 10, "K2": 12, "K3": 12, "K4": 12, "K4a": 12, "K4b": 12, "K5": 2,
+      "K6": 2}),
+    ("4", "default", "1:0.6,2:0.3@f4", "pallas_packed", (1370, 826, 416),
+     {"K1": 12, "K6": 2}),
+]
+
+
+def _kept_sets(model, x, gidx):
+    """One backbone call as the model makes it: (hidden [B, 1 + N, D], kept
+    indices [B, k], the token-stream length each block's attention saw)."""
+    from cognitive_aim_tpu_torch.nn import dinov2
+
+    lengths, orig = [], dinov2.attend
+
+    def spy(attn_impl, q, *rest):
+        lengths.append(q.shape[1])
+        return orig(attn_impl, q, *rest)
+
+    dinov2.attend = spy
+    try:
+        hidden, idx = model.backbone.forward_with_kept(x, **model.backbone_kwargs(x, gidx))
+    finally:
+        dinov2.attend = orig
+    return hidden, idx, lengths
+
+
+def _check_filtered_backbone(tag, model, x, gidx, stream):
+    """The filtered backbone through kernels and through plain versions:
+    shape, finite values, stream lengths, frozen dropped tokens (single
+    stage), and the overlap of the two kept sets."""
+    import torch
+    import torch.nn.functional as F
+
+    from cognitive_aim_tpu_torch.nn import layers as L
+
+    bb, cfg = model.backbone, model.vit_cfg
+    B, n_tok = x.shape[0], 1 + (x.shape[1] // cfg.patch_size) ** 2
+    hidden, idx, lengths = _kept_sets(model, x, gidx)
+    with _plain_versions(model):
+        _, idx_plain, _ = _kept_sets(model, x, gidx)
+    torch.cuda.synchronize()
+    if hidden.shape != (B, n_tok, cfg.hidden_size) or not bool(torch.isfinite(hidden).all()):
+        raise AssertionError(f"{tag}: backbone output {tuple(hidden.shape)} or not finite")
+    bounds = [l for l, _ in model.arch.token_filter_schedule] or [model.arch.token_filter_layer]
+    want = [stream[sum(i >= b for b in bounds)] for i in range(cfg.num_layers)]
+    if lengths != want:
+        raise AssertionError(f"{tag}: stream lengths per block {lengths} != {want}")
+    if len(stream) == 2:  # single stage: a dropped token is its filter-point value
+        kw = model.backbone_kwargs(x, gidx)
+        frozen = bb._run(bb.embed(x, kw["compute_dtype"]), 0, bounds[0], kw["attn_impl"])
+        frozen = L.layernorm_apply(bb.final_norm, frozen)
+        dropped = torch.ones(B, n_tok - 1, dtype=torch.bool, device=x.device)
+        dropped.scatter_(1, idx, False)
+        if not torch.equal(hidden[:, 1:][dropped], frozen[:, 1:][dropped]):
+            raise AssertionError(f"{tag}: a dropped token moved after the filter point")
+    k = idx.shape[1]
+    both = torch.zeros(B, n_tok - 1, device=x.device).scatter_(1, idx, 1.0)
+    overlap = float(both.gather(1, idx_plain).sum(1).min()) / k
+    ok = overlap >= MIN_KEPT_OVERLAP
+    log(f"  {tag}: backbone {tuple(hidden.shape)}, stream {' -> '.join(map(str, stream))}, "
+        f"kept {k} of {n_tok - 1}; kept sets of kernels and plain versions overlap "
+        f"{overlap:.4f} in the worst sample (min {MIN_KEPT_OVERLAP}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: kept sets of the kernel and plain paths differ")
+
+
+def phase_filtered_slices(reqs):
+    """The token-filter fast path at full width: each slice through the
+    kernels (launch counts asserted) and through the plain versions."""
+    import torch
+
+    from cognitive_aim_tpu_torch.core.precision import policy_from_name
+    from cognitive_aim_tpu_torch.io.preprocess import resize_normalize
+
+    S = 518
+    mixed, unguided = reqs[1], reqs[2]
+    models, launches = {}, {}
+    for name, policy, spec, impl, stream, per_forward in FILTERED_SLICES:
+        log(f"(d) filtered slice {name}: ViT-B 518x518, {policy} policy, token filter "
+            f"{spec}, {impl}")
+        model = _build_model(policy_from_name(policy), S, seed=0, token_filter=spec,
+                             attn_impl=impl)
+        served = [mixed, unguided] if name == "2" else [mixed]
+        _, launches[name] = _drive(model, served, S, per_forward)
+        for req_name, imgs, _, gidx in served:
+            _check_filtered_backbone(f"slice {name} {req_name}", model,
+                                     resize_normalize(imgs, S, S), gidx, stream)
+        models[name] = model
+    return models, launches
 
 
 # -------------------------------------------------------------- times (e) ----
@@ -527,7 +756,7 @@ def phase_kernel_times(smi):
         lib = f", library call {t['library_ms']:.3f} ms" if library else ""
         log(f"  {name} {shape}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms{lib}, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-        times[name] = t
+        times[name] = {"shape": shape, **t}
 
     q, k, v = (_rand((B, N, D), g, torch.bfloat16) for _ in range(3))
 
@@ -540,6 +769,48 @@ def phase_kernel_times(smi):
            lambda: FA.flash_attention_packed_plain(q, k, v, 0.125, H),
            bound(4 * B * N * D * 2, 4 * B * N * N * D, "bf16"),
            lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), scale=0.125))
+    # K7, K10, K10b at the filtered stream's N 481 (the shape of the kernels
+    # line for K7 and K10b) and at N 1370 (K10's). Bytes as K1 plus the f32
+    # bias row; K10's first product counts at the int8 rate. The wrappers of
+    # K10 and K10b include the two quantising launches.
+    main, other = {}, {}
+    for Nk in (481, N):
+        qn, kn, vn = (_rand((B, Nk, D), g, torch.bfloat16) for _ in range(3))
+        bias = _bias_rows(B, Nk, g)["counts"]
+        mask = bias[:, None, None, :].to(torch.bfloat16).expand(B, H, Nk, Nk)
+        nbytes, half = 4 * B * Nk * D * 2, 2 * B * Nk * Nk * D
+
+        def hn(t, Nk=Nk):
+            return t.view(B, Nk, H, D // H).transpose(1, 2)
+
+        cases = {
+            "K7": (lambda: FA.flash_attention_packed_bias(qn, kn, vn, bias, 0.125, H),
+                   lambda: FA.flash_attention_packed_bias_plain(qn, kn, vn, bias, 0.125, H),
+                   bound(nbytes + 4 * B * Nk, 2 * half, "bf16"),
+                   lambda: F.scaled_dot_product_attention(hn(qn), hn(kn), hn(vn),
+                                                          attn_mask=mask, scale=0.125)),
+            "K10": (lambda: FA.flash_attention_packed_i8qk(qn, kn, vn, 0.125, H),
+                    lambda: FA.flash_attention_packed_i8qk_plain(qn, kn, vn, 0.125, H),
+                    bound(nbytes, {"int8": half, "bf16": half}), None),
+            "K10b": (lambda: FA.flash_attention_packed_i8qk_bias(qn, kn, vn, bias, 0.125, H),
+                     lambda: FA.flash_attention_packed_i8qk_bias_plain(qn, kn, vn, bias,
+                                                                       0.125, H),
+                     bound(nbytes + 4 * B * Nk, {"int8": half, "bf16": half}), None),
+        }
+        for name, (kernel, plain, bnd, library) in cases.items():
+            record(name, f"B{B} N{Nk} H{H} bf16", kernel, plain, bnd, library)
+            # the kernels line takes K10 at N 1370, K7 and K10b at N 481
+            (main if (Nk == N) == (name == "K10") else other)[name] = times.pop(name)
+            if name == "K7":  # K1 at the same shape, for the cost of the bias row
+                k1 = cuda_ms(lambda: FA.flash_attention_packed(qn, kn, vn, 0.125, H))
+                log(f"  K1 B{B} N{Nk} H{H} bf16 in the same run: kernel {k1:.3f} ms")
+        x8 = cuda_ms(lambda: FA.quantize_rows(qn))
+        log(f"  quantize_rows B{B} N{Nk} D{D} bf16: kernel {x8:.4f} ms, plain "
+            f"{cuda_ms(lambda: FA.quantize_rows_plain(qn)):.3f} ms, bound "
+            f"{bound(3 * B * Nk * D + 4 * B * Nk, 0, 'bf16')[0]:.4f} ms (bytes)")
+    for name in main:
+        times[name] = {**main[name], "other_shape": other[name]}
+
     Nf = N - 1
     q, k, v = (_rand((B, Nf, D), g, torch.bfloat16, 0.5) for _ in range(3))
     scale = 96 ** 0.5
@@ -571,11 +842,14 @@ def phase_kernel_times(smi):
     return times
 
 
-def phase_forward_times(default, int8):
-    """The B=8 guided forward under both policies, device and host."""
+def phase_forward_times(default, int8, filtered=None):
+    """The B=8 guided forward under both policies, device and host; with
+    ``filtered`` (slice name -> model) also the int8 filtered slices beside
+    the unfiltered int8 forward of the same run."""
     import torch
 
     from cognitive_aim_tpu_torch.core.rng import NoiseMode
+    from cognitive_aim_tpu_torch.models.config import token_filter_spec
 
     g = torch.Generator(device="cuda").manual_seed(7)
     x = _rand((8, 518, 518, 3), g, torch.float32)
@@ -603,6 +877,21 @@ def phase_forward_times(default, int8):
         f"{plain_ms:.2f} ms")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"  peak device memory {peak:.2f} GiB")
+    if not filtered:
+        return
+    # the filtered slices beside the unfiltered int8 forward, in turns
+    run = {"unfiltered": int8, **{f"slice {n}": m for n, m in filtered.items() if n != "4"}}
+    order = list(run) + list(run)[::-1]
+    ms = {n: [] for n in run}
+    for n in order:
+        ms[n].append(cuda_ms(lambda m=run[n]: m(x, guidance=gidx, noise_mode=NoiseMode.ZEROS),
+                             iters=10, warmup=2))
+    for n, m in run.items():
+        enq = _host_enqueue_ms(lambda m=m: m(x, guidance=gidx, noise_mode=NoiseMode.ZEROS))
+        spec = f"{token_filter_spec(m.arch) or 'no filter'}, {m.attn_impl}"
+        log(f"  forward B8 518x518 guided, int8 policy, {n} ({spec}): "
+            f"{ms[n][0]:.2f}/{ms[n][1]:.2f} ms (order {', '.join(order)}), "
+            f"{8e3 / min(ms[n]):.1f} img/s; host enqueue {enq:.2f} ms")
 
 
 KERNELS = {
@@ -615,7 +904,16 @@ KERNELS = {
     "K4b": ("int8_out_residual_prequant", "int8_block.cu", "int8_block.py:256"),
     "K5": ("int8_qkv_proj", "int8_block.cu", "int8_block.py:110"),
     "K6": ("focal_attention_fused", "focal_attention.cu", "focal_attention.py:52"),
+    "K7": ("flash_attention_packed_bias", "flash_attention_packed.cu",
+           "flash_attention.py:149"),
+    "K10": ("flash_attention_packed_i8qk", "flash_attention_i8qk.cu",
+            "flash_attention.py:451"),
+    "K10b": ("flash_attention_packed_i8qk_bias", "flash_attention_i8qk.cu",
+             "flash_attention.py:250"),
 }
+# the path whose run gives a kernel's ``launches``: the unfiltered int8 slice,
+# or the first filtered slice that reaches the kernel
+LAUNCHES_FROM = {"K7": "2", "K10": "3", "K10b": "3"}
 
 
 def main() -> int:
@@ -637,13 +935,15 @@ def main() -> int:
     log("(c) kernels vs plain versions")
     errs = phase_kernels()
     errs.update(phase_int8_kernels())
+    errs.update(phase_filter_kernels())
     if "--kernels-only" in sys.argv[1:]:
         phase_kernel_times(smi)
         log(f"kernels only: no slice was driven, {time.perf_counter() - t_start:.1f} s")
         return 0
-    default, int8, launches, launches_default = phase_slices()
+    default, int8, launches, launches_default, reqs = phase_slices()
+    filtered, launches_filtered = phase_filtered_slices(reqs)
     times = phase_kernel_times(smi)
-    phase_forward_times(default, int8)
+    phase_forward_times(default, int8, filtered)
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
     if foreign:
@@ -652,7 +952,10 @@ def main() -> int:
         {"id": kid, "name": name, "route": "cuda",
          "source": f"cognitive_aim_tpu_torch/csrc/{src}",
          "replaces": f"cognitive_aim_tpu/kernels/{body}",
-         "launches": launches[kid], "launches_default_policy": launches_default[kid],
+         "launches": (launches_filtered[LAUNCHES_FROM[kid]] if kid in LAUNCHES_FROM
+                      else launches)[kid],
+         "launches_default_policy": launches_default[kid],
+         "launches_filtered_slices": {n: c[kid] for n, c in launches_filtered.items()},
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -13,6 +13,9 @@ jax. It handles
   * layernorm ``scale`` -> ``weight``, embedding ``table`` -> ``weight``;
 
 and raises on a key it did not consume or a parameter it left unset.
+
+The token filter and the attention kernels it reaches (K7, K10, K10b) add no
+weights: a filtered model loads the same interchange as an exact one.
 """
 
 from __future__ import annotations

@@ -1,7 +1,17 @@
-// K1: packed multi-head attention for the ViT backbone, written for Hopper.
+// K1 and K7: packed multi-head attention for the ViT backbone, without and
+// with a per-key logit bias, written for Hopper.
 //
-// Replaces: cognitive_aim_tpu/kernels/flash_attention.py,
-//   flash_attention_packed -> _flash_packed_fwd_only (body _flash_packed_kernel).
+// Replaces, in cognitive_aim_tpu/kernels/flash_attention.py:
+//   K1 flash_attention_packed -> _flash_packed_fwd_only
+//      (body _flash_packed_kernel);
+//   K7 flash_attention_packed_bias -> _flash_packed_bias_fwd_only
+//      (body _flash_packed_bias_kernel): the BIAS instantiation of the same
+//      two kernels, softmax(Q_h K_h^T * scale + bias[b, key]) V_h. The bias
+//      row [B, N] is f32 and only 4-byte aligned (N = 481), so it is staged
+//      with plain loads, one 64-key slice per key tile, already multiplied
+//      by log2 e and with -inf past N: the tail mask and the bias are one
+//      add. Each block reads N floats beside 2 N x 64 K and V values, so the
+//      bias changes neither the bytes nor the operations that bound K1.
 // Computes, per head h, softmax(Q_h K_h^T * scale) V_h with an f32 softmax,
 // reading q, k, v and writing out in the packed [B, N, H*64] layout of the
 // projections (row stride H*64, no head transpose). P is rounded to the
@@ -35,20 +45,22 @@
 //   * The ragged tail (N = 257, 481, 1370 are not multiples of 64) is
 //     zero-filled on load and masked to -inf in the softmax; query rows past
 //     N are computed on zeros and never stored.
-#include "tile_common.cuh"
+#include "flash_step.cuh"
 
 namespace caim {
 
 constexpr int FA_THREADS = 128;  // 4 warps x 16 query rows
 constexpr int HEAD_DIM = 64;
 
+template <bool BIAS>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ out, int N, int H,
-                  float scale) {
+                  const bf16* __restrict__ v, const float* __restrict__ bias,
+                  bf16* __restrict__ out, int N, int H, float scale) {
   __shared__ __align__(16) bf16 Qs[TILE * LDT];
   __shared__ __align__(16) bf16 Ks[2][TILE * LDT];  // double-buffered K and V
   __shared__ __align__(16) bf16 Vs[2][TILE * LDT];
+  __shared__ __align__(8) float Bs[BIAS ? 2 : 1][TILE];  // BIAS: the key row, per buffer
 
   const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
   const int HD = H * HEAD_DIM;
@@ -57,12 +69,13 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, c = lane & 3;
   const int r0 = warp * 16 + g;  // this thread's rows in the tile: r0, r0 + 8
   const int ntiles = (N + TILE - 1) / TILE;
-  const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
+  const float scale_log2 = scale * LOG2E;
 
   load_tile_async(Qs, LDT, q + base + (size_t)q0 * HD, HD, TILE, HEAD_DIM, N - q0);
   load_tile_async(Ks[0], LDT, k + base, HD, TILE, HEAD_DIM, N);
   load_tile_async(Vs[0], LDT, v + base, HD, TILE, HEAD_DIM, N);
   cp_async_commit();
+  if constexpr (BIAS) load_key_row(Bs[0], bias, b, N, 0);
 
   uint32_t qf[4][4];  // A fragments of this warp's 16 x 64 Q block
   float o[8][4];
@@ -77,6 +90,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_tile_async(Ks[buf ^ 1], LDT, k + nxt, HD, TILE, HEAD_DIM, N - k0 - TILE);
       load_tile_async(Vs[buf ^ 1], LDT, v + nxt, HD, TILE, HEAD_DIM, N - k0 - TILE);
       cp_async_commit();
+      // visible after the barrier that ends this iteration
+      if constexpr (BIAS) load_key_row(Bs[buf ^ 1], bias, b, N, k0 + TILE);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -102,91 +117,41 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma_16816(s[nt], qf[kk], lds32(kr + 16 * kk), lds32(kr + 16 * kk + 8));
     }
 
-    // online softmax in base 2 (scores times scale * log2 e, so exp2 gives
-    // the same P): mask the tail, new row max, rescale l and O
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+    // scores in base 2 (times scale * log2 e, so exp2 gives the same P) with
+    // the tail masked. BIAS: the staged key row holds bias * log2 e, and -inf
+    // past N (the scores there are 0, of zero-filled keys, so the sum is -inf).
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
+      float2 kb = make_float2(0.0f, 0.0f);
+      if constexpr (BIAS) kb = *reinterpret_cast<const float2*>(&Bs[buf][8 * nt + 2 * c]);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool ok = k0 + 8 * nt + 2 * c + e < N;
-        s[nt][e] = ok ? s[nt][e] * scale_log2 : -INFINITY;
-        s[nt][2 + e] = ok ? s[nt][2 + e] * scale_log2 : -INFINITY;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
+        if constexpr (BIAS) {
+          const float add = e ? kb.y : kb.x;
+          s[nt][e] = s[nt][e] * scale_log2 + add;
+          s[nt][2 + e] = s[nt][2 + e] * scale_log2 + add;
+        } else {
+          const bool ok = k0 + 8 * nt + 2 * c + e < N;
+          s[nt][e] = ok ? s[nt][e] * scale_log2 : -INFINITY;
+          s[nt][2 + e] = ok ? s[nt][2 + e] * scale_log2 : -INFINITY;
+        }
       }
     }
-#pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {  // the 4 lanes of a row
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: a key is valid
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);   // 0 on the first tile
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= a0;
-    l1 *= a1;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      o[dt][0] *= a0;
-      o[dt][1] *= a0;
-      o[dt][2] *= a1;
-      o[dt][3] *= a1;
-    }
-
-    uint32_t pf[4][4];  // P as A fragments: tiles 2kk and 2kk+1 form k-step kk
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = exp2f(s[nt][0] - mn0), p1 = exp2f(s[nt][1] - mn0);
-      const float p2 = exp2f(s[nt][2] - mn1), p3 = exp2f(s[nt][3] - mn1);
-      l0 += p0 + p1;  // the f32 sum normalises, as in the TPU kernel
-      l1 += p2 + p3;
-      pf[nt / 2][(nt & 1) * 2] = pack_bf16(p0, p1);
-      pf[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-
-    // O += P V: B fragments of two 8-column tiles per ldmatrix.trans
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const bf16* vr = &Vs[buf][(16 * kk + (lane & 15)) * LDT + 8 * (lane >> 4)];
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, vr + 16 * dp);
-        mma_16816(o[2 * dp], pf[kk], bv[0], bv[1]);
-        mma_16816(o[2 * dp + 1], pf[kk], bv[2], bv[3]);
-      }
-    }
+    flash_softmax_pv(s, o, m0, m1, l0, l1, Vs[buf], lane);
     __syncthreads();  // all warps are done with this buffer before its refill
   }
-
-#pragma unroll
-  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
-  }
-  const int row0 = q0 + r0, row1 = row0 + 8;
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int col = 8 * dt + 2 * c;
-    if (row0 < N)
-      *reinterpret_cast<uint32_t*>(&out[base + (size_t)row0 * HD + col]) =
-          pack_bf16(o[dt][0] / l0, o[dt][1] / l0);
-    if (row1 < N)
-      *reinterpret_cast<uint32_t*>(&out[base + (size_t)row1 * HD + col]) =
-          pack_bf16(o[dt][2] / l1, o[dt][3] / l1);
-  }
+  flash_store(out + base, HD, q0 + r0, N, c, o, l0, l1);
 }
 
 constexpr size_t F32_SMEM = align128(4 * TILE * LDT * sizeof(float))  // Q, K, V, P
                             + align128(2 * TILE * LDF * sizeof(float))  // S, O
                             + 2 * TILE * sizeof(float);                 // m, l
 
+template <bool BIAS>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int N, int H,
-                 float scale) {
+                 const float* __restrict__ v, const float* __restrict__ bias,
+                 float* __restrict__ out, int N, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Ks = Qs + TILE * LDT;
@@ -220,10 +185,16 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // online softmax; each warp owns rows_per_warp rows, a lane two columns
     const int kvalid = min(TILE, N - k0);
+    float b0 = 0.0f, b1 = 0.0f;  // this lane's two keys' bias, natural base
+    if constexpr (BIAS) {
+      const float* brow = bias + (size_t)b * N + k0;
+      if (lane < kvalid) b0 = brow[lane];
+      if (lane + 32 < kvalid) b1 = brow[lane + 32];
+    }
     for (int rr = 0; rr < rows_per_warp; ++rr) {
       const int r = warp * rows_per_warp + rr;
-      const float s0 = lane < kvalid ? Ss[r * LDF + lane] * scale : -INFINITY;
-      const float s1 = lane + 32 < kvalid ? Ss[r * LDF + lane + 32] * scale : -INFINITY;
+      const float s0 = lane < kvalid ? Ss[r * LDF + lane] * scale + b0 : -INFINITY;
+      const float s1 = lane + 32 < kvalid ? Ss[r * LDF + lane + 32] * scale + b1 : -INFINITY;
       const float m_old = row_m[r];
       const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
       const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
@@ -250,37 +221,45 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out, int B,
-                         int N, int H, float scale, int dtype, cudaStream_t stream) {
+template <bool BIAS>
+cudaError_t launch_flash(const void* q, const void* k, const void* v, const void* bias,
+                         void* out, int B, int N, int H, float scale, int dtype,
+                         cudaStream_t stream) {
   const dim3 grid((N + TILE - 1) / TILE, H, B);
+  const float* kb = static_cast<const float*>(bias);
   if (dtype == kBF16) {
-    flash_bf16_kernel<<<grid, FA_THREADS, 0, stream>>>(
+    flash_bf16_kernel<BIAS><<<grid, FA_THREADS, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), N, H, scale);
+        static_cast<const bf16*>(v), kb, static_cast<bf16*>(out), N, H, scale);
     return cudaGetLastError();
   }
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
+      flash_f32_kernel<BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
   if (err != cudaSuccess) return err;
-  flash_f32_kernel<<<grid, FA_THREADS, F32_SMEM, stream>>>(
+  flash_f32_kernel<BIAS><<<grid, FA_THREADS, F32_SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), N, H, scale);
+      static_cast<const float*>(v), kb, static_cast<float*>(out), N, H, scale);
   return cudaGetLastError();
 }
 
 }  // namespace caim
 
 // q, k, v, out: [B, N, H*head_dim] contiguous, 16-byte aligned; head_dim 64.
-// dtype: 0 float32, 1 bfloat16. Launches on `stream`, does not synchronize,
-// returns cudaGetLastError() after the launch.
+// bias: null (K1), or f32 [B, N] contiguous, added to every query row's
+// scores of batch b before the softmax (K7). dtype: 0 float32, 1 bfloat16.
+// Launches on `stream`, does not synchronize, returns cudaGetLastError()
+// after the launch.
 extern "C" int caim_flash_attention_packed(const void* q, const void* k, const void* v,
-                                           void* out, int B, int N, int H, int head_dim,
-                                           float scale, int dtype, void* stream) {
+                                           const void* bias, void* out, int B, int N, int H,
+                                           int head_dim, float scale, int dtype,
+                                           void* stream) {
   if (head_dim != caim::HEAD_DIM || B <= 0 || N <= 0 || H <= 0 ||
       (dtype != caim::kF32 && dtype != caim::kBF16))
     return (int)cudaErrorInvalidValue;
-  return (int)caim::launch_flash(q, k, v, out, B, N, H, scale, dtype,
-                                 static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bias != nullptr)
+    return (int)caim::launch_flash<true>(q, k, v, bias, out, B, N, H, scale, dtype, st);
+  return (int)caim::launch_flash<false>(q, k, v, nullptr, out, B, N, H, scale, dtype, st);
 }
 
 extern "C" const char* caim_error_string(int err) {

@@ -415,6 +415,17 @@ using caim::GemmArgs;
 // quantised activations. Each launches on `stream`, does not synchronize,
 // and returns the first CUDA error of its launches (0: none).
 
+// The quantising prologue alone, without layernorm: x bf16 [M, K] -> xq int8
+// [M, K], sx f32 [M] (s = max(max|x| / 127, 1e-12), q = clip(rint(x / s))).
+// The int8-QK^T attention quantises q and k with it. K a multiple of 8.
+extern "C" int caim_quantize_rows(const void* x, void* xq, void* sx, int M, int K,
+                                  void* stream) {
+  if (M <= 0 || K <= 0 || K % 8 != 0 || K > caim::MAX_QUANT_K)
+    return (int)cudaErrorInvalidValue;
+  return (int)caim::launch_quant_rows(x, nullptr, nullptr, 0.0f, xq, sx, M, K,
+                                      static_cast<cudaStream_t>(stream));
+}
+
 // K2 (gamma, beta given) and K5 (both null): x [M, D] -> qkv [3, M, D] bf16.
 extern "C" int caim_int8_qkv(const void* x, const void* gamma, const void* beta, float eps,
                              const void* wq, const void* ws, const void* bias, void* qkv,

@@ -87,8 +87,15 @@ def _build(sources, out: Path) -> str:
 
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.caim_flash_attention_packed.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
+    # q, k, v, bias (or null), out, B, N, H, head_dim, scale, dtype, stream
+    lib.caim_flash_attention_packed.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
     lib.caim_flash_attention_packed.restype = i
+    # q8, sq, k8, sk, v, bias (or null), out, B, N, H, head_dim, scale, stream
+    lib.caim_flash_attention_i8qk.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.caim_flash_attention_i8qk.restype = i
+    # x, xq, sx, M, K, stream
+    lib.caim_quantize_rows.argtypes = [p, p, p, i, i, p]
+    lib.caim_quantize_rows.restype = i
     lib.caim_focal_attention.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
     lib.caim_focal_attention.restype = i
     lib.caim_focal_q_tile.argtypes = [i, i]

@@ -1,16 +1,35 @@
-"""K1: packed multi-head attention for the ViT backbone.
+"""K1, K7, K10, K10b: packed multi-head attention for the ViT backbone.
 
-Counterpart of ``flash_attention_packed`` in
-cognitive_aim_tpu/kernels/flash_attention.py. The kernel is CUDA C++ in
-``csrc/flash_attention_packed.cu``; the plain PyTorch version beside it
-mirrors the JAX package's ``_packed_reference``.
+Counterparts, in cognitive_aim_tpu/kernels/flash_attention.py, of
+
+  K1   ``flash_attention_packed``            softmax(q k^T * scale) v per head
+  K7   ``flash_attention_packed_bias``       K1 with a per-key logit bias row
+  K10  ``flash_attention_packed_i8qk``       the first product in int8, on q
+                                             and k quantised per row
+  K10b ``flash_attention_packed_i8qk_bias``  K10 with the bias row of K7
+
+all on the packed [B, N, H*64] layout of the projections. The kernels are
+CUDA C++ in ``csrc/flash_attention_packed.cu`` (K1, K7) and
+``csrc/flash_attention_i8qk.cu`` (K10, K10b). Beside each wrapper stands its
+plain PyTorch version, which mirrors the JAX package's ``_packed_reference``
+and ``_packed_reference_bias`` for K1 and K7 and repeats the kernel body's
+arithmetic for K10 and K10b (an exact integer product, ``s32 * sq * sk``
+with the softmax scale folded into ``sq``, f32 softmax, P cast to v's dtype).
+
+``quantize_rows`` is the joint-row symmetric quantisation that K10 and K10b
+read. The JAX package runs it outside its Pallas kernel; here bfloat16 CUDA
+rows go through the int8 block's quantising prologue
+(``quant_rows_kernel<false>`` of ``csrc/int8_block.cu``, one launch a
+tensor), anything else through plain PyTorch, with the same f32 arithmetic.
 
 Dispatch is on the tensor's device: CPU tensors take the plain version,
-CUDA tensors launch the kernel or raise. ``flash_attention_packed.launches``
-counts kernel launches (never plain-version calls).
+CUDA tensors launch the kernel or raise. Each wrapper's ``.launches`` counts
+its kernel launches (never plain-version calls).
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,47 +41,207 @@ from cognitive_aim_tpu_torch.kernels._launch import (
     stream_of,
 )
 
-HEAD_DIM = 64  # the kernel's head width (ViT-B and ViT-L both use 64)
+HEAD_DIM = 64  # the kernels' head width (ViT-B and ViT-L both use 64)
+MAX_QUANT_WIDTH = 1024  # widest row the quantising kernel keeps in registers
 
 
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    B, N, HD = t.shape
+    return t.reshape(B, N, num_heads, HD // num_heads).transpose(1, 2)
+
+
+def _attend(scores: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, H, N, N] scores -> [B, N, H*Dh]: f32 softmax, P cast to v's dtype,
+    P V in v's dtype."""
+    B, N, HD = v.shape
+    probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+    out = torch.matmul(probs, _heads(v, num_heads))  # [B, H, N, D]
+    return out.transpose(1, 2).reshape(B, N, HD)
+
+
+# ---------------------------------------------------------- plain versions ----
 def flash_attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  scale: float, num_heads: int) -> torch.Tensor:
     """[B, N, H*Dh] -> [B, N, H*Dh]: per head softmax(q k^T * scale) v with
     the scores in the input dtype, an f32 softmax, and the probabilities cast
     back to the input dtype before the PV product (``_packed_reference``)."""
-    B, N, HD = q.shape
-    D = HD // num_heads
-
-    def heads(t):
-        return t.reshape(B, N, num_heads, D).transpose(1, 2)
-
-    scores = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * scale
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    out = torch.matmul(probs, heads(v))  # [B, H, N, D]
-    return out.transpose(1, 2).reshape(B, N, HD)
+    scores = torch.matmul(_heads(q, num_heads),
+                          _heads(k, num_heads).transpose(-1, -2)) * scale
+    return _attend(scores, v, num_heads)
 
 
-def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           scale: float, num_heads: int) -> torch.Tensor:
-    """q, k, v: [B, N, H*64] packed activations -> [B, N, H*64] in q's dtype
-    (bfloat16 or float32). CPU -> plain version; CUDA -> the K1 kernel."""
-    require_device("flash_attention_packed", q)
-    if q.device.type == "cpu":
-        return flash_attention_packed_plain(q, k, v, scale, num_heads)
-    B, N, HD = q.shape
+def flash_attention_packed_bias_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                      k_bias: torch.Tensor, scale: float,
+                                      num_heads: int) -> torch.Tensor:
+    """K1's plain version with ``k_bias`` [B, N] added, in the scores' dtype,
+    to every query row's scores of its batch (``_packed_reference_bias``)."""
+    scores = torch.matmul(_heads(q, num_heads),
+                          _heads(k, num_heads).transpose(-1, -2)) * scale
+    scores = scores + k_bias[:, None, None, :].to(scores.dtype)
+    return _attend(scores, v, num_heads)
+
+
+def quantize_rows_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    xf = x.float()
+    s = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp(min=1e-12)
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def _i8qk_plain(q, k, v, k_bias, scale, num_heads):
+    q8, sq = quantize_rows_plain(q)
+    k8, sk = quantize_rows_plain(k)
+    sq = sq * scale  # the softmax scale folded into the row scales
+    # 64 products of at most 127^2 sum below 2^24: the f32 product is exact
+    s32 = torch.matmul(_heads(q8.float(), num_heads),
+                       _heads(k8.float(), num_heads).transpose(-1, -2))
+    s = s32 * sq[:, None] * sk.transpose(1, 2)[:, None]
+    if k_bias is not None:
+        s = s + k_bias[:, None, None, :].float()
+    return _attend(s, v, num_heads)
+
+
+def flash_attention_packed_i8qk_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                      scale: float, num_heads: int) -> torch.Tensor:
+    """The arithmetic of ``_flash_packed_i8qk_kernel``: q and k quantised per
+    row over all heads, an exact integer q k^T per head, ``s32 * sq * sk`` in
+    f32, f32 softmax, P cast to v's dtype, P V in v's dtype."""
+    return _i8qk_plain(q, k, v, None, scale, num_heads)
+
+
+def flash_attention_packed_i8qk_bias_plain(q: torch.Tensor, k: torch.Tensor,
+                                           v: torch.Tensor, k_bias: torch.Tensor,
+                                           scale: float, num_heads: int) -> torch.Tensor:
+    """``flash_attention_packed_i8qk_plain`` with the f32 bias row [B, N]
+    added to the dequantised scores (``_flash_packed_i8qk_bias_kernel``)."""
+    return _i8qk_plain(q, k, v, k_bias, scale, num_heads)
+
+
+# ---------------------------------------------------------- CUDA plumbing ----
+def _check_width(name: str, HD: int, num_heads: int):
     if HD != num_heads * HEAD_DIM:
-        raise ValueError(f"flash_attention_packed: width {HD} is not "
-                         f"{num_heads} heads of {HEAD_DIM}")
-    code = check_cuda_inputs("flash_attention_packed", (q, k, v), (B, N, HD))
+        raise ValueError(f"{name}: width {HD} is not {num_heads} heads of {HEAD_DIM}")
+
+
+def _check_bias(name: str, q: torch.Tensor, k_bias: torch.Tensor) -> torch.Tensor:
+    """The kernels read the bias row as contiguous f32 [B, N] on q's device."""
+    B, N, _ = q.shape
+    if tuple(k_bias.shape) != (B, N) or k_bias.device != q.device:
+        raise ValueError(f"{name}: k_bias must be [{B}, {N}] on {q.device}, got "
+                         f"{tuple(k_bias.shape)} on {k_bias.device}")
+    return k_bias.float().contiguous()
+
+
+def _launch_packed(name, q, k, v, k_bias, scale, num_heads):
+    B, N, HD = q.shape
+    _check_width(name, HD, num_heads)
+    code = check_cuda_inputs(name, (q, k, v), (B, N, HD))
+    bias = _check_bias(name, q, k_bias) if k_bias is not None else None
     lib = _build.library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.caim_flash_attention_packed(
-            ptr(q), ptr(k), ptr(v), ptr(out), B, N, num_heads, HEAD_DIM,
-            float(scale), code, stream_of(q))
+            ptr(q), ptr(k), ptr(v), ptr(bias) if bias is not None else None, ptr(out),
+            B, N, num_heads, HEAD_DIM, float(scale), code, stream_of(q))
     _build.check(err)
+    return out
+
+
+def _launch_i8qk(name, q, k, v, k_bias, scale, num_heads):
+    B, N, HD = q.shape
+    _check_width(name, HD, num_heads)
+    if v.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bfloat16 q, k, v, got {v.dtype}")
+    check_cuda_inputs(name, (q, k, v), (B, N, HD))
+    bias = _check_bias(name, q, k_bias) if k_bias is not None else None
+    q8, sq = quantize_rows(q)  # scales [B, N, 1]: the rows as the kernel reads them
+    k8, sk = quantize_rows(k)
+    lib = _build.library()
+    out = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.caim_flash_attention_i8qk(
+            ptr(q8), ptr(sq), ptr(k8), ptr(sk), ptr(v),
+            ptr(bias) if bias is not None else None, ptr(out), B, N, num_heads,
+            HEAD_DIM, float(scale), stream_of(q))  # the kernel folds scale into sq
+    _build.check(err)
+    return out
+
+
+# ---------------------------------------------------------------- wrappers ----
+def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float, num_heads: int) -> torch.Tensor:
+    """K1. q, k, v: [B, N, H*64] packed activations -> [B, N, H*64] in q's
+    dtype (bfloat16 or float32). CPU -> plain version; CUDA -> the kernel."""
+    require_device("flash_attention_packed", q)
+    if q.device.type == "cpu":
+        return flash_attention_packed_plain(q, k, v, scale, num_heads)
+    out = _launch_packed("flash_attention_packed", q, k, v, None, scale, num_heads)
     flash_attention_packed.launches += 1
     return out
 
 
-flash_attention_packed.launches = 0
+def flash_attention_packed_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                k_bias: torch.Tensor, scale: float,
+                                num_heads: int) -> torch.Tensor:
+    """K7. K1 with ``k_bias`` [B, N] (read as f32) added to the logits of
+    every query row: proportional attention for the token filter, where a
+    fused context token gets +log(number of tokens it stands for)."""
+    require_device("flash_attention_packed_bias", q)
+    if q.device.type == "cpu":
+        return flash_attention_packed_bias_plain(q, k, v, k_bias, scale, num_heads)
+    out = _launch_packed("flash_attention_packed_bias", q, k, v, k_bias, scale,
+                         num_heads)
+    flash_attention_packed_bias.launches += 1
+    return out
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, N, HD] -> (int8 [B, N, HD], f32 scales [B, N, 1]): symmetric per
+    row, joint across heads; ``s = max(max|x| / 127, 1e-12)``, a true
+    division, round-half-even, clip to +-127, all in f32."""
+    require_device("quantize_rows", x)
+    B, N, HD = x.shape
+    if not (x.device.type == "cuda" and x.dtype == torch.bfloat16
+            and HD % 8 == 0 and HD <= MAX_QUANT_WIDTH
+            and x.is_contiguous() and x.data_ptr() % 16 == 0):
+        return quantize_rows_plain(x)
+    xq = torch.empty(B, N, HD, dtype=torch.int8, device=x.device)
+    sx = torch.empty(B, N, 1, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.caim_quantize_rows(ptr(x), ptr(xq), ptr(sx), B * N, HD, stream_of(x))
+    _build.check(err)
+    quantize_rows.launches += 1
+    return xq, sx
+
+
+def flash_attention_packed_i8qk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                scale: float, num_heads: int) -> torch.Tensor:
+    """K10. Packed attention with an int8 q k^T: float q, k, v in, v's dtype
+    out. q and k are quantised here (``quantize_rows``); the kernel reads
+    int8 and dequantises its int32 scores with the row scales. CUDA: bf16."""
+    require_device("flash_attention_packed_i8qk", q)
+    if q.device.type == "cpu":
+        return flash_attention_packed_i8qk_plain(q, k, v, scale, num_heads)
+    out = _launch_i8qk("flash_attention_packed_i8qk", q, k, v, None, scale, num_heads)
+    flash_attention_packed_i8qk.launches += 1
+    return out
+
+
+def flash_attention_packed_i8qk_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     k_bias: torch.Tensor, scale: float,
+                                     num_heads: int) -> torch.Tensor:
+    """K10b. K10 with the bias row of K7 added to the dequantised scores."""
+    require_device("flash_attention_packed_i8qk_bias", q)
+    if q.device.type == "cpu":
+        return flash_attention_packed_i8qk_bias_plain(q, k, v, k_bias, scale, num_heads)
+    out = _launch_i8qk("flash_attention_packed_i8qk_bias", q, k, v, k_bias, scale,
+                       num_heads)
+    flash_attention_packed_i8qk_bias.launches += 1
+    return out
+
+
+WRAPPERS = (flash_attention_packed, flash_attention_packed_bias,
+            flash_attention_packed_i8qk, flash_attention_packed_i8qk_bias,
+            quantize_rows)
+for _w in WRAPPERS:
+    _w.launches = 0

@@ -10,16 +10,22 @@ float32 patch tokens); the EXIF prior; zero-padded fusion to 192; the
 Softplus depth and Sigmoid confidence heads.
 
 ``attn_impl="pallas_packed"`` routes both attentions through the kernel
-wrappers K1 and K6, which launch the CUDA kernels for CUDA tensors and run
-their plain versions for CPU tensors; ``attn_impl="plain"`` runs the plain
-versions on any device. Under the int8 policy (``policy.quantize_backbone``,
+wrappers K1 (K7 under the token filter's proportional attention) and K6,
+which launch the CUDA kernels for CUDA tensors and run their plain versions
+for CPU tensors; ``"pallas_packed_i8qk"`` takes K10 and K10b, the int8-QK^T
+attention, in the backbone; ``attn_impl="plain"`` and ``"plain_i8qk"`` run
+the plain versions of those two routes on any device. Under the int8 policy (``policy.quantize_backbone``,
 applied by ``prepare_params``) every backbone block is the chained int8
 block (K2, K1, K3, K4) and each focal iteration projects through K5.
 
+With ``arch.token_filter_active`` the backbone runs the token filter in
+drop mode (nn/dinov2.py); a guided request hands it the instruction's mask
+row as keep priority, so the guided region's tokens stay in the kept set.
+
 The model is built on the CUDA device unless the caller passes ``device``.
 
-Not ported yet: LoRA, the token filter, pipelining, training (dropout,
-entropy, the curiosity loss).
+Not ported yet: LoRA, the token filter's merge mode and delta correction,
+pipelining, training (dropout, entropy, the curiosity loss).
 """
 
 from __future__ import annotations
@@ -58,9 +64,13 @@ class CognitiveAimModel(nn.Module):
                  attn_impl: str = "pallas_packed",
                  vit_cfg: Optional[dinov2.DinoV2Config] = None, device=None):
         super().__init__()
-        if arch.use_lora or arch.token_filter_active:
-            raise NotImplementedError("LoRA and the token filter are not ported "
-                                      "yet (ROADMAP.md Queue 1)")
+        if arch.use_lora:
+            raise NotImplementedError("LoRA is not ported yet (ROADMAP.md Queue 1)")
+        if arch.token_filter_active and (arch.token_filter_merge
+                                         or arch.token_filter_delta_correct):
+            raise NotImplementedError(
+                "the token filter's merge mode ('@m') and delta correction ('@d') "
+                "are not ported yet (ROADMAP.md Queue 1 item 7)")
         if attn_impl not in dinov2.ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {dinov2.ATTN_IMPLS}")
         device = resolve_device(device)
@@ -159,8 +169,7 @@ class CognitiveAimModel(nn.Module):
         ``guidance.INSTRUCTIONS`` order, an int or a [B] tensor. Noise is
         drawn from ``generator`` (none: all draws 0)."""
         a = self.arch
-        hs = self.backbone(images, compute_dtype=self.policy.backbone_compute_dtype,
-                           attn_impl=self.attn_impl).float()
+        hs = self.backbone(images, **self.backbone_kwargs(images, guidance)).float()
         cls_token = hs[:, 0]
         patches = hs[:, 1:]
         B = patches.shape[0]
@@ -198,12 +207,47 @@ class CognitiveAimModel(nn.Module):
         return ModelOutput(depth=depth, confidence=confidence, attention=attention,
                            curiosity=reward, fused_features=fused, aux=aux)
 
+    def backbone_kwargs(self, images: torch.Tensor, guidance=None) -> Dict[str, Any]:
+        """Keyword arguments of the backbone call for this request: compute
+        dtype, attention route and, with the token filter active, its
+        settings and the guidance mask row as ``keep_weights`` (guided-region
+        tokens get keep priority, so the focal re-pool sees fresh features
+        where the instruction points)."""
+        a = self.arch
+        kw: Dict[str, Any] = dict(compute_dtype=self.policy.backbone_compute_dtype,
+                                  attn_impl=self.attn_impl)
+        if not a.token_filter_active:
+            return kw
+        kw.update(
+            filter_layer=a.token_filter_layer,
+            filter_keep=a.token_filter_keep,
+            filter_fuse=a.token_filter_fuse,
+            filter_fuse_k=a.token_filter_fuse_k,
+            filter_schedule=a.token_filter_schedule,
+            filter_rollout=a.token_filter_rollout,
+            filter_merge=a.token_filter_merge,
+            filter_delta_correct=a.token_filter_delta_correct,
+            filter_strat_stride=a.token_filter_strat_stride,
+            filter_prop_attn=a.token_filter_prop_attn,
+            filter_ctx_frac=a.token_filter_ctx_frac,
+        )
+        if guidance is not None:
+            B = images.shape[0]
+            p = self.vit_cfg.patch_size
+            gh, gw = images.shape[1] // p, images.shape[2] // p
+            g_idx = torch.as_tensor(guidance, dtype=torch.long, device=images.device)
+            gvec = G.mask_table(gh, gh * gw, images.device)[g_idx]
+            if gvec.ndim == 1:
+                gvec = gvec[None].expand(B, gh * gw)
+            kw["keep_weights"] = gvec
+        return kw
+
     def _focal(self, patches, curiosity_score, guidance, generator, noise_mode):
         a = self.arch
         run = patches.to(self.policy.backbone_compute_dtype)
         kw = dict(curiosity_guided=a.curiosity_guided, generator=generator,
                   noise_mode=noise_mode,
-                  fused_attention=self.attn_impl == "pallas_packed")
+                  fused_attention=self.attn_impl.startswith("pallas_packed"))
         if a.use_iterative:
             feats, attn = S.iterative_focal_apply(
                 self.focal_stream, run, curiosity_score,

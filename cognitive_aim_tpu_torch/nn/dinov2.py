@@ -1,6 +1,6 @@
 """DINOv2 ViT backbone (counterpart of cognitive_aim_tpu/nn/dinov2.py).
 
-The unfiltered inference path only:
+The inference path, unfiltered or with the token filter in drop mode:
 
   * patch embedding as reshape + matmul over the (p, p, 3) patch layout,
     not ``Conv2d`` (whose cuDNN path runs TF32 by default);
@@ -13,9 +13,12 @@ The unfiltered inference path only:
 
 With ``attn_impl="pallas_packed"`` the attention goes through the K1
 wrapper (the CUDA kernel for CUDA tensors, its plain version for CPU
-tensors); ``attn_impl="plain"`` always takes the plain version, which is
-what the kernel is compared with on the card. Everything runs in the
-policy's compute dtype, as the JAX package casts the parameters to it.
+tensors), or K7 where the token filter hands the block a key-side logit
+bias; with ``"pallas_packed_i8qk"`` through K10 and K10b, whose first
+product is int8. ``attn_impl="plain"`` and ``"plain_i8qk"`` always take the
+plain versions of those two routes, which is what the kernels are compared
+with on the card. Everything runs in the policy's compute dtype, as the JAX
+package casts the parameters to it.
 
 Under the int8 policy ``Block.quantize_`` replaces the four dense
 projections by their int8 state, and the block runs as the JAX package's
@@ -25,28 +28,59 @@ bare elementwise op between them. ``attn_impl="plain"`` runs the plain
 versions of the same four steps. The chained block needs tanh GELU, as in
 the JAX package; its per-projection int8 path for erf GELU is not ported.
 
-LoRA, the token filter and pipelining are not ported yet.
+The token filter (``filter_*`` arguments of ``DinoV2.forward``, off by
+default) is the JAX package's approximate fast path: after ``filter_layer``
+full blocks keep CLS and the ``filter_keep`` share of the patch tokens,
+ranked by the next layer's CLS attention plus the guidance priority; run the
+remaining blocks on the short stream; put the dropped tokens back, frozen
+at their filter-point values, before the final layernorm. Ported: single
+stage and progressive ``filter_schedule``, the fused context token(s)
+(``filter_fuse``, ``filter_fuse_k``), ``filter_strat_stride``,
+``filter_rollout``, ``filter_ctx_frac`` and proportional attention
+(``filter_prop_attn``). Every shape is static per specification and nothing
+reads a device value on the host. Merge mode and the delta correction are
+not ported and raise.
+
+LoRA, merge mode, the delta correction and pipelining are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from cognitive_aim_tpu_torch.core.device import resolve_device
 from cognitive_aim_tpu_torch.kernels import int8_block as IB
-from cognitive_aim_tpu_torch.kernels.flash_attention import (
-    flash_attention_packed,
-    flash_attention_packed_plain,
-)
+from cognitive_aim_tpu_torch.kernels import flash_attention as FA
 from cognitive_aim_tpu_torch.nn import init as tinit
 from cognitive_aim_tpu_torch.nn import layers as L
 from cognitive_aim_tpu_torch.nn.torch_interp import resize_weights
 
-ATTN_IMPLS = ("pallas_packed", "plain")
+ATTN_IMPLS = ("pallas_packed", "pallas_packed_i8qk", "plain", "plain_i8qk")
+
+# attn_impl -> (attention without a key bias, attention with one)
+_ATTEND = {
+    "pallas_packed": (FA.flash_attention_packed, FA.flash_attention_packed_bias),
+    "pallas_packed_i8qk": (FA.flash_attention_packed_i8qk,
+                           FA.flash_attention_packed_i8qk_bias),
+    "plain": (FA.flash_attention_packed_plain, FA.flash_attention_packed_bias_plain),
+    "plain_i8qk": (FA.flash_attention_packed_i8qk_plain,
+                   FA.flash_attention_packed_i8qk_bias_plain),
+}
+
+
+def attend(attn_impl: str, q, k, v, k_bias, scale: float, num_heads: int):
+    """The JAX package's attention dispatch: by route, and by whether the
+    token filter gave the block a key-side logit bias [B, N]."""
+    unbiased, biased = _ATTEND[attn_impl]
+    if k_bias is None:
+        return unbiased(q, k, v, scale, num_heads)
+    return biased(q, k, v, k_bias, scale, num_heads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,12 +154,10 @@ class Block(nn.Module):
         qkv = torch.baddbmm(b, x.reshape(1, B * N, D).expand(3, B * N, D), w)
         return [t.view(B, N, D) for t in qkv.unbind(0)]
 
-    def mhsa(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+    def mhsa(self, x: torch.Tensor, attn_impl: str, k_bias=None) -> torch.Tensor:
         cfg = self.cfg
         q, k, v = self.qkv_proj(x)
-        attend = (flash_attention_packed if attn_impl == "pallas_packed"
-                  else flash_attention_packed_plain)
-        ctx = attend(q, k, v, cfg.head_dim ** -0.5, cfg.num_heads)
+        ctx = attend(attn_impl, q, k, v, k_bias, cfg.head_dim ** -0.5, cfg.num_heads)
         return L.linear_apply(self.attn_out, ctx, ctx.dtype)
 
     @property
@@ -150,36 +182,234 @@ class Block(nn.Module):
             p.data = L.round_through(p.data, compute_dtype)
         return self
 
-    def _forward_int8(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+    def _forward_int8(self, x: torch.Tensor, attn_impl: str, k_bias=None) -> torch.Tensor:
         cfg = self.cfg
         if not cfg.gelu_approx:
             raise NotImplementedError(
                 "the chained int8 block needs tanh GELU; the per-projection "
                 "int8 path for erf GELU is not ported yet (ROADMAP.md)")
-        fused = attn_impl == "pallas_packed"
+        fused = attn_impl.startswith("pallas_packed")
         n1, n2, eps = self.norm1, self.norm2, cfg.layer_norm_eps
         qkv_ln = IB.int8_qkv_proj_ln if fused else IB.int8_qkv_proj_ln_plain
-        attend = flash_attention_packed if fused else flash_attention_packed_plain
         out_res = IB.int8_out_residual if fused else IB.int8_out_residual_plain
         mlp_ln = IB.int8_mlp_ln if fused else IB.int8_mlp_ln_plain
         q, k, v = qkv_ln(x, n1.weight, n1.bias, self.qkv.wq, self.qkv.ws,
                          self.qkv.bias, eps, x.dtype)
-        ctx = attend(q, k, v, cfg.head_dim ** -0.5, cfg.num_heads)
+        ctx = attend(attn_impl, q, k, v, k_bias, cfg.head_dim ** -0.5, cfg.num_heads)
         x = out_res(ctx, self.attn_out.wq, self.attn_out.ws, self.attn_out.bias,
                     self.ls1, x)
         return mlp_ln(x, n2.weight, n2.bias, self.fc1.wq, self.fc1.ws, self.fc1.bias,
                       self.fc2.wq, self.fc2.ws, self.fc2.bias, self.ls2, eps)
 
-    def forward(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_impl: str, k_bias=None) -> torch.Tensor:
+        """k_bias: optional [B, N] f32 additive key-side logit bias, the
+        token filter's proportional attention."""
         if self.quantized:
-            return self._forward_int8(x, attn_impl)
+            return self._forward_int8(x, attn_impl, k_bias)
         dt = x.dtype
         h = L.layernorm_apply(self.norm1, x)
-        x = x + self.ls1.to(dt) * self.mhsa(h, attn_impl)
+        x = x + self.ls1.to(dt) * self.mhsa(h, attn_impl, k_bias)
         h = L.layernorm_apply(self.norm2, x)
         h = L.linear_apply(self.fc1, h, dt)
         h = F.gelu(h, approximate="tanh" if self.cfg.gelu_approx else "none")
         return x + self.ls2.to(dt) * L.linear_apply(self.fc2, h, dt)
+
+
+# ------------------------------------------------------- token filtering ----
+def _layer_qk_weights(blk: Block, dtype: torch.dtype):
+    """Float32 (Wq, bq, Wk, bk) of a block's query and key projections, with
+    the values the block itself computes with: the int8 weight times its
+    per-row scales, or the float weight rounded to the compute dtype. The
+    weights are [out, in], so q and k are row slices of the fused [3D, D]."""
+    D = blk.cfg.hidden_size
+    if blk.quantized:
+        w = blk.qkv.wq[:2 * D].float() * blk.qkv.ws[:2 * D, None]
+        b = blk.qkv.bias[:2 * D]
+    else:
+        w = L.round_through(blk.qkv.weight[:2 * D], dtype)
+        b = L.round_through(blk.qkv.bias[:2 * D], dtype)
+    return w[:D], b[:D], w[D:], b[D:]
+
+
+def _cls_importance(blk: Block, x: torch.Tensor) -> torch.Tensor:
+    """Patch-token importance [B, P]: the CLS row of the NEXT block's
+    attention, averaged over heads (EViT-style), all in float32. Costs one
+    [B, N, D] x [D, D] key projection and one score row."""
+    cfg = blk.cfg
+    H, hd = cfg.num_heads, cfg.head_dim
+    n1 = blk.norm1
+    h = F.layer_norm(x.float(), n1.normalized_shape, L.round_through(n1.weight, x.dtype),
+                     L.round_through(n1.bias, x.dtype), n1.eps)
+    wq, bq, wk, bk = _layer_qk_weights(blk, x.dtype)
+    q_cls = F.linear(h[:, 0], wq, bq)
+    k = F.linear(h, wk, bk)
+    B, N, _ = k.shape
+    scores = torch.einsum("bhd,bnhd->bhn", q_cls.reshape(B, H, hd),
+                          k.reshape(B, N, H, hd)) * (hd ** -0.5)
+    return torch.softmax(scores, dim=-1).mean(dim=1)[:, 1:]  # patch columns
+
+
+def _top_k(values: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest per row, the lower index first among equal
+    values (``jax.lax.top_k``'s order; ``torch.topk`` promises none)."""
+    return torch.sort(values, dim=1, descending=True, stable=True).indices[:, :k]
+
+
+def _mask_of(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """[B, n] with 1 at the indices idx [B, k], 0 elsewhere."""
+    return torch.zeros(idx.shape[0], n, dtype=dtype, device=idx.device).scatter_(1, idx, 1.0)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, T, D] at token indices idx [B, k] -> [B, k, D]."""
+    return x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _group_fused(x_tokens, w, groups, n_groups: int, w_fallback=None):
+    """[B, n_groups, D] context tokens: per-group means of the tokens,
+    weighted by w [B, T] (importance times dropped-mask). groups [B, T]
+    holds each token's group id. A group whose w-mass is zero (all its
+    tokens kept) takes ``w_fallback``, its importance-weighted mean over all
+    its tokens, instead of a zero vector."""
+    dt = x_tokens.dtype
+    eps = torch.tensor(1e-9, dtype=dt, device=x_tokens.device)
+    outs = []
+    for g in range(n_groups):
+        gmask = (groups == g).to(dt)
+        wg = w * gmask
+        den = wg.sum(dim=1, keepdim=True)
+        if w_fallback is not None:
+            use_fb = (den <= 0).to(dt)
+            wg = wg + use_fb * (w_fallback * gmask)
+            den = wg.sum(dim=1, keepdim=True)
+        outs.append((x_tokens * wg[..., None]).sum(dim=1, keepdim=True)
+                    / (den[..., None] + eps))
+    return torch.cat(outs, dim=1)
+
+
+def _keep_indices(importance, keep_weights, k_keep: int, ctx_frac: float = 0.0):
+    """[B, k_keep] ascending patch indices of the kept set. Priority = CLS
+    attention + 10 * (guidance weight - 1), so guided-region tokens outrank
+    background and within a tier the attention decides. ``ctx_frac`` > 0
+    reserves round(ctx_frac * k_keep) slots for the top tokens by RAW
+    importance, immune to the guidance boost; without guidance it is a
+    no-op."""
+    prio = importance
+    if keep_weights is not None:
+        prio = prio + 10.0 * (keep_weights.float() - 1.0)
+    k_ctx = int(round(k_keep * ctx_frac)) if keep_weights is not None else 0
+    if k_ctx <= 0:
+        return torch.sort(_top_k(prio, k_keep), dim=1).values
+    idx_g = _top_k(prio, k_keep - k_ctx)
+    taken = _mask_of(idx_g, importance.shape[1], torch.float32)
+    # importance is in [0, 1], so the offset cannot meet a live value
+    idx_c = _top_k(importance - 1e9 * taken, k_ctx)
+    return torch.sort(torch.cat([idx_g, idx_c], dim=1), dim=1).values
+
+
+def _filter_tokens(x, importance, keep_weights, k_keep: int, fuse: bool = False,
+                   fuse_groups=None, fuse_n_groups: int = 0, ctx_frac: float = 0.0):
+    """Keep CLS + the k_keep highest-priority patch tokens. With ``fuse`` one
+    more token, the importance-weighted mean of the DROPPED tokens, is
+    appended (or one per spatial group: ``fuse_groups`` [P] group ids,
+    ``fuse_n_groups`` of them). The weights, the sum and the division run in
+    x's dtype. Returns ([B, 1+k(+G), D], [B, k] ascending patch indices)."""
+    idx = _keep_indices(importance, keep_weights, k_keep, ctx_frac)
+    parts = [x[:, :1], _take(x[:, 1:], idx)]
+    if fuse:
+        B, P = importance.shape
+        w = importance.to(x.dtype) * (1.0 - _mask_of(idx, P, x.dtype))
+        if fuse_groups is not None:
+            parts.append(_group_fused(x[:, 1:], w, fuse_groups[None].expand(B, P),
+                                      fuse_n_groups, w_fallback=importance.to(x.dtype)))
+        else:
+            denom = w.sum(dim=1, keepdim=True) + torch.tensor(1e-9, dtype=x.dtype,
+                                                              device=x.device)
+            parts.append((x[:, 1:] * w[..., None]).sum(dim=1, keepdim=True)
+                         / denom[..., None])
+    return torch.cat(parts, dim=1), idx
+
+
+def _refilter_tokens(x, imp_all, k_prev: int, keep_w_gathered, k_keep: int,
+                     fuse: bool = False, groups_gathered=None, n_groups: int = 1,
+                     ctx_frac: float = 0.0):
+    """A later stage of a progressive schedule: the stream is [B, 1 + k_prev
+    (+G fused), D]. Keep the k_keep highest-priority of the k_prev patch
+    tokens and fold the newly dropped ones, with the old context token(s),
+    into the new context token(s). Returns (stream, [B, k_keep] ascending
+    LOCAL indices into the previous kept set)."""
+    B = x.shape[0]
+    n_fused_in = x.shape[1] - 1 - k_prev
+    imp_p = imp_all[:, :k_prev]
+    idx = _keep_indices(imp_p, keep_w_gathered, k_keep, ctx_frac)
+    patches = x[:, 1:1 + k_prev]
+    parts = [x[:, :1], _take(patches, idx)]
+    if fuse:
+        w = imp_p.to(x.dtype) * (1.0 - _mask_of(idx, k_prev, x.dtype))
+        if n_groups > 1:
+            if n_fused_in not in (0, n_groups):
+                raise ValueError(
+                    f"fused-context token count mismatch: stream carries "
+                    f"{n_fused_in} context tokens but n_groups={n_groups} "
+                    f"(stage disagreement — a bug in the caller)")
+            x_in, w_in, g_in = patches, w, groups_gathered
+            fb = imp_p.to(x.dtype)
+            if n_fused_in:
+                # the old context tokens join their own group's reduction
+                gids = torch.arange(n_groups, device=x.device)[None].expand(B, n_groups)
+                x_in = torch.cat([patches, x[:, 1 + k_prev:1 + k_prev + n_groups]], dim=1)
+                w_f = imp_all[:, k_prev:k_prev + n_groups].to(x.dtype)
+                w_in = torch.cat([w, w_f], dim=1)
+                g_in = torch.cat([groups_gathered, gids], dim=1)
+                fb = torch.cat([fb, w_f], dim=1)
+            parts.append(_group_fused(x_in, w_in, g_in, n_groups, w_fallback=fb))
+        else:
+            num = (patches * w[..., None]).sum(dim=1, keepdim=True)
+            den = w.sum(dim=1, keepdim=True)
+            if n_fused_in >= 1:
+                w_f = imp_all[:, k_prev:k_prev + 1].to(x.dtype)
+                num = num + x[:, 1 + k_prev:2 + k_prev] * w_f[..., None]
+                den = den + w_f
+            eps = torch.tensor(1e-9, dtype=x.dtype, device=x.device)
+            parts.append(num / (den[..., None] + eps))
+    return torch.cat(parts, dim=1), idx
+
+
+def _scatter_tokens(x_full, x_filtered, idx):
+    """The updated CLS + kept patch tokens written back into the full-length
+    stream (dropped tokens keep their filter-point values); trailing context
+    tokens are discarded."""
+    k, D = idx.shape[1], x_full.shape[-1]
+    patches = x_full[:, 1:].scatter(1, idx[..., None].expand(-1, -1, D),
+                                    x_filtered[:, 1:1 + k])
+    return torch.cat([x_filtered[:, :1], patches], dim=1)
+
+
+def _fuse_group_ids(gh: int, gw: int, n_groups: int) -> Tuple[np.ndarray, int]:
+    """Spatial cell id of every patch for ``filter_fuse_k`` context tokens
+    (a q x q split of the grid), made consecutive: on a grid smaller than q
+    per side some cells are empty, and every stage must agree on the count."""
+    q = int(round(n_groups ** 0.5))
+    rows = np.arange(gh)[:, None] * q // gh
+    cols = np.arange(gw)[None, :] * q // gw
+    ids = (rows * q + cols).reshape(-1)
+    uniq = np.unique(ids)
+    return np.searchsorted(uniq, ids).astype(np.int64), int(len(uniq))
+
+
+def _prop_bias_drop(idx_global, P: int, fuse_groups, n_groups: int):
+    """[B, 1+k+G] f32 key bias of proportional attention: 0 for CLS and the
+    kept tokens, +log(number of dropped tokens it stands for) for each
+    context token; a group with nothing dropped gets log(1e-6)."""
+    B, k = idx_global.shape
+    dr = 1.0 - _mask_of(idx_global, P, torch.float32)
+    if fuse_groups is not None:
+        counts = torch.stack([(dr * (fuse_groups[None] == gi)).sum(dim=1)
+                              for gi in range(n_groups)], dim=1)
+    else:
+        counts = dr.sum(dim=1, keepdim=True)
+    zeros = torch.zeros(B, 1 + k, dtype=torch.float32, device=idx_global.device)
+    return torch.cat([zeros, torch.log(counts.clamp(min=1e-6))], dim=1)
 
 
 class DinoV2(nn.Module):
@@ -239,14 +469,147 @@ class DinoV2(nn.Module):
         x = torch.cat([cls, x], dim=1)
         return x + self.interpolate_pos_embed(gh, gw).to(compute_dtype)
 
+    def _run(self, x, start: int, stop: int, attn_impl: str, k_bias=None):
+        for blk in self.layers[start:stop]:
+            x = blk(x, attn_impl, k_bias)
+        return x
+
     @torch.no_grad()
-    def forward(self, images: torch.Tensor, *, compute_dtype=torch.float32,
-                attn_impl: str = "plain") -> torch.Tensor:
+    def forward(self, images: torch.Tensor, **kw) -> torch.Tensor:
         """images [B, H, W, 3] normalized NHWC -> last_hidden_state
-        [B, 1 + N, D] after the final layernorm, in ``compute_dtype``."""
+        [B, 1 + N, D] after the final layernorm, in ``compute_dtype``.
+        Arguments as ``forward_with_kept``."""
+        return self.forward_with_kept(images, **kw)[0]
+
+    @torch.no_grad()
+    def forward_with_kept(
+        self, images: torch.Tensor, *, compute_dtype=torch.float32,
+        attn_impl: str = "plain", filter_layer: int = 0, filter_keep: float = 1.0,
+        filter_fuse: bool = True, filter_fuse_k: int = 1, filter_schedule=(),
+        filter_rollout: float = 0.0, filter_merge: bool = False,
+        filter_delta_correct: bool = False, filter_strat_stride: int = 0,
+        filter_prop_attn: bool = False, filter_ctx_frac: float = 0.0,
+        keep_weights: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The forward pass and the token filter's final kept set:
+        (last_hidden_state [B, 1 + N, D], [B, k] ascending patch indices, or
+        None when no filter stage is active).
+
+        filter_layer / filter_keep: after ``filter_layer`` full blocks keep
+          CLS + that share of the patch tokens; off by default.
+        filter_schedule: ((layer, keep), ...), layers strictly increasing,
+          keeps strictly decreasing: the progressive variant; overrides the
+          pair above.
+        filter_fuse / filter_fuse_k: append the importance-weighted mean of
+          the dropped tokens as a context token, or one per cell of a
+          sqrt(k) x sqrt(k) split of the grid.
+        filter_rollout: at later stages rank by (1-r) * fresh + r * carried
+          importance.
+        filter_strat_stride: every (N, N)-strided grid position gets a
+          priority bonus above background and below every guided tier.
+        filter_prop_attn: post-filter blocks add log(number of tokens it
+          stands for) to each context token's attention logit (K7 / K10b).
+        filter_ctx_frac: share of the keep budget reserved for the top
+          tokens by raw importance.
+        keep_weights: [B, P] guidance mask weights (priority), or None.
+        filter_merge / filter_delta_correct: not ported; they raise."""
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+        cfg = self.cfg
+        n_layers = cfg.num_layers
         x = self.embed(images, compute_dtype)
-        for blk in self.layers:
-            x = blk(x, attn_impl)
-        return L.layernorm_apply(self.final_norm, x)
+        B, P = x.shape[0], x.shape[1] - 1
+        schedule = tuple(filter_schedule or ())
+        if not schedule and 0 < filter_layer < n_layers and 0.0 < filter_keep < 1.0:
+            schedule = ((filter_layer, filter_keep),)
+        # drop degenerate stages (keep >= 1 or layer out of range)
+        schedule = tuple((int(l), float(k)) for l, k in schedule
+                         if 0 < int(l) < n_layers and 0.0 < float(k) < 1.0)
+        idx_global = None
+        if not schedule:
+            x = self._run(x, 0, n_layers, attn_impl)
+            return L.layernorm_apply(self.final_norm, x), idx_global
+
+        if filter_merge or filter_delta_correct:
+            raise NotImplementedError(
+                "the token filter's merge mode ('@m') and delta correction ('@d') "
+                "are not ported yet (ROADMAP.md Queue 1 item 7)")
+        ls = [l for l, _ in schedule]
+        kf = [k for _, k in schedule]
+        if ls != sorted(set(ls)):
+            raise ValueError(f"filter schedule layers must be strictly "
+                             f"increasing: {schedule}")
+        if any(b >= a for a, b in zip(kf, kf[1:])):
+            raise ValueError(f"filter schedule keep fractions must be "
+                             f"strictly decreasing: {schedule}")
+        if not 0.0 <= filter_ctx_frac < 1.0:
+            raise ValueError(
+                f"filter_ctx_frac ('@cF') must be in [0, 1) — reserving "
+                f"the WHOLE budget for context leaves no guided slots "
+                f"(got {filter_ctx_frac})")
+        if filter_prop_attn and not filter_fuse:
+            raise ValueError(
+                "filter_prop_attn ('@p') weights tokens by how many "
+                "source tokens they represent — it needs token_filter_fuse "
+                "(drop mode) or merge mode to have any such tokens")
+        p_sz = cfg.patch_size
+        gh, gw = images.shape[1] // p_sz, images.shape[2] // p_sz
+        fuse_groups = None
+        n_groups = max(1, int(filter_fuse_k))
+        if n_groups > 1:
+            q = int(round(n_groups ** 0.5))
+            if q * q != n_groups:
+                raise ValueError(
+                    f"filter_fuse_k must be a perfect square (got "
+                    f"{filter_fuse_k})")
+            ids, n_groups = _fuse_group_ids(gh, gw, n_groups)
+            fuse_groups = torch.from_numpy(ids).to(x.device)
+        if filter_strat_stride > 1:
+            # +0.25 on the keep-weight scale = +2.5 priority: above
+            # background (0), below the lowest guided tier (+5)
+            m = np.zeros((gh, gw), np.float32)
+            off = filter_strat_stride // 2
+            m[off::filter_strat_stride, off::filter_strat_stride] = 1.0
+            bonus = torch.from_numpy(0.25 * m.reshape(-1)).to(x.device)[None]
+            base = keep_weights if keep_weights is not None else 1.0
+            keep_weights = (base + bonus).float().expand(B, P)
+        ks = [max(1, int(round(k * P))) for k in kf]
+        x_full = None
+        imp_carry = None  # the surviving tokens' importance at their last ranking
+        k_bias = None  # proportional-attention logit bias [B, T]
+        r = float(filter_rollout)
+        prev = 0
+        for (boundary, _), k_i in zip(schedule, ks):
+            x = self._run(x, prev, boundary, attn_impl, k_bias)
+            prev = boundary
+            imp = _cls_importance(self.layers[boundary], x)
+            if idx_global is None:
+                x_full = x
+                x, idx_global = _filter_tokens(
+                    x, imp, keep_weights, k_i, fuse=filter_fuse and k_i < P,
+                    fuse_groups=fuse_groups, fuse_n_groups=n_groups,
+                    ctx_frac=filter_ctx_frac)
+                imp_carry = imp.gather(1, idx_global)
+            else:
+                k_prev = idx_global.shape[1]
+                if k_i >= k_prev:
+                    continue  # nothing more to drop at this stage
+                kw = None
+                if keep_weights is not None:
+                    kw = keep_weights.gather(1, idx_global)
+                if r > 0.0:
+                    imp_p = (1.0 - r) * imp[:, :k_prev] + r * imp_carry
+                    imp = torch.cat([imp_p, imp[:, k_prev:]], dim=1)
+                # tokens dropped HERE freeze at their current values
+                x_full = _scatter_tokens(x_full.to(x.dtype), x, idx_global)
+                gg = fuse_groups[idx_global] if fuse_groups is not None else None
+                x, idx_local = _refilter_tokens(
+                    x, imp, k_prev, kw, k_i, fuse=filter_fuse, groups_gathered=gg,
+                    n_groups=n_groups, ctx_frac=filter_ctx_frac)
+                imp_carry = imp[:, :k_prev].gather(1, idx_local)
+                idx_global = idx_global.gather(1, idx_local)
+            if filter_prop_attn and filter_fuse and idx_global.shape[1] < P:
+                k_bias = _prop_bias_drop(idx_global, P, fuse_groups, n_groups)
+        x = self._run(x, prev, n_layers, attn_impl, k_bias)
+        x = _scatter_tokens(x_full.to(x.dtype), x, idx_global)
+        return L.layernorm_apply(self.final_norm, x), idx_global

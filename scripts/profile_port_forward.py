@@ -2,10 +2,13 @@
 """Where one forward of the PyTorch + CUDA port spends its time on the card.
 
     python3 scripts/profile_port_forward.py [--policy int8] [--batch 8] [--top 25]
+        [--token-filter 2:0.35@p] [--attn-impl pallas_packed_i8qk]
 
 Builds the ViT-B 518x518 model (2 focal iterations, random weights from a
-seed, ``attn_impl="pallas_packed"``) under each named policy, runs guided
-forwards on device-resident images, and prints for each policy:
+seed, ``attn_impl="pallas_packed"`` unless named) under each named policy,
+for each ``--token-filter`` specification (may repeat; "" or "off" is the
+unfiltered forward, the default), runs guided forwards on device-resident
+images, and prints for each:
 
   * the forward's time with a synchronise (host clock) and the host's time
     to enqueue it (no synchronise), averaged over --iters forwards;
@@ -29,7 +32,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def profile_policy(name: str, batch: int, iters: int, top: int):
+def profile_policy(name: str, batch: int, iters: int, top: int, token_filter: str = "",
+                   attn_impl: str = "pallas_packed"):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -37,10 +41,12 @@ def profile_policy(name: str, batch: int, iters: int, top: int):
     from cognitive_aim_tpu_torch.core.precision import policy_from_name
     from cognitive_aim_tpu_torch.core.rng import NoiseMode
     from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
-    from cognitive_aim_tpu_torch.models.config import ModelArchConfig
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig, parse_token_filter
 
-    arch = ModelArchConfig(num_iterations=2, image_size=518)
-    model = CognitiveAimModel(arch, policy_from_name(name), "pallas_packed")
+    arch = ModelArchConfig(num_iterations=2, image_size=518,
+                           **parse_token_filter(token_filter))
+    model = CognitiveAimModel(arch, policy_from_name(name), attn_impl)
+    name = f"{name} {attn_impl} filter {token_filter or 'off'}"
     model.init(torch.Generator(device="cuda").manual_seed(0)).prepare_params()
     g = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn((batch, 518, 518, 3), generator=g, device="cuda")
@@ -90,6 +96,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--policy", action="append",
                     help="default, int8 or f32; may repeat (default: default and int8)")
+    ap.add_argument("--token-filter", action="append",
+                    help="token-filter specification, e.g. 2:0.35@p; may repeat "
+                         "(default: off)")
+    ap.add_argument("--attn-impl", default="pallas_packed",
+                    help="pallas_packed or pallas_packed_i8qk")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
@@ -105,7 +116,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip())
     for name in args.policy or ["default", "int8"]:
-        profile_policy(name, args.batch, args.iters, args.top)
+        for spec in args.token_filter or [""]:
+            profile_policy(name, args.batch, args.iters, args.top,
+                           "" if spec == "off" else spec, args.attn_impl)
     return 0
 
 

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K6 and the int8 kernels K2, K3, K4, K4a, K4b, K5
-against their plain PyTorch versions, on the card. Every test here needs an
+"""The CUDA kernels K1, K6, K7, K10, K10b and the int8 kernels K2, K3, K4,
+K4a, K4b, K5 against their plain PyTorch versions, on the card. Every test here needs an
 NVIDIA Hopper GPU and skips without one.
 
 This file imports no jax (the GPU machine has none). From the repository
@@ -89,6 +89,129 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     y = torch.zeros(1, 10, 128, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         TFA.flash_attention_packed(y, y, y, 0.125, 2)
+
+
+# ------------------------------------- biased and int8-QK^T attention ----
+def _bias_row(B, N, kind, dev):
+    """Key-side logit bias [B, N]: zeros; log token counts on the 4 trailing
+    keys with one empty group at log(1e-6); log counts on every key."""
+    r = np.random.RandomState(3)
+    b = np.zeros((B, N), np.float32)
+    if kind == "groups":
+        b[:, -4:] = np.log(r.randint(1, 891, (B, 4)))
+        b[0, -2] = np.log(1e-6)
+    elif kind == "every_key":
+        b[:] = np.log(r.randint(1, 891, (B, N)))
+    return torch.from_numpy(b).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H", [(257, 12), (481, 12), (416, 12), (1370, 12), (257, 16)])
+@pytest.mark.parametrize("bias", ["zeros", "groups", "every_key"])
+@pytest.mark.parametrize("kernel", ["K7", "K7_f32", "K10b"])
+def test_biased_attention_kernel_matches_plain(kernel, bias, N, H, cuda_device):
+    """bf16: atol 2e-2 as K1 (bf16 outputs, P rounded before P V); the
+    float32 K7 kernel: summation order only, atol 1e-4. A zero bias gives
+    the unbiased kernel's output bit for bit."""
+    B, D = 2, 64
+    dtype = torch.float32 if kernel == "K7_f32" else torch.bfloat16
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in _arrays((B, N, H * D)))
+    row = _bias_row(B, N, bias, cuda_device)
+    wrapper, plain, unbiased = {
+        "K7": (TFA.flash_attention_packed_bias, TFA.flash_attention_packed_bias_plain,
+               TFA.flash_attention_packed),
+        "K10b": (TFA.flash_attention_packed_i8qk_bias,
+                 TFA.flash_attention_packed_i8qk_bias_plain, TFA.flash_attention_packed_i8qk),
+    }[kernel.split("_")[0]]
+    n = wrapper.launches
+    got = wrapper(q, k, v, row, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n + 1 and got.dtype == dtype
+    want = plain(q.float(), k.float(), v.float(), row, D ** -0.5, H)
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want).abs().max()) <= (1e-4 if dtype == torch.float32 else 2e-2)
+    if bias == "zeros":
+        assert torch.equal(got, unbiased(q, k, v, D ** -0.5, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H", [(257, 12), (481, 12), (1370, 12), (257, 16)])
+def test_k10_kernel_matches_plain(N, H, cuda_device):
+    B, D = 2, 64
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _arrays((B, N, H * D)))
+    n, nq = TFA.flash_attention_packed_i8qk.launches, TFA.quantize_rows.launches
+    got = TFA.flash_attention_packed_i8qk(q, k, v, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert TFA.flash_attention_packed_i8qk.launches == n + 1
+    assert TFA.quantize_rows.launches == nq + 2  # q and k, through the quantising kernel
+    want = TFA.flash_attention_packed_i8qk_plain(q.float(), k.float(), v.float(), D ** -0.5, H)
+    assert float((got.float() - want).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_quantize_rows_kernel_matches_plain(cuda_device):
+    """The kernel divides by 127; PyTorch on the card multiplies by the
+    rounded reciprocal: scales to one float32 step, int8 values equal but
+    for those on a rounding boundary (under 1e-3 of them, by 1)."""
+    (x,) = _arrays((2, 481, 768), n=1, seed=4, scale=2.0)
+    x = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    x8, sx = TFA.quantize_rows(x)
+    p8, ps = TFA.quantize_rows_plain(x)
+    assert x8.dtype == torch.int8 and sx.shape == (2, 481, 1)
+    diff = (x8.int() - p8.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+    assert float(((sx - ps).abs() / ps).max()) <= 2e-7
+
+
+@pytest.mark.cuda
+def test_filter_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    x = torch.zeros(1, 10, 96, device=cuda_device, dtype=torch.bfloat16)  # not H * 64
+    row = torch.zeros(1, 10, device=cuda_device)
+    for call in (lambda: TFA.flash_attention_packed_bias(x, x, x, row, 0.125, 2),
+                 lambda: TFA.flash_attention_packed_i8qk(x, x, x, 0.125, 2),
+                 lambda: TFA.flash_attention_packed_i8qk_bias(x, x, x, row, 0.125, 2)):
+        with pytest.raises(ValueError):
+            call()
+    y = torch.zeros(1, 10, 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # a bias row of another length
+        TFA.flash_attention_packed_bias(y, y, y, torch.zeros(1, 9, device=cuda_device), 0.125, 2)
+    with pytest.raises(ValueError):  # a bias row on another device
+        TFA.flash_attention_packed_i8qk_bias(y, y, y, torch.zeros(1, 10), 0.125, 2)
+    before = [w.launches for w in TFA.WRAPPERS]
+    with pytest.raises(TypeError):  # the int8-QK^T kernel takes bf16 only
+        TFA.flash_attention_packed_i8qk(y.float(), y.float(), y.float(), 0.125, 2)
+    assert [w.launches for w in TFA.WRAPPERS] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,want", [("pallas_packed", [1, 2, 0, 0]),
+                                       ("pallas_packed_i8qk", [0, 0, 1, 2])])
+def test_filtered_model_counts_its_launches(impl, want, cuda_device):
+    """A 3-layer int8 model with the filter '1:0.5@p': block 0 runs the
+    unbiased attention, blocks 1 and 2 the biased one."""
+    from cognitive_aim_tpu_torch.core.precision import policy_from_name
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig, parse_token_filter
+    from cognitive_aim_tpu_torch.nn.dinov2 import DinoV2Config
+
+    vit = DinoV2Config(hidden_size=128, num_layers=3, num_heads=2, pretrain_image_size=56,
+                       gelu_approx=True)
+    arch = ModelArchConfig(num_iterations=2, image_size=112, **parse_token_filter("1:0.5@p"))
+    model = CognitiveAimModel(arch, policy_from_name("int8"), impl, vit_cfg=vit)
+    model.init(torch.Generator(device="cuda").manual_seed(0)).prepare_params()
+    x = torch.randn(3, 112, 112, 3, device=cuda_device)
+    g = torch.tensor([0, 4, 8], device=cuda_device)
+    counters = TFA.WRAPPERS[:4]
+    for w in counters:
+        w.launches = 0
+    out = model(x, guidance=g)
+    torch.cuda.synchronize()
+    assert [w.launches for w in counters] == want
+    model.attn_impl = impl.replace("pallas_packed", "plain")
+    ref = model(x, guidance=g)
+    torch.testing.assert_close(out.depth, ref.depth, atol=0, rtol=2e-2)
+    torch.testing.assert_close(out.confidence, ref.confidence, atol=0, rtol=2e-2)
 
 
 # ------------------------------------------------------------ int8 kernels ----

@@ -361,9 +361,13 @@ def test_noise_zeros_mode_and_int8_policy():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         TModel(TCfg.ModelArchConfig(use_lora=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        TModel(TCfg.ModelArchConfig(token_filter_layer=2, token_filter_keep=0.5),
-               device="cpu")
+    for mode in ("token_filter_merge", "token_filter_delta_correct"):
+        with pytest.raises(NotImplementedError):
+            TModel(TCfg.ModelArchConfig(token_filter_layer=2, token_filter_keep=0.5,
+                                        **{mode: True}), device="cpu")
+    # the token filter's drop mode is ported (tests/test_torch_filter.py)
+    TModel(TCfg.ModelArchConfig(token_filter_layer=2, token_filter_keep=0.5),
+           vit_cfg=TD.DinoV2Config(**TINY), device="cpu")
     with pytest.raises(ValueError):
         TModel(TCfg.ModelArchConfig(), attn_impl="xla", vit_cfg=TD.DinoV2Config(**TINY),
                device="cpu")
