@@ -17,10 +17,10 @@ arithmetic for K10 and K10b (an exact integer product, ``s32 * sq * sk``
 with the softmax scale folded into ``sq``, f32 softmax, P cast to v's dtype).
 
 ``quantize_rows`` is the joint-row symmetric quantisation that K10 and K10b
-read. The JAX package runs it outside its Pallas kernel; here bfloat16 CUDA
-rows go through the int8 block's quantising prologue
-(``quant_rows_kernel<false>`` of ``csrc/int8_block.cu``, one launch a
-tensor), anything else through plain PyTorch, with the same f32 arithmetic.
+read. The JAX package runs it outside its Pallas kernel; here CUDA rows go
+through the int8 block's quantising prologue (``quant_rows_kernel<false>``
+of ``csrc/int8_block.cu``, one launch a tensor: contiguous bfloat16 rows up
+to 1024 wide), CPU rows through plain PyTorch with the same f32 arithmetic.
 
 Dispatch is on the tensor's device: CPU tensors take the plain version,
 CUDA tensors launch the kernel or raise. Each wrapper's ``.launches`` counts
@@ -83,7 +83,9 @@ def flash_attention_packed_bias_plain(q: torch.Tensor, k: torch.Tensor, v: torch
 
 def quantize_rows_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     xf = x.float()
-    s = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp(min=1e-12)
+    # a tensor divisor on x's device: by a Python scalar PyTorch's CUDA
+    # division multiplies by the rounded 1/127, which is not a true division
+    s = (xf.abs().amax(dim=-1, keepdim=True) / xf.new_full((1,), 127.0)).clamp(min=1e-12)
     return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
 
 
@@ -197,13 +199,18 @@ def flash_attention_packed_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, N, HD] -> (int8 [B, N, HD], f32 scales [B, N, 1]): symmetric per
     row, joint across heads; ``s = max(max|x| / 127, 1e-12)``, a true
-    division, round-half-even, clip to +-127, all in f32."""
+    division, round-half-even, clip to +-127, all in f32. CPU -> plain
+    version; CUDA -> the kernel (bfloat16, width a multiple of 8 up to 1024)."""
     require_device("quantize_rows", x)
-    B, N, HD = x.shape
-    if not (x.device.type == "cuda" and x.dtype == torch.bfloat16
-            and HD % 8 == 0 and HD <= MAX_QUANT_WIDTH
-            and x.is_contiguous() and x.data_ptr() % 16 == 0):
+    if x.device.type == "cpu":
         return quantize_rows_plain(x)
+    B, N, HD = x.shape
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"quantize_rows: the CUDA kernel takes bfloat16, got {x.dtype}")
+    if HD % 8 or HD > MAX_QUANT_WIDTH:
+        raise ValueError(f"quantize_rows: width {HD} is not a multiple of 8 up to "
+                         f"{MAX_QUANT_WIDTH}")
+    check_cuda_inputs("quantize_rows", (x,), (B, N, HD))
     xq = torch.empty(B, N, HD, dtype=torch.int8, device=x.device)
     sx = torch.empty(B, N, 1, dtype=torch.float32, device=x.device)
     lib = _build.library()

@@ -47,6 +47,7 @@ LoRA, merge mode, the delta correction and pipelining are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -273,18 +274,16 @@ def _group_fused(x_tokens, w, groups, n_groups: int, w_fallback=None):
     its tokens, instead of a zero vector."""
     dt = x_tokens.dtype
     eps = torch.tensor(1e-9, dtype=dt, device=x_tokens.device)
-    outs = []
-    for g in range(n_groups):
-        gmask = (groups == g).to(dt)
-        wg = w * gmask
-        den = wg.sum(dim=1, keepdim=True)
-        if w_fallback is not None:
-            use_fb = (den <= 0).to(dt)
-            wg = wg + use_fb * (w_fallback * gmask)
-            den = wg.sum(dim=1, keepdim=True)
-        outs.append((x_tokens * wg[..., None]).sum(dim=1, keepdim=True)
-                    / (den[..., None] + eps))
-    return torch.cat(outs, dim=1)
+    # all groups in one pass: [B, T, G] one-hot weights, one reduction over T
+    gmask = (groups[..., None] == torch.arange(n_groups, device=groups.device)).to(dt)
+    wg = w[..., None] * gmask
+    den = wg.sum(dim=1)  # [B, G]
+    if w_fallback is not None:
+        use_fb = (den <= 0).to(dt)
+        wg = wg + use_fb[:, None] * (w_fallback[..., None] * gmask)
+        den = wg.sum(dim=1)
+    num = torch.einsum("btg,btd->bgd", wg, x_tokens)
+    return num / (den[..., None] + eps)
 
 
 def _keep_indices(importance, keep_weights, k_keep: int, ctx_frac: float = 0.0):
@@ -397,19 +396,43 @@ def _fuse_group_ids(gh: int, gw: int, n_groups: int) -> Tuple[np.ndarray, int]:
     return np.searchsorted(uniq, ids).astype(np.int64), int(len(uniq))
 
 
-def _prop_bias_drop(idx_global, P: int, fuse_groups, n_groups: int):
+@functools.lru_cache(maxsize=32)
+def _fuse_groups_on(gh: int, gw: int, n_groups: int, device: torch.device):
+    """``_fuse_group_ids`` on ``device``, made once per grid: ([P] int64 group
+    ids, [P, G] f32 one-hot membership)."""
+    ids, n = _fuse_group_ids(gh, gw, n_groups)
+    groups = torch.from_numpy(ids).to(device)
+    return groups, F.one_hot(groups, n).float()
+
+
+@functools.lru_cache(maxsize=32)
+def _strat_bonus_on(gh: int, gw: int, stride: int, device: torch.device):
+    """[1, P] f32 on ``device``, made once per grid: 0.25 at every
+    (stride, stride)-strided grid position, 0 elsewhere."""
+    m = np.zeros((gh, gw), np.float32)
+    m[stride // 2::stride, stride // 2::stride] = 1.0
+    return torch.from_numpy(0.25 * m.reshape(-1)).to(device)[None]
+
+
+def _prop_bias_drop(idx_global, P: int, group_onehot):
     """[B, 1+k+G] f32 key bias of proportional attention: 0 for CLS and the
     kept tokens, +log(number of dropped tokens it stands for) for each
-    context token; a group with nothing dropped gets log(1e-6)."""
+    context token; a group with nothing dropped gets log(1e-6).
+    group_onehot: [P, G] f32 membership of each patch, or None for G = 1."""
     B, k = idx_global.shape
     dr = 1.0 - _mask_of(idx_global, P, torch.float32)
-    if fuse_groups is not None:
-        counts = torch.stack([(dr * (fuse_groups[None] == gi)).sum(dim=1)
-                              for gi in range(n_groups)], dim=1)
+    if group_onehot is not None:
+        counts = dr @ group_onehot  # sums of 0s and 1s: exact
     else:
         counts = dr.sum(dim=1, keepdim=True)
     zeros = torch.zeros(B, 1 + k, dtype=torch.float32, device=idx_global.device)
     return torch.cat([zeros, torch.log(counts.clamp(min=1e-6))], dim=1)
+
+
+@functools.lru_cache(maxsize=32)
+def _bicubic_weights_on(src: int, dst: int, device: torch.device) -> torch.Tensor:
+    """The [dst, src] bicubic resize matrix on ``device``, made once per size."""
+    return torch.from_numpy(resize_weights(src, dst, "bicubic").copy()).to(device)
 
 
 class DinoV2(nn.Module):
@@ -448,8 +471,8 @@ class DinoV2(nn.Module):
         if grid_h * grid_w == n_pos and grid_h == grid_w:
             return pos
         dev = pos.device
-        Wh = torch.from_numpy(resize_weights(src, grid_h, "bicubic").copy()).to(dev)
-        Ww = torch.from_numpy(resize_weights(src, grid_w, "bicubic").copy()).to(dev)
+        Wh = _bicubic_weights_on(src, grid_h, dev)
+        Ww = _bicubic_weights_on(src, grid_w, dev)
         patch = pos[:, 1:].reshape(1, src, src, -1).float()
         out = torch.einsum("oh,bhwd->bowd", Wh, patch)
         out = torch.einsum("pw,bowd->bopd", Ww, out)
@@ -554,7 +577,7 @@ class DinoV2(nn.Module):
                 "(drop mode) or merge mode to have any such tokens")
         p_sz = cfg.patch_size
         gh, gw = images.shape[1] // p_sz, images.shape[2] // p_sz
-        fuse_groups = None
+        fuse_groups = group_onehot = None
         n_groups = max(1, int(filter_fuse_k))
         if n_groups > 1:
             q = int(round(n_groups ** 0.5))
@@ -562,15 +585,12 @@ class DinoV2(nn.Module):
                 raise ValueError(
                     f"filter_fuse_k must be a perfect square (got "
                     f"{filter_fuse_k})")
-            ids, n_groups = _fuse_group_ids(gh, gw, n_groups)
-            fuse_groups = torch.from_numpy(ids).to(x.device)
+            fuse_groups, group_onehot = _fuse_groups_on(gh, gw, n_groups, x.device)
+            n_groups = group_onehot.shape[1]
         if filter_strat_stride > 1:
             # +0.25 on the keep-weight scale = +2.5 priority: above
             # background (0), below the lowest guided tier (+5)
-            m = np.zeros((gh, gw), np.float32)
-            off = filter_strat_stride // 2
-            m[off::filter_strat_stride, off::filter_strat_stride] = 1.0
-            bonus = torch.from_numpy(0.25 * m.reshape(-1)).to(x.device)[None]
+            bonus = _strat_bonus_on(gh, gw, int(filter_strat_stride), x.device)
             base = keep_weights if keep_weights is not None else 1.0
             keep_weights = (base + bonus).float().expand(B, P)
         ks = [max(1, int(round(k * P))) for k in kf]
@@ -609,7 +629,7 @@ class DinoV2(nn.Module):
                 imp_carry = imp[:, :k_prev].gather(1, idx_local)
                 idx_global = idx_global.gather(1, idx_local)
             if filter_prop_attn and filter_fuse and idx_global.shape[1] < P:
-                k_bias = _prop_bias_drop(idx_global, P, fuse_groups, n_groups)
+                k_bias = _prop_bias_drop(idx_global, P, group_onehot)
         x = self._run(x, prev, n_layers, attn_impl, k_bias)
         x = _scatter_tokens(x_full.to(x.dtype), x, idx_global)
         return L.layernorm_apply(self.final_norm, x), idx_global

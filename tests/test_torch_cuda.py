@@ -150,18 +150,41 @@ def test_k10_kernel_matches_plain(N, H, cuda_device):
 
 
 @pytest.mark.cuda
-def test_quantize_rows_kernel_matches_plain(cuda_device):
-    """The kernel divides by 127; PyTorch on the card multiplies by the
-    rounded reciprocal: scales to one float32 step, int8 values equal but
-    for those on a rounding boundary (under 1e-3 of them, by 1)."""
-    (x,) = _arrays((2, 481, 768), n=1, seed=4, scale=2.0)
+@pytest.mark.parametrize("shape", [(2, 481, 768), (2, 257, 1024)])
+def test_quantize_rows_kernel_matches_plain(shape, cuda_device):
+    """Kernel and plain version both divide by 127 (the plain version by a
+    tensor on the card: by a Python scalar PyTorch's CUDA division multiplies
+    by the rounded reciprocal), round half to even and clip in float32: the
+    int8 values and the scales are equal bit for bit."""
+    (x,) = _arrays(shape, n=1, seed=4, scale=2.0)
     x = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    n = TFA.quantize_rows.launches
     x8, sx = TFA.quantize_rows(x)
     p8, ps = TFA.quantize_rows_plain(x)
-    assert x8.dtype == torch.int8 and sx.shape == (2, 481, 1)
-    diff = (x8.int() - p8.int()).abs()
-    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
-    assert float(((sx - ps).abs() / ps).max()) <= 2e-7
+    assert TFA.quantize_rows.launches == n + 1
+    assert x8.dtype == torch.int8 and sx.shape == (*shape[:2], 1)
+    assert torch.equal(x8, p8) and torch.equal(sx, ps)
+
+
+@pytest.mark.cuda
+def test_quantize_rows_raises_on_what_the_kernel_does_not_take(cuda_device):
+    """On the card the wrapper launches its kernel or raises; it never takes
+    the plain version there."""
+    n, n10 = TFA.quantize_rows.launches, TFA.flash_attention_packed_i8qk.launches
+    ok = torch.zeros(2, 10, 1024, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # float32 rows
+        TFA.quantize_rows(ok.float())
+    for bad in (torch.zeros(2, 10, 1088, device=cuda_device, dtype=torch.bfloat16),  # too wide
+                torch.zeros(2, 10, 68, device=cuda_device, dtype=torch.bfloat16),  # not 8 k
+                ok[:, :, ::2],  # not contiguous
+                ok.reshape(-1)[4:4 + 2 * 9 * 1024].view(2, 9, 1024)):  # 8-byte aligned
+        with pytest.raises(ValueError):
+            TFA.quantize_rows(bad)
+    assert TFA.quantize_rows.launches == n
+    y = torch.zeros(1, 10, 17 * 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # 17 heads: wider than the quantising kernel takes
+        TFA.flash_attention_packed_i8qk(y, y, y, 0.125, 17)
+    assert (TFA.quantize_rows.launches, TFA.flash_attention_packed_i8qk.launches) == (n, n10)
 
 
 @pytest.mark.cuda
