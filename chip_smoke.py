@@ -18,7 +18,14 @@ kernels compile for sm_90a) and the CUDA toolkit:
       ViT-L width; bias rows of zeros, log counts and an empty group; K7
       also in float32), against their plain PyTorch versions, each error
       printed beside its stated tolerance; quantize_rows (Q), which K10 and
-      K10b call on q and k, bit for bit against its plain version;
+      K10b call on q and k, bit for bit against its plain version; K8
+      flash_attention on contiguous [B, N, H, 64] tensors and on the column
+      slices of one fused projection (N 257, 481, 1370, ViT-L heads, bf16 and
+      float32, also bit for bit against K1 on the same memory), K13 int8_proj
+      at the four projection shapes of a block (fc2 reads rows 3072 wide),
+      ViT-L widths and N 257 and 481, K15 int8_gemm_fused at M 8 x 1370 and
+      8 x 481, K14 int8_fc1_gelu against its plain version and against K4a
+      on rows the plain layernorm normalised;
   (d) slices: guided ViT-B 518x518 inference (2 focal iterations, random
       weights from a seeded torch.Generator) answering a 9-instruction
       batch, a mixed batch of 8 and an unguided request through uint8 ->
@@ -34,11 +41,22 @@ kernels compile for sm_90a) and the CUDA toolkit:
       2, K10b 10, Q 24) and default 1:0.6,2:0.3@f4 (K1 12 at N 1370, 826, 416),
       each also through the plain versions, with the stream lengths, the
       frozen dropped tokens and the overlap of the two paths' kept sets
-      (at least 0.98) checked;
+      (at least 0.98) checked; then the adapter (LoRA) slices on seeded
+      weights with non-zero lora_B, a mixed batch of 8, each through kernels
+      and plain versions: default policy with rank 16 on attn_out (K1 12,
+      K6 2), the same with attn_impl="pallas" (K8 12, K1 0), int8 with rank
+      64 on qkv, attn_out, fc1 and fc2 (the unchained block: K15 12, K1 12,
+      K2 = K3 = K4 = 0, K5 2, K6 2), the same weights folded by
+      merge_lora_params under int8 with 2:0.35 (chained again: K2, K3, K4 12,
+      K15 0), 2:0.35@m@p (K1 2, K7 10; every patch position equals its
+      representative's row) and 2:0.35@d, and folded against runtime adapters
+      under the default policy;
   (e) times with CUDA events: every kernel beside its plain version and
-      its bound, K1 and K7 beside scaled_dot_product_attention, the B=8
-      forward under both policies and through the int8 filtered slices, and
-      the host time to enqueue one forward.
+      its bound, K1, K7 and K8 beside scaled_dot_product_attention, K13
+      beside int8_ops.int8_linear at the three shapes the unchained block
+      gives that function, the B=8 forward under both policies, through the
+      int8 filtered slices and through the int8 adapter slice, and the host
+      time to enqueue one forward.
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -87,6 +105,14 @@ POLICY_BUDGET = 1e-2  # the 1% AbsRel budget of scripts/policy_delta.py, for sca
 # so bf16 differences between kernels and plain versions move a few tokens
 # across it: share of a sample's kept set found in the other path's
 MIN_KEPT_OVERLAP = 0.98
+# K14 on rows the plain layernorm normalised against K4a on the raw rows: K14
+# reads the normalised rows rounded to bf16 (2^-9 relative), K4a quantises them
+# from f32, so up to a tenth of the int8 activations differ by 1 and the hidden
+# moves by about one of its own int8 steps (1/127 of a row's maximum): max
+# |dequantised difference| <= 3e-2 of the largest hidden value
+TOL_K14_NORMED = 3e-2
+# adapters change the answer: least relative change of depth, adapters on vs off
+MIN_ADAPTER_EFFECT = 1e-4
 
 # the card's published dense peaks (NVIDIA H100 SXM data sheet)
 PEAK_BYTES = 3.35e12
@@ -423,6 +449,113 @@ def phase_int8_kernels():
     return errs
 
 
+def _proj_inputs(M_shape, K, Nout, g):
+    """bf16 rows [*M_shape, K], an int8 weight [Nout, K] with f32 scales, and
+    an f32 bias holding bf16-rounded values."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels.int8_ops import quantize_weight
+    from cognitive_aim_tpu_torch.nn.layers import round_through
+
+    x = _rand((*M_shape, K), g, torch.bfloat16)
+    w = quantize_weight(_rand((Nout, K), g, torch.float32, 0.05))
+    b = round_through(_rand((Nout,), g, torch.float32, 0.01), torch.bfloat16)
+    return x, w, b
+
+
+def phase_adapter_kernels():
+    """K8, K13, K14 and K15 against their plain versions."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import flash_attention as FA
+    from cognitive_aim_tpu_torch.kernels import int8_block as IB
+    from cognitive_aim_tpu_torch.kernels import int8_gemm as IG
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    worst = {"K8": 0.0, "K13": 0.0, "K14": 0.0, "K15": 0.0}
+    Dh = 64
+
+    def report(name, tag, err, tol, ok, main=True):
+        log(f"  {name} {tag}: max_abs_err {err:.3e} (tol {tol:.2e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at {tag}")
+        if main:
+            worst[name] = max(worst[name], err)
+
+    # K8: separately made tensors, and the three column slices of one fused
+    # projection read in place; the same bits as K1 on the packed layout
+    for B, H, N in ((8, 12, 1370), (8, 12, 481), (8, 12, 257), (2, 16, 257)):
+        for dt, tol in ((torch.bfloat16, TOL_BF16_OUT), (torch.float32, TOL_F32_OUT)):
+            fused = _rand((B, N, 3 * H * Dh), g, dt)
+            views = [t.view(B, N, H, Dh) for t in fused.split(H * Dh, dim=-1)]
+            for layout, (q, k, v) in (("fused slices", views),
+                                      ("contiguous", [t.contiguous() for t in views])):
+                got = FA.flash_attention(q, k, v, Dh ** -0.5)
+                ref = FA.attention_reference(q.float(), k.float(), v.float(), Dh ** -0.5)
+                packed = (t.reshape(B, N, H * Dh).contiguous() for t in (q, k, v))
+                k1 = FA.flash_attention_packed(*packed, Dh ** -0.5, H)
+                torch.cuda.synchronize()
+                err = max_err(got, ref)
+                ok = (err <= tol and bool(torch.isfinite(got).all()) and got.is_contiguous()
+                      and torch.equal(got.view(B, N, H * Dh), k1))
+                report("K8", f"flash_attention B{B} N{N} H{H} {str(dt)[6:]} {layout} "
+                       f"(and bit-equal to K1)", err, tol, ok,
+                       main=N == 1370 and dt == torch.bfloat16)
+
+    def lim(want):
+        return TOL_INT8_REL * max(1.0, float(want.float().abs().max()))
+
+    # K13 at a block's projection shapes (fc2: rows 3072 wide), ViT-L widths, ragged N
+    for B, N, K, Nout in ((8, 1370, 768, 768), (8, 1370, 768, 3072), (8, 1370, 3072, 768),
+                          (8, 1370, 768, 2304), (2, 257, 1024, 4096), (2, 257, 4096, 1024),
+                          (8, 257, 768, 768), (8, 481, 3072, 768)):
+        x, w, b = _proj_inputs((B, N), K, Nout, g)
+        got, want = IB.int8_proj(x, w["q"], w["s"], b), IB.int8_proj_plain(x, w["q"], w["s"], b)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        report("K13", f"int8_proj B{B} N{N} K{K} -> {Nout}", err, lim(want),
+               err <= lim(want) and got.is_contiguous() and got.shape == (B, N, Nout),
+               main=B == 8 and N == 1370)
+    # K15 on flattened rows, and over leading dimensions
+    for M, K, Nout in ((8 * 1370, 768, 2304), (8 * 481, 768, 2304), (2 * 257, 1024, 3072)):
+        x, w, b = _proj_inputs((M,), K, Nout, g)
+        got = IG.int8_gemm_fused(x, w["q"], w["s"], b)
+        want = IG.int8_gemm_fused_plain(x, w["q"], w["s"], b)
+        lead = IG.int8_linear_fused(x.view(2, M // 2, K), w, b)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        report("K15", f"int8_gemm_fused M{M} K{K} -> {Nout}", err, lim(want),
+               err <= lim(want) and torch.equal(lead.view(M, Nout), got), main=M == 8 * 1370)
+    # K14 against its plain version, and against K4a on layernormed rows
+    for B, N, D, F in ((8, 1370, 768, 3072), (8, 481, 768, 3072), (2, 257, 1024, 4096)):
+        t = _int8_inputs(B, N, D, F, g)
+        (h8, sh), (h8p, shp) = IB.int8_fc1_gelu(t["x"], *t["fc1"]), \
+            IB.int8_fc1_gelu_plain(t["x"], *t["fc1"])
+        torch.cuda.synchronize()
+        diff = (h8.int() - h8p.int()).abs()
+        share, most = float((diff > 0).float().mean()), int(diff.max())
+        srel = float(((sh - shp).abs() / shp).max())
+        err = max_err(h8.float() * sh, h8p.float() * shp)
+        ok = share < TOL_INT8_SHARE and most <= 1 and srel <= TOL_INT8_SCALE
+        log(f"  K14 int8_fc1_gelu B{B} N{N} D{D} F{F}: int8 differ {share:.2e} (tol "
+            f"{TOL_INT8_SHARE:.0e}) by at most {most} (tol 1), scales rel {srel:.2e} (tol "
+            f"{TOL_INT8_SCALE:.0e}), dequantised max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("K14 disagrees with its plain version")
+        if N == 1370:
+            worst["K14"] = err
+        normed = IB._ln_f32(t["x"].float(), t["gamma"], t["beta"], 1e-6).to(torch.bfloat16)
+        a8, sa = IB.int8_fc1_gelu(normed, *t["fc1"])
+        b8, sb = IB.int8_fc1_gelu_ln(t["x"], t["gamma"], t["beta"], *t["fc1"], 1e-6)
+        torch.cuda.synchronize()
+        err = max_err(a8.float() * sa, b8.float() * sb)
+        tol = TOL_K14_NORMED * float((b8.float() * sb).abs().max())
+        report("K14", f"int8_fc1_gelu on layernormed rows against K4a B{B} N{N} D{D} F{F} "
+               f"(int8 differ {float((a8 != b8).float().mean()):.2e})", err, tol, err <= tol,
+               main=False)
+    return worst
+
+
 # ------------------------------------------------------------- slices (d) ----
 def _requests(image_size: int, g):
     """(name, uint8 images, exif, guidance) for the three requests."""
@@ -489,26 +622,46 @@ def _wrappers():
     from cognitive_aim_tpu_torch.kernels import flash_attention as FA
     from cognitive_aim_tpu_torch.kernels import focal_attention as FO
     from cognitive_aim_tpu_torch.kernels import int8_block as IB
+    from cognitive_aim_tpu_torch.kernels import int8_gemm as IG
 
     return {"K1": FA.flash_attention_packed, "K2": IB.int8_qkv_proj_ln,
             "K3": IB.int8_out_residual, "K4": IB.int8_mlp_ln,
             "K4a": IB.int8_fc1_gelu_ln, "K4b": IB.int8_out_residual_prequant,
             "K5": IB.int8_qkv_proj, "K6": FO.focal_attention_fused,
             "K7": FA.flash_attention_packed_bias, "K10": FA.flash_attention_packed_i8qk,
-            "K10b": FA.flash_attention_packed_i8qk_bias, "Q": FA.quantize_rows}
+            "K10b": FA.flash_attention_packed_i8qk_bias, "Q": FA.quantize_rows,
+            "K8": FA.flash_attention, "K13": IB.int8_proj, "K14": IB.int8_fc1_gelu,
+            "K15": IG.int8_gemm_fused}
 
 
-def _build_model(policy, image_size, seed, token_filter="", attn_impl="pallas_packed"):
+def _build_model(policy, image_size, seed, token_filter="", attn_impl="pallas_packed",
+                 adapters=None, fold=False):
+    """adapters: None, or (rank, alpha, targets): the blocks get adapters whose
+    lora_B is drawn N(0, 0.02) from the same generator (zeros, the init's
+    value, would hide the path); ``fold`` merges them before the policy's
+    transform, as a deployment does."""
     import torch
 
     from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
     from cognitive_aim_tpu_torch.models.config import ModelArchConfig, parse_token_filter
 
-    arch = ModelArchConfig(num_iterations=2, image_size=image_size,
+    lora = {}
+    if adapters:
+        rank, alpha, targets = adapters
+        lora = dict(use_lora=True, lora_rank=rank, lora_alpha=alpha, lora_targets=targets)
+    arch = ModelArchConfig(num_iterations=2, image_size=image_size, **lora,
                            **parse_token_filter(token_filter))
     t0 = time.perf_counter()
     model = CognitiveAimModel(arch, policy, attn_impl)  # on the card
-    model.init(torch.Generator(device="cuda").manual_seed(seed)).prepare_params()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    model.init(g)
+    if adapters:
+        for blk in model.backbone.layers:
+            for target in adapters[2]:
+                blk.adapter(target)[1].data.normal_(0.0, 0.02, generator=g)
+        if fold:
+            model.merge_lora_params()
+    model.prepare_params()
     torch.cuda.synchronize()
     log(f"  model built and initialized in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M float parameters)")
@@ -521,8 +674,11 @@ class _plain_versions:
     def __init__(self, model):
         self.model, self.impl = model, model.attn_impl
 
+    PLAIN = {"pallas_packed": "plain", "pallas_packed_i8qk": "plain_i8qk",
+             "pallas": "plain_heads"}
+
     def __enter__(self):
-        self.model.attn_impl = self.impl.replace("pallas_packed", "plain")
+        self.model.attn_impl = self.PLAIN[self.impl]
 
     def __exit__(self, *exc):
         self.model.attn_impl = self.impl
@@ -673,7 +829,20 @@ def _check_filtered_backbone(tag, model, x, gidx, stream):
     want = [stream[sum(i >= b for b in bounds)] for i in range(cfg.num_layers)]
     if lengths != want:
         raise AssertionError(f"{tag}: stream lengths per block {lengths} != {want}")
-    if len(stream) == 2:  # single stage: a dropped token is its filter-point value
+    arch = model.arch
+    if arch.token_filter_merge:
+        # every patch position carries the row of the kept token that stands for
+        # it: find each position's nearest kept row and hold it equal bit for bit
+        for b in range(B):
+            rows = hidden[b, 1:].float()
+            kept = rows[idx[b]]
+            nearest = torch.cdist(rows, kept).argmin(dim=1)
+            if not torch.equal(rows, kept[nearest]):
+                raise AssertionError(f"{tag}: a merged position differs from every kept row")
+            if len(torch.unique(kept, dim=0)) != kept.shape[0]:
+                raise AssertionError(f"{tag}: two kept tokens carry the same row")
+    elif len(stream) == 2 and not arch.token_filter_delta_correct:
+        # single stage, drop mode: a dropped token is its filter-point value
         kw = model.backbone_kwargs(x, gidx)
         frozen = bb._run(bb.embed(x, kw["compute_dtype"]), 0, bounds[0], kw["attn_impl"])
         frozen = L.layernorm_apply(bb.final_norm, frozen)
@@ -717,6 +886,111 @@ def phase_filtered_slices(reqs):
     return models, launches
 
 
+# ----------------------------------------------------- adapter slices (d) ----
+ATTN_OUT_16 = (16, 16, ("attn_out",))  # configs/experiment_B.yaml: rank 16, attn_out
+SANDWICH_64 = (64, 64, ("qkv", "attn_out", "fc1", "fc2"))  # merge_lora's docstring
+_CHAINED = {"K2": 12, "K3": 12, "K4": 12, "K4a": 12, "K4b": 12, "K5": 2, "K6": 2}
+ADAPTER_SLICES = [
+    # name, policy, adapters, folded, token filter, attn_impl, stream lengths,
+    # launches per forward
+    ("A1", "default", ATTN_OUT_16, False, "", "pallas_packed", None, {"K1": 12, "K6": 2}),
+    ("A2", "default", ATTN_OUT_16, False, "", "pallas", None, {"K8": 12, "K6": 2}),
+    ("A3", "int8", SANDWICH_64, False, "", "pallas_packed", None,
+     {"K15": 12, "K1": 12, "K5": 2, "K6": 2}),
+    ("A4", "int8", SANDWICH_64, True, "2:0.35", "pallas_packed", (1370, 481),
+     {"K1": 12, **_CHAINED}),
+    ("A5", "int8", SANDWICH_64, True, "2:0.35@m@p", "pallas_packed", (1370, 480),
+     {"K1": 2, "K7": 10, **_CHAINED}),
+    ("A6", "int8", SANDWICH_64, True, "2:0.35@d", "pallas_packed", (1370, 481),
+     {"K1": 12, **_CHAINED}),
+]
+
+
+class _adapters_gated_off:
+    """Within the block the backbone runs as one built without ``use_lora``
+    does on the same tensors: it holds the adapters and ignores them."""
+
+    def __init__(self, model):
+        self.blocks = list(model.backbone.layers)
+
+    def _set(self, on: bool):
+        import dataclasses
+
+        for blk in self.blocks:
+            blk.cfg = dataclasses.replace(blk.cfg, use_lora=on)
+
+    def __enter__(self):
+        self._set(False)
+
+    def __exit__(self, *exc):
+        self._set(True)
+
+
+def phase_adapter_slices(reqs):
+    """The adapter path at full width: runtime adapters under both policies
+    (under int8 the unchained block through K15), attn_impl="pallas" through
+    K8, and the folded deployment with the filter's drop mode, merge mode and
+    delta correction. Each through the kernels (launch counts asserted) and
+    through the plain versions."""
+    import torch
+
+    from cognitive_aim_tpu_torch.core.precision import policy_from_name
+    from cognitive_aim_tpu_torch.core.rng import NoiseMode
+    from cognitive_aim_tpu_torch.io.preprocess import resize_normalize
+
+    S = 518
+    mixed = reqs[1]
+    models, launches = {}, {}
+    for name, policy, adapters, fold, spec, impl, stream, per_forward in ADAPTER_SLICES:
+        rank, _, targets = adapters
+        log(f"(d) adapter slice {name}: ViT-B 518x518, {policy} policy, rank {rank} on "
+            f"{', '.join(targets)}{', folded' if fold else ''}, "
+            f"{'token filter ' + spec if spec else 'no filter'}, {impl}")
+        model = _build_model(policy_from_name(policy), S, seed=0, token_filter=spec,
+                             attn_impl=impl, adapters=adapters, fold=fold)
+        blocks = model.backbone.layers
+        if fold:
+            if any(b.has_adapters for b in blocks) or not all(b.chained(impl) == (
+                    policy == "int8") for b in blocks):
+                raise AssertionError(f"{name}: the fold left adapters or the unchained block")
+        else:
+            b_max = min(float(b.adapter(t)[1].detach().abs().max())
+                        for b in blocks for t in targets)
+            if not b_max > 0 or any(b.chained(impl) for b in blocks):
+                raise AssertionError(f"{name}: adapters are not live")
+        _, launches[name] = _drive(model, [mixed], S, per_forward)
+        if stream is not None:
+            _check_filtered_backbone(f"slice {name} {mixed[0]}", model,
+                                     resize_normalize(mixed[1], S, S), mixed[3], stream)
+        models[name] = model
+
+    # what the adapters do, and the fold against the runtime adapters, under the
+    # default policy on one set of weights (the same seed, so the same draws)
+    policy = policy_from_name("default")
+    on = _build_model(policy, S, seed=0, adapters=SANDWICH_64)
+    folded = _build_model(policy, S, seed=0, adapters=SANDWICH_64, fold=True)
+    x = resize_normalize(mixed[1], S, S)
+
+    def serve(m):
+        return m(x, mixed[2], guidance=mixed[3], noise_mode=NoiseMode.ZEROS)
+
+    outs = {"on": serve(on), "folded": serve(folded)}
+    with _adapters_gated_off(on):
+        outs["off"] = serve(on)
+    rd = _rel(outs["folded"].depth, outs["on"].depth)
+    rc = _rel(outs["folded"].confidence, outs["on"].confidence)
+    effect = _rel(outs["on"].depth, outs["off"].depth)
+    ok = rd <= TOL_SLICE_BF16 and rc <= TOL_SLICE_BF16 and effect >= MIN_ADAPTER_EFFECT
+    log(f"  default policy, rank 64 on all four targets: folded vs runtime adapters depth rel "
+        f"{rd:.2e}, confidence rel {rc:.2e} (tol {TOL_SLICE_BF16:.0e}); adapters on vs off "
+        f"depth rel {effect:.2e} (min {MIN_ADAPTER_EFFECT:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the folded model disagrees with its runtime adapters, or the "
+                             "adapters do nothing")
+    del on, folded
+    return models, launches
+
+
 # -------------------------------------------------------------- times (e) ----
 def _host_enqueue_ms(fn, iters: int = 5) -> float:
     """Host clock from the call to its return (no synchronise inside), the
@@ -741,6 +1015,9 @@ def phase_kernel_times(smi):
 
     from cognitive_aim_tpu_torch.kernels import flash_attention as FA
     from cognitive_aim_tpu_torch.kernels import focal_attention as FO
+    from cognitive_aim_tpu_torch.kernels import int8_block as IB
+    from cognitive_aim_tpu_torch.kernels import int8_gemm as IG
+    from cognitive_aim_tpu_torch.kernels import int8_ops as I8
 
     log(f"(e) times with CUDA events on {smi}")
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -765,6 +1042,13 @@ def phase_kernel_times(smi):
     record("K1", f"B{B} N{N} H{H} bf16",
            lambda: FA.flash_attention_packed(q, k, v, 0.125, H),
            lambda: FA.flash_attention_packed_plain(q, k, v, 0.125, H),
+           bound(4 * B * N * D * 2, 4 * B * N * N * D, "bf16"),
+           lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), scale=0.125))
+    # K8: K1's work on [B, N, H, 64] views of the same memory
+    q4, k4, v4 = (t.view(B, N, H, D // H) for t in (q, k, v))
+    record("K8", f"B{B} N{N} H{H} bf16",
+           lambda: FA.flash_attention(q4, k4, v4, 0.125),
+           lambda: FA.attention_reference(q4, k4, v4, 0.125),
            bound(4 * B * N * D * 2, 4 * B * N * N * D, "bf16"),
            lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), scale=0.125))
     # K7, K10, K10b at the filtered stream's N 481 (the shape of the kernels
@@ -838,13 +1122,41 @@ def phase_kernel_times(smi):
     M5 = B * Nf
     record("K5", f"B{B} N{Nf} D{D}", *_int8_calls(t5)["K5"],
            bound(4 * M5 * D * 2 + 3 * D * D + 24 * D, 2 * M5 * D * 3 * D, "int8"))
+
+    def linear_bound(M, K, Nout):
+        """bf16 rows in and out once, the int8 weight, the two f32 vectors."""
+        return bound(2 * M * K + K * Nout + 2 * M * Nout + 8 * Nout, 2 * M * K * Nout, "int8")
+
+    # K15 at the shape the unchained block gives it: the fused qkv projection
+    x, w, b = _proj_inputs((M,), D, 3 * D, g)
+    record("K15", f"M{M} K{D} -> {3 * D}", lambda: IG.int8_gemm_fused(x, w["q"], w["s"], b),
+           lambda: IG.int8_gemm_fused_plain(x, w["q"], w["s"], b), linear_bound(M, D, 3 * D))
+    # K13 at the three shapes at which the unchained block calls
+    # int8_ops.int8_linear (attn_out, fc1, fc2), beside that function
+    shapes = {}
+    for K, Nout in ((D, Fh), (D, D), (Fh, D)):
+        x, w, b = _proj_inputs((B, N), K, Nout, g)
+        record("K13", f"B{B} N{N} K{K} -> {Nout}", lambda: IB.int8_proj(x, w["q"], w["s"], b),
+               lambda: IB.int8_proj_plain(x, w["q"], w["s"], b), linear_bound(M, K, Nout))
+        ms = cuda_ms(lambda: I8.int8_linear(x, w, b))
+        log(f"  int8_ops.int8_linear at that shape (row quantisation, torch._int_mm, "
+            f"dequantisation): {ms:.3f} ms")
+        shapes[(K, Nout)] = {**times.pop("K13"), "int8_linear_ms": ms}
+    times["K13"] = {**shapes.pop((D, Fh)), "other_shape": list(shapes.values())}
+    # K14: K4a's work without the layernorm (the kernel runs its GEMM twice;
+    # the bound counts the function's one product)
+    record("K14", f"B{B} N{N} D{D} F{Fh}", lambda: IB.int8_fc1_gelu(t["x"], *t["fc1"]),
+           lambda: IB.int8_fc1_gelu_plain(t["x"], *t["fc1"]),
+           bound(act + Fh * D + M * Fh + 4 * M + 8 * Fh, 2 * M * D * Fh, "int8"))
     return times
 
 
-def phase_forward_times(default, int8, filtered=None):
+def phase_forward_times(default, int8, filtered=None, adapters=None):
     """The B=8 guided forward under both policies, device and host; with
     ``filtered`` (slice name -> model) also the int8 filtered slices beside
-    the unfiltered int8 forward of the same run."""
+    the unfiltered int8 forward of the same run; with ``adapters`` (slice
+    name -> model) the int8 forward with live adapters (the unchained block)
+    and the folded filtered slices beside the exact int8 forward."""
     import torch
 
     from cognitive_aim_tpu_torch.core.rng import NoiseMode
@@ -876,21 +1188,31 @@ def phase_forward_times(default, int8, filtered=None):
         f"{plain_ms:.2f} ms")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"  peak device memory {peak:.2f} GiB")
-    if not filtered:
-        return
-    # the filtered slices beside the unfiltered int8 forward, in turns
-    run = {"unfiltered": int8, **{f"slice {n}": m for n, m in filtered.items() if n != "4"}}
-    order = list(run) + list(run)[::-1]
-    ms = {n: [] for n in run}
-    for n in order:
-        ms[n].append(cuda_ms(lambda m=run[n]: m(x, guidance=gidx, noise_mode=NoiseMode.ZEROS),
-                             iters=10, warmup=2))
-    for n, m in run.items():
-        enq = _host_enqueue_ms(lambda m=m: m(x, guidance=gidx, noise_mode=NoiseMode.ZEROS))
-        spec = f"{token_filter_spec(m.arch) or 'no filter'}, {m.attn_impl}"
-        log(f"  forward B8 518x518 guided, int8 policy, {n} ({spec}): "
-            f"{ms[n][0]:.2f}/{ms[n][1]:.2f} ms (order {', '.join(order)}), "
-            f"{8e3 / min(ms[n]):.1f} img/s; host enqueue {enq:.2f} ms")
+    def in_turns(run):
+        """Each model's forward timed twice, there and back again."""
+        order = list(run) + list(run)[::-1]
+        log(f"  in turns: {', '.join(order)}")
+        ms = {n: [] for n in run}
+        for n in order:
+            ms[n].append(cuda_ms(
+                lambda m=run[n]: m(x, guidance=gidx, noise_mode=NoiseMode.ZEROS),
+                iters=10, warmup=2))
+        for n, m in run.items():
+            enq = _host_enqueue_ms(lambda m=m: m(x, guidance=gidx, noise_mode=NoiseMode.ZEROS))
+            spec = f"{token_filter_spec(m.arch) or 'no filter'}, {m.attn_impl}"
+            lora = (f", adapters rank {m.arch.lora_rank} "
+                    f"{'live' if m.backbone.layers[0].live_adapters else 'folded'}"
+                    if m.arch.use_lora else "")
+            log(f"  forward B8 518x518 guided, {n} ({spec}{lora}): "
+                f"{ms[n][0]:.2f}/{ms[n][1]:.2f} ms, {8e3 / min(ms[n]):.1f} img/s; "
+                f"host enqueue {enq:.2f} ms")
+
+    if filtered:  # the filtered slices beside the unfiltered int8 forward
+        in_turns({"int8 unfiltered": int8,
+                  **{f"int8 slice {n}": m for n, m in filtered.items() if n != "4"}})
+    if adapters:  # live adapters (unchained) and the folded deployments beside exact int8
+        in_turns({"int8 exact": int8, "default exact": default,
+                  **{f"slice {n}": m for n, m in adapters.items()}})
 
 
 KERNELS = {
@@ -912,10 +1234,16 @@ KERNELS = {
     # the quantisation K10 and K10b read, two launches each (q and k); the JAX
     # package leaves it to XLA, outside its kernels
     "Q": ("quantize_rows", "int8_block.cu", "flash_attention.py:433"),
+    "K8": ("flash_attention", "flash_attention.cu", "flash_attention.py:44"),
+    # K13 and K14 have no caller in either package's models: their launches on
+    # the main path are 0, and phase (c) holds them against their plain versions
+    "K13": ("int8_proj", "int8_block.cu", "int8_block.py:83"),
+    "K14": ("int8_fc1_gelu", "int8_block.cu", "int8_block.py:183"),
+    "K15": ("int8_gemm_fused", "int8_block.cu", "int8_gemm.py:31"),
 }
 # the path whose run gives a kernel's ``launches``: the unfiltered int8 slice,
-# or the first filtered slice that reaches the kernel
-LAUNCHES_FROM = {"K7": "2", "K10": "3", "K10b": "3", "Q": "3"}
+# or the first filtered or adapter slice that reaches the kernel
+LAUNCHES_FROM = {"K7": "2", "K10": "3", "K10b": "3", "Q": "3", "K8": "A2", "K15": "A3"}
 
 
 def main() -> int:
@@ -938,14 +1266,16 @@ def main() -> int:
     errs = phase_kernels()
     errs.update(phase_int8_kernels())
     errs.update(phase_filter_kernels())
+    errs.update(phase_adapter_kernels())
     if "--kernels-only" in sys.argv[1:]:
         phase_kernel_times(smi)
         log(f"kernels only: no slice was driven, {time.perf_counter() - t_start:.1f} s")
         return 0
     default, int8, launches, launches_default, reqs = phase_slices()
     filtered, launches_filtered = phase_filtered_slices(reqs)
+    adapters, launches_adapters = phase_adapter_slices(reqs)
     times = phase_kernel_times(smi)
-    phase_forward_times(default, int8, filtered)
+    phase_forward_times(default, int8, filtered, adapters)
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
     if foreign:
@@ -954,10 +1284,11 @@ def main() -> int:
         {"id": kid, "name": name, "route": "cuda",
          "source": f"cognitive_aim_tpu_torch/csrc/{src}",
          "replaces": f"cognitive_aim_tpu/kernels/{body}",
-         "launches": (launches_filtered[LAUNCHES_FROM[kid]] if kid in LAUNCHES_FROM
-                      else launches)[kid],
+         "launches": ({**launches_filtered, **launches_adapters}[LAUNCHES_FROM[kid]]
+                      if kid in LAUNCHES_FROM else launches)[kid],
          "launches_default_policy": launches_default[kid],
          "launches_filtered_slices": {n: c[kid] for n, c in launches_filtered.items()},
+         "launches_adapter_slices": {n: c[kid] for n, c in launches_adapters.items()},
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -11,6 +11,11 @@ jax. It handles
   * q/k/v concatenated into the fused ``qkv`` projection, as the JAX
     backbone's ``apply`` concatenates them;
   * layernorm ``scale`` -> ``weight``, embedding ``table`` -> ``weight``;
+  * the backbone's adapters ``backbone/layers/lora_*`` [L, ...] -> each
+    Block's adapter parameters, untransposed (A [r, in], B [out, r] in both
+    packages). A model built without ``use_lora`` takes them too and its
+    forward ignores them, as the JAX package's exact path does; its
+    ``merge_lora_params(rank, alpha)`` can still fold them;
 
 and raises on a key it did not consume or a parameter it left unset.
 
@@ -25,6 +30,8 @@ from typing import Dict, Iterable, Set
 import numpy as np
 import torch
 from torch import nn
+
+from cognitive_aim_tpu_torch.nn.dinov2 import LORA_TARGETS, adapter_names
 
 _LAYERS = "backbone/layers/"
 _QKV = ("q", "k", "v")
@@ -76,6 +83,13 @@ def load_flat_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module
         depths = {np.shape(v)[0] for v in stacked.values()}
         if depths != {n_layers}:
             raise ValueError(f"stacked layer axis {sorted(depths)} != {n_layers} layers")
+        for target in LORA_TARGETS:  # adapters the blocks were not built with
+            a_name = adapter_names(target)[0]
+            if a_name in stacked:
+                for blk in model.backbone.layers:
+                    if blk.adapter(target) is None:
+                        blk.add_adapter(target, np.shape(stacked[a_name])[1])
+        params = dict(model.named_parameters())
         for i in range(n_layers):
             pre = f"backbone.layers.{i}."
             # JAX [L, D, D] per projection -> [3D, D] rows q, k, v

@@ -7,9 +7,14 @@
 //   K3  int8_out_residual           (body _out_res_kernel)
 //   K4a int8_fc1_gelu_ln            (body _fc1_ln_kernel)
 //   K4b int8_out_residual_prequant  (body _out_res_prequant_kernel)
-// and, as K4a followed by K4b, K4 int8_mlp_ln (body _mlp_ln_kernel).
+// and, as K4a followed by K4b, K4 int8_mlp_ln (body _mlp_ln_kernel);
+//   K13 int8_proj                   (body _qkv_kernel)
+//   K14 int8_fc1_gelu               (body _fc1_kernel): K4a without the layernorm
+// and, in cognitive_aim_tpu/kernels/int8_gemm.py,
+//   K15 int8_gemm_fused             (body _kernel): K13's function on rows
+//                                   flattened to [M, K].
 //
-// All five are one int8 GEMM, acc[m][n] = sum_k a[m][k] w[n][k] in int32 on
+// All of them are one int8 GEMM, acc[m][n] = sum_k a[m][k] w[n][k] in int32 on
 // the tensor cores (wgmma m64n128k32), between a prologue that makes the
 // int8 A operand and an epilogue that consumes the accumulators:
 //   prologue  quant_rows_kernel<LN>: one warp per row of the bf16 input;
@@ -17,10 +22,15 @@
 //             deviations, two passes over the row held in registers), then
 //             s = max(max|x| / 127, 1e-12), q = clip(rint(x / s)) with a
 //             true division, on the f32 value. Writes int8 [M, K] + f32 [M].
-//             K4b takes its int8 input and scales as they are.
+//             K4b takes its int8 input and scales as they are. Rows wider
+//             than 1024 (K13 at the fc2 shape, K 3072) go through
+//             quant_rows_wide_kernel: the same arithmetic without the
+//             layernorm, the row read twice (maximum, then quantise; the
+//             second read is served by L1/L2) instead of held in registers.
 //   epilogue  kQKV:       acc * s_x * s_w + b -> bf16, split at columns D and
 //                         2D into three contiguous [M, D] tensors;
 //             kResidual:  res + ls * (acc * s_x * s_w + b) -> bf16;
+//             kPlain:     acc * s_x * s_w + b -> bf16 [M, N], unsplit (K13, K15);
 //             kGeluMax:   max |tanh-GELU(acc * s_x * s_w + b)| per row and
 //                         column tile -> f32 [M, N / 128];
 //             kGeluQuant: the same GELU value again, quantised with the
@@ -33,7 +43,8 @@
 // D 768, F 3072) K2 and K5 are 38.8 GOP against 69 MB (20 us at the int8
 // peak, 21 us at the memory rate), K3 12.9 GOP against 51 MB (memory-bound,
 // 15 us), K4a and K4b 51.7 GOP each against 53 and 70 MB (operation-bound,
-// 26 us). What the design does about it:
+// 26 us); K15 on the adapter path is K5's shape, K13 one of the above by its
+// widths, K14 K4a's. What the design does about it:
 //   * The TPU kernel kept a whole weight and a 352- or 704-row activation
 //     tile in 16 MB of VMEM. An SM has 227 KB, so a block owns a 128 x 128
 //     output tile and streams 128-deep slices of A and W through a 3-stage
@@ -86,7 +97,7 @@ static_assert(BM == BN && (BM * LDC + BM) * sizeof(float) <= GEMM_SMEM - 1024,
 constexpr int MAX_QUANT_K = 1024;   // widest row quant_rows_kernel holds in registers
 constexpr int QUANT_THREADS = 256;  // 8 rows a block
 
-enum Epilogue : int { kQKV = 0, kResidual = 1, kGeluMax = 2, kGeluQuant = 3 };
+enum Epilogue : int { kQKV = 0, kResidual = 1, kGeluMax = 2, kGeluQuant = 3, kPlain = 4 };
 
 struct GemmArgs {
   const int8_t* a;    // [M, K] int8 activations
@@ -95,7 +106,7 @@ struct GemmArgs {
   const float* ws;    // [N] per-output-channel scales
   const float* bias;  // [N]
   int M, K, N;
-  bf16* out;          // kQKV: [3, M, D]; kResidual: [M, N]
+  bf16* out;          // kQKV: [3, M, D]; kResidual, kPlain: [M, N]
   int D;              // kQKV: width of each of q, k, v (a multiple of BN)
   const bf16* res;    // kResidual: [M, N]
   const float* ls;    // kResidual: [N]
@@ -203,6 +214,37 @@ quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
       }
       *reinterpret_cast<uint2*>(xq + (size_t)row * K + k) = make_uint2(lo, hi);
     }
+  }
+  if (lane == 0) sx[row] = s;
+}
+
+// Rows of any width K (a multiple of 8), no layernorm: the row is read
+// twice, once for its maximum and once to quantise.
+__global__ void __launch_bounds__(QUANT_THREADS)
+quant_rows_wide_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
+                       float* __restrict__ sx, int M, int K) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (QUANT_THREADS / 32) + threadIdx.x / 32;
+  if (row >= M) return;
+  const bf16* xr = x + (size_t)row * K;
+  float amax = 0.0f;
+  for (int k = lane * 8; k < K; k += 256) {
+    const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
+    const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(__bfloat162float(e[t])));
+  }
+  const float s = quant_scale(warp_max(amax));
+  for (int k = lane * 8; k < K; k += 256) {
+    const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
+    const bf16* e = reinterpret_cast<const bf16*>(&u);
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      lo |= (uint32_t)(quant_value(__bfloat162float(e[t]), s) & 0xff) << (8 * t);
+      hi |= (uint32_t)(quant_value(__bfloat162float(e[4 + t]), s) & 0xff) << (8 * t);
+    }
+    *reinterpret_cast<uint2*>(xq + (size_t)row * K + k) = make_uint2(lo, hi);
   }
   if (lane == 0) sx[row] = s;
 }
@@ -383,10 +425,13 @@ cudaError_t launch_quant_rows(const void* x, const void* gamma, const void* beta
         static_cast<const bf16*>(x), static_cast<const float*>(gamma),
         static_cast<const float*>(beta), eps, static_cast<int8_t*>(xq),
         static_cast<float*>(sx), M, K);
-  else
+  else if (K <= MAX_QUANT_K)
     quant_rows_kernel<false><<<grid, QUANT_THREADS, 0, stream>>>(
         static_cast<const bf16*>(x), nullptr, nullptr, 0.0f, static_cast<int8_t*>(xq),
         static_cast<float*>(sx), M, K);
+  else
+    quant_rows_wide_kernel<<<grid, QUANT_THREADS, 0, stream>>>(
+        static_cast<const bf16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K);
   return cudaGetLastError();
 }
 
@@ -473,16 +518,32 @@ extern "C" int caim_int8_out_residual(const void* x, void* aq, void* sa, const v
   return (int)caim::launch_gemm<caim::kResidual>(p, st);
 }
 
-// K4a: x [M, K] -> h8 int8 [M, F], sh f32 [M]. partial is f32 scratch
-// [M, F / 128]. gamma and beta null: no layernorm.
-extern "C" int caim_int8_fc1_gelu(const void* x, const void* gamma, const void* beta,
-                                  float eps, const void* wq, const void* ws,
-                                  const void* bias, void* h8, void* sh, void* xq, void* sx,
-                                  void* partial, int M, int K, int F, void* stream) {
-  if (!caim::gemm_shape_ok(M, K, F) || K > caim::MAX_QUANT_K)
+namespace caim {
+
+// x bf16 [M, K] -> out bf16 [M, N] = quant(x) wq^T * s_x * s_w + bias.
+int int8_linear(const void* x, void* xq, void* sx, const void* wq, const void* ws,
+                const void* bias, void* out, int M, int K, int N, cudaStream_t st) {
+  if (!gemm_shape_ok(M, K, N)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_quant_rows(x, nullptr, nullptr, 0.0f, xq, sx, M, K, st);
+  if (err != cudaSuccess) return (int)err;
+  GemmArgs p{};
+  p.a = static_cast<const int8_t*>(xq);
+  p.sa = static_cast<const float*>(sx);
+  p.w = static_cast<const int8_t*>(wq);
+  p.ws = static_cast<const float*>(ws);
+  p.bias = static_cast<const float*>(bias);
+  p.M = M, p.K = K, p.N = N;
+  p.out = static_cast<bf16*>(out);
+  return (int)launch_gemm<kPlain>(p, st);
+}
+
+// x [M, K] -> h8 int8 [M, F], sh f32 [M]; gamma and beta null: no layernorm.
+int fc1_gelu(const void* x, const void* gamma, const void* beta, float eps, const void* wq,
+             const void* ws, const void* bias, void* h8, void* sh, void* xq, void* sx,
+             void* partial, int M, int K, int F, cudaStream_t st) {
+  if (!gemm_shape_ok(M, K, F) || (gamma != nullptr && K > MAX_QUANT_K))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = caim::launch_quant_rows(x, gamma, beta, eps, xq, sx, M, K, st);
+  cudaError_t err = launch_quant_rows(x, gamma, beta, eps, xq, sx, M, K, st);
   if (err != cudaSuccess) return (int)err;
   GemmArgs p{};
   p.a = static_cast<const int8_t*>(xq);
@@ -494,7 +555,46 @@ extern "C" int caim_int8_fc1_gelu(const void* x, const void* gamma, const void* 
   p.h8 = static_cast<int8_t*>(h8);
   p.sh = static_cast<float*>(sh);
   p.partial = static_cast<float*>(partial);
-  err = caim::launch_gemm<caim::kGeluMax>(p, st);
+  err = launch_gemm<kGeluMax>(p, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)caim::launch_gemm<caim::kGeluQuant>(p, st);
+  return (int)launch_gemm<kGeluQuant>(p, st);
+}
+
+}  // namespace caim
+
+// K4a: layernorm (gamma, beta, eps) -> quantise -> GEMM -> tanh GELU ->
+// requantise over the whole row. partial is f32 scratch [M, F / 128].
+extern "C" int caim_int8_fc1_gelu(const void* x, const void* gamma, const void* beta,
+                                  float eps, const void* wq, const void* ws,
+                                  const void* bias, void* h8, void* sh, void* xq, void* sx,
+                                  void* partial, int M, int K, int F, void* stream) {
+  if (gamma == nullptr || beta == nullptr) return (int)cudaErrorInvalidValue;
+  return caim::fc1_gelu(x, gamma, beta, eps, wq, ws, bias, h8, sh, xq, sx, partial, M, K, F,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K14: K4a without the layernorm.
+extern "C" int caim_int8_fc1_gelu_rows(const void* x, const void* wq, const void* ws,
+                                       const void* bias, void* h8, void* sh, void* xq,
+                                       void* sx, void* partial, int M, int K, int F,
+                                       void* stream) {
+  return caim::fc1_gelu(x, nullptr, nullptr, 0.0f, wq, ws, bias, h8, sh, xq, sx, partial, M, K,
+                        F, static_cast<cudaStream_t>(stream));
+}
+
+// K13: x [B N, K] -> out [B N, Nout] = quant(x) wq^T * s_x * s_w + bias, rows of
+// any width K that is a multiple of 128.
+extern "C" int caim_int8_proj(const void* x, void* xq, void* sx, const void* wq,
+                              const void* ws, const void* bias, void* out, int M, int K,
+                              int N, void* stream) {
+  return caim::int8_linear(x, xq, sx, wq, ws, bias, out, M, K, N,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// K15: the same function on rows already flattened to [M, K].
+extern "C" int caim_int8_gemm_fused(const void* x, void* xq, void* sx, const void* wq,
+                                    const void* ws, const void* bias, void* out, int M, int K,
+                                    int N, void* stream) {
+  return caim::int8_linear(x, xq, sx, wq, ws, bias, out, M, K, N,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -109,6 +109,17 @@ def _declare(lib):
     # x, gamma, beta, eps, wq, ws, bias, h8, sh, xq, sx, partial, M, K, F, stream
     lib.caim_int8_fc1_gelu.argtypes = [p, p, p, f, p, p, p, p, p, p, p, p, i, i, i, p]
     lib.caim_int8_fc1_gelu.restype = i
+    # x, wq, ws, bias, h8, sh, xq, sx, partial, M, K, F, stream
+    lib.caim_int8_fc1_gelu_rows.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.caim_int8_fc1_gelu_rows.restype = i
+    # x, xq, sx, wq, ws, bias, out, M, K, N, stream
+    for fn in (lib.caim_int8_proj, lib.caim_int8_gemm_fused):
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        fn.restype = i
+    # q, k, v, out, q_strides, k_strides, v_strides (3 int64 each: batch, token,
+    # head), B, N, H, head_dim, scale, dtype, stream
+    lib.caim_flash_attention.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i, p]
+    lib.caim_flash_attention.restype = i
     lib.caim_error_string.argtypes = [i]
     lib.caim_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,4 +1,4 @@
-"""K1, K7, K10, K10b: packed multi-head attention for the ViT backbone.
+"""K1, K7, K8, K10, K10b: multi-head attention for the ViT backbone.
 
 Counterparts, in cognitive_aim_tpu/kernels/flash_attention.py, of
 
@@ -8,11 +8,18 @@ Counterparts, in cognitive_aim_tpu/kernels/flash_attention.py, of
                                              and k quantised per row
   K10b ``flash_attention_packed_i8qk_bias``  K10 with the bias row of K7
 
-all on the packed [B, N, H*64] layout of the projections. The kernels are
-CUDA C++ in ``csrc/flash_attention_packed.cu`` (K1, K7) and
-``csrc/flash_attention_i8qk.cu`` (K10, K10b). Beside each wrapper stands its
+all on the packed [B, N, H*64] layout of the projections, and
+
+  K8   ``flash_attention``                   the same function on [B, N, H, 64]
+                                             operands (``attn_impl="pallas"``)
+
+whose kernel takes each operand's batch, token and head strides, so it reads
+separately projected tensors and the column slices of one fused projection
+alike, without a copy. The kernels are CUDA C++ in
+``csrc/flash_attention_packed.cu`` (K1, K7), ``csrc/flash_attention.cu`` (K8)
+and ``csrc/flash_attention_i8qk.cu`` (K10, K10b). Beside each wrapper stands its
 plain PyTorch version, which mirrors the JAX package's ``_packed_reference``
-and ``_packed_reference_bias`` for K1 and K7 and repeats the kernel body's
+and ``_packed_reference_bias`` for K1 and K7, ``attention_reference`` for K8, and repeats the kernel body's
 arithmetic for K10 and K10b (an exact integer product, ``s32 * sq * sk``
 with the softmax scale folded into ``sq``, f32 softmax, P cast to v's dtype).
 
@@ -31,10 +38,13 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import ctypes
+
 import torch
 
 from cognitive_aim_tpu_torch.kernels import _build
 from cognitive_aim_tpu_torch.kernels._launch import (
+    DTYPE_CODES,
     check_cuda_inputs,
     ptr,
     require_device,
@@ -79,6 +89,16 @@ def flash_attention_packed_bias_plain(q: torch.Tensor, k: torch.Tensor, v: torch
                           _heads(k, num_heads).transpose(-1, -2)) * scale
     scores = scores + k_bias[:, None, None, :].to(scores.dtype)
     return _attend(scores, v, num_heads)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """K8's plain version. [B, N, H, Dh] -> [B, N, H, Dh]: scores in the
+    input dtype, f32 softmax, P cast to q's dtype, P V in that dtype."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    scores = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.matmul(probs, vt).transpose(1, 2)
 
 
 def quantize_rows_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -196,6 +216,47 @@ def flash_attention_packed_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return out
 
 
+def _check_head_operand(name: str, t: torch.Tensor, like: torch.Tensor):
+    """K8 reads rows of 64 contiguous values at strides that keep every row
+    16-byte aligned; anything else raises (no copy is made for the caller)."""
+    vec = 16 // t.element_size()
+    if t.shape != like.shape or t.dtype != like.dtype or t.device != like.device:
+        raise ValueError(f"{name}: q, k, v differ in shape, dtype or device")
+    if t.stride(3) != 1 or any(st % vec for st in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{name}: operands need a contiguous last dimension and 16-byte "
+                         f"aligned rows, got strides {t.stride()}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """K8. q, k, v: [B, N, H, 64], bfloat16 or float32, contiguous or strided
+    views (a reshaped packed projection, a column slice of a fused one) ->
+    a contiguous [B, N, H, 64] in q's dtype. CPU -> ``attention_reference``;
+    CUDA -> the kernel, which addresses the operands in place."""
+    require_device("flash_attention", q)
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, scale)
+    name = "flash_attention"
+    if q.ndim != 4 or q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{name}: operands must be [B, N, H, {HEAD_DIM}], got "
+                         f"{tuple(q.shape)}")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported (float32 or bfloat16)")
+    for t in (q, k, v):
+        _check_head_operand(name, t, q)
+    B, N, H, _ = q.shape
+    out = torch.empty(B, N, H, HEAD_DIM, dtype=q.dtype, device=q.device)
+    strides = [(ctypes.c_longlong * 3)(*t.stride()[:3]) for t in (q, k, v)]
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.caim_flash_attention(
+            ptr(q), ptr(k), ptr(v), ptr(out), *strides, B, N, H, HEAD_DIM, float(scale),
+            DTYPE_CODES[q.dtype], stream_of(q))
+    _build.check(err)
+    flash_attention.launches += 1
+    return out
+
+
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, N, HD] -> (int8 [B, N, HD], f32 scales [B, N, 1]): symmetric per
     row, joint across heads; ``s = max(max|x| / 127, 1e-12)``, a true
@@ -249,6 +310,6 @@ def flash_attention_packed_i8qk_bias(q: torch.Tensor, k: torch.Tensor, v: torch.
 
 WRAPPERS = (flash_attention_packed, flash_attention_packed_bias,
             flash_attention_packed_i8qk, flash_attention_packed_i8qk_bias,
-            quantize_rows)
+            quantize_rows, flash_attention)
 for _w in WRAPPERS:
     _w.launches = 0

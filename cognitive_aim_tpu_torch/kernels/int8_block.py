@@ -1,4 +1,5 @@
-"""K2-K5: the chained int8 transformer-block GEMMs and the focal qkv GEMM.
+"""K2-K5, K13, K14: the chained int8 transformer-block GEMMs, the focal qkv
+GEMM, and the two variants that no model calls.
 
 Counterpart of cognitive_aim_tpu/kernels/int8_block.py, with its names and
 argument order:
@@ -16,6 +17,13 @@ argument order:
   K4  int8_mlp_ln                 K4a then K4b: the whole MLP; the int8
                                   hidden and its scales make one trip
                                   through device memory
+  K13 int8_proj                   row quant -> int8 GEMM [K -> Nout] ->
+                                  dequant + bias, unsplit; rows of any width
+  K14 int8_fc1_gelu               K4a without the layernorm
+
+K13 and K14 have no caller in either package's models (the JAX package's
+kernel tests use them); K15 (kernels/int8_gemm.py) is K13's function on
+flattened rows and is what the unchained int8 block calls.
 
 The kernels are CUDA C++ in ``csrc/int8_block.cu``. Beside each wrapper
 stands its plain PyTorch version (``*_plain``), the JAX kernel body's
@@ -48,7 +56,8 @@ from cognitive_aim_tpu_torch.kernels.int8_ops import int_matmul, quantize_activa
 
 TILE_N = 128  # output columns per thread block (csrc/int8_block.cu: BN)
 TILE_K = 128  # contraction depth per pipeline stage (BK)
-MAX_QUANT_K = 1024  # widest row the quantising prologue keeps in registers
+MAX_QUANT_K = 1024  # widest row the layernorm prologue keeps in registers; rows
+#                     without a layernorm may be wider (a two-pass prologue)
 
 
 # ---------------------------------------------------- shared arithmetic ----
@@ -86,7 +95,16 @@ def int8_out_residual_plain(x, wq, ws, b, ls, res):
 
 
 def int8_fc1_gelu_ln_plain(x, g, be, wq, ws, b, eps=1e-6):
-    xq, sx = quantize_activations(_ln_f32(x.float(), g, be, eps))
+    return int8_fc1_gelu_plain(_ln_f32(x.float(), g, be, eps), wq, ws, b)
+
+
+def int8_proj_plain(x, wq, ws, b, out_dtype=torch.bfloat16):
+    xq, sx = quantize_activations(x.float())
+    return _dequant(int_matmul(xq, wq), sx, ws, b).to(out_dtype)
+
+
+def int8_fc1_gelu_plain(x, wq, ws, b):
+    xq, sx = quantize_activations(x.float())
     return quantize_activations(_gelu_tanh(_dequant(int_matmul(xq, wq), sx, ws, b)))
 
 
@@ -247,6 +265,35 @@ def int8_out_residual_prequant(h8, sh, wq, ws, b, ls, res):
     return out
 
 
+def _launch_fc1_gelu(name, x, g, be, wq, ws, b, eps):
+    """g, be None: no layernorm (K14)."""
+    B, N, K = x.shape
+    _check_act(name, x, (B, N, K))
+    F = _check_weight(name, x, wq, ws, K)
+    _check_vec(name, x, b, F)
+    M = B * N
+    h8 = torch.empty(B, N, F, dtype=torch.int8, device=x.device)
+    sh = torch.empty(B, N, 1, dtype=torch.float32, device=x.device)
+    xq, sx = _scratch(x, M, K)
+    partial = torch.empty(M, F // TILE_N, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        if g is None:
+            err = lib.caim_int8_fc1_gelu_rows(
+                ptr(x), ptr(wq), ptr(ws), ptr(b), ptr(h8), ptr(sh), ptr(xq), ptr(sx),
+                ptr(partial), M, K, F, stream_of(x))
+        else:
+            _check_quant_width(name, K)
+            for v in (g, be):
+                _check_vec(name, x, v, K)
+            err = lib.caim_int8_fc1_gelu(
+                ptr(x), ptr(g), ptr(be), float(eps), ptr(wq), ptr(ws), ptr(b),
+                ptr(h8), ptr(sh), ptr(xq), ptr(sx), ptr(partial), M, K, F,
+                stream_of(x))
+    _build.check(err)
+    return h8, sh
+
+
 def int8_fc1_gelu_ln(x, g, be, wq, ws, b, eps=1e-6):
     """K4a. x [B, N, K] -> (h8 int8 [B, N, F], sh f32 [B, N, 1]): LN, quant,
     GEMM, tanh-GELU and the requantisation over the whole F-wide row. The
@@ -256,27 +303,54 @@ def int8_fc1_gelu_ln(x, g, be, wq, ws, b, eps=1e-6):
     require_device("int8_fc1_gelu_ln", x)
     if x.device.type == "cpu":
         return int8_fc1_gelu_ln_plain(x, g, be, wq, ws, b, eps)
-    name = "int8_fc1_gelu_ln"
-    B, N, K = x.shape
-    _check_act(name, x, (B, N, K))
-    _check_quant_width(name, K)
-    F = _check_weight(name, x, wq, ws, K)
-    for v, n in ((b, F), (g, K), (be, K)):
-        _check_vec(name, x, v, n)
-    M = B * N
-    h8 = torch.empty(B, N, F, dtype=torch.int8, device=x.device)
-    sh = torch.empty(B, N, 1, dtype=torch.float32, device=x.device)
-    xq, sx = _scratch(x, M, K)
-    partial = torch.empty(M, F // TILE_N, dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        err = lib.caim_int8_fc1_gelu(
-            ptr(x), ptr(g), ptr(be), float(eps), ptr(wq), ptr(ws), ptr(b),
-            ptr(h8), ptr(sh), ptr(xq), ptr(sx), ptr(partial), M, K, F,
-            stream_of(x))
-    _build.check(err)
+    out = _launch_fc1_gelu("int8_fc1_gelu_ln", x, g, be, wq, ws, b, eps)
     int8_fc1_gelu_ln.launches += 1
-    return h8, sh
+    return out
+
+
+def int8_fc1_gelu(x, wq, ws, b):
+    """K14. K4a without the layernorm: x [B, N, K] -> quant -> GEMM ->
+    tanh-GELU -> requant -> (h8 int8 [B, N, F], sh f32 [B, N, 1])."""
+    require_device("int8_fc1_gelu", x)
+    if x.device.type == "cpu":
+        return int8_fc1_gelu_plain(x, wq, ws, b)
+    out = _launch_fc1_gelu("int8_fc1_gelu", x, None, None, wq, ws, b, 0.0)
+    int8_fc1_gelu.launches += 1
+    return out
+
+
+def launch_int8_linear(name, entry, x2, wq, ws, b):
+    """x2 bf16 [M, K] -> bf16 [M, Nout] through the C entry named ``entry``
+    (K13's or K15's: one kernel, a quantising prologue and the GEMM with the
+    unsplit epilogue)."""
+    M, K = x2.shape
+    _check_act(name, x2, (M, K))
+    Nout = _check_weight(name, x2, wq, ws, K)
+    _check_vec(name, x2, b, Nout)
+    out = torch.empty(M, Nout, dtype=x2.dtype, device=x2.device)
+    xq, sx = _scratch(x2, M, K)
+    lib = _build.library()
+    with torch.cuda.device(x2.device):
+        err = getattr(lib, entry)(ptr(x2), ptr(xq), ptr(sx), ptr(wq), ptr(ws), ptr(b),
+                                  ptr(out), M, K, Nout, stream_of(x2))
+    _build.check(err)
+    return out
+
+
+def int8_proj(x, wq, ws, b, out_dtype=torch.bfloat16):
+    """K13. x [B, N, K] -> [B, N, Nout]: row quant, int8 GEMM,
+    ``acc * s_x * s_w + b``, no split. CUDA: bfloat16 in and out, K and Nout
+    multiples of 128, rows of any such width (K 3072 at the fc2 shape)."""
+    require_device("int8_proj", x)
+    if x.device.type == "cpu":
+        return int8_proj_plain(x, wq, ws, b, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise TypeError("int8_proj: the CUDA kernel writes bfloat16")
+    B, N, K = x.shape
+    _check_act("int8_proj", x, (B, N, K))
+    out = launch_int8_linear("int8_proj", "caim_int8_proj", x.view(B * N, K), wq, ws, b)
+    int8_proj.launches += 1
+    return out.view(B, N, -1)
 
 
 def int8_mlp_ln(x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls, eps=1e-6):
@@ -296,6 +370,7 @@ def int8_mlp_ln(x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls, eps=1e-6):
 
 
 WRAPPERS = (int8_qkv_proj_ln, int8_qkv_proj, int8_out_residual,
-            int8_fc1_gelu_ln, int8_out_residual_prequant, int8_mlp_ln)
+            int8_fc1_gelu_ln, int8_out_residual_prequant, int8_mlp_ln,
+            int8_proj, int8_fc1_gelu)
 for _w in WRAPPERS:
     _w.launches = 0

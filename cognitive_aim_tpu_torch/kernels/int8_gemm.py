@@ -1,0 +1,64 @@
+"""K15: the fused int8 GEMM on flattened rows.
+
+Counterpart of cognitive_aim_tpu/kernels/int8_gemm.py, with its names:
+
+  ``int8_gemm_fused(x, wq, ws, b)``    x [M, K] -> [M, N]: dynamic per-row
+      quantisation of x, int8 GEMM, ``acc * s_x * s_w + b``, one cast;
+  ``int8_linear_fused(x, wq, b)``      the same for any leading dimensions,
+      the weight as ``{"q": int8 [N, K], "s": f32 [N]}``, output in x's dtype.
+
+The unchained int8 block (nn/dinov2.py) projects q, k and v through
+``int8_linear_fused`` on the fused [3D, D] weight, as the JAX package's
+``_mhsa`` does. The kernel is CUDA C++ in ``csrc/int8_block.cu``: the
+quantising prologue and the wgmma GEMM of K2-K5 with an epilogue that writes
+the rows unsplit. Its plain version repeats the TPU kernel body's arithmetic
+(``s = max(max|x| / 127, 1e-12)``, ``q = clip(round_half_even(x / s))``, an
+exact integer product, the dequantisation in f32).
+
+Dispatch is on the tensor's device: CPU tensors take the plain version, CUDA
+tensors launch the kernel or raise (bfloat16 rows, contiguous, K and N
+multiples of 128). ``int8_gemm_fused.launches`` counts kernel launches and
+nothing else; ``int8_linear_fused`` launches through it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cognitive_aim_tpu_torch.kernels._launch import require_device
+from cognitive_aim_tpu_torch.kernels.int8_block import int8_proj_plain, launch_int8_linear
+
+
+int8_gemm_fused_plain = int8_proj_plain  # one function: K13's rows, flattened
+
+
+def int8_linear_fused_plain(x, wq: dict, b, out_dtype=None):
+    bias = b if b is not None else torch.zeros_like(wq["s"])
+    return int8_proj_plain(x, wq["q"], wq["s"], bias, out_dtype or x.dtype)
+
+
+def int8_gemm_fused(x, wq, ws, b, out_dtype=torch.bfloat16):
+    """K15. x [M, K] float -> [M, N] ``out_dtype``; wq int8 [N, K], ws f32
+    [N] scales, b f32 [N] bias."""
+    require_device("int8_gemm_fused", x)
+    if x.device.type == "cpu":
+        return int8_gemm_fused_plain(x, wq, ws, b, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise TypeError("int8_gemm_fused: the CUDA kernel writes bfloat16")
+    out = launch_int8_linear("int8_gemm_fused", "caim_int8_gemm_fused", x, wq, ws, b)
+    int8_gemm_fused.launches += 1
+    return out
+
+
+def int8_linear_fused(x, wq: dict, b, out_dtype=None):
+    """[..., K] -> [..., N] over ``int8_gemm_fused`` (leading dimensions
+    flattened; a missing bias is zeros); output in x's dtype unless given."""
+    out_dtype = out_dtype or x.dtype
+    bias = b if b is not None else torch.zeros_like(wq["s"])
+    lead, K = x.shape[:-1], x.shape[-1]
+    y = int8_gemm_fused(x.reshape(-1, K), wq["q"], wq["s"], bias.float(), out_dtype)
+    return y.reshape(*lead, -1)
+
+
+WRAPPERS = (int8_gemm_fused,)
+int8_gemm_fused.launches = 0

@@ -38,7 +38,9 @@ def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[..., K] -> (int8 [..., K], f32 scale [..., 1]) per-row dynamic:
     a true division and round-half-even, in f32."""
     xf = x.float()
-    s = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp(min=1e-12)
+    # a tensor divisor: by a Python scalar PyTorch's CUDA division multiplies
+    # by the rounded 1/127, which is not the true division of the kernels
+    s = (xf.abs().amax(dim=-1, keepdim=True) / xf.new_full((1,), 127.0)).clamp(min=1e-12)
     q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
     return q, s
 

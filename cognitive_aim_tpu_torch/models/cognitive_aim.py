@@ -14,18 +14,27 @@ wrappers K1 (K7 under the token filter's proportional attention) and K6,
 which launch the CUDA kernels for CUDA tensors and run their plain versions
 for CPU tensors; ``"pallas_packed_i8qk"`` takes K10 and K10b, the int8-QK^T
 attention, in the backbone; ``attn_impl="plain"`` and ``"plain_i8qk"`` run
-the plain versions of those two routes on any device. Under the int8 policy (``policy.quantize_backbone``,
+the plain versions of those two routes on any device;
+``attn_impl="pallas"`` is the backbone's ``[B, N, H, Dh]`` route through K8
+(``"plain_heads"`` its plain version); the focal stream is fused on every
+``pallas*`` route, as in the JAX package. Under the int8 policy (``policy.quantize_backbone``,
 applied by ``prepare_params``) every backbone block is the chained int8
-block (K2, K1, K3, K4) and each focal iteration projects through K5.
+block (K2, K1, K3, K4) and each focal iteration projects through K5; with
+live adapters (``arch.use_lora``) or exact GELU the blocks run unchained and
+project q, k, v through K15 (nn/dinov2.py).
 
-With ``arch.token_filter_active`` the backbone runs the token filter in
-drop mode (nn/dinov2.py); a guided request hands it the instruction's mask
-row as keep priority, so the guided region's tokens stay in the kept set.
+``arch.use_lora`` gives every backbone block the adapters of
+``arch.lora_targets``; ``merge_lora_params`` folds them into the dense
+weights (the deployment transform: fold, then ``prepare_params``).
+
+With ``arch.token_filter_active`` the backbone runs the token filter
+(nn/dinov2.py: drop mode, merge mode, the delta correction); a guided
+request hands it the instruction's mask row as keep priority, so the guided
+region's tokens stay in the kept set.
 
 The model is built on the CUDA device unless the caller passes ``device``.
 
-Not ported yet: LoRA, the token filter's merge mode and delta correction,
-pipelining, training (dropout, entropy, the curiosity loss).
+Not ported yet: pipelining, training (dropout, entropy, the curiosity loss).
 """
 
 from __future__ import annotations
@@ -64,21 +73,19 @@ class CognitiveAimModel(nn.Module):
                  attn_impl: str = "pallas_packed",
                  vit_cfg: Optional[dinov2.DinoV2Config] = None, device=None):
         super().__init__()
-        if arch.use_lora:
-            raise NotImplementedError("LoRA is not ported yet (ROADMAP.md Queue 1)")
-        if arch.token_filter_active and (arch.token_filter_merge
-                                         or arch.token_filter_delta_correct):
-            raise NotImplementedError(
-                "the token filter's merge mode ('@m') and delta correction ('@d') "
-                "are not ported yet (ROADMAP.md Queue 1 item 7)")
         if attn_impl not in dinov2.ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {dinov2.ATTN_IMPLS}")
         device = resolve_device(device)
         self.arch = arch
         self.policy = policy
         self.attn_impl = attn_impl
+        lora = dict(use_lora=arch.use_lora, lora_rank=arch.lora_rank,
+                    lora_alpha=arch.lora_alpha, lora_targets=tuple(arch.lora_targets))
         self.vit_cfg = vit_cfg or dinov2.config_for(
-            arch.backbone_size, gelu_approx=policy.fast_gelu)
+            arch.backbone_size, gelu_approx=policy.fast_gelu, **lora)
+        if vit_cfg is not None and arch.use_lora and not vit_cfg.use_lora:
+            # an explicit vit_cfg must still honour the arch's adapter settings
+            self.vit_cfg = dataclasses.replace(vit_cfg, **lora)
         D = self.feature_dim = self.vit_cfg.hidden_size
         a = arch
         self.backbone = dinov2.DinoV2(self.vit_cfg, device)
@@ -124,6 +131,23 @@ class CognitiveAimModel(nn.Module):
         return self
 
     @torch.no_grad()
+    def merge_lora_params(self, rank: int = 0, alpha: int = 0) -> "CognitiveAimModel":
+        """The deployment fold of adapter-gated weights: the backbone's
+        adapters are merged into its dense weights and dropped, in place.
+        ``rank`` and ``alpha`` default to the arch's settings; pass them where
+        this model was built without ``use_lora``. Call before
+        ``prepare_params``. A no-op when the backbone holds no adapters."""
+        if not any(blk.has_adapters for blk in self.backbone.layers):
+            return self
+        r = rank or self.arch.lora_rank
+        a = alpha or self.arch.lora_alpha
+        if r <= 0:
+            raise ValueError(f"merge_lora_params: the adapter rank resolved to {r} "
+                             f"(alpha {a}); the scaling alpha / rank needs a positive rank")
+        dinov2.merge_lora(self.backbone, a / r)
+        return self
+
+    @torch.no_grad()
     def prepare_params(self) -> "CognitiveAimModel":
         """Post-load transform for the policy: cast the backbone and focal
         stream parameters to the compute dtype once, in place. The JAX
@@ -136,7 +160,9 @@ class CognitiveAimModel(nn.Module):
         projections and a fused q/k/v projection per focal stream member
         are quantised to int8 from the float32 weights, before any cast;
         what the int8 kernels read in f32 (biases, layernorm parameters,
-        LayerScales) keeps its compute-dtype rounding."""
+        LayerScales) keeps its compute-dtype rounding. Adapters stay float, in
+        the compute dtype; a quantised block that holds live adapters runs
+        unchained, a folded one chained again."""
         cd = self.policy.backbone_compute_dtype
         int8 = self.policy.quantize_backbone
         bb = self.backbone
@@ -247,7 +273,7 @@ class CognitiveAimModel(nn.Module):
         run = patches.to(self.policy.backbone_compute_dtype)
         kw = dict(curiosity_guided=a.curiosity_guided, generator=generator,
                   noise_mode=noise_mode,
-                  fused_attention=self.attn_impl.startswith("pallas_packed"))
+                  fused_attention=self.attn_impl.startswith("pallas"))
         if a.use_iterative:
             feats, attn = S.iterative_focal_apply(
                 self.focal_stream, run, curiosity_score,

@@ -1,6 +1,6 @@
 """DINOv2 ViT backbone (counterpart of cognitive_aim_tpu/nn/dinov2.py).
 
-The inference path, unfiltered or with the token filter in drop mode:
+The inference path, unfiltered or with the token filter:
 
   * patch embedding as reshape + matmul over the (p, p, 3) patch layout,
     not ``Conv2d`` (whose cuDNN path runs TF32 by default);
@@ -25,8 +25,26 @@ projections by their int8 state, and the block runs as the JAX package's
 chained int8 block: K2 ``int8_qkv_proj_ln`` -> K1 -> K3
 ``int8_out_residual`` -> K4 ``int8_mlp_ln`` (kernels/int8_block.py), with no
 bare elementwise op between them. ``attn_impl="plain"`` runs the plain
-versions of the same four steps. The chained block needs tanh GELU, as in
-the JAX package; its per-projection int8 path for erf GELU is not ported.
+versions of the same four steps. The chained block is chosen by the JAX
+package's rule: quantised, a packed attention route, tanh GELU and no live
+adapters. Any other quantised block runs unchained, as every float block
+does: layernorm in the compute dtype, q, k, v through K15
+``int8_linear_fused`` on the fused weight (packed routes) or through
+``int8_ops.int8_linear`` (the ``[B, N, H, Dh]`` routes), the other three
+projections through ``int8_ops.int8_linear`` (XLA's int8 matmul in the JAX
+package, ``torch._int_mm`` on the card), GELU in the compute dtype.
+
+Adapters (LoRA): with ``cfg.use_lora`` a block adds the low-rank products
+``scaling * (x @ A^T) @ B^T`` of its targets (``attn_out`` on the attention
+context, and ``qkv``, ``fc1``, ``fc2``) as small float matmuls. A block built
+without ``use_lora`` ignores adapter tensors it holds. ``merge_lora`` folds
+them into the dense weights and drops them.
+
+``attn_impl="pallas"`` is the JAX package's ``[B, N, H, Dh]`` route through
+K8 ``flash_attention``; ``"plain_heads"`` asks for that route's plain
+version. With a key bias the JAX package takes its XLA attention on this
+route (its K8 has no bias input), and so does the port: the plain biased
+attention, on any device. This is the package's dispatch, not a fallback.
 
 The token filter (``filter_*`` arguments of ``DinoV2.forward``, off by
 default) is the JAX package's approximate fast path: after ``filter_layer``
@@ -37,11 +55,14 @@ at their filter-point values, before the final layernorm. Ported: single
 stage and progressive ``filter_schedule``, the fused context token(s)
 (``filter_fuse``, ``filter_fuse_k``), ``filter_strat_stride``,
 ``filter_rollout``, ``filter_ctx_frac`` and proportional attention
-(``filter_prop_attn``). Every shape is static per specification and nothing
-reads a device value on the host. Merge mode and the delta correction are
-not ported and raise.
+(``filter_prop_attn``); merge mode (``filter_merge``: each dropped token is
+averaged into its most similar kept token, and every position reads its
+representative's final value) and the delta correction
+(``filter_delta_correct``: a dropped position gets its nearest kept token's
+update over the remaining blocks). Every shape is static per specification
+and nothing reads a device value on the host.
 
-LoRA, merge mode, the delta correction and pipelining are not ported yet.
+Pipelining is not ported yet.
 """
 
 from __future__ import annotations
@@ -56,13 +77,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from cognitive_aim_tpu_torch.core.device import resolve_device
-from cognitive_aim_tpu_torch.kernels import int8_block as IB
 from cognitive_aim_tpu_torch.kernels import flash_attention as FA
+from cognitive_aim_tpu_torch.kernels import int8_block as IB
+from cognitive_aim_tpu_torch.kernels import int8_gemm as IG
+from cognitive_aim_tpu_torch.kernels import int8_ops as I8
 from cognitive_aim_tpu_torch.nn import init as tinit
 from cognitive_aim_tpu_torch.nn import layers as L
 from cognitive_aim_tpu_torch.nn.torch_interp import resize_weights
 
-ATTN_IMPLS = ("pallas_packed", "pallas_packed_i8qk", "plain", "plain_i8qk")
+# routes on the packed [B, N, H*Dh] layout, and on [B, N, H, Dh]
+PACKED_IMPLS = ("pallas_packed", "pallas_packed_i8qk", "plain", "plain_i8qk")
+HEADS_IMPLS = ("pallas", "plain_heads")
+ATTN_IMPLS = PACKED_IMPLS + HEADS_IMPLS
 
 # attn_impl -> (attention without a key bias, attention with one)
 _ATTEND = {
@@ -84,6 +110,32 @@ def attend(attn_impl: str, q, k, v, k_bias, scale: float, num_heads: int):
     return biased(q, k, v, k_bias, scale, num_heads)
 
 
+def attend_heads(attn_impl: str, q, k, v, k_bias, scale: float):
+    """The ``[B, N, H, Dh]`` routes: K8 (``"pallas"``) or its plain version
+    (``"plain_heads"``). With a key bias both take the plain biased
+    attention, as the JAX package takes its XLA attention there."""
+    if k_bias is not None:
+        B, N, H, hd = q.shape
+        q, k, v = (t.reshape(B, N, H * hd) for t in (q, k, v))
+        return FA.flash_attention_packed_bias_plain(q, k, v, k_bias, scale,
+                                                    H).view(B, N, H, hd)
+    if attn_impl == "pallas":
+        return FA.flash_attention(q, k, v, scale)
+    return FA.attention_reference(q, k, v, scale)
+
+
+# projections that can carry an adapter, in the order they are folded
+LORA_TARGETS = ("attn_out", "fc1", "fc2", "qkv")
+
+
+def adapter_names(target: str) -> Tuple[str, str]:
+    """The JAX tree's names: the ``attn_out`` adapter keeps the bare
+    ``lora_A`` / ``lora_B``, the others are ``lora_<target>_A`` / ``_B``."""
+    if target == "attn_out":
+        return "lora_A", "lora_B"
+    return f"lora_{target}_A", f"lora_{target}_B"
+
+
 @dataclasses.dataclass(frozen=True)
 class DinoV2Config:
     hidden_size: int = 768
@@ -94,6 +146,12 @@ class DinoV2Config:
     pretrain_image_size: int = 518  # position-embedding grid = 37x37
     layer_norm_eps: float = 1e-6
     layerscale_value: float = 1.0
+    use_lora: bool = False
+    lora_rank: int = 16
+    lora_alpha: int = 16
+    # which projections carry adapters: ("attn_out",) by default, up to
+    # ("qkv", "attn_out", "fc1", "fc2")
+    lora_targets: tuple = ("attn_out",)
     gelu_approx: bool = False
 
     @property
@@ -134,8 +192,69 @@ class Block(nn.Module):
         self.fc1 = L.linear(D, cfg.mlp_dim, device)
         self.fc2 = L.linear(cfg.mlp_dim, D, device)
         self.ls2 = nn.Parameter(torch.empty(D, device=device))
+        if cfg.use_lora:
+            for target in LORA_TARGETS:
+                if target in cfg.lora_targets:
+                    self.add_adapter(target, cfg.lora_rank)
 
-    def init(self, g: torch.Generator):
+    def add_adapter(self, target: str, rank: int):
+        """Uninitialised adapter parameters of one target, with the JAX
+        shapes: A [rank, in], B [out, rank]."""
+        D, F_ = self.cfg.hidden_size, self.cfg.mlp_dim
+        din, dout = {"qkv": (D, 3 * D), "attn_out": (D, D), "fc1": (D, F_),
+                     "fc2": (F_, D)}[target]
+        device = self.ls1.device
+        a, b = adapter_names(target)
+        setattr(self, a, nn.Parameter(torch.empty(rank, din, device=device)))
+        setattr(self, b, nn.Parameter(torch.empty(dout, rank, device=device)))
+
+    def adapter(self, target: str):
+        """(A, B) of a target, or None where the block holds none."""
+        a, b = adapter_names(target)
+        if getattr(self, a, None) is None:
+            return None
+        return getattr(self, a), getattr(self, b)
+
+    @property
+    def has_adapters(self) -> bool:
+        return any(self.adapter(t) is not None for t in LORA_TARGETS)
+
+    @property
+    def live_adapters(self) -> bool:
+        """Adapters that the forward applies: held, and ``cfg.use_lora``."""
+        return self.cfg.use_lora and self.has_adapters
+
+    def _lora_delta(self, target: str, x: torch.Tensor):
+        """``scaling * (x @ A^T) @ B^T`` of a target's adapter in x's dtype,
+        or None. Gated by ``cfg.use_lora``: a block built without it ignores
+        adapter tensors it holds."""
+        ab = self.adapter(target)
+        if not self.cfg.use_lora or ab is None:
+            return None
+        a, b = ab
+        scaling = self.cfg.lora_alpha / self.cfg.lora_rank
+        return scaling * ((x @ a.to(x.dtype).T) @ b.to(x.dtype).T)
+
+    @torch.no_grad()
+    def merge_lora_(self, scaling: float):
+        """Fold every adapter into its dense weight, ``W += scaling * B @ A``
+        in the [out, in] layout (the fused qkv weight takes the whole
+        [3D, r] @ [r, D]), and drop the adapter tensors. In place."""
+        if not self.has_adapters:
+            return
+        if self.quantized:
+            raise RuntimeError("merge_lora: fold the adapters before the weights are "
+                               "quantised (merge_lora_params, then prepare_params)")
+        for target in LORA_TARGETS:
+            ab = self.adapter(target)
+            if ab is None:
+                continue
+            w = getattr(self, target).weight
+            w += scaling * (ab[1].float() @ ab[0].float()).to(w.dtype)
+            for name in adapter_names(target):
+                delattr(self, name)
+
+    def init(self, g: torch.Generator) -> "Block":
         for ln in (self.norm1, self.norm2):
             nn.init.ones_(ln.weight)
             nn.init.zeros_(ln.bias)
@@ -145,6 +264,12 @@ class Block(nn.Module):
             tinit.linear_default_(lin, g)
         nn.init.constant_(self.ls1, self.cfg.layerscale_value)
         nn.init.constant_(self.ls2, self.cfg.layerscale_value)
+        for target in LORA_TARGETS:  # A 0.01 * randn, B zeros
+            ab = self.adapter(target)
+            if ab is not None:
+                tinit.normal_(ab[0], 0.01, g)
+                nn.init.zeros_(ab[1])
+        return self
 
     def qkv_proj(self, x: torch.Tensor):
         """One [D, 3D] GEMM that writes q, k and v as three contiguous
@@ -155,11 +280,48 @@ class Block(nn.Module):
         qkv = torch.baddbmm(b, x.reshape(1, B * N, D).expand(3, B * N, D), w)
         return [t.view(B, N, D) for t in qkv.unbind(0)]
 
+    def _lin(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """A dense projection in x's dtype: the float matmul, or
+        ``int8_ops.int8_linear`` on a quantised weight (outside any kernel,
+        as XLA's int8 matmul is in the JAX package)."""
+        lin = getattr(self, name)
+        if isinstance(lin, L.Int8Linear):
+            return I8.int8_linear(x, {"q": lin.wq, "s": lin.ws}, lin.bias)
+        return L.linear_apply(lin, x, x.dtype)
+
     def mhsa(self, x: torch.Tensor, attn_impl: str, k_bias=None) -> torch.Tensor:
         cfg = self.cfg
-        q, k, v = self.qkv_proj(x)
-        ctx = attend(attn_impl, q, k, v, k_bias, cfg.head_dim ** -0.5, cfg.num_heads)
-        return L.linear_apply(self.attn_out, ctx, ctx.dtype)
+        B, N, D = x.shape
+        H, hd = cfg.num_heads, cfg.head_dim
+        packed = attn_impl in PACKED_IMPLS
+        dqkv = self._lora_delta("qkv", x)  # [B, N, 3D] or None
+        if self.quantized:
+            w = {"q": self.qkv.wq, "s": self.qkv.ws}
+            if not packed:
+                qkv = I8.int8_linear(x, w, self.qkv.bias)
+            elif attn_impl.startswith("pallas"):
+                qkv = IG.int8_linear_fused(x, w, self.qkv.bias)  # K15
+            else:
+                qkv = IG.int8_linear_fused_plain(x, w, self.qkv.bias)
+            if dqkv is not None:
+                qkv = qkv + dqkv
+            if packed:  # one copy into the three contiguous slices K1 reads
+                q, k, v = qkv.view(B, N, 3, D).permute(2, 0, 1, 3).contiguous().unbind(0)
+            else:  # K8 reads the column slices in place
+                q, k, v = qkv.split(D, dim=-1)
+        else:
+            q, k, v = self.qkv_proj(x)
+            if dqkv is not None:
+                q, k, v = ((t + d).contiguous()
+                           for t, d in zip((q, k, v), dqkv.split(D, dim=-1)))
+        if packed:
+            ctx = attend(attn_impl, q, k, v, k_bias, hd ** -0.5, H)
+        else:
+            q, k, v = (t.view(B, N, H, hd) for t in (q, k, v))
+            ctx = attend_heads(attn_impl, q, k, v, k_bias, hd ** -0.5).reshape(B, N, D)
+        out = self._lin("attn_out", ctx)
+        d_out = self._lora_delta("attn_out", ctx)  # applied to the attention context
+        return out if d_out is None else out + d_out
 
     @property
     def quantized(self) -> bool:
@@ -181,14 +343,19 @@ class Block(nn.Module):
         for p in (*self.norm1.parameters(), *self.norm2.parameters(),
                   self.ls1, self.ls2):
             p.data = L.round_through(p.data, compute_dtype)
+        for target in LORA_TARGETS:  # adapters stay float, in the compute dtype
+            for p in self.adapter(target) or ():
+                p.data = p.data.to(compute_dtype)
         return self
+
+    def chained(self, attn_impl: str) -> bool:
+        """The JAX package's rule for ``_block_int8_chained``: quantised, a
+        packed attention route, tanh GELU, no live adapters."""
+        return (self.quantized and attn_impl in PACKED_IMPLS and self.cfg.gelu_approx
+                and not self.live_adapters)
 
     def _forward_int8(self, x: torch.Tensor, attn_impl: str, k_bias=None) -> torch.Tensor:
         cfg = self.cfg
-        if not cfg.gelu_approx:
-            raise NotImplementedError(
-                "the chained int8 block needs tanh GELU; the per-projection "
-                "int8 path for erf GELU is not ported yet (ROADMAP.md)")
         fused = attn_impl.startswith("pallas_packed")
         n1, n2, eps = self.norm1, self.norm2, cfg.layer_norm_eps
         qkv_ln = IB.int8_qkv_proj_ln if fused else IB.int8_qkv_proj_ln_plain
@@ -205,15 +372,35 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, attn_impl: str, k_bias=None) -> torch.Tensor:
         """k_bias: optional [B, N] f32 additive key-side logit bias, the
         token filter's proportional attention."""
-        if self.quantized:
+        if self.chained(attn_impl):
             return self._forward_int8(x, attn_impl, k_bias)
         dt = x.dtype
         h = L.layernorm_apply(self.norm1, x)
         x = x + self.ls1.to(dt) * self.mhsa(h, attn_impl, k_bias)
         h = L.layernorm_apply(self.norm2, x)
-        h = L.linear_apply(self.fc1, h, dt)
-        h = F.gelu(h, approximate="tanh" if self.cfg.gelu_approx else "none")
-        return x + self.ls2.to(dt) * L.linear_apply(self.fc2, h, dt)
+        h1 = self._lin("fc1", h)
+        d1 = self._lora_delta("fc1", h)
+        if d1 is not None:
+            h1 = h1 + d1
+        g = F.gelu(h1, approximate="tanh" if self.cfg.gelu_approx else "none")
+        h2 = self._lin("fc2", g)
+        d2 = self._lora_delta("fc2", g)
+        if d2 is not None:
+            h2 = h2 + d2
+        return x + self.ls2.to(dt) * h2
+
+
+def merge_lora(backbone: "DinoV2", scaling: float) -> "DinoV2":
+    """Fold the adapters of every block into its dense weights,
+    ``W' = W + scaling * B @ A`` per target (scaling = lora_alpha /
+    lora_rank), and drop the adapter tensors: the deployment transform of
+    the adapter-gated filter sandwich, whose folded weights then take the
+    ordinary int8 quantisation. Mathematically the runtime adapter
+    (x (W + dW)^T = x W^T + x dW^T) up to float rounding. In place, unlike
+    the JAX function, which returns a new tree; a no-op without adapters."""
+    for blk in backbone.layers:
+        blk.merge_lora_(scaling)
+    return backbone
 
 
 # ------------------------------------------------------- token filtering ----
@@ -232,10 +419,13 @@ def _layer_qk_weights(blk: Block, dtype: torch.dtype):
     return w[:D], b[:D], w[D:], b[D:]
 
 
-def _cls_importance(blk: Block, x: torch.Tensor) -> torch.Tensor:
+def _cls_importance(blk: Block, x: torch.Tensor, return_keys: bool = False):
     """Patch-token importance [B, P]: the CLS row of the NEXT block's
     attention, averaged over heads (EViT-style), all in float32. Costs one
-    [B, N, D] x [D, D] key projection and one score row."""
+    [B, N, D] x [D, D] key projection and one score row. With
+    ``return_keys`` also the key projection [B, N, D] (f32, heads
+    flattened), which merge mode and the delta correction use as the token
+    similarity embedding."""
     cfg = blk.cfg
     H, hd = cfg.num_heads, cfg.head_dim
     n1 = blk.norm1
@@ -247,7 +437,8 @@ def _cls_importance(blk: Block, x: torch.Tensor) -> torch.Tensor:
     B, N, _ = k.shape
     scores = torch.einsum("bhd,bnhd->bhn", q_cls.reshape(B, H, hd),
                           k.reshape(B, N, H, hd)) * (hd ** -0.5)
-    return torch.softmax(scores, dim=-1).mean(dim=1)[:, 1:]  # patch columns
+    imp = torch.softmax(scores, dim=-1).mean(dim=1)[:, 1:]  # patch columns
+    return (imp, k) if return_keys else imp
 
 
 def _top_k(values: torch.Tensor, k: int) -> torch.Tensor:
@@ -382,6 +573,101 @@ def _scatter_tokens(x_full, x_filtered, idx):
     patches = x_full[:, 1:].scatter(1, idx[..., None].expand(-1, -1, D),
                                     x_filtered[:, 1:1 + k])
     return torch.cat([x_filtered[:, :1], patches], dim=1)
+
+
+def _complement_indices(idx: torch.Tensor, n_total: int, n_drop: int) -> torch.Tensor:
+    """[B, n_drop] ascending: the exact complement of the kept set idx
+    [B, k]. Ranking by negated priority instead would, on a tie at the keep
+    boundary, put one token in both sets and another in neither."""
+    mask = 1.0 - _mask_of(idx, n_total, torch.float32)
+    return torch.sort(_top_k(mask, n_drop), dim=1).values
+
+
+def _nearest_kept(keys: torch.Tensor, idx: torch.Tensor, idx_drop: torch.Tensor):
+    """[B, n_drop] index into the kept set of each dropped token's most
+    similar kept token, by cosine similarity of the key rows keys [B, T, D]
+    (f32); the lowest index among equal similarities."""
+    kn = keys * torch.rsqrt((keys * keys).sum(dim=-1, keepdim=True) + 1e-12)
+    sim = torch.einsum("bjd,bkd->bjk", _take(kn, idx_drop), _take(kn, idx))
+    return sim.argmax(dim=-1)
+
+
+def _slot_map(idx, idx_drop, assign, n_total: int) -> torch.Tensor:
+    """[B, n_total] int64: a kept token's own row of the kept block, a
+    dropped token's representative's."""
+    B, k = idx.shape
+    slots = torch.arange(k, device=idx.device)[None].expand(B, k)
+    rep = torch.zeros(B, n_total, dtype=torch.long, device=idx.device)
+    return rep.scatter_(1, idx, slots).scatter_(1, idx_drop, assign)
+
+
+def _filter_tokens_merge(x, importance, keys, keep_weights, k_keep: int,
+                         ctx_frac: float = 0.0):
+    """Merge mode (ToMe-style): the same kept set as ``_filter_tokens``, but
+    each dropped token is averaged, in f32, into its most similar kept token
+    instead of frozen, so its evidence stays live through the remaining
+    blocks, and at the end its position reads its representative's final
+    value. Returns (stream [B, 1+k, D], idx [B, k] kept patch indices, rep
+    [B, P] patch position -> row of the kept block that stands for it, sizes
+    [B, k] f32 merged-group sizes)."""
+    B, P = importance.shape
+    idx = _keep_indices(importance, keep_weights, k_keep, ctx_frac)
+    n_drop = P - k_keep
+    patches = x[:, 1:]
+    kept = _take(patches, idx)
+    if n_drop == 0:
+        rep = torch.arange(P, device=x.device)[None].expand(B, P)
+        return (torch.cat([x[:, :1], kept], dim=1), idx, rep,
+                torch.ones(B, k_keep, dtype=torch.float32, device=x.device))
+    idx_drop = _complement_indices(idx, P, n_drop)
+    assign = _nearest_kept(keys[:, 1:], idx, idx_drop)
+    onehot = F.one_hot(assign, k_keep).float()  # [B, P-k, k]
+    absorbed = torch.einsum("bjk,bjd->bkd", onehot, _take(patches, idx_drop).float())
+    sizes = 1.0 + onehot.sum(dim=1)
+    merged = ((kept.float() + absorbed) / sizes[..., None]).to(x.dtype)
+    return (torch.cat([x[:, :1], merged], dim=1), idx,
+            _slot_map(idx, idx_drop, assign, P), sizes)
+
+
+def _assign_dropped(importance, keys, idx, k_keep: int):
+    """The delta correction's helper: for the kept set idx of
+    ``_filter_tokens``, (idx_drop [B, P-k] ascending, its exact complement;
+    assign [B, P-k] index into the kept set of each dropped token's most
+    similar kept token)."""
+    P = importance.shape[1]
+    idx_drop = _complement_indices(idx, P, P - k_keep)
+    return idx_drop, _nearest_kept(keys[:, 1:], idx, idx_drop)
+
+
+def _refilter_tokens_merge(x, imp_all, keys, k_prev: int, keep_w_gathered, k_keep: int,
+                           sizes, ctx_frac: float = 0.0):
+    """A later stage of a progressive merge schedule: the stream is [B, 1 +
+    k_prev, D] with group sizes [B, k_prev]. Keep the k_keep highest-priority
+    slots and absorb each dropped slot into its most similar kept slot,
+    weighted by size. Returns (stream [B, 1+k_keep, D], idx_local [B, k_keep]
+    into the previous kept set, slot_map [B, k_prev] old slot -> new slot,
+    new sizes [B, k_keep])."""
+    imp_p = imp_all[:, :k_prev]
+    idx_local = _keep_indices(imp_p, keep_w_gathered, k_keep, ctx_frac)
+    slots = x[:, 1:1 + k_prev]
+    drop_local = _complement_indices(idx_local, k_prev, k_prev - k_keep)
+    assign = _nearest_kept(keys[:, 1:1 + k_prev], idx_local, drop_local)
+    onehot = F.one_hot(assign, k_keep).float()
+    s_kept, s_drop = sizes.gather(1, idx_local), sizes.gather(1, drop_local)
+    absorbed = torch.einsum("bjk,bjd->bkd", onehot,
+                            _take(slots, drop_local).float() * s_drop[..., None])
+    new_sizes = s_kept + torch.einsum("bjk,bj->bk", onehot, s_drop)
+    merged = ((_take(slots, idx_local).float() * s_kept[..., None] + absorbed)
+              / new_sizes[..., None]).to(x.dtype)
+    return (torch.cat([x[:, :1], merged], dim=1), idx_local,
+            _slot_map(idx_local, drop_local, assign, k_prev), new_sizes)
+
+
+def _prop_bias_merge(sizes: torch.Tensor) -> torch.Tensor:
+    """[B, 1+k] f32 key bias of proportional attention in merge mode: 0 for
+    CLS, +log(group size) on every kept token."""
+    z = torch.zeros(sizes.shape[0], 1, dtype=torch.float32, device=sizes.device)
+    return torch.cat([z, torch.log(sizes.float())], dim=1)
 
 
 def _fuse_group_ids(gh: int, gw: int, n_groups: int) -> Tuple[np.ndarray, int]:
@@ -535,7 +821,12 @@ class DinoV2(nn.Module):
         filter_ctx_frac: share of the keep budget reserved for the top
           tokens by raw importance.
         keep_weights: [B, P] guidance mask weights (priority), or None.
-        filter_merge / filter_delta_correct: not ported; they raise."""
+        filter_merge: merge mode: dropped tokens are absorbed into their most
+          similar kept token, and every position reads its representative's
+          final value; no context tokens.
+        filter_delta_correct: drop mode whose dropped positions get, at the
+          end, their filter-point value plus their most similar kept token's
+          update over the remaining blocks. Single stage only."""
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         cfg = self.cfg
@@ -553,10 +844,6 @@ class DinoV2(nn.Module):
             x = self._run(x, 0, n_layers, attn_impl)
             return L.layernorm_apply(self.final_norm, x), idx_global
 
-        if filter_merge or filter_delta_correct:
-            raise NotImplementedError(
-                "the token filter's merge mode ('@m') and delta correction ('@d') "
-                "are not ported yet (ROADMAP.md Queue 1 item 7)")
         ls = [l for l, _ in schedule]
         kf = [k for _, k in schedule]
         if ls != sorted(set(ls)):
@@ -565,12 +852,16 @@ class DinoV2(nn.Module):
         if any(b >= a for a, b in zip(kf, kf[1:])):
             raise ValueError(f"filter schedule keep fractions must be "
                              f"strictly decreasing: {schedule}")
+        if filter_delta_correct and (filter_merge or len(schedule) > 1):
+            raise ValueError(
+                "filter_delta_correct ('@d') is single-stage drop-mode "
+                "only (not composable with '@m' or progressive schedules)")
         if not 0.0 <= filter_ctx_frac < 1.0:
             raise ValueError(
                 f"filter_ctx_frac ('@cF') must be in [0, 1) — reserving "
                 f"the WHOLE budget for context leaves no guided slots "
                 f"(got {filter_ctx_frac})")
-        if filter_prop_attn and not filter_fuse:
+        if filter_prop_attn and not (filter_fuse or filter_merge):
             raise ValueError(
                 "filter_prop_attn ('@p') weights tokens by how many "
                 "source tokens they represent — it needs token_filter_fuse "
@@ -585,6 +876,10 @@ class DinoV2(nn.Module):
                 raise ValueError(
                     f"filter_fuse_k must be a perfect square (got "
                     f"{filter_fuse_k})")
+            if filter_merge or filter_delta_correct:
+                raise ValueError(
+                    "filter_fuse_k > 1 is drop-mode only ('@m'/'@d' have "
+                    "no fused context tokens)")
             fuse_groups, group_onehot = _fuse_groups_on(gh, gw, n_groups, x.device)
             n_groups = group_onehot.shape[1]
         if filter_strat_stride > 1:
@@ -596,19 +891,31 @@ class DinoV2(nn.Module):
         ks = [max(1, int(round(k * P))) for k in kf]
         x_full = None
         imp_carry = None  # the surviving tokens' importance at their last ranking
+        rep = None  # merge mode: [B, P] patch position -> current slot
+        sizes = None  # merge mode: [B, k] merged-group sizes
+        dc = None  # delta correction: (idx_drop, assign)
         k_bias = None  # proportional-attention logit bias [B, T]
         r = float(filter_rollout)
         prev = 0
         for (boundary, _), k_i in zip(schedule, ks):
             x = self._run(x, prev, boundary, attn_impl, k_bias)
             prev = boundary
-            imp = _cls_importance(self.layers[boundary], x)
+            if filter_merge or filter_delta_correct:
+                imp, keys = _cls_importance(self.layers[boundary], x, return_keys=True)
+            else:
+                imp = _cls_importance(self.layers[boundary], x)
             if idx_global is None:
-                x_full = x
-                x, idx_global = _filter_tokens(
-                    x, imp, keep_weights, k_i, fuse=filter_fuse and k_i < P,
-                    fuse_groups=fuse_groups, fuse_n_groups=n_groups,
-                    ctx_frac=filter_ctx_frac)
+                if filter_merge:
+                    x, idx_global, rep, sizes = _filter_tokens_merge(
+                        x, imp, keys, keep_weights, k_i, ctx_frac=filter_ctx_frac)
+                else:
+                    x_full = x
+                    x, idx_global = _filter_tokens(
+                        x, imp, keep_weights, k_i, fuse=filter_fuse and k_i < P,
+                        fuse_groups=fuse_groups, fuse_n_groups=n_groups,
+                        ctx_frac=filter_ctx_frac)
+                    if filter_delta_correct and k_i < P:
+                        dc = _assign_dropped(imp, keys, idx_global, k_i)
                 imp_carry = imp.gather(1, idx_global)
             else:
                 k_prev = idx_global.shape[1]
@@ -620,16 +927,42 @@ class DinoV2(nn.Module):
                 if r > 0.0:
                     imp_p = (1.0 - r) * imp[:, :k_prev] + r * imp_carry
                     imp = torch.cat([imp_p, imp[:, k_prev:]], dim=1)
-                # tokens dropped HERE freeze at their current values
-                x_full = _scatter_tokens(x_full.to(x.dtype), x, idx_global)
-                gg = fuse_groups[idx_global] if fuse_groups is not None else None
-                x, idx_local = _refilter_tokens(
-                    x, imp, k_prev, kw, k_i, fuse=filter_fuse, groups_gathered=gg,
-                    n_groups=n_groups, ctx_frac=filter_ctx_frac)
+                if filter_merge:
+                    x, idx_local, slot_map, sizes = _refilter_tokens_merge(
+                        x, imp, keys, k_prev, kw, k_i, sizes, ctx_frac=filter_ctx_frac)
+                    rep = slot_map.gather(1, rep)
+                else:
+                    # tokens dropped HERE freeze at their current values
+                    x_full = _scatter_tokens(x_full.to(x.dtype), x, idx_global)
+                    gg = fuse_groups[idx_global] if fuse_groups is not None else None
+                    x, idx_local = _refilter_tokens(
+                        x, imp, k_prev, kw, k_i, fuse=filter_fuse, groups_gathered=gg,
+                        n_groups=n_groups, ctx_frac=filter_ctx_frac)
                 imp_carry = imp[:, :k_prev].gather(1, idx_local)
                 idx_global = idx_global.gather(1, idx_local)
-            if filter_prop_attn and filter_fuse and idx_global.shape[1] < P:
-                k_bias = _prop_bias_drop(idx_global, P, group_onehot)
+            if filter_prop_attn:
+                if filter_merge:
+                    k_bias = _prop_bias_merge(sizes)
+                elif filter_fuse and idx_global.shape[1] < P:
+                    k_bias = _prop_bias_drop(idx_global, P, group_onehot)
         x = self._run(x, prev, n_layers, attn_impl, k_bias)
-        x = _scatter_tokens(x_full.to(x.dtype), x, idx_global)
+        k_last = idx_global.shape[1]
+        if filter_merge:
+            # unmerge: every patch position reads its representative's final
+            # value, so none carries a stale one
+            x = torch.cat([x[:, :1], _take(x[:, 1:1 + k_last], rep)], dim=1)
+        elif dc is not None:
+            # a dropped position = its own filter-point value + its nearest kept
+            # neighbour's update over the remaining blocks
+            idx_drop, assign = dc
+            fp = x_full.to(x.dtype)[:, 1:]
+            final_kept = x[:, 1:1 + k_last]
+            delta = final_kept - _take(fp, idx_global)
+            corrected = _take(fp, idx_drop) + _take(delta, assign)
+            D = fp.shape[-1]
+            patches = fp.scatter(1, idx_global[..., None].expand(-1, -1, D), final_kept)
+            patches = patches.scatter(1, idx_drop[..., None].expand(-1, -1, D), corrected)
+            x = torch.cat([x[:, :1], patches], dim=1)
+        else:
+            x = _scatter_tokens(x_full.to(x.dtype), x, idx_global)
         return L.layernorm_apply(self.final_norm, x), idx_global

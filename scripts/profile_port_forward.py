@@ -3,12 +3,15 @@
 
     python3 scripts/profile_port_forward.py [--policy int8] [--batch 8] [--top 25]
         [--token-filter 2:0.35@p] [--attn-impl pallas_packed_i8qk]
+        [--lora 64 [--lora-targets qkv,attn_out,fc1,fc2] [--fold]]
 
 Builds the ViT-B 518x518 model (2 focal iterations, random weights from a
 seed, ``attn_impl="pallas_packed"`` unless named) under each named policy,
 for each ``--token-filter`` specification (may repeat; "" or "off" is the
 unfiltered forward, the default), runs guided forwards on device-resident
-images, and prints for each:
+images, and prints for each (``--lora R`` gives every backbone block rank-R
+adapters with a seeded non-zero ``lora_B`` on ``--lora-targets``; ``--fold``
+merges them into the weights first, as a deployment does):
 
   * the forward's time with a synchronise (host clock) and the host's time
     to enqueue it (no synchronise), averaged over --iters forwards;
@@ -33,7 +36,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def profile_policy(name: str, batch: int, iters: int, top: int, token_filter: str = "",
-                   attn_impl: str = "pallas_packed"):
+                   attn_impl: str = "pallas_packed", lora_rank: int = 0,
+                   lora_targets=("attn_out",), fold: bool = False):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -43,11 +47,22 @@ def profile_policy(name: str, batch: int, iters: int, top: int, token_filter: st
     from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
     from cognitive_aim_tpu_torch.models.config import ModelArchConfig, parse_token_filter
 
-    arch = ModelArchConfig(num_iterations=2, image_size=518,
+    lora = dict(use_lora=True, lora_rank=lora_rank, lora_alpha=lora_rank,
+                lora_targets=tuple(lora_targets)) if lora_rank else {}
+    arch = ModelArchConfig(num_iterations=2, image_size=518, **lora,
                            **parse_token_filter(token_filter))
     model = CognitiveAimModel(arch, policy_from_name(name), attn_impl)
     name = f"{name} {attn_impl} filter {token_filter or 'off'}"
-    model.init(torch.Generator(device="cuda").manual_seed(0)).prepare_params()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model.init(gen)
+    if lora_rank:
+        name += f" adapters rank {lora_rank} {'folded' if fold else 'live'}"
+        for blk in model.backbone.layers:
+            for target in lora_targets:
+                blk.adapter(target)[1].data.normal_(0.0, 0.02, generator=gen)
+        if fold:
+            model.merge_lora_params()
+    model.prepare_params()
     g = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn((batch, 518, 518, 3), generator=g, device="cuda")
     gidx = torch.arange(batch, device="cuda") % 9
@@ -100,7 +115,12 @@ def main() -> int:
                     help="token-filter specification, e.g. 2:0.35@p; may repeat "
                          "(default: off)")
     ap.add_argument("--attn-impl", default="pallas_packed",
-                    help="pallas_packed or pallas_packed_i8qk")
+                    help="pallas_packed, pallas_packed_i8qk or pallas")
+    ap.add_argument("--lora", type=int, default=0, help="adapter rank (default: no adapters)")
+    ap.add_argument("--lora-targets", default="attn_out",
+                    help="comma-separated: qkv, attn_out, fc1, fc2")
+    ap.add_argument("--fold", action="store_true",
+                    help="merge the adapters into the weights before the policy's transform")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
@@ -118,7 +138,8 @@ def main() -> int:
     for name in args.policy or ["default", "int8"]:
         for spec in args.token_filter or [""]:
             profile_policy(name, args.batch, args.iters, args.top,
-                           "" if spec == "off" else spec, args.attn_impl)
+                           "" if spec == "off" else spec, args.attn_impl, args.lora,
+                           args.lora_targets.split(","), args.fold)
     return 0
 
 

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K6, K7, K10, K10b and the int8 kernels K2, K3, K4,
-K4a, K4b, K5 against their plain PyTorch versions, on the card. Every test here needs an
+"""The CUDA kernels K1, K6, K7, K8, K10, K10b and the int8 kernels K2, K3, K4,
+K4a, K4b, K5, K13, K14, K15 against their plain PyTorch versions, on the card. Every test here needs an
 NVIDIA Hopper GPU and skips without one.
 
 This file imports no jax (the GPU machine has none). From the repository
@@ -31,6 +31,7 @@ import torch
 from cognitive_aim_tpu_torch.kernels import flash_attention as TFA
 from cognitive_aim_tpu_torch.kernels import focal_attention as TFO
 from cognitive_aim_tpu_torch.kernels import int8_block as TIB
+from cognitive_aim_tpu_torch.kernels import int8_gemm as TIG
 from cognitive_aim_tpu_torch.kernels.int8_ops import quantize_weight
 
 
@@ -89,6 +90,57 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     y = torch.zeros(1, 10, 128, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         TFA.flash_attention_packed(y, y, y, 0.125, 2)
+
+
+# ------------------------------------------------- K8, [B, N, H, 64] ----
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "packed_view", "fused_slices"])
+@pytest.mark.parametrize("N,H", [(257, 12), (481, 12), (1370, 12), (257, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k8_kernel_matches_plain(dtype, N, H, layout, cuda_device):
+    """K8 on separately made [B, N, H, 64] tensors, on views of packed
+    [B, N, H*64] projections, and on the column slices of one fused
+    [B, N, 3*H*64] projection (token stride 3*H*64): no copy in between, the
+    same values as K1 on the packed layout bit for bit."""
+    B, D = 2, 64
+    a = _arrays((B, N, 3 * H * D), n=1)[0]
+    fused = torch.from_numpy(a).to(cuda_device, dtype)
+    q, k, v = (t.view(B, N, H, D) for t in fused.split(H * D, dim=-1))
+    if layout != "fused_slices":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    if layout == "packed_view":
+        q, k, v = (t.view(B, N, H * D).view(B, N, H, D) for t in (q, k, v))
+    n, n1 = TFA.flash_attention.launches, TFA.flash_attention_packed.launches
+    got = TFA.flash_attention(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert TFA.flash_attention.launches == n + 1
+    assert TFA.flash_attention_packed.launches == n1  # K8 is not K1's entry
+    assert got.shape == (B, N, H, D) and got.dtype == dtype and got.is_contiguous()
+    want = TFA.attention_reference(q.float(), k.float(), v.float(), D ** -0.5)
+    assert float((got.float() - want).abs().max()) <= (2e-2 if dtype == torch.bfloat16 else 1e-4)
+    qkv = (t.reshape(B, N, H * D).contiguous() for t in (q, k, v))
+    packed = TFA.flash_attention_packed(*qkv, D ** -0.5, H)
+    assert torch.equal(got.view(B, N, H * D), packed)
+
+
+@pytest.mark.cuda
+def test_k8_raises_on_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros(2, 10, 4, 64, device=cuda_device, dtype=torch.bfloat16)
+    n = TFA.flash_attention.launches
+    with pytest.raises(ValueError):  # head size 32
+        TFA.flash_attention(x[..., :32], x[..., :32], x[..., :32], 0.125)
+    with pytest.raises(ValueError):  # heads-first view: the last dimension is strided
+        t = x.transpose(2, 3).contiguous().transpose(2, 3)
+        TFA.flash_attention(t, t, t, 0.125)
+    with pytest.raises(ValueError):  # rows 8 bytes off a 16-byte boundary
+        y = torch.zeros(2 * 10 * 4 * 64 + 4, device=cuda_device, dtype=torch.bfloat16)
+        t = y[4:].view(2, 10, 4, 64)
+        TFA.flash_attention(t, t, t, 0.125)
+    with pytest.raises(ValueError):  # k of another length
+        TFA.flash_attention(x, x[:, :9], x, 0.125)
+    with pytest.raises(TypeError):
+        TFA.flash_attention(x.half(), x.half(), x.half(), 0.125)
+    assert TFA.flash_attention.launches == n
 
 
 # ------------------------------------- biased and int8-QK^T attention ----
@@ -366,8 +418,163 @@ def test_int8_model_counts_its_launches(cuda_device):
         w.launches = 0
     out = model(x, guidance=torch.tensor([0, 4, 8], device=cuda_device))
     torch.cuda.synchronize()
-    assert [w.launches for w in counters] == [2, 2, 2, 2, 2, 2, 2, 2]
+    # K2, K5, K3, K4a, K4b, K4, then K13 and K14 (no caller in the model), K1, K6
+    assert [w.launches for w in counters] == [2, 2, 2, 2, 2, 2, 0, 0, 2, 2]
     model.attn_impl = "plain"
     ref = model(x, guidance=torch.tensor([0, 4, 8], device=cuda_device))
+    torch.testing.assert_close(out.depth, ref.depth, atol=0, rtol=2e-2)
+    torch.testing.assert_close(out.confidence, ref.confidence, atol=0, rtol=2e-2)
+
+
+# ------------------------------------------------------ K13, K14, K15 ----
+# (B, N, K, Nout): attn_out, fc1, fc2 (rows 3072 wide: the two-pass prologue),
+# qkv, ViT-L widths, ragged N, one row tile
+PROJ_SHAPES = [(8, 1370, 768, 768), (8, 1370, 768, 3072), (8, 1370, 3072, 768),
+               (8, 1370, 768, 2304), (2, 257, 1024, 4096), (2, 257, 4096, 1024),
+               (8, 481, 768, 2304), (8, 257, 768, 768), (1, 17, 128, 256)]
+
+
+def _proj_inputs(B, N, K, Nout, dev, seed=0):
+    r = np.random.RandomState(seed)
+    x = torch.from_numpy(r.randn(B, N, K).astype(np.float32)).to(dev).bfloat16()
+    w = quantize_weight(torch.from_numpy((r.randn(Nout, K) * 0.05).astype(np.float32)).to(dev))
+    b = torch.from_numpy((r.randn(Nout) * 0.01).astype(np.float32)).to(dev).bfloat16().float()
+    return x, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PROJ_SHAPES, ids=lambda s: "B%d-N%d-K%d-N%d" % s)
+@pytest.mark.parametrize("kernel", ["K13", "K15"])
+def test_int8_linear_kernels_match_plain(kernel, shape, cuda_device):
+    """K13 on [B, N, K], K15 on the flattened rows (M 10960 at the slice
+    shape, 8 x 481 after the filter) and through ``int8_linear_fused``."""
+    B, N, K, Nout = shape
+    x, w, b = _proj_inputs(*shape, cuda_device)
+    if kernel == "K13":
+        n = TIB.int8_proj.launches
+        got = TIB.int8_proj(x, w["q"], w["s"], b)
+        assert TIB.int8_proj.launches == n + 1
+        want = TIB.int8_proj_plain(x, w["q"], w["s"], b)
+    else:
+        n, n13 = TIG.int8_gemm_fused.launches, TIB.int8_proj.launches
+        got2 = TIG.int8_gemm_fused(x.view(B * N, K), w["q"], w["s"], b)
+        got = TIG.int8_linear_fused(x, w, b)
+        assert TIG.int8_gemm_fused.launches == n + 2 and TIB.int8_proj.launches == n13
+        assert torch.equal(got2.view(B, N, Nout), got)
+        want = TIG.int8_linear_fused_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == (B, N, Nout)
+    _assert_bf16_close(got, want)
+
+
+@pytest.mark.cuda
+def test_wide_rows_quantise_as_narrow_ones(cuda_device):
+    """The two-pass prologue (K > 1024) and the register prologue give the
+    same int8 rows: a [M, 2048] input whose right half is zero projects as its
+    left half does through the left half of the weight."""
+    x, w, b = _proj_inputs(2, 300, 1024, 256, cuda_device, seed=3)
+    wide_x = torch.cat([x, torch.zeros_like(x)], dim=-1)
+    wide_w = torch.cat([w["q"], torch.zeros_like(w["q"])], dim=-1).contiguous()
+    assert torch.equal(TIB.int8_proj(wide_x, wide_w, w["s"], b),
+                       TIB.int8_proj(x, w["q"], w["s"], b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B%d-N%d-D%d-F%d" % s)
+def test_k14_kernel_matches_plain_on_raw_and_layernormed_rows(shape, cuda_device):
+    t = _int8_inputs(*shape, cuda_device, seed=1)
+    args = (t["x"], *t["fc1"])
+    n, n4a = TIB.int8_fc1_gelu.launches, TIB.int8_fc1_gelu_ln.launches
+    h8, sh = TIB.int8_fc1_gelu(*args)
+    torch.cuda.synchronize()
+    assert TIB.int8_fc1_gelu.launches == n + 1 and TIB.int8_fc1_gelu_ln.launches == n4a
+    h8p, shp = TIB.int8_fc1_gelu_plain(*args)
+    assert h8.dtype == torch.int8 and sh.dtype == torch.float32 and sh.shape == shp.shape
+    diff = (h8.int() - h8p.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-2
+    srel = (sh - shp).abs() / shp
+    assert float((srel > 2e-4).float().mean()) < 1e-3 and float(srel.max()) <= 5e-3
+    # rows that the plain layernorm normalised, as the JAX package's tests feed it
+    normed = TIB._ln_f32(t["x"].float(), t["g"], t["be"], 1e-6).bfloat16()
+    a8, sa = TIB.int8_fc1_gelu(normed, *t["fc1"])
+    b8, sb = TIB.int8_fc1_gelu_plain(normed, *t["fc1"])
+    d2 = (a8.int() - b8.int()).abs()
+    assert int(d2.max()) <= 1 and float((d2 > 0).float().mean()) < 1e-2
+    assert float(((sa - sb).abs() / sb).max()) <= 5e-3
+
+
+@pytest.mark.cuda
+def test_int8_linear_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    x, w, b = _proj_inputs(2, 40, 256, 512, cuda_device)
+    before = [f.launches for f in (*TIB.WRAPPERS, *TIG.WRAPPERS)]
+    with pytest.raises(TypeError):  # f32 rows
+        TIB.int8_proj(x.float(), w["q"], w["s"], b)
+    with pytest.raises(TypeError):
+        TIG.int8_linear_fused(x.float(), w, b)
+    with pytest.raises(TypeError):  # the kernel writes bf16 only
+        TIG.int8_gemm_fused(x.view(80, 256), w["q"], w["s"], b, torch.float32)
+    with pytest.raises(TypeError):
+        TIB.int8_fc1_gelu(x.float(), w["q"], w["s"], b)
+    strided = torch.empty(2, 40, 512, device=cuda_device, dtype=torch.bfloat16)[..., :256]
+    with pytest.raises(ValueError):
+        TIB.int8_proj(strided, w["q"], w["s"], b)
+    with pytest.raises(ValueError):  # a [M, K] view with a row stride
+        TIG.int8_gemm_fused(strided[0], w["q"], w["s"], b)
+    narrow = _proj_inputs(1, 8, 192, 384, cuda_device)  # widths not multiples of 128
+    with pytest.raises(ValueError):
+        TIB.int8_proj(narrow[0], narrow[1]["q"], narrow[1]["s"], narrow[2])
+    with pytest.raises(ValueError):  # bf16 bias: the kernels read f32
+        TIB.int8_proj(x, w["q"], w["s"], b.bfloat16())
+    assert [f.launches for f in (*TIB.WRAPPERS, *TIG.WRAPPERS)] == before
+
+
+# ------------------------------------------------ the adapter path ----
+ADAPTER_CASES = {
+    # name: (policy, attn_impl, fold, [K1, K8, K15, K2, K3, K4] launches in one forward)
+    "default_attn_out": ("default", "pallas_packed", False, [2, 0, 0, 0, 0, 0]),
+    "default_heads_route": ("default", "pallas", False, [0, 2, 0, 0, 0, 0]),
+    "int8_live_adapters": ("int8", "pallas_packed", False, [2, 0, 2, 0, 0, 0]),
+    "int8_folded": ("int8", "pallas_packed", True, [2, 0, 0, 2, 2, 2]),
+    "int8_heads_route": ("int8", "pallas", False, [0, 2, 0, 0, 0, 0]),
+}
+PLAIN_OF = {"pallas_packed": "plain", "pallas": "plain_heads"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ADAPTER_CASES))
+def test_adapter_model_counts_its_launches(case, cuda_device):
+    """A 2-layer model with rank-8 adapters on all four targets and non-zero
+    B: live adapters under int8 take the unchained block (K15, no K2-K4), the
+    fold brings the chained block back, ``attn_impl="pallas"`` takes K8."""
+    from cognitive_aim_tpu_torch.core.precision import policy_from_name
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig
+    from cognitive_aim_tpu_torch.nn.dinov2 import DinoV2Config
+
+    policy, impl, fold, want = ADAPTER_CASES[case]
+    vit = DinoV2Config(hidden_size=128, num_layers=2, num_heads=2, pretrain_image_size=56,
+                       gelu_approx=True)
+    arch = ModelArchConfig(num_iterations=2, image_size=70, use_lora=True, lora_rank=8,
+                           lora_alpha=16, lora_targets=("qkv", "attn_out", "fc1", "fc2"))
+    model = CognitiveAimModel(arch, policy_from_name(policy), impl, vit_cfg=vit)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    model.init(g)
+    for blk in model.backbone.layers:
+        for target in ("qkv", "attn_out", "fc1", "fc2"):
+            blk.adapter(target)[1].data.normal_(0.0, 0.05, generator=g)
+    if fold:
+        model.merge_lora_params()
+    model.prepare_params()
+    x = torch.randn(3, 70, 70, 3, device=cuda_device)
+    gi = torch.tensor([0, 4, 8], device=cuda_device)
+    counters = (TFA.flash_attention_packed, TFA.flash_attention, TIG.int8_gemm_fused,
+                TIB.int8_qkv_proj_ln, TIB.int8_out_residual, TIB.int8_mlp_ln)
+    for w in counters:
+        w.launches = 0
+    out = model(x, guidance=gi)
+    torch.cuda.synchronize()
+    assert [w.launches for w in counters] == want
+    model.attn_impl = PLAIN_OF[impl]
+    ref = model(x, guidance=gi)
     torch.testing.assert_close(out.depth, ref.depth, atol=0, rtol=2e-2)
     torch.testing.assert_close(out.confidence, ref.confidence, atol=0, rtol=2e-2)

@@ -17,7 +17,10 @@ Tolerances, with their reasons:
   * filtered backbone, strict float32: the kept set is a discrete function of
     the importances, so the test asserts that the priority gap at every keep
     boundary exceeds 1e-5 (50x the float32 differences between the frameworks)
-    and then that every stage keeps identical indices; outputs atol 2e-5 /
+    and then that every stage keeps identical indices; merge mode and the
+    delta correction also assign each dropped token to a kept one by an argmax
+    of cosine similarities, so the test asserts that every such argmax leads
+    its runner-up by 1e-5 too; outputs atol 2e-5 /
     rtol 1e-4 as the unfiltered backbone test of tests/test_torch_model.py.
   * bfloat16 backbone: both sides round at other places (see
     tests/test_torch_model.py), and a token at the keep boundary may swap, which
@@ -368,9 +371,131 @@ def test_guided_region_always_kept():
         assert (np.diff(idx[b].numpy()) > 0).all()  # ascending: spatial order kept
 
 
+# ------------------------------------------- merge mode, delta correction ----
+def test_cls_importance_returns_the_key_projection():
+    jcfg, params, model = _backbone()
+    (x,) = _arrays((2, 1 + P, VIT["hidden_size"]), n=1, seed=5)
+    wimp, wkeys = JD._cls_importance(_layer(params, 2), jnp.asarray(x), jcfg, return_keys=True)
+    with torch.no_grad():
+        imp, keys = TD._cls_importance(model.layers[2], torch.from_numpy(x), return_keys=True)
+    assert keys.shape == (2, 1 + P, VIT["hidden_size"]) and keys.dtype == torch.float32
+    np.testing.assert_allclose(imp.numpy(), np.asarray(wimp), **FN_TOL)
+    np.testing.assert_allclose(keys.numpy(), np.asarray(wkeys), atol=1e-5, rtol=1e-5)
+
+
+def test_complement_indices_match_jax_and_survive_a_boundary_tie():
+    imp = np.full((2, 12), 0.05, np.float32)  # every priority tied at the boundary
+    imp[0, 7] = 0.2
+    idx = np.array(JD._keep_indices(jnp.asarray(imp), None, 4))
+    want = JD._complement_indices(jnp.asarray(idx), 12, 8)
+    got = TD._complement_indices(torch.from_numpy(idx), 12, 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for b in range(2):  # a partition: nothing in both sets, nothing in neither
+        assert sorted(idx[b].tolist() + got[b].tolist()) == list(range(12))
+
+
+def _assign_gap(keys, idx, idx_drop):
+    """Lead of every dropped token's best cosine similarity over its second."""
+    kn = keys / np.sqrt((keys * keys).sum(-1, keepdims=True) + 1e-12)
+    take = lambda a, i: np.take_along_axis(a, i[..., None], axis=1)  # noqa: E731
+    sim = np.einsum("bjd,bkd->bjk", take(kn, idx_drop), take(kn, idx))
+    top = -np.sort(-sim, axis=-1)
+    return float((top[..., 0] - top[..., 1]).min())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_filter_and_refilter_tokens_merge_match_jax(dtype):
+    """Stage 1 (``_filter_tokens_merge``), ``_assign_dropped`` and stage 2
+    (``_refilter_tokens_merge``) on the same stream, importances, keys and
+    guidance weights: identical kept indices, slot maps and sizes."""
+    x, imp = _stream(seed=2)
+    (keys,) = _arrays((2, 1 + P, VIT["hidden_size"]), n=1, seed=21)
+    kw = _guided_weights(2)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    tol = FN_TOL if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)  # one bf16 step
+    k1, k2 = 30, 12
+    want = JD._filter_tokens_merge(jnp.asarray(x).astype(jdt), jnp.asarray(imp),
+                                   jnp.asarray(keys), jnp.asarray(kw), k1)
+    got = TD._filter_tokens_merge(torch.from_numpy(x).to(tdt), torch.from_numpy(imp),
+                                  torch.from_numpy(keys), torch.from_numpy(kw), k1)
+    wx, widx, wrep, wsizes = (np.asarray(a.astype(jnp.float32) if a.dtype == jdt else a)
+                              for a in want)
+    drop = np.asarray(JD._complement_indices(jnp.asarray(widx), P, P - k1))
+    assert _assign_gap(keys[:, 1:], widx, drop) > MIN_GAP, "pick another seed"
+    assert got[0].dtype == tdt and got[0].shape == (2, 1 + k1, x.shape[-1])
+    np.testing.assert_array_equal(got[1].numpy(), widx)
+    np.testing.assert_array_equal(got[2].numpy(), wrep)
+    np.testing.assert_array_equal(got[3].numpy(), wsizes)
+    assert got[3].sum(1).tolist() == [float(P)] * 2  # every token stands in one group
+    np.testing.assert_allclose(got[0].float().numpy(), wx, **tol)
+
+    wdrop, wassign = JD._assign_dropped(jnp.asarray(imp), jnp.asarray(keys), None,
+                                        jnp.asarray(widx), k1)
+    gdrop, gassign = TD._assign_dropped(torch.from_numpy(imp), torch.from_numpy(keys),
+                                        torch.from_numpy(widx), k1)
+    np.testing.assert_array_equal(gdrop.numpy(), np.asarray(wdrop))
+    np.testing.assert_array_equal(gassign.numpy(), np.asarray(wassign))
+
+    # stage 2 on the JAX stage-1 stream, so both sides start from equal values
+    imp2 = np.random.RandomState(7).rand(2, k1).astype(np.float32) / k1
+    (keys2,) = _arrays((2, 1 + k1, VIT["hidden_size"]), n=1, seed=22)
+    kw_g = np.take_along_axis(kw, widx, axis=1)
+    want2 = JD._refilter_tokens_merge(jnp.asarray(wx).astype(jdt), jnp.asarray(imp2),
+                                      jnp.asarray(keys2), k1, jnp.asarray(kw_g), k2,
+                                      jnp.asarray(wsizes))
+    got2 = TD._refilter_tokens_merge(torch.from_numpy(wx).to(tdt), torch.from_numpy(imp2),
+                                     torch.from_numpy(keys2), k1, torch.from_numpy(kw_g), k2,
+                                     torch.from_numpy(wsizes))
+    widx2 = np.asarray(want2[1])
+    drop2 = np.asarray(JD._complement_indices(jnp.asarray(widx2), k1, k1 - k2))
+    assert _assign_gap(keys2[:, 1:], widx2, drop2) > MIN_GAP, "pick another seed"
+    for g, w in zip(got2[1:], want2[1:]):  # idx_local, slot_map, new sizes
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got2[3].sum(1).tolist() == [float(P)] * 2
+    np.testing.assert_allclose(got2[0].float().numpy(),
+                               np.asarray(want2[0].astype(jnp.float32)), **tol)
+
+
+def test_merge_keep_all_maps_every_position_to_itself():
+    x, imp = _stream(seed=3)
+    out, idx, rep, sizes = TD._filter_tokens_merge(
+        torch.from_numpy(x), torch.from_numpy(imp), torch.from_numpy(x), None, P)
+    assert torch.equal(out, torch.from_numpy(x)) and torch.equal(rep, idx)
+    assert sizes.tolist() == [[1.0] * P] * 2
+    np.testing.assert_array_equal(TD._prop_bias_merge(sizes).numpy(), np.zeros((2, 1 + P)))
+
+
+def test_merged_positions_read_their_representatives_row():
+    """After merge mode every patch position equals the row of the kept
+    token that stands for it: kept positions differ pairwise, a dropped one
+    repeats a kept one; '@d' instead leaves every position its own value."""
+    _, _, model = _backbone()
+    x = torch.from_numpy(_images(2, seed=14))
+    out, idx = model.forward_with_kept(x, filter_layer=2, filter_keep=0.25, filter_merge=True)
+    assert out.shape == (2, 1 + P, VIT["hidden_size"]) and idx.shape == (2, 16)
+    for b in range(2):
+        rows = out[b, 1:]
+        kept = rows[idx[b]]
+        assert len(torch.unique(kept, dim=0)) == 16
+        # every position is bit-equal to one of the kept rows
+        assert bool((rows[:, None] == kept[None]).all(-1).any(-1).all())
+    dc, idx_d = model.forward_with_kept(x, filter_layer=2, filter_keep=0.25,
+                                        filter_delta_correct=True)
+    drop, _ = model.forward_with_kept(x, filter_layer=2, filter_keep=0.25)
+    assert torch.equal(idx_d, idx)
+    kept_mask = torch.zeros(2, P, dtype=torch.bool).scatter_(1, idx, True)
+    assert torch.equal(dc[:, 1:][kept_mask], drop[:, 1:][kept_mask])  # kept tokens: drop mode's
+    assert len(torch.unique(dc[0, 1:], dim=0)) == P
+    assert not torch.allclose(dc[:, 1:][~kept_mask], drop[:, 1:][~kept_mask])
+
+
 # ------------------------------------------------------------ backbone ----
 SPECS = ["2:0.5", "1:0.6,2:0.3", "1:0.6,2:0.3@f4", "2:0.5@s4", "2:0.4@c0.25",
          "1:0.6,3:0.3@r0.5", "2:0.5@p", "1:0.6,2:0.3@f4@p"]
+# merge mode and the delta correction; in bfloat16 an assignment may go to
+# another kept token, which moves every position of that group, so the bf16
+# test takes the drop-mode specs and the delta correction only
+MERGE_SPECS = ["2:0.5@m", "2:0.5@m@p", "1:0.6,2:0.3@m", "1:0.6,2:0.3@m@p@r0.5", "2:0.5@d"]
 
 
 def _filter_kw(spec):
@@ -414,27 +539,45 @@ def _jax_backbone(jcfg, params, x, guide=None, **kw):
     return out
 
 
+def _record_assign_gaps(monkeypatch):
+    """Wrap the port's ``_nearest_kept``; returns the list that receives the
+    smallest lead of an argmax over its runner-up, per call."""
+    gaps = []
+    orig = TD._nearest_kept
+
+    def wrapped(keys, idx, idx_drop):
+        gaps.append(_assign_gap(keys.numpy(), idx.numpy(), idx_drop.numpy()))
+        return orig(keys, idx, idx_drop)
+
+    monkeypatch.setattr(TD, "_nearest_kept", wrapped)
+    return gaps
+
+
 def _boundary_gap(prio, k):
     s = -np.sort(-prio, axis=1)
     return float((s[:, k - 1] - s[:, k]).min())
 
 
-@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("spec", SPECS + MERGE_SPECS)
 def test_filtered_backbone_matches_jax_f32(spec, monkeypatch):
-    """Strict float32, guided: identical kept indices at every stage, the
-    outputs to float32 rounding."""
+    """Strict float32, guided: identical kept indices at every stage (and,
+    with a gap at every argmax, identical assignments), the outputs to
+    float32 rounding."""
     jcfg, params, model = _backbone(gelu=False)
     x = _images(2, seed=15)  # every keep boundary of every spec is > 4e-5 wide
     kw = _guided_weights(2)
     fkw = _filter_kw(spec)
     jcalls = _record_keep_indices(monkeypatch, JD, jax_side=True)
     tcalls = _record_keep_indices(monkeypatch, TD, jax_side=False)
+    gaps = _record_assign_gaps(monkeypatch)
     want = _jax_backbone(jcfg, params, x, guide=jnp.asarray(kw), **fkw)
     got, idx = model.forward_with_kept(torch.from_numpy(x), compute_dtype=torch.float32,
                                        attn_impl="pallas_packed",
                                        keep_weights=torch.from_numpy(kw), **fkw)
     n_stages = len(fkw.get("filter_schedule", ())) or 1
     assert len(jcalls) == len(tcalls) == n_stages
+    assert len(gaps) == (n_stages if spec in MERGE_SPECS else 0)
+    assert all(g > MIN_GAP for g in gaps), f"pick another seed: {gaps}"
     for (jprio, jidx, k, ctx), (tprio, tidx, _, _) in zip(jcalls, tcalls):
         if not ctx:  # with a reserve the boundary is that of two rankings
             assert _boundary_gap(jprio, k) > MIN_GAP, "pick another seed"
@@ -445,7 +588,7 @@ def test_filtered_backbone_matches_jax_f32(spec, monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_BACKBONE_TOL)
 
 
-@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("spec", SPECS + ["2:0.5@d"])
 def test_filtered_backbone_matches_jax_bf16(spec):
     """bfloat16, unguided: the two frameworks round at other places, so a
     token at a keep boundary may swap, and that position's output then
@@ -520,6 +663,14 @@ BAD_SCHEDULES = {
                                filter_prop_attn=True), "prop_attn"),
     "fuse_k_not_square": (dict(filter_layer=2, filter_keep=0.25, filter_fuse_k=3),
                           "perfect square"),
+    "delta_with_merge": (dict(filter_layer=2, filter_keep=0.25, filter_delta_correct=True,
+                              filter_merge=True), "single-stage drop-mode"),
+    "delta_progressive": (dict(filter_schedule=((1, 0.5), (2, 0.25)),
+                               filter_delta_correct=True), "single-stage drop-mode"),
+    "fuse_k_with_merge": (dict(filter_layer=2, filter_keep=0.25, filter_fuse_k=4,
+                               filter_merge=True), "drop-mode only"),
+    "fuse_k_with_delta": (dict(filter_layer=2, filter_keep=0.25, filter_fuse_k=4,
+                               filter_delta_correct=True), "drop-mode only"),
 }
 
 
@@ -537,13 +688,26 @@ def test_schedule_validation(case):
 
 @pytest.mark.parametrize("option", ["filter_merge", "filter_delta_correct"])
 def test_merge_and_delta_correct_raise(option):
+    """Both modes run; what raises is what the JAX package refuses: '@d' with
+    '@m' or a progressive schedule, and '@p' without fuse only in drop mode."""
     _, _, model = _backbone()
     x = torch.from_numpy(_images(1, seed=16))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(x, filter_layer=2, filter_keep=0.5, **{option: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TModel(TCfg.ModelArchConfig(**parse_token_filter(
-            "2:0.5@m" if option == "filter_merge" else "2:0.5@d")), device="cpu")
+    out, idx = model.forward_with_kept(x, filter_layer=2, filter_keep=0.5, **{option: True})
+    assert out.shape == (1, 1 + P, VIT["hidden_size"]) and idx.shape == (1, P // 2)
+    spec = "2:0.5@m" if option == "filter_merge" else "2:0.5@d"
+    tm = TModel(TCfg.ModelArchConfig(**parse_token_filter(spec)), device="cpu",
+                vit_cfg=TD.DinoV2Config(**VIT))
+    assert tm.backbone_kwargs(x)[option] is True
+    with pytest.raises(ValueError, match="single-stage drop-mode"):
+        model(x, filter_layer=2, filter_keep=0.5, filter_merge=True,
+              filter_delta_correct=True)
+    # '@p' without the fused token: refused in drop mode, fine in merge mode
+    kw = dict(filter_layer=2, filter_keep=0.5, filter_fuse=False, filter_prop_attn=True)
+    if option == "filter_merge":
+        model(x, filter_merge=True, **kw)
+    else:
+        with pytest.raises(ValueError, match="prop_attn"):
+            model(x, filter_delta_correct=True, **kw)
     # a schedule with no active stage filters nothing and raises nothing
     assert model.forward_with_kept(x, filter_layer=0, **{option: True})[1] is None
 
@@ -598,6 +762,46 @@ def test_filtered_model_matches_jax(case, guided, pallas_interpret):
         np.testing.assert_allclose(getattr(got, field).numpy(),
                                    np.asarray(getattr(want, field)),
                                    err_msg=f"{case} {field}", **tol)
+
+
+@pytest.mark.parametrize("spec", ["2:0.5@m@p", "2:0.5@d"])
+@pytest.mark.parametrize("case", ["f32", "bf16", "int8"])
+def test_merge_and_delta_model_matches_jax(case, spec, pallas_interpret):
+    """The whole model, guided, in merge mode with proportional attention
+    (every block after the filter point carries a bias row: K7's route) and
+    with the delta correction."""
+    jm, params, tm = _model_pair(case, spec)
+    tol = MODEL_CASES[case][4]
+    x = _images(3, seed=19)
+    g = np.asarray([0, 4, 8], np.int32)
+    want = jax.jit(lambda p, im, gi: jm.apply(p, im, None, noise_mode=JNoise.ZEROS,
+                                              guidance=gi))(params, jnp.asarray(x),
+                                                            jnp.asarray(g))
+    got = tm(torch.from_numpy(x), None, noise_mode=NoiseMode.ZEROS,
+             guidance=torch.from_numpy(g))
+    for field in ("depth", "confidence", "attention"):
+        np.testing.assert_allclose(getattr(got, field).numpy(),
+                                   np.asarray(getattr(want, field)),
+                                   err_msg=f"{case} {spec} {field}", **tol)
+
+
+def test_merge_prop_attn_biases_every_block_after_the_filter(monkeypatch):
+    _, _, model = _backbone()
+    x = torch.from_numpy(_images(1, seed=15))
+    seen = []
+    orig = TD.attend
+
+    def spy(attn_impl, q, k, v, k_bias, scale, num_heads):
+        seen.append((q.shape[1], None if k_bias is None else k_bias.clone()))
+        return orig(attn_impl, q, k, v, k_bias, scale, num_heads)
+
+    monkeypatch.setattr(TD, "attend", spy)
+    model(x, attn_impl="pallas_packed", **_filter_kw("1:0.5,3:0.25@m@p"))
+    assert [n for n, _ in seen] == [1 + P, 1 + 32, 1 + 32, 1 + 16]
+    assert seen[0][1] is None
+    for n, bias in seen[1:]:  # log group sizes: CLS 0, the groups hold all P tokens
+        assert bias.shape == (1, n) and float(bias[0, 0]) == 0.0
+        np.testing.assert_allclose(float(bias[0, 1:].exp().sum()), P, rtol=1e-5)
 
 
 def test_filtered_model_scalar_instruction_and_filter_effect():

@@ -25,8 +25,10 @@ import torch
 import jax.numpy as jnp
 
 from cognitive_aim_tpu.kernels import int8_block as JIB
+from cognitive_aim_tpu.kernels import int8_gemm as JIG
 from cognitive_aim_tpu.kernels import int8_ops as JI8
 from cognitive_aim_tpu_torch.kernels import int8_block as TIB
+from cognitive_aim_tpu_torch.kernels import int8_gemm as TIG
 from cognitive_aim_tpu_torch.kernels import int8_ops as TI8
 
 B, N, D, F = 2, 70, 128, 256
@@ -254,6 +256,83 @@ def test_mlp_ln_matches_jax_one_kernel_mlp(pallas_interpret):
     got = TIB.int8_mlp_ln(_t(t["x"]), _t(t["g"]), _t(t["be"]), t1["q"], t1["s"], _t(t["b1"]),
                           t2["q"], t2["s"], _t(t["b2"]), _t(t["ls"]), EPS)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **OUT_TOL)
+
+
+# K13 at the shapes of a block's projections: (weight, bias, input width)
+PROJ_SHAPES = {"attn_out": ("w_out", "b_out", D), "fc1": ("w1", "b1", D),
+               "fc2": ("w2", "b2", F), "qkv": ("w_qkv", "b_qkv", D)}
+
+
+def _proj_input(t, K, seed=0):
+    return t["x"] if K == D else (
+        np.random.RandomState(seed).randn(B, N, K).astype(np.float32) * 0.5)
+
+
+@pytest.mark.parametrize("shape", list(PROJ_SHAPES))
+def test_int8_proj_matches_jax_kernel(shape, pallas_interpret):
+    """K13: no split, any input width (fc2 reads rows F wide)."""
+    wname, bname, K = PROJ_SHAPES[shape]
+    t = _inputs(10)
+    x = _proj_input(t, K)
+    jw, tw = _jq(t[wname]), _tq(t[wname])
+    want = JIB.int8_proj(jnp.asarray(x), jw["q"], jw["s"], jnp.asarray(t[bname]), n_block=64,
+                         out_dtype=jnp.float32)
+    got = TIB.int8_proj(_t(x), tw["q"], tw["s"], _t(t[bname]), torch.float32)
+    assert got.shape == (B, N, t[wname].shape[1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **QKV_TOL)
+
+
+def test_int8_fc1_gelu_matches_jax_kernel_and_k4a_on_normed_rows(pallas_interpret):
+    """K14 against the JAX kernel, and against K4a fed rows that the plain
+    layernorm has normalised, with a unit layernorm inside (how the JAX
+    package's own tests tie the two)."""
+    t = _inputs(11)
+    jw, tw = _jq(t["w1"]), _tq(t["w1"])
+    jh8, jsh = JIB.int8_fc1_gelu(jnp.asarray(t["x"]), jw["q"], jw["s"], jnp.asarray(t["b1"]),
+                                 n_block=64)
+    h8, sh = TIB.int8_fc1_gelu(_t(t["x"]), tw["q"], tw["s"], _t(t["b1"]))
+    assert h8.dtype == torch.int8 and h8.shape == (B, N, F) and sh.shape == (B, N, 1)
+    np.testing.assert_allclose(sh.numpy(), np.asarray(jsh), rtol=2e-4)
+    _assert_int8_close(h8.numpy(), np.asarray(jh8))
+    normed = TIB._ln_f32(_t(t["x"]), _t(t["g"]), _t(t["be"]), EPS)
+    a8, sa = TIB.int8_fc1_gelu(normed, tw["q"], tw["s"], _t(t["b1"]))
+    b8, sb = TIB.int8_fc1_gelu_ln(_t(t["x"]), _t(t["g"]), _t(t["be"]), tw["q"], tw["s"],
+                                  _t(t["b1"]), EPS)
+    assert torch.equal(a8, b8) and torch.equal(sa, sb)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_int8_gemm_fused_matches_jax_kernel(bias, pallas_interpret):
+    """K15 on flattened rows, and ``int8_linear_fused`` over leading
+    dimensions with a missing bias as zeros and the output in x's dtype."""
+    t = _inputs(12)
+    jw, tw = _jq(t["w_qkv"]), _tq(t["w_qkv"])
+    x2 = t["x"].reshape(B * N, D)
+    want = JIG.int8_gemm_fused(jnp.asarray(x2), jw["q"], jw["s"], jnp.asarray(t["b_qkv"]),
+                               m_block=64, out_dtype=jnp.float32)
+    got = TIG.int8_gemm_fused(_t(x2), tw["q"], tw["s"], _t(t["b_qkv"]), torch.float32)
+    assert got.shape == (B * N, 3 * D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **QKV_TOL)
+    b = t["b_qkv"] if bias else None
+    want = JIG.int8_linear_fused(jnp.asarray(t["x"]), jw, None if b is None else jnp.asarray(b))
+    got = TIG.int8_linear_fused(_t(t["x"]), tw, None if b is None else _t(b))
+    assert got.shape == (B, N, 3 * D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **QKV_TOL)
+    # the function XLA's int8_linear computes, which the other projections take
+    np.testing.assert_allclose(got.numpy(), TI8.int8_linear(_t(t["x"]), tw,
+                                                            None if b is None else _t(b)).numpy(),
+                               **QKV_TOL)
+
+
+def test_int8_linear_fused_bf16_rounds_once():
+    t = _inputs(13)
+    tw = _tq(t["w_qkv"])
+    x = _t(t["x"]).bfloat16()
+    got = TIG.int8_linear_fused(x, tw, _t(t["b_qkv"]))
+    assert got.dtype == torch.bfloat16
+    f32 = TIG.int8_gemm_fused(x.reshape(B * N, D), tw["q"], tw["s"], _t(t["b_qkv"]),
+                              torch.float32)
+    assert torch.equal(got, f32.bfloat16().view(B, N, 3 * D))
 
 
 # ------------------------------------------------ the port's own contracts ----

@@ -1,4 +1,4 @@
-"""The port's K1 and K6 against the JAX package's Pallas kernels.
+"""The port's K1, K6 and K8 against the JAX package's Pallas kernels.
 
 The JAX side runs its Pallas kernels in interpret mode on the CPU (as
 tests/test_kernels.py does); the port's wrappers get CPU tensors, so they
@@ -67,6 +67,46 @@ def test_focal_plain_matches_jax_kernel(N, pallas_interpret):
     for name, w, g in zip(("attended", "colmean", "diag", "rowmax"), want, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=RTOL,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [130, 257])
+def test_flash_attention_plain_matches_jax_kernel(N, dtype, pallas_interpret):
+    """K8 on [B, N, H, Dh]; bf16: both sides round P and the output to bf16,
+    one bf16 step of an O(1) value apart at most."""
+    B, H, D = 2, 3, 64
+    q, k, v = _arrays((B, N, H, D))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = JFA.flash_attention(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)),
+                               scale=D ** -0.5, q_block=128, k_block=128)
+    got = TFA.flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), D ** -0.5)
+    assert got.shape == (B, N, H, D) and got.dtype == tdt
+    tol = dict(atol=ATOL, rtol=RTOL) if dtype == "float32" else dict(atol=1e-2, rtol=0)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), **tol)
+
+
+def test_flash_attention_plain_is_the_jax_reference_and_takes_views():
+    """``attention_reference`` against the JAX function of that name, on
+    separately projected tensors and on the column slices of one fused
+    [B, N, 3 H Dh] projection (the views K8's kernel reads in place)."""
+    B, N, H, D = 2, 70, 2, 64
+    (qkv,) = _arrays((B, N, 3 * H * D), n=1, seed=3)
+    tq, tk, tv = (t.view(B, N, H, D) for t in torch.from_numpy(qkv).split(H * D, dim=-1))
+    assert not tq.is_contiguous()
+    jq, jk, jv = (jnp.asarray(a).reshape(B, N, H, D)
+                  for a in np.split(qkv, 3, axis=-1))
+    want = JFA.attention_reference(jq, jk, jv, D ** -0.5)
+    n8 = TFA.flash_attention.launches
+    got = TFA.flash_attention(tq, tk, tv, D ** -0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
+    assert torch.equal(got, TFA.attention_reference(tq.contiguous(), tk.contiguous(),
+                                                    tv.contiguous(), D ** -0.5))
+    # the packed kernel's function on the same memory, head by head
+    packed = TFA.flash_attention_packed(*(t.reshape(B, N, H * D) for t in (tq, tk, tv)),
+                                        D ** -0.5, H)
+    np.testing.assert_allclose(got.reshape(B, N, H * D).numpy(), packed.numpy(),
+                               atol=ATOL, rtol=RTOL)
+    assert TFA.flash_attention.launches == n8  # CPU tensors launch nothing
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():

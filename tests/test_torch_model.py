@@ -263,7 +263,7 @@ def test_converter_raises_on_leftover_keys_and_unset_parameters():
     _, flat = _jax_params(arch)
     tm = TModel(_tarch(arch), vit_cfg=TD.DinoV2Config(**TINY), device="cpu")
     with pytest.raises((KeyError, ValueError)):
-        load_flat_params(tm, {**flat, "backbone/layers/lora_A": np.zeros((2, 4, 64))})
+        load_flat_params(tm, {**flat, "backbone/layers/stray": np.zeros((2, 4, 64))})
     missing = dict(flat)
     del missing["decision_head/fc0/b"]
     with pytest.raises(ValueError, match="unset"):
@@ -359,13 +359,15 @@ def test_noise_zeros_mode_and_int8_policy():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        TModel(TCfg.ModelArchConfig(use_lora=True), device="cpu")
+    # adapters, and the token filter's drop mode, merge mode and delta
+    # correction are ported (tests/test_torch_lora.py, tests/test_torch_filter.py)
+    tm = TModel(TCfg.ModelArchConfig(use_lora=True), vit_cfg=TD.DinoV2Config(**TINY),
+                device="cpu")
+    assert tm.vit_cfg.use_lora and tm.backbone.layers[0].lora_A.shape == (16, 64)
     for mode in ("token_filter_merge", "token_filter_delta_correct"):
-        with pytest.raises(NotImplementedError):
-            TModel(TCfg.ModelArchConfig(token_filter_layer=2, token_filter_keep=0.5,
-                                        **{mode: True}), device="cpu")
-    # the token filter's drop mode is ported (tests/test_torch_filter.py)
+        TModel(TCfg.ModelArchConfig(token_filter_layer=2, token_filter_keep=0.5,
+                                    **{mode: True}), vit_cfg=TD.DinoV2Config(**TINY),
+               device="cpu")
     TModel(TCfg.ModelArchConfig(token_filter_layer=2, token_filter_keep=0.5),
            vit_cfg=TD.DinoV2Config(**TINY), device="cpu")
     with pytest.raises(ValueError):
@@ -507,12 +509,17 @@ def test_int8_plain_attn_impl_runs_the_same_four_steps():
 
 def test_int8_block_needs_tanh_gelu():
     """The chained block is chosen by the JAX rule (quantised, packed
-    attention, tanh GELU); the erf path is not ported and says so."""
+    attention, tanh GELU, no live adapters); a quantised block with erf GELU
+    runs unchained."""
     blk = TD.Block(TD.DinoV2Config(**TINY, gelu_approx=False), device="cpu")
     blk.init(torch.Generator().manual_seed(0))
     blk.quantize_(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="tanh GELU"):
-        blk(torch.zeros(1, 5, 64, dtype=torch.bfloat16), "pallas_packed")
+    assert not blk.chained("pallas_packed")
+    out = blk(torch.zeros(1, 5, 64, dtype=torch.bfloat16), "pallas_packed")
+    assert out.shape == (1, 5, 64) and out.dtype == torch.bfloat16
+    tanh = TD.Block(TD.DinoV2Config(**TINY, gelu_approx=True), device="cpu")
+    tanh.init(torch.Generator().manual_seed(0)).quantize_(torch.bfloat16)
+    assert tanh.chained("pallas_packed") and not tanh.chained("pallas")
     with pytest.raises(RuntimeError, match="already quantised"):
         blk.quantize_(torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
