@@ -25,7 +25,12 @@ kernels compile for sm_90a) and the CUDA toolkit:
       at the four projection shapes of a block (fc2 reads rows 3072 wide),
       ViT-L widths and N 257 and 481, K15 int8_gemm_fused at M 8 x 1370 and
       8 x 481, K14 int8_fc1_gelu against its plain version and against K4a
-      on rows the plain layernorm normalised;
+      on rows the plain layernorm normalised; the fused variants K9
+      flash_attention_packed(int8_dots=True), K11 flash_attention_packed_out_res
+      and K12 int8_attnout_mlp_ln at N 1370, 481, 257 and ViT-L widths (K11 also
+      by the share of its int8 context values that sit one step from the plain
+      version's; K12 also against K3 -> K4, which it must not equal bit for
+      bit), and what each raises on;
   (d) slices: guided ViT-B 518x518 inference (2 focal iterations, random
       weights from a seeded torch.Generator) answering a 9-instruction
       batch, a mixed batch of 8 and an unguided request through uint8 ->
@@ -50,13 +55,22 @@ kernels compile for sm_90a) and the CUDA toolkit:
       merge_lora_params under int8 with 2:0.35 (chained again: K2, K3, K4 12,
       K15 0), 2:0.35@m@p (K1 2, K7 10; every patch position equals its
       representative's row) and 2:0.35@d, and folded against runtime adapters
-      under the default policy;
+      under the default policy; then the fused slices on the int8 slices'
+      weights with CAIM_FUSE_AOMLP=1 set and restored around them: F1 exact and
+      F2 2:0.35 (K12 12, K3 = K4 = K4a = K4b = 0, K2 12, K1 12, K5 2, K6 2),
+      each against its plain twin under the variable and against the unfused
+      slice; and K11 and K9 in place: the int8 model's 12 blocks as chained
+      steps assembled by hand (K2 -> K11 -> K4; K2 -> K9 -> K3 -> K4) against
+      the same steps' plain versions and against K2 -> K1 -> K3 -> K4;
   (e) times with CUDA events: every kernel beside its plain version and
       its bound, K1, K7 and K8 beside scaled_dot_product_attention, K13
       beside int8_ops.int8_linear at the three shapes the unchained block
       gives that function, the B=8 forward under both policies, through the
       int8 filtered slices and through the int8 adapter slice, and the host
-      time to enqueue one forward.
+      time to enqueue one forward; K9, K11 and K12 in turns with the kernels
+      they fuse (K1; K1 + K3; K3 + K4), the int8 exact and 2:0.35 forwards
+      with CAIM_FUSE_AOMLP off and on, and the hand-assembled 12 blocks
+      through K1 + K3, K11 and K9.
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -113,6 +127,27 @@ MIN_KEPT_OVERLAP = 0.98
 TOL_K14_NORMED = 3e-2
 # adapters change the answer: least relative change of depth, adapters on vs off
 MIN_ADAPTER_EFFECT = 1e-4
+# 12 chained int8 blocks assembled by hand, kernels against plain versions and
+# one attention route against another, on the hidden state [8, 1370, 768]: int8
+# steps that land apart feed the next block, and the largest of 8.4 M differences
+# is a few bf16 steps of a large value. RMS difference over RMS value, and the
+# largest difference over the largest value; measured 1.3e-2 and 2.4e-2 for K11
+# (6.8% of its int8 context values sit one step from the plain version's, in
+# each of 12 blocks)
+TOL_CHAIN_RMS = 2e-2
+TOL_CHAIN_MAX = 5e-2
+# K12 against K3 -> K4: the pair rounds the post-attention residual to bf16
+# (2^-9 of its value) before the layernorm and the last add, K12 carries it in
+# f32, so the outputs sit up to one bf16 step (2^-7 of the value) apart:
+# max |K12 - pair| <= 2e-2 max(1, |pair|), the JAX package's own tolerance
+TOL_K12_SPLIT = 2e-2
+# K11's int8 context against the plain version's: the share of values one step
+# apart (see phase_fused_kernels)
+TOL_K11_CTX_SHARE = 1e-1  # measured 6.3e-2 .. 6.8e-2 at the four shapes
+# ... and its row scales, relative: the maximum of a row of sums with mixed
+# signs moves by more than one rounding of P (2^-8 between the two); measured
+# up to 4.9e-3
+TOL_K11_SCALE = 1e-2
 
 # the card's published dense peaks (NVIDIA H100 SXM data sheet)
 PEAK_BYTES = 3.35e12
@@ -368,7 +403,8 @@ def _int8_inputs(B, N, D, F, g):
         return round_through(_rand((n,), g, torch.float32, scale) + shift, torch.bfloat16)
 
     t = {"x": _rand((B, N, D), g, torch.bfloat16), "ctx": _rand((B, N, D), g, torch.bfloat16),
-         "gamma": vec(D, 0.1, 1.0), "beta": vec(D, 0.05), "ls": vec(D, 0.1, 0.9)}
+         "gamma": vec(D, 0.1, 1.0), "beta": vec(D, 0.05), "ls": vec(D, 0.1, 0.9),
+         "ls2": vec(D, 0.1, 0.8)}
     for name, n, k in (("qkv", 3 * D, D), ("out", D, D), ("fc1", F, D), ("fc2", D, F)):
         w = quantize_weight(_rand((n, k), g, torch.float32, 0.05))
         t[name] = (w["q"], w["s"], vec(n, 0.01))
@@ -556,6 +592,154 @@ def phase_adapter_kernels():
     return worst
 
 
+def _k12_calls(t, eps=1e-6):
+    """(K12 wrapper call, its plain version, K3 then K4 through their
+    wrappers) on the inputs of ``_int8_inputs``."""
+    from cognitive_aim_tpu_torch.kernels import int8_block as IB
+
+    args = (t["ctx"], *t["out"], t["ls"], t["x"], t["gamma"], t["beta"], *t["fc1"], *t["fc2"],
+            t["ls2"], eps)
+
+    def split():
+        x = IB.int8_out_residual(t["ctx"], *t["out"], t["ls"], t["x"])
+        return IB.int8_mlp_ln(x, t["gamma"], t["beta"], *t["fc1"], *t["fc2"], t["ls2"], eps)
+
+    return (lambda: IB.int8_attnout_mlp_ln(*args),
+            lambda: IB.int8_attnout_mlp_ln_plain(*args), split)
+
+
+def _k11_inputs(B, N, H, g):
+    """q, k, v bf16 [B, N, H*64]; the attn_out weight int8 [HD, HD] with f32
+    scales; bias and LayerScale f32 at bf16-rounded values; the residual."""
+    import torch
+
+    from cognitive_aim_tpu_torch.nn.layers import round_through
+
+    HD = H * 64
+    q, k, v, res = (_rand((B, N, HD), g, torch.bfloat16) for _ in range(4))
+    _, w, b = _proj_inputs((1,), HD, HD, g)
+    ls = round_through(_rand((HD,), g, torch.float32, 0.1) + 0.9, torch.bfloat16)
+    return q, k, v, w["q"], w["s"], b, ls, res
+
+
+def phase_fused_kernels():
+    """K9, K11 and K12 against their plain versions at the slice's shape, the
+    ragged N 481 and 257 and ViT-L widths; K12 also against K3 -> K4; what each
+    raises on."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import flash_attention as FA
+    from cognitive_aim_tpu_torch.kernels import int8_block as IB
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    worst = {"K9": 0.0, "K11": 0.0, "K12": 0.0}
+
+    def report(name, tag, detail, ok):
+        log(f"  {name} {tag}: {detail} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at {tag}")
+
+    def expect_raise(name, kind, wrapper, call):
+        n = wrapper.launches
+        try:
+            call()
+        except kind:
+            if wrapper.launches != n:
+                raise AssertionError(f"{name} counted a launch that raised")
+            return
+        raise AssertionError(f"{name} took what its kernel does not take")
+
+    # K12 against its plain version, and against K3 -> K4 (which rounds the
+    # post-attention residual to bf16: not the same bits, the same values)
+    for B, N, D, F in ((8, 1370, 768, 3072), (8, 481, 768, 3072), (8, 257, 768, 3072),
+                       (2, 257, 1024, 4096)):
+        t = _int8_inputs(B, N, D, F, g)
+        kernel, plain, split = _k12_calls(t)
+        counts = [w.launches for w in IB.WRAPPERS if w is not IB.int8_attnout_mlp_ln]
+        got = kernel()
+        if [w.launches for w in IB.WRAPPERS if w is not IB.int8_attnout_mlp_ln] != counts:
+            raise AssertionError("K12 counted a launch of another wrapper")
+        want, two = plain(), split()
+        torch.cuda.synchronize()
+        err, lim = max_err(got, want), TOL_INT8_REL * max(1.0, float(want.float().abs().max()))
+        gap, gap_lim = max_err(got, two), TOL_K12_SPLIT * max(1.0, float(two.float().abs().max()))
+        same = float((got == two).float().mean())
+        ok = (err <= lim and gap <= gap_lim and not torch.equal(got, two)
+              and got.is_contiguous() and bool(torch.isfinite(got).all()))
+        report("K12", f"int8_attnout_mlp_ln B{B} N{N} D{D} F{F}",
+               f"max_abs_err {err:.3e} (tol {lim:.2e}); against K3 -> K4 {gap:.3e} (tol "
+               f"{gap_lim:.2e}), {1 - same:.2e} of the outputs differ (must not be 0)", ok)
+        if N == 1370:
+            worst["K12"] = err
+    x = _int8_inputs(2, 70, 256, 512, g)
+    for name, change in (("float32 activations", {"ctx": x["ctx"].float()}),
+                         ("a transposed residual",
+                          {"x": x["x"].transpose(0, 1).contiguous().transpose(0, 1)})):
+        expect_raise(f"K12 on {name}", (TypeError, ValueError), IB.int8_attnout_mlp_ln,
+                     _k12_calls({**x, **change})[0])
+    wide = _int8_inputs(1, 8, 2048, 2048, g)  # the layernorm prologue holds rows up to 1024
+    expect_raise("K12 at width 2048", ValueError, IB.int8_attnout_mlp_ln, _k12_calls(wide)[0])
+
+    Dh = 64
+    for B, H, N in ((8, 12, 1370), (8, 12, 481), (8, 12, 257), (2, 16, 257)):
+        scale, shape = Dh ** -0.5, f"B{B} N{N} H{H} bf16"
+        q, k, v = (_rand((B, N, H * Dh), g, torch.bfloat16) for _ in range(3))
+        n1, n9 = FA.flash_attention_packed.launches, FA.flash_attention_packed_int8.launches
+        got = FA.flash_attention_packed(q, k, v, scale, H, int8_dots=True)
+        if (FA.flash_attention_packed.launches, FA.flash_attention_packed_int8.launches) \
+                != (n1, n9 + 1):
+            raise AssertionError("int8_dots=True must launch K9 and count there only")
+        want = FA.flash_attention_packed_int8_plain(q.float(), k.float(), v.float(), scale, H)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        report("K9", f"flash_attention_packed(int8_dots=True) {shape}",
+               f"max_abs_err {err:.3e} (tol {TOL_BF16_OUT:.0e})",
+               err <= TOL_BF16_OUT and bool(torch.isfinite(got).all()))
+        if N == 1370:
+            worst["K9"] = err
+    z = torch.zeros(2, 70, 128, device="cuda", dtype=torch.bfloat16)
+    got = FA.flash_attention_packed_int8(z, z, z + 1, 0.125, 2)  # zero heads: the scale floor
+    torch.cuda.synchronize()
+    if not torch.equal(got, z + 1):
+        raise AssertionError("K9 on all-zero q and k must average v")
+    expect_raise("K9 on float32", TypeError, FA.flash_attention_packed_int8,
+                 lambda: FA.flash_attention_packed_int8(z.float(), z.float(), z.float(), 0.1, 2))
+    expect_raise("K9 on a strided q", ValueError, FA.flash_attention_packed_int8,
+                 lambda: FA.flash_attention_packed_int8(z.repeat(1, 1, 2)[..., :128], z, z, 0.1, 2))
+
+    # K11: the kernel rounds the un-normalised P to bf16 (as K1), the plain
+    # version the normalised P, so the f32 contexts differ by ~1e-3 relative and
+    # a share of the int8 context values lands one step apart
+    for B, H, N in ((8, 12, 1370), (8, 12, 481), (8, 12, 257), (2, 16, 257)):
+        scale, shape = Dh ** -0.5, f"B{B} N{N} H{H} bf16"
+        args = _k11_inputs(B, N, H, g)
+        got, c8, sc = FA.flash_attention_packed_out_res(*args, scale, H, return_quantised=True)
+        want = FA.flash_attention_packed_out_res_plain(*args, scale, H)
+        p8, ps = IB.quantize_activations(FA.attention_context_f32(*args[:3], scale, H))
+        again = FA.flash_attention_packed_out_res(*args, scale, H)
+        torch.cuda.synchronize()
+        diff = (c8.int() - p8.int()).abs()
+        share, most = float((diff > 0).float().mean()), int(diff.max())
+        srel = float(((sc - ps).abs() / ps).max())
+        err, lim = max_err(got, want), TOL_INT8_REL * max(1.0, float(want.float().abs().max()))
+        ok = (err <= lim and share <= TOL_K11_CTX_SHARE and most <= 1
+              and srel <= TOL_K11_SCALE and torch.equal(got, again)
+              and bool(torch.isfinite(got).all()))
+        report("K11", f"flash_attention_packed_out_res {shape}",
+               f"max_abs_err {err:.3e} (tol {lim:.2e}); int8 context differs in {share:.2e} "
+               f"(tol {TOL_K11_CTX_SHARE:.0e}) by at most {most} (tol 1), scales rel "
+               f"{srel:.2e} (tol {TOL_K11_SCALE:.0e})", ok)
+        if N == 1370:
+            worst["K11"] = err
+    a = _k11_inputs(2, 70, 3, g)
+    expect_raise("K11 with 3 heads", ValueError, FA.flash_attention_packed_out_res,
+                 lambda: FA.flash_attention_packed_out_res(*a, 0.125, 3))
+    a = _k11_inputs(2, 70, 2, g)
+    expect_raise("K11 on a float32 residual", TypeError, FA.flash_attention_packed_out_res,
+                 lambda: FA.flash_attention_packed_out_res(*a[:-1], a[-1].float(), 0.125, 2))
+    return worst
+
+
 # ------------------------------------------------------------- slices (d) ----
 def _requests(image_size: int, g):
     """(name, uint8 images, exif, guidance) for the three requests."""
@@ -631,7 +815,8 @@ def _wrappers():
             "K7": FA.flash_attention_packed_bias, "K10": FA.flash_attention_packed_i8qk,
             "K10b": FA.flash_attention_packed_i8qk_bias, "Q": FA.quantize_rows,
             "K8": FA.flash_attention, "K13": IB.int8_proj, "K14": IB.int8_fc1_gelu,
-            "K15": IG.int8_gemm_fused}
+            "K15": IG.int8_gemm_fused, "K9": FA.flash_attention_packed_int8,
+            "K11": FA.flash_attention_packed_out_res, "K12": IB.int8_attnout_mlp_ln}
 
 
 def _build_model(policy, image_size, seed, token_filter="", attn_impl="pallas_packed",
@@ -991,6 +1176,151 @@ def phase_adapter_slices(reqs):
     return models, launches
 
 
+# ------------------------------------------------------ fused slices (d) ----
+class _fuse_aomlp:
+    """Within the block the environment has ``CAIM_FUSE_AOMLP=1``, the JAX
+    package's switch that the chained int8 block reads at every call."""
+
+    def __enter__(self):
+        self.before = os.environ.get("CAIM_FUSE_AOMLP")
+        os.environ["CAIM_FUSE_AOMLP"] = "1"
+
+    def __exit__(self, *exc):
+        if self.before is None:
+            del os.environ["CAIM_FUSE_AOMLP"]
+        else:
+            os.environ["CAIM_FUSE_AOMLP"] = self.before
+
+
+FUSED = {"K1": 12, "K2": 12, "K12": 12, "K5": 2, "K6": 2}  # K3 = K4 = K4a = K4b = 0
+
+
+def _block_chain(model, x, route, plain=False):
+    """The backbone's blocks as chained int8 steps assembled by hand from each
+    block's own weights: K2 -> attention -> the rest, where ``route`` is
+    "split" (K1, K3, K4: what the model runs), "K11" (K11 in place of K1 and
+    K3) or "K9" (K9 in place of K1). ``plain``: every step's plain version."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import flash_attention as FA
+    from cognitive_aim_tpu_torch.kernels import int8_block as IB
+
+    def pick(fn, fn_plain):
+        return fn_plain if plain else fn
+
+    cfg = model.vit_cfg
+    scale, H, eps = cfg.head_dim ** -0.5, cfg.num_heads, cfg.layer_norm_eps
+    with torch.no_grad():  # the weights are parameters; nothing here differentiates
+        for blk in model.backbone.layers:
+            n1, n2, ao = blk.norm1, blk.norm2, blk.attn_out
+            q, k, v = pick(IB.int8_qkv_proj_ln, IB.int8_qkv_proj_ln_plain)(
+                x, n1.weight, n1.bias, blk.qkv.wq, blk.qkv.ws, blk.qkv.bias, eps)
+            if route == "K11":
+                x = pick(FA.flash_attention_packed_out_res,
+                         FA.flash_attention_packed_out_res_plain)(
+                    q, k, v, ao.wq, ao.ws, ao.bias, blk.ls1, x, scale, H)
+            else:
+                if route == "K9":
+                    ctx = pick(FA.flash_attention_packed_int8,
+                               FA.flash_attention_packed_int8_plain)(q, k, v, scale, H)
+                else:
+                    ctx = pick(FA.flash_attention_packed,
+                               FA.flash_attention_packed_plain)(q, k, v, scale, H)
+                x = pick(IB.int8_out_residual, IB.int8_out_residual_plain)(
+                    ctx, ao.wq, ao.ws, ao.bias, blk.ls1, x)
+            x = pick(IB.int8_mlp_ln, IB.int8_mlp_ln_plain)(
+                x, n2.weight, n2.bias, blk.fc1.wq, blk.fc1.ws, blk.fc1.bias, blk.fc2.wq,
+                blk.fc2.ws, blk.fc2.bias, blk.ls2, eps)
+    return x
+
+
+BLOCK_CHAINS = {
+    # route: launches in one pass over the 12 blocks
+    "K11": {"K2": 12, "K11": 12, "K4": 12, "K4a": 12, "K4b": 12},
+    "K9": {"K2": 12, "K9": 12, "K3": 12, "K4": 12, "K4a": 12, "K4b": 12},
+}
+
+
+def phase_fused_slices(int8, filtered_1, reqs):
+    """F1 and F2: the int8 exact and ``2:0.35`` slices with K12 in place of K3
+    and K4 (``CAIM_FUSE_AOMLP=1``), launch counts asserted, each against its
+    plain twin under the same variable and against the unfused slice. Then
+    K11 and K9 in place: the 12 blocks of the int8 model as chained steps
+    assembled by hand, against the same steps' plain versions and against the
+    steps the model runs."""
+    import torch
+
+    from cognitive_aim_tpu_torch.io.preprocess import resize_normalize
+
+    S = 518
+    launches = {}
+    for name, model, served, stream in (("F1", int8, reqs, None),
+                                        ("F2", filtered_1, [reqs[1]], (1370, 481))):
+        log(f"(d) fused slice {name}: ViT-B 518x518, int8 policy, "
+            f"{'token filter 2:0.35' if stream else 'no filter'}, pallas_packed, "
+            f"CAIM_FUSE_AOMLP=1 (the weights of the unfused slice)")
+        unfused = _serve(model, served, S)
+        with _fuse_aomlp():
+            outs, launches[name] = _drive(model, served, S, FUSED)
+            if stream:
+                _check_filtered_backbone(f"slice {name} {served[0][0]}", model,
+                                         resize_normalize(served[0][1], S, S), served[0][3],
+                                         stream)
+        for (req, *_), a, b in zip(served, outs, unfused):
+            rd, rc = _rel(a.depth, b.depth), _rel(a.confidence, b.confidence)
+            same = torch.equal(a.depth, b.depth) and torch.equal(a.fused_features,
+                                                                 b.fused_features)
+            ok = rd <= TOL_SLICE_BF16 and rc <= TOL_SLICE_BF16 and not same
+            log(f"  {req} fused vs unfused: depth rel {rd:.2e}, confidence rel {rc:.2e} "
+                f"(tol {TOL_SLICE_BF16:.0e}; not bit-equal: {not same}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name}: the fused slice disagrees with the unfused one, "
+                                     f"or is the unfused one")
+    if os.environ.get("CAIM_FUSE_AOMLP", "0") == "1":
+        raise AssertionError("CAIM_FUSE_AOMLP was not restored")
+
+    # K11 and K9 in place
+    x0 = int8.backbone.embed(resize_normalize(reqs[1][1], S, S),
+                             int8.policy.backbone_compute_dtype)
+    wrappers = _wrappers()
+    split = _block_chain(int8, x0, "split")
+    split_plain = _block_chain(int8, x0, "split", plain=True)
+    for route, want in BLOCK_CHAINS.items():
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        got = _block_chain(int8, x0, route)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        if counts != {k: want.get(k, 0) for k in wrappers}:
+            raise AssertionError(f"block chain {route}: launch counts {counts}")
+        launches[route] = counts
+        ref = _block_chain(int8, x0, route, plain=True)
+        torch.cuda.synchronize()
+        def apart(a, b):
+            """(largest difference over the largest value, RMS difference over
+            the RMS value) of two hidden states."""
+            d, b = (a.float() - b.float()), b.float()
+            return (float(d.abs().max() / b.abs().max()),
+                    float(d.square().mean().sqrt() / b.square().mean().sqrt()))
+
+        (err, err_rms), (gap, gap_rms) = apart(got, ref), apart(got, split)
+        base, base_rms = apart(split, split_plain)
+        ok = (max(err, gap) <= TOL_CHAIN_MAX and max(err_rms, gap_rms) <= TOL_CHAIN_RMS
+              and bool(torch.isfinite(got).all()))
+        log(f"  {route} in place, 12 blocks on {tuple(x0.shape)} (launches "
+            + ", ".join(f"{k} {n}" for k, n in counts.items() if n)
+            + f"): against the plain steps max {err:.2e} of the largest value, RMS {err_rms:.2e}"
+            f" of the RMS value; against the model's steps (K1, K3, K4) max {gap:.2e}, RMS "
+            f"{gap_rms:.2e} (tol max {TOL_CHAIN_MAX:.0e}, RMS {TOL_CHAIN_RMS:.0e}; the model's "
+            f"steps against their own plain versions: max {base:.2e}, RMS {base_rms:.2e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"block chain {route} disagrees")
+    return launches, x0
+
+
 # -------------------------------------------------------------- times (e) ----
 def _host_enqueue_ms(fn, iters: int = 5) -> float:
     """Host clock from the call to its return (no synchronise inside), the
@@ -1148,7 +1478,84 @@ def phase_kernel_times(smi):
     record("K14", f"B{B} N{N} D{D} F{Fh}", lambda: IB.int8_fc1_gelu(t["x"], *t["fc1"]),
            lambda: IB.int8_fc1_gelu_plain(t["x"], *t["fc1"]),
            bound(act + Fh * D + M * Fh + 4 * M + 8 * Fh, 2 * M * D * Fh, "int8"))
+
+    # The fused variants, each beside the kernels it fuses, timed here in turns
+    # (fused, parts, parts, fused). K12: ctx and res in, out out, the three int8
+    # weights, the f32 vectors; the three products. K11: q, k, v, res in, out
+    # out, the attn_out weight; K1's two bf16 products and K3's int8 one. K9:
+    # K10's work on bf16 q and k.
+    def beside(name, fused, parts, what):
+        a = [cuda_ms(fused), cuda_ms(parts), cuda_ms(parts), cuda_ms(fused)]
+        times[name]["fuses"] = what
+        times[name]["fuses_ms"] = min(a[1], a[2])
+        log(f"  {name} in turns with {what}: fused {a[0]:.3f}/{a[3]:.3f} ms, "
+            f"{what} {a[1]:.3f}/{a[2]:.3f} ms")
+
+    k12, k12_plain, k3_k4 = _k12_calls(t)
+    record("K12", f"B{B} N{N} D{D} F{Fh}", k12, k12_plain,
+           bound(3 * act + D * D + 2 * Fh * D + 4 * Fh + 40 * D,
+                 2 * M * D * D + 4 * M * D * Fh, "int8"))
+    beside("K12", k12, k3_k4, "K3 + K4")
+    a11 = _k11_inputs(B, N, H, g)
+    q, k, v = a11[:3]
+    record("K11", f"B{B} N{N} H{H} bf16",
+           lambda: FA.flash_attention_packed_out_res(*a11, 0.125, H),
+           lambda: FA.flash_attention_packed_out_res_plain(*a11, 0.125, H),
+           bound(5 * act + D * D + 12 * D, {"bf16": 4 * B * N * N * D, "int8": 2 * M * D * D}))
+    beside("K11", lambda: FA.flash_attention_packed_out_res(*a11, 0.125, H),
+           lambda: IB.int8_out_residual(FA.flash_attention_packed(q, k, v, 0.125, H),
+                                        *a11[3:]), "K1 + K3")
+    for Nk in (N, 481):
+        qn, kn, vn = (_rand((B, Nk, D), g, torch.bfloat16) for _ in range(3))
+        half = 2 * B * Nk * Nk * D
+        record("K9", f"B{B} N{Nk} H{H} bf16",
+               lambda: FA.flash_attention_packed_int8(qn, kn, vn, 0.125, H),
+               lambda: FA.flash_attention_packed_int8_plain(qn, kn, vn, 0.125, H),
+               bound(4 * B * Nk * D * 2, {"int8": half, "bf16": half}))
+        beside("K9", lambda: FA.flash_attention_packed_int8(qn, kn, vn, 0.125, H),
+               lambda: FA.flash_attention_packed(qn, kn, vn, 0.125, H), "K1")
+        times["K9"]["k10_ms"] = cuda_ms(
+            lambda: FA.flash_attention_packed_i8qk(qn, kn, vn, 0.125, H))
+        times["K9"]["sdpa_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            heads(qn), heads(kn), heads(vn), scale=0.125)) if Nk == N else None
+        log(f"  K9 beside K10 with its two quantising launches {times['K9']['k10_ms']:.3f} ms"
+            + (f", scaled_dot_product_attention (not quantised) {times['K9']['sdpa_ms']:.3f} ms"
+               if Nk == N else ""))
+        if Nk == N:
+            k9_main = times.pop("K9")
+    times["K9"] = {**k9_main, "other_shape": times["K9"]}
     return times
+
+
+def phase_fused_times(int8, filtered_1, x0):
+    """The int8 exact and ``2:0.35`` forwards with ``CAIM_FUSE_AOMLP`` off and
+    on, in turns; and the 12 hand-assembled blocks through K1 + K3, K11 and K9."""
+    import contextlib
+
+    import torch
+
+    from cognitive_aim_tpu_torch.core.rng import NoiseMode
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = _rand((8, 518, 518, 3), g, torch.float32)
+    gidx = torch.arange(8, device="cuda")
+    for name, model in (("int8 exact", int8), ("int8 2:0.35", filtered_1)):
+        ms = {False: [], True: []}
+        for fuse in (False, True, True, False):
+            with _fuse_aomlp() if fuse else contextlib.nullcontext():
+                ms[fuse].append(cuda_ms(
+                    lambda: model(x, guidance=gidx, noise_mode=NoiseMode.ZEROS),
+                    iters=10, warmup=2))
+        log(f"  forward B8 518x518 guided, {name}: K3 + K4 {ms[False][0]:.2f}/{ms[False][1]:.2f} "
+            f"ms, K12 (CAIM_FUSE_AOMLP=1) {ms[True][0]:.2f}/{ms[True][1]:.2f} ms "
+            f"(order off, on, on, off)")
+    order = ("split", "K11", "K9", "K9", "K11", "split")
+    ms = {r: [] for r in order}
+    for route in order:
+        ms[route].append(cuda_ms(lambda: _block_chain(int8, x0, route), iters=10, warmup=2))
+    log("  12 chained int8 blocks assembled by hand on " + str(tuple(x0.shape)) + ": "
+        + ", ".join(f"{'K1 + K3' if r == 'split' else r} {ms[r][0]:.2f}/{ms[r][1]:.2f} ms"
+                    for r in ("split", "K11", "K9")) + " (there and back)")
 
 
 def phase_forward_times(default, int8, filtered=None, adapters=None):
@@ -1240,10 +1647,19 @@ KERNELS = {
     "K13": ("int8_proj", "int8_block.cu", "int8_block.py:83"),
     "K14": ("int8_fc1_gelu", "int8_block.cu", "int8_block.py:183"),
     "K15": ("int8_gemm_fused", "int8_block.cu", "int8_gemm.py:31"),
+    # the fused variants of the chained int8 block. K12 runs in the model under
+    # CAIM_FUSE_AOMLP=1 (slices F1, F2); K9 and K11 have no model route in either
+    # package: their launches are those of the 12 blocks assembled by hand
+    "K9": ("flash_attention_packed_int8", "flash_attention_int8dots.cu",
+           "flash_attention.py:356"),
+    "K11": ("flash_attention_packed_out_res", "flash_attention_out_res.cu",
+            "flash_attention.py:645"),
+    "K12": ("int8_attnout_mlp_ln", "int8_block.cu", "int8_block.py:365"),
 }
 # the path whose run gives a kernel's ``launches``: the unfiltered int8 slice,
 # or the first filtered or adapter slice that reaches the kernel
-LAUNCHES_FROM = {"K7": "2", "K10": "3", "K10b": "3", "Q": "3", "K8": "A2", "K15": "A3"}
+LAUNCHES_FROM = {"K7": "2", "K10": "3", "K10b": "3", "Q": "3", "K8": "A2", "K15": "A3",
+                 "K9": "K9", "K11": "K11", "K12": "F1"}
 
 
 def main() -> int:
@@ -1267,6 +1683,7 @@ def main() -> int:
     errs.update(phase_int8_kernels())
     errs.update(phase_filter_kernels())
     errs.update(phase_adapter_kernels())
+    errs.update(phase_fused_kernels())
     if "--kernels-only" in sys.argv[1:]:
         phase_kernel_times(smi)
         log(f"kernels only: no slice was driven, {time.perf_counter() - t_start:.1f} s")
@@ -1274,8 +1691,10 @@ def main() -> int:
     default, int8, launches, launches_default, reqs = phase_slices()
     filtered, launches_filtered = phase_filtered_slices(reqs)
     adapters, launches_adapters = phase_adapter_slices(reqs)
+    launches_fused, x0 = phase_fused_slices(int8, filtered["1"], reqs)
     times = phase_kernel_times(smi)
     phase_forward_times(default, int8, filtered, adapters)
+    phase_fused_times(int8, filtered["1"], x0)
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
     if foreign:
@@ -1284,11 +1703,13 @@ def main() -> int:
         {"id": kid, "name": name, "route": "cuda",
          "source": f"cognitive_aim_tpu_torch/csrc/{src}",
          "replaces": f"cognitive_aim_tpu/kernels/{body}",
-         "launches": ({**launches_filtered, **launches_adapters}[LAUNCHES_FROM[kid]]
+         "launches": ({**launches_filtered, **launches_adapters,
+                       **launches_fused}[LAUNCHES_FROM[kid]]
                       if kid in LAUNCHES_FROM else launches)[kid],
          "launches_default_policy": launches_default[kid],
          "launches_filtered_slices": {n: c[kid] for n, c in launches_filtered.items()},
          "launches_adapter_slices": {n: c[kid] for n, c in launches_adapters.items()},
+         "launches_fused_slices": {n: c[kid] for n, c in launches_fused.items()},
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_start:.1f} s")

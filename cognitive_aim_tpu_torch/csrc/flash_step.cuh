@@ -1,5 +1,6 @@
 // What the packed attention kernels (flash_attention_packed.cu: K1, K7;
-// flash_attention_i8qk.cu: K10, K10b) share after their first product: the
+// flash_attention_i8qk.cu: K10, K10b; flash_attention_int8dots.cu: K9;
+// flash_attention_out_res.cu: K11) share after their first product: the
 // online softmax over one 64-key tile, the bf16 P V product, and the final
 // normalised store. A warp owns 16 query rows; thread (g, c) of it holds rows
 // g and g + 8 of the warp's block in the m16n8 accumulator layout
@@ -15,8 +16,10 @@ namespace caim {
 // One key tile of the online softmax and O += P V. s holds the tile's scores
 // in base 2 (already scaled; -inf on keys past N; at least one key of the
 // first tile is finite). m, l: running row maximum and sum; o: the f32
-// accumulator; Vt: the tile's V rows in shared memory, row stride LDT. P is
-// rounded to bf16 un-normalised; the f32 sum l normalises at the end.
+// accumulator; Vt: the tile's V rows in shared memory, row stride LDV. P is
+// rounded to bf16 un-normalised; the f32 sum l normalises at the end. LDV: the
+// row stride of Vt in elements (K11 stages two heads side by side).
+template <int LDV = LDT>
 __device__ __forceinline__ void flash_softmax_pv(const float (&s)[8][4], float (&o)[8][4],
                                                  float& m0, float& m1, float& l0, float& l1,
                                                  const bf16* __restrict__ Vt, int lane) {
@@ -59,7 +62,7 @@ __device__ __forceinline__ void flash_softmax_pv(const float (&s)[8][4], float (
   // O += P V: B fragments of two 8-column tiles per ldmatrix.trans
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const bf16* vr = &Vt[(16 * kk + (lane & 15)) * LDT + 8 * (lane >> 4)];
+    const bf16* vr = &Vt[(16 * kk + (lane & 15)) * LDV + 8 * (lane >> 4)];
 #pragma unroll
     for (int dp = 0; dp < 4; ++dp) {
       uint32_t bv[4];

@@ -10,6 +10,9 @@
 // and, as K4a followed by K4b, K4 int8_mlp_ln (body _mlp_ln_kernel);
 //   K13 int8_proj                   (body _qkv_kernel)
 //   K14 int8_fc1_gelu               (body _fc1_kernel): K4a without the layernorm
+//   K12 int8_attnout_mlp_ln         (body _attnout_mlp_kernel): K3 then K4 with
+//                                   the post-attention residual carried in f32
+//                                   (the note above caim_int8_attnout_mlp)
 // and, in cognitive_aim_tpu/kernels/int8_gemm.py,
 //   K15 int8_gemm_fused             (body _kernel): K13's function on rows
 //                                   flattened to [M, K].
@@ -17,7 +20,8 @@
 // All of them are one int8 GEMM, acc[m][n] = sum_k a[m][k] w[n][k] in int32 on
 // the tensor cores (wgmma m64n128k32), between a prologue that makes the
 // int8 A operand and an epilogue that consumes the accumulators:
-//   prologue  quant_rows_kernel<LN>: one warp per row of the bf16 input;
+//   prologue  quant_rows_kernel<LN, T>: one warp per row of the bf16 input (K12's
+//             second prologue: of the f32 residual stream);
 //             optional layernorm in f32 (variance as the mean of squared
 //             deviations, two passes over the row held in registers), then
 //             s = max(max|x| / 127, 1e-12), q = clip(rint(x / s)) with a
@@ -30,6 +34,8 @@
 //   epilogue  kQKV:       acc * s_x * s_w + b -> bf16, split at columns D and
 //                         2D into three contiguous [M, D] tensors;
 //             kResidual:  res + ls * (acc * s_x * s_w + b) -> bf16;
+//             kResidualToF32, kResidualFromF32 (K12): the same value left in
+//                         f32 [M, N], and the same with res read as f32;
 //             kPlain:     acc * s_x * s_w + b -> bf16 [M, N], unsplit (K13, K15);
 //             kGeluMax:   max |tanh-GELU(acc * s_x * s_w + b)| per row and
 //                         column tile -> f32 [M, N / 128];
@@ -97,7 +103,10 @@ static_assert(BM == BN && (BM * LDC + BM) * sizeof(float) <= GEMM_SMEM - 1024,
 constexpr int MAX_QUANT_K = 1024;   // widest row quant_rows_kernel holds in registers
 constexpr int QUANT_THREADS = 256;  // 8 rows a block
 
-enum Epilogue : int { kQKV = 0, kResidual = 1, kGeluMax = 2, kGeluQuant = 3, kPlain = 4 };
+enum Epilogue : int {
+  kQKV = 0, kResidual = 1, kGeluMax = 2, kGeluQuant = 3, kPlain = 4,
+  kResidualToF32 = 5, kResidualFromF32 = 6
+};
 
 struct GemmArgs {
   const int8_t* a;    // [M, K] int8 activations
@@ -108,18 +117,17 @@ struct GemmArgs {
   int M, K, N;
   bf16* out;          // kQKV: [3, M, D]; kResidual, kPlain: [M, N]
   int D;              // kQKV: width of each of q, k, v (a multiple of BN)
-  const bf16* res;    // kResidual: [M, N]
-  const float* ls;    // kResidual: [N]
+  const bf16* res;    // kResidual, kResidualToF32: [M, N]
+  const float* ls;    // the residual epilogues: [N]
+  float* xf;          // kResidualToF32 writes: [M, N] f32
+  const float* resf;  // kResidualFromF32: the residual in f32 [M, N]
   int8_t* h8;         // kGeluQuant: [M, N]
   float* sh;          // kGeluQuant: [M]
   float* partial;     // kGeluMax writes, kGeluQuant reads: [M, N / BN]
 };
 
 // ------------------------------------------------------ f32 arithmetic -----
-__device__ __forceinline__ float dequant(int acc, float sx, float ws, float b) {
-  return __fadd_rn(__fmul_rn(__fmul_rn((float)acc, sx), ws), b);
-}
-
+// (dequant, quant_scale, quant_value, quant_pack4: tile_common.cuh)
 // 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float x3 = __fmul_rn(__fmul_rn(x, x), x);
@@ -127,34 +135,37 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, t));
 }
 
-__device__ __forceinline__ float quant_scale(float amax) {
-  return fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
-}
-
-__device__ __forceinline__ int quant_value(float x, float s) {
-  return (int)fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.0f), 127.0f);
-}
-
 // ------------------------------------------------------------ prologue -----
-template <bool LN>
+// eight consecutive values of a row (16-byte aligned at p) as f32
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+  for (int t = 0; t < 8; ++t) v[t] = __bfloat162float(e[t]);
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+template <bool LN, typename T>
 __global__ void __launch_bounds__(QUANT_THREADS)
-quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, float eps, int8_t* __restrict__ xq,
                   float* __restrict__ sx, int M, int K) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * (QUANT_THREADS / 32) + threadIdx.x / 32;
   if (row >= M) return;
   constexpr int CH = MAX_QUANT_K / 256;  // 8-element chunks a lane may hold
-  const bf16* xr = x + (size_t)row * K;
+  const T* xr = x + (size_t)row * K;
   float v[CH][8];
 #pragma unroll
   for (int i = 0; i < CH; ++i) {
     const int k = i * 256 + lane * 8;
     if (k < K) {
-      const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
-      const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) v[i][t] = __bfloat162float(e[t]);
+      load8(xr + k, v[i]);
     } else {
 #pragma unroll
       for (int t = 0; t < 8; ++t) v[i][t] = 0.0f;
@@ -206,13 +217,9 @@ quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
   for (int i = 0; i < CH; ++i) {
     const int k = i * 256 + lane * 8;
     if (k < K) {
-      uint32_t lo = 0, hi = 0;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        lo |= (uint32_t)(quant_value(v[i][t], s) & 0xff) << (8 * t);
-        hi |= (uint32_t)(quant_value(v[i][4 + t], s) & 0xff) << (8 * t);
-      }
-      *reinterpret_cast<uint2*>(xq + (size_t)row * K + k) = make_uint2(lo, hi);
+      *reinterpret_cast<uint2*>(xq + (size_t)row * K + k) =
+          make_uint2(quant_pack4(v[i][0], v[i][1], v[i][2], v[i][3], s),
+                     quant_pack4(v[i][4], v[i][5], v[i][6], v[i][7], s));
     }
   }
   if (lane == 0) sx[row] = s;
@@ -229,22 +236,17 @@ quant_rows_wide_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
   const bf16* xr = x + (size_t)row * K;
   float amax = 0.0f;
   for (int k = lane * 8; k < K; k += 256) {
-    const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
+    float v[8];
+    load8(xr + k, v);
 #pragma unroll
-    for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(__bfloat162float(e[t])));
+    for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(v[t]));
   }
   const float s = quant_scale(warp_max(amax));
   for (int k = lane * 8; k < K; k += 256) {
-    const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
-    uint32_t lo = 0, hi = 0;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      lo |= (uint32_t)(quant_value(__bfloat162float(e[t]), s) & 0xff) << (8 * t);
-      hi |= (uint32_t)(quant_value(__bfloat162float(e[4 + t]), s) & 0xff) << (8 * t);
-    }
-    *reinterpret_cast<uint2*>(xq + (size_t)row * K + k) = make_uint2(lo, hi);
+    float v[8];
+    load8(xr + k, v);
+    *reinterpret_cast<uint2*>(xq + (size_t)row * K + k) =
+        make_uint2(quant_pack4(v[0], v[1], v[2], v[3], s), quant_pack4(v[4], v[5], v[6], v[7], s));
   }
   if (lane == 0) sx[row] = s;
 }
@@ -387,30 +389,31 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) int8_gemm_kernel(const GemmAr
     *reinterpret_cast<float4*>(y + 4) = *reinterpret_cast<const float4*>(Cs + rl * LDC + cl + 4);
     if constexpr (EPI == kGeluQuant) {
       const float s = red[rl];
-      uint32_t lo = 0, hi = 0;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        lo |= (uint32_t)(quant_value(y[t], s) & 0xff) << (8 * t);
-        hi |= (uint32_t)(quant_value(y[4 + t], s) & 0xff) << (8 * t);
-      }
-      *reinterpret_cast<uint2*>(p.h8 + (size_t)row * p.N + n0 + cl) = make_uint2(lo, hi);
+      *reinterpret_cast<uint2*>(p.h8 + (size_t)row * p.N + n0 + cl) =
+          make_uint2(quant_pack4(y[0], y[1], y[2], y[3], s),
+                     quant_pack4(y[4], y[5], y[6], y[7], s));
     } else {
       const size_t o = (size_t)row * ldo + ocol + cl;
-      if constexpr (EPI == kResidual) {
-        const uint4 r4 = *reinterpret_cast<const uint4*>(p.res + o);
-        const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&r4);
+      if constexpr (EPI == kResidual || EPI == kResidualToF32 || EPI == kResidualFromF32) {
+        float r[8];
+        if constexpr (EPI == kResidualFromF32)
+          load8(p.resf + o, r);
+        else
+          load8(p.res + o, r);
         __align__(16) float l[8];
         *reinterpret_cast<float4*>(l) = *reinterpret_cast<const float4*>(p.ls + n0 + cl);
         *reinterpret_cast<float4*>(l + 4) = *reinterpret_cast<const float4*>(p.ls + n0 + cl + 4);
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          y[2 * t] = __fadd_rn(__low2float(r2[t]), __fmul_rn(l[2 * t], y[2 * t]));
-          y[2 * t + 1] = __fadd_rn(__high2float(r2[t]), __fmul_rn(l[2 * t + 1], y[2 * t + 1]));
-        }
+        for (int t = 0; t < 8; ++t) y[t] = __fadd_rn(r[t], __fmul_rn(l[t], y[t]));
       }
-      *reinterpret_cast<uint4*>(out + o) =
-          make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
-                     pack_bf16(y[6], y[7]));
+      if constexpr (EPI == kResidualToF32) {  // K12: the residual stream stays f32
+        *reinterpret_cast<float4*>(p.xf + o) = *reinterpret_cast<const float4*>(y);
+        *reinterpret_cast<float4*>(p.xf + o + 4) = *reinterpret_cast<const float4*>(y + 4);
+      } else {
+        *reinterpret_cast<uint4*>(out + o) =
+            make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
+                       pack_bf16(y[6], y[7]));
+      }
     }
   }
 }
@@ -421,17 +424,28 @@ cudaError_t launch_quant_rows(const void* x, const void* gamma, const void* beta
   const int rows = QUANT_THREADS / 32;
   const dim3 grid((M + rows - 1) / rows);
   if (gamma != nullptr)
-    quant_rows_kernel<true><<<grid, QUANT_THREADS, 0, stream>>>(
+    quant_rows_kernel<true, bf16><<<grid, QUANT_THREADS, 0, stream>>>(
         static_cast<const bf16*>(x), static_cast<const float*>(gamma),
         static_cast<const float*>(beta), eps, static_cast<int8_t*>(xq),
         static_cast<float*>(sx), M, K);
   else if (K <= MAX_QUANT_K)
-    quant_rows_kernel<false><<<grid, QUANT_THREADS, 0, stream>>>(
+    quant_rows_kernel<false, bf16><<<grid, QUANT_THREADS, 0, stream>>>(
         static_cast<const bf16*>(x), nullptr, nullptr, 0.0f, static_cast<int8_t*>(xq),
         static_cast<float*>(sx), M, K);
   else
     quant_rows_wide_kernel<<<grid, QUANT_THREADS, 0, stream>>>(
         static_cast<const bf16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K);
+  return cudaGetLastError();
+}
+
+// The layernorm prologue on f32 rows [M, K], K <= MAX_QUANT_K (K12's second).
+cudaError_t launch_quant_rows_ln_f32(const float* x, const void* gamma, const void* beta,
+                                     float eps, void* xq, void* sx, int M, int K,
+                                     cudaStream_t stream) {
+  const int rows = QUANT_THREADS / 32;
+  quant_rows_kernel<true, float><<<dim3((M + rows - 1) / rows), QUANT_THREADS, 0, stream>>>(
+      x, static_cast<const float*>(gamma), static_cast<const float*>(beta), eps,
+      static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K);
   return cudaGetLastError();
 }
 
@@ -443,6 +457,19 @@ cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
   const dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
   int8_gemm_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(p);
   return cudaGetLastError();
+}
+
+// GemmArgs of a [M, K] x [N, K]^T product on quantised rows aq, sa.
+GemmArgs gemm_args(const void* aq, const void* sa, const void* wq, const void* ws,
+                   const void* bias, int M, int K, int N) {
+  GemmArgs p{};
+  p.a = static_cast<const int8_t*>(aq);
+  p.sa = static_cast<const float*>(sa);
+  p.w = static_cast<const int8_t*>(wq);
+  p.ws = static_cast<const float*>(ws);
+  p.bias = static_cast<const float*>(bias);
+  p.M = M, p.K = K, p.N = N;
+  return p;
 }
 
 bool gemm_shape_ok(int M, int K, int N) {
@@ -480,13 +507,8 @@ extern "C" int caim_int8_qkv(const void* x, const void* gamma, const void* beta,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = caim::launch_quant_rows(x, gamma, beta, eps, xq, sx, M, D, st);
   if (err != cudaSuccess) return (int)err;
-  GemmArgs p{};
-  p.a = static_cast<const int8_t*>(xq);
-  p.sa = static_cast<const float*>(sx);
-  p.w = static_cast<const int8_t*>(wq);
-  p.ws = static_cast<const float*>(ws);
-  p.bias = static_cast<const float*>(bias);
-  p.M = M, p.K = D, p.N = 3 * D, p.D = D;
+  GemmArgs p = caim::gemm_args(xq, sx, wq, ws, bias, M, D, 3 * D);
+  p.D = D;
   p.out = static_cast<caim::bf16*>(qkv);
   return (int)caim::launch_gemm<caim::kQKV>(p, st);
 }
@@ -505,13 +527,7 @@ extern "C" int caim_int8_out_residual(const void* x, void* aq, void* sa, const v
     cudaError_t err = caim::launch_quant_rows(x, nullptr, nullptr, 0.0f, aq, sa, M, K, st);
     if (err != cudaSuccess) return (int)err;
   }
-  GemmArgs p{};
-  p.a = static_cast<const int8_t*>(aq);
-  p.sa = static_cast<const float*>(sa);
-  p.w = static_cast<const int8_t*>(wq);
-  p.ws = static_cast<const float*>(ws);
-  p.bias = static_cast<const float*>(bias);
-  p.M = M, p.K = K, p.N = N;
+  GemmArgs p = caim::gemm_args(aq, sa, wq, ws, bias, M, K, N);
   p.ls = static_cast<const float*>(ls);
   p.res = static_cast<const caim::bf16*>(res);
   p.out = static_cast<caim::bf16*>(out);
@@ -526,15 +542,23 @@ int int8_linear(const void* x, void* xq, void* sx, const void* wq, const void* w
   if (!gemm_shape_ok(M, K, N)) return (int)cudaErrorInvalidValue;
   cudaError_t err = launch_quant_rows(x, nullptr, nullptr, 0.0f, xq, sx, M, K, st);
   if (err != cudaSuccess) return (int)err;
-  GemmArgs p{};
-  p.a = static_cast<const int8_t*>(xq);
-  p.sa = static_cast<const float*>(sx);
-  p.w = static_cast<const int8_t*>(wq);
-  p.ws = static_cast<const float*>(ws);
-  p.bias = static_cast<const float*>(bias);
-  p.M = M, p.K = K, p.N = N;
+  GemmArgs p = gemm_args(xq, sx, wq, ws, bias, M, K, N);
   p.out = static_cast<bf16*>(out);
   return (int)launch_gemm<kPlain>(p, st);
+}
+
+// Quantised rows xq [M, K], sx [M] -> h8 int8 [M, F], sh f32 [M]: the GEMM and
+// the GELU twice, for each row's maximum and then to quantise with it.
+cudaError_t fc1_gelu_gemms(const void* xq, const void* sx, const void* wq, const void* ws,
+                           const void* bias, void* h8, void* sh, void* partial, int M, int K,
+                           int F, cudaStream_t st) {
+  GemmArgs p = gemm_args(xq, sx, wq, ws, bias, M, K, F);
+  p.h8 = static_cast<int8_t*>(h8);
+  p.sh = static_cast<float*>(sh);
+  p.partial = static_cast<float*>(partial);
+  cudaError_t err = launch_gemm<kGeluMax>(p, st);
+  if (err != cudaSuccess) return err;
+  return launch_gemm<kGeluQuant>(p, st);
 }
 
 // x [M, K] -> h8 int8 [M, F], sh f32 [M]; gamma and beta null: no layernorm.
@@ -545,19 +569,7 @@ int fc1_gelu(const void* x, const void* gamma, const void* beta, float eps, cons
     return (int)cudaErrorInvalidValue;
   cudaError_t err = launch_quant_rows(x, gamma, beta, eps, xq, sx, M, K, st);
   if (err != cudaSuccess) return (int)err;
-  GemmArgs p{};
-  p.a = static_cast<const int8_t*>(xq);
-  p.sa = static_cast<const float*>(sx);
-  p.w = static_cast<const int8_t*>(wq);
-  p.ws = static_cast<const float*>(ws);
-  p.bias = static_cast<const float*>(bias);
-  p.M = M, p.K = K, p.N = F;
-  p.h8 = static_cast<int8_t*>(h8);
-  p.sh = static_cast<float*>(sh);
-  p.partial = static_cast<float*>(partial);
-  err = launch_gemm<kGeluMax>(p, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_gemm<kGeluQuant>(p, st);
+  return (int)fc1_gelu_gemms(xq, sx, wq, ws, bias, h8, sh, partial, M, K, F, st);
 }
 
 }  // namespace caim
@@ -597,4 +609,61 @@ extern "C" int caim_int8_gemm_fused(const void* x, void* xq, void* sx, const voi
                                     int N, void* stream) {
   return caim::int8_linear(x, xq, sx, wq, ws, bias, out, M, K, N,
                            static_cast<cudaStream_t>(stream));
+}
+
+// K12: the whole post-attention half of the chained int8 block,
+//   xf  = res + ls1 * (quant(ctx) wo^T * s * so + bo)                 (f32)
+//   out = xf + ls2 * fc2(quant(gelu(fc1(quant(LN2(xf))))))            (one cast, at the end)
+// ctx, res, out bf16 [M, K]; wo [K, K], w1 [F, K], w2 [K, F] int8; K <= 1024.
+// Scratch: xf f32 [M, K]; aq int8 [M, K] and sa f32 [M] (ctx quantised, then
+// LN2(xf) quantised); h8 int8 [M, F], sh f32 [M], partial f32 [M, F / 128].
+//
+// Replaces cognitive_aim_tpu/kernels/int8_block.py int8_attnout_mlp_ln (body
+// _attnout_mlp_kernel), one TPU program that keeps the three weights (5.2 MB)
+// and a row tile's f32 residual and f32 hidden resident in VMEM. A thread block
+// has 227 KB, and the requantisation needs a row's maximum over all F hidden
+// columns before fc2 may start, so K12 here is a chain over this file's GEMM:
+// quantise ctx -> GEMM (kResidualToF32) -> layernorm and quantise the f32 rows
+// -> GEMM twice (kGeluMax, kGeluQuant) -> GEMM (kResidualFromF32): six launches,
+// as K3 followed by K4. What it lets through device memory that the TPU kernel
+// kept on chip: the int8 activations and scales between each prologue and its
+// GEMM, the int8 hidden and its scales (as K4 does), and the residual stream xf
+// in f32, written once and read twice (33.7 MB at M 10960, inside the 50 MB
+// L2), where K3 -> K4 moves the same rows rounded to bf16 (half the bytes).
+// The arithmetic is the TPU kernel's: xf never rounds to bf16. Bound: 116 GOP
+// of int8 products (0.059 ms at the peak) against 2 x 16.8 MB of activations
+// in, 16.8 MB out and 5.3 MB of weights (0.017 ms): operations. Keeping xf on
+// chip (a block owning a row tile across all K / 128 column tiles of attn_out,
+// layernorm in its epilogue) is the next step.
+extern "C" int caim_int8_attnout_mlp(const void* ctx, const void* wo, const void* so,
+                                     const void* bo, const void* ls1, const void* res,
+                                     const void* gamma, const void* beta, float eps,
+                                     const void* w1, const void* s1, const void* b1,
+                                     const void* w2, const void* s2, const void* b2,
+                                     const void* ls2, void* out, void* xf, void* aq, void* sa,
+                                     void* h8, void* sh, void* partial, int M, int K, int F,
+                                     void* stream) {
+  using namespace caim;
+  if (!gemm_shape_ok(M, K, K) || !gemm_shape_ok(M, K, F) || K > MAX_QUANT_K ||
+      gamma == nullptr || beta == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_quant_rows(ctx, nullptr, nullptr, 0.0f, aq, sa, M, K, st);
+  if (err != cudaSuccess) return (int)err;
+  GemmArgs p = gemm_args(aq, sa, wo, so, bo, M, K, K);
+  p.ls = static_cast<const float*>(ls1);
+  p.res = static_cast<const bf16*>(res);
+  p.xf = static_cast<float*>(xf);
+  err = launch_gemm<kResidualToF32>(p, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_quant_rows_ln_f32(static_cast<const float*>(xf), gamma, beta, eps, aq, sa, M, K,
+                                 st);
+  if (err != cudaSuccess) return (int)err;
+  err = fc1_gelu_gemms(aq, sa, w1, s1, b1, h8, sh, partial, M, K, F, st);
+  if (err != cudaSuccess) return (int)err;
+  p = gemm_args(h8, sh, w2, s2, b2, M, F, K);
+  p.ls = static_cast<const float*>(ls2);
+  p.resf = static_cast<const float*>(xf);
+  p.out = static_cast<bf16*>(out);
+  return (int)launch_gemm<kResidualFromF32>(p, st);
 }

@@ -93,6 +93,13 @@ def _declare(lib):
     # q8, sq, k8, sk, v, bias (or null), out, B, N, H, head_dim, scale, stream
     lib.caim_flash_attention_i8qk.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, p]
     lib.caim_flash_attention_i8qk.restype = i
+    # q, k, v, out, B, N, H, head_dim, scale, stream
+    lib.caim_flash_attention_int8dots.argtypes = [p, p, p, p, i, i, i, i, f, p]
+    lib.caim_flash_attention_int8dots.restype = i
+    # q, k, v, wq, ws, bias, ls, res, out, ctx8 (or null), sc (or null), B, N, H,
+    # head_dim, scale, stream
+    lib.caim_flash_attention_out_res.argtypes = [p] * 11 + [i, i, i, i, f, p]
+    lib.caim_flash_attention_out_res.restype = i
     # x, xq, sx, M, K, stream
     lib.caim_quantize_rows.argtypes = [p, p, p, i, i, p]
     lib.caim_quantize_rows.restype = i
@@ -112,6 +119,10 @@ def _declare(lib):
     # x, wq, ws, bias, h8, sh, xq, sx, partial, M, K, F, stream
     lib.caim_int8_fc1_gelu_rows.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
     lib.caim_int8_fc1_gelu_rows.restype = i
+    # ctx, wo, so, bo, ls1, res, gamma, beta, eps, w1, s1, b1, w2, s2, b2, ls2, out,
+    # xf, aq, sa, h8, sh, partial, M, K, F, stream
+    lib.caim_int8_attnout_mlp.argtypes = [p] * 8 + [f] + [p] * 14 + [i, i, i, p]
+    lib.caim_int8_attnout_mlp.restype = i
     # x, xq, sx, wq, ws, bias, out, M, K, N, stream
     for fn in (lib.caim_int8_proj, lib.caim_int8_gemm_fused):
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, p]

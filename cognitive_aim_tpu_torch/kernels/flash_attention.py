@@ -1,4 +1,4 @@
-"""K1, K7, K8, K10, K10b: multi-head attention for the ViT backbone.
+"""K1, K7, K8, K9, K10, K10b, K11: multi-head attention for the ViT backbone.
 
 Counterparts, in cognitive_aim_tpu/kernels/flash_attention.py, of
 
@@ -7,6 +7,12 @@ Counterparts, in cognitive_aim_tpu/kernels/flash_attention.py, of
   K10  ``flash_attention_packed_i8qk``       the first product in int8, on q
                                              and k quantised per row
   K10b ``flash_attention_packed_i8qk_bias``  K10 with the bias row of K7
+  K9   ``flash_attention_packed(..., int8_dots=True)``: an int8 first product
+       on q and k quantised inside the kernel per (row, head), over the head's
+       64 values; here also under its own name, ``flash_attention_packed_int8``
+  K11  ``flash_attention_packed_out_res``    K1, then the int8 attn_out
+       projection of the f32 context, LayerScale and the residual add, in
+       one kernel
 
 all on the packed [B, N, H*64] layout of the projections, and
 
@@ -17,11 +23,15 @@ whose kernel takes each operand's batch, token and head strides, so it reads
 separately projected tensors and the column slices of one fused projection
 alike, without a copy. The kernels are CUDA C++ in
 ``csrc/flash_attention_packed.cu`` (K1, K7), ``csrc/flash_attention.cu`` (K8)
-and ``csrc/flash_attention_i8qk.cu`` (K10, K10b). Beside each wrapper stands its
+``csrc/flash_attention_i8qk.cu`` (K10, K10b),
+``csrc/flash_attention_int8dots.cu`` (K9) and
+``csrc/flash_attention_out_res.cu`` (K11). Beside each wrapper stands its
 plain PyTorch version, which mirrors the JAX package's ``_packed_reference``
-and ``_packed_reference_bias`` for K1 and K7, ``attention_reference`` for K8, and repeats the kernel body's
-arithmetic for K10 and K10b (an exact integer product, ``s32 * sq * sk``
-with the softmax scale folded into ``sq``, f32 softmax, P cast to v's dtype).
+and ``_packed_reference_bias`` for K1 and K7, ``attention_reference`` for K8,
+and repeats the kernel body's arithmetic for K10 and K10b (an exact integer
+product, ``s32 * sq * sk`` with the softmax scale folded into ``sq``, f32
+softmax, P cast to v's dtype), and likewise for K9 and K11. No model of either
+package calls K9 or K11.
 
 ``quantize_rows`` is the joint-row symmetric quantisation that K10 and K10b
 read. The JAX package runs it outside its Pallas kernel; here CUDA rows go
@@ -50,6 +60,9 @@ from cognitive_aim_tpu_torch.kernels._launch import (
     require_device,
     stream_of,
 )
+from cognitive_aim_tpu_torch.kernels.int8_block import _check_vec as check_channel_vector
+from cognitive_aim_tpu_torch.kernels.int8_block import _check_weight as check_int8_weight
+from cognitive_aim_tpu_torch.kernels.int8_ops import int_matmul, quantize_activations
 
 HEAD_DIM = 64  # the kernels' head width (ViT-B and ViT-L both use 64)
 MAX_QUANT_WIDTH = 1024  # widest row the quantising kernel keeps in registers
@@ -138,6 +151,43 @@ def flash_attention_packed_i8qk_bias_plain(q: torch.Tensor, k: torch.Tensor,
     return _i8qk_plain(q, k, v, k_bias, scale, num_heads)
 
 
+def flash_attention_packed_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                      scale: float, num_heads: int) -> torch.Tensor:
+    """The arithmetic of ``_flash_packed_int8_kernel``: q and k quantised per
+    (row, head) over the head's values (``quantize_rows_plain`` on the
+    [B, H, N, Dh] view: a true division), an exact integer q k^T,
+    ``s32 * (sq * scale) * sk`` in f32, f32 softmax, P cast to v's dtype, P V
+    in v's dtype."""
+    q8, sq = quantize_rows_plain(_heads(q, num_heads))  # [B, H, N, Dh], [B, H, N, 1]
+    k8, sk = quantize_rows_plain(_heads(k, num_heads))
+    s32 = torch.matmul(q8.float(), k8.float().transpose(-1, -2))  # exact: sums < 2^24
+    return _attend(s32 * (sq * scale) * sk.transpose(-1, -2), v, num_heads)
+
+
+def attention_context_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                          num_heads: int) -> torch.Tensor:
+    """[B, N, H*Dh] f32: K1's attention with both products accumulated in f32
+    and the context left unrounded; P passes through v's dtype, as in the
+    kernels."""
+    B, N, HD = v.shape
+    scores = torch.matmul(_heads(q.float(), num_heads),
+                          _heads(k.float(), num_heads).transpose(-1, -2)) * scale
+    probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
+    ctx = torch.matmul(probs, _heads(v.float(), num_heads))
+    return ctx.transpose(1, 2).reshape(B, N, HD)
+
+
+def flash_attention_packed_out_res_plain(q, k, v, wq, ws, b, ls, res, scale: float,
+                                         num_heads: int) -> torch.Tensor:
+    """The arithmetic of ``_flash_packed_out_res_kernel``: the f32 context of
+    all heads, quantised per row over the whole width, an exact integer
+    product with the attn_out weight ``wq`` (int8 [HD, HD], rows the output
+    channels), ``acc * sc * ws + b``, ``res + ls * y`` in f32, one cast."""
+    c8, sc = quantize_activations(attention_context_f32(q, k, v, scale, num_heads))
+    y = int_matmul(c8, wq).float() * sc * ws.float() + b.float()
+    return (res.float() + ls.float() * y).to(res.dtype)
+
+
 # ---------------------------------------------------------- CUDA plumbing ----
 def _check_width(name: str, HD: int, num_heads: int):
     if HD != num_heads * HEAD_DIM:
@@ -190,9 +240,15 @@ def _launch_i8qk(name, q, k, v, k_bias, scale, num_heads):
 
 # ---------------------------------------------------------------- wrappers ----
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           scale: float, num_heads: int) -> torch.Tensor:
+                           scale: float, num_heads: int, q_block: int = 0,
+                           int8_dots: bool = False) -> torch.Tensor:
     """K1. q, k, v: [B, N, H*64] packed activations -> [B, N, H*64] in q's
-    dtype (bfloat16 or float32). CPU -> plain version; CUDA -> the kernel."""
+    dtype (bfloat16 or float32). CPU -> plain version; CUDA -> the kernel.
+    ``int8_dots=True`` is K9, ``flash_attention_packed_int8``, which counts
+    its own launches. ``q_block`` is the JAX signature's query block of the
+    TPU grid; the CUDA kernels' tile is fixed and the value is not read."""
+    if int8_dots:
+        return flash_attention_packed_int8(q, k, v, scale, num_heads)
     require_device("flash_attention_packed", q)
     if q.device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, scale, num_heads)
@@ -214,6 +270,83 @@ def flash_attention_packed_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                          num_heads)
     flash_attention_packed_bias.launches += 1
     return out
+
+
+def flash_attention_packed_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                scale: float, num_heads: int) -> torch.Tensor:
+    """K9. Packed attention whose q k^T runs in int8 on q and k quantised
+    per (row, head) inside the kernel; P V stays in v's dtype. CUDA: bfloat16
+    [B, N, H*64] in and out."""
+    name = "flash_attention_packed_int8"
+    require_device(name, q)
+    if q.device.type == "cpu":
+        return flash_attention_packed_int8_plain(q, k, v, scale, num_heads)
+    B, N, HD = q.shape
+    _check_width(name, HD, num_heads)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bfloat16 q, k, v, got {q.dtype}")
+    check_cuda_inputs(name, (q, k, v), (B, N, HD))
+    lib = _build.library()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.caim_flash_attention_int8dots(ptr(q), ptr(k), ptr(v), ptr(out), B, N,
+                                                num_heads, HEAD_DIM, float(scale),
+                                                stream_of(q))
+    _build.check(err)
+    flash_attention_packed_int8.launches += 1
+    return out
+
+
+OUT_RES_MAX_WIDTH = 1024  # K11: the f32 context tile of 32 rows fits an SM up to here
+
+
+def flash_attention_packed_out_res(q, k, v, wq, ws, b, ls, res, scale: float,
+                                   num_heads: int, q_block: int = 0,
+                                   return_quantised: bool = False):
+    """K11. ``res + ls * attn_out(attention(q, k, v))`` in one kernel: the
+    attention context stays f32 on chip, is quantised per row and goes
+    through the int8 attn_out weight ``wq`` (int8 [HD, HD], rows the output
+    channels; ``ws``, ``b``, ``ls`` f32 [HD]). q, k, v, res [B, N, H*64] ->
+    [B, N, H*64] in res's dtype. CUDA: bfloat16, an even number of heads,
+    width up to 1024. ``q_block`` as in ``flash_attention_packed``.
+    ``return_quantised`` also returns the int8 context [B, N, HD] and its f32
+    row scales [B, N, 1], for checks."""
+    name = "flash_attention_packed_out_res"
+    require_device(name, q)
+    if q.device.type == "cpu":
+        out = flash_attention_packed_out_res_plain(q, k, v, wq, ws, b, ls, res, scale,
+                                                   num_heads)
+        if return_quantised:
+            return (out, *quantize_activations(
+                attention_context_f32(q, k, v, scale, num_heads)))
+        return out
+    B, N, HD = q.shape
+    _check_width(name, HD, num_heads)
+    if q.dtype != torch.bfloat16 or res.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bfloat16 q, k, v, res, got "
+                        f"{q.dtype} and {res.dtype}")
+    if num_heads % 2 or HD > OUT_RES_MAX_WIDTH:
+        raise ValueError(f"{name}: the CUDA kernel takes an even number of heads and a "
+                         f"width up to {OUT_RES_MAX_WIDTH}, got {num_heads} heads, {HD}")
+    check_cuda_inputs(name, (q, k, v, res), (B, N, HD))
+    if check_int8_weight(name, q, wq, ws, HD) != HD:
+        raise ValueError(f"{name}: the attn_out weight must be [{HD}, {HD}]")
+    for vec in (b, ls):
+        check_channel_vector(name, q, vec, HD)
+    out = torch.empty_like(res)
+    ctx8 = sc = None
+    if return_quantised:
+        ctx8 = torch.empty(B, N, HD, dtype=torch.int8, device=q.device)
+        sc = torch.empty(B, N, 1, dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.caim_flash_attention_out_res(
+            ptr(q), ptr(k), ptr(v), ptr(wq), ptr(ws), ptr(b), ptr(ls), ptr(res), ptr(out),
+            ptr(ctx8) if return_quantised else None, ptr(sc) if return_quantised else None,
+            B, N, num_heads, HEAD_DIM, float(scale), stream_of(q))
+    _build.check(err)
+    flash_attention_packed_out_res.launches += 1
+    return (out, ctx8, sc) if return_quantised else out
 
 
 def _check_head_operand(name: str, t: torch.Tensor, like: torch.Tensor):
@@ -310,6 +443,7 @@ def flash_attention_packed_i8qk_bias(q: torch.Tensor, k: torch.Tensor, v: torch.
 
 WRAPPERS = (flash_attention_packed, flash_attention_packed_bias,
             flash_attention_packed_i8qk, flash_attention_packed_i8qk_bias,
-            quantize_rows, flash_attention)
+            quantize_rows, flash_attention, flash_attention_packed_int8,
+            flash_attention_packed_out_res)
 for _w in WRAPPERS:
     _w.launches = 0

@@ -1,5 +1,6 @@
-"""K2-K5, K13, K14: the chained int8 transformer-block GEMMs, the focal qkv
-GEMM, and the two variants that no model calls.
+"""K2-K5, K12, K13, K14: the chained int8 transformer-block GEMMs, the focal
+qkv GEMM, the fused post-attention half, and the two variants that no model
+calls.
 
 Counterpart of cognitive_aim_tpu/kernels/int8_block.py, with its names and
 argument order:
@@ -17,6 +18,11 @@ argument order:
   K4  int8_mlp_ln                 K4a then K4b: the whole MLP; the int8
                                   hidden and its scales make one trip
                                   through device memory
+  K12 int8_attnout_mlp_ln         K3 then K4 with the post-attention residual
+                                  carried in f32 between them and into the
+                                  last add: one cast, at the end. The chained
+                                  block takes it in place of K3 and K4 when
+                                  the environment has ``CAIM_FUSE_AOMLP=1``
   K13 int8_proj                   row quant -> int8 GEMM [K -> Nout] ->
                                   dequant + bias, unsplit; rows of any width
   K14 int8_fc1_gelu               K4a without the layernorm
@@ -116,6 +122,21 @@ def int8_out_residual_prequant_plain(h8, sh, wq, ws, b, ls, res):
 def int8_mlp_ln_plain(x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls, eps=1e-6):
     h8, sh = int8_fc1_gelu_ln_plain(x, g, be, w1q, w1s, b1, eps)
     return int8_out_residual_prequant_plain(h8, sh, w2q, w2s, b2, ls, x)
+
+
+def int8_attnout_mlp_ln_plain(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q, w2s, b2,
+                              ls2, eps=1e-6):
+    """The body of the JAX package's ``_attnout_mlp_kernel``. Not
+    ``int8_mlp_ln_plain(int8_out_residual_plain(...))``: that rounds the
+    post-attention residual to the activation dtype between the halves; here
+    ``xf`` stays f32 into the layernorm and into the last add."""
+    cq, sc = quantize_activations(ctx.float())
+    yo = _dequant(int_matmul(cq, wo), sc, so, bo)
+    xf = res.float() + ls1.float() * yo
+    xq, sx = quantize_activations(_ln_f32(xf, g, be, eps))
+    hq, sh = quantize_activations(_gelu_tanh(_dequant(int_matmul(xq, w1q), sx, w1s, b1)))
+    y = _dequant(int_matmul(hq, w2q), sh, w2s, b2)
+    return (xf + ls2.float() * y).to(res.dtype)
 
 
 # --------------------------------------------------------- CUDA plumbing ----
@@ -369,8 +390,54 @@ def int8_mlp_ln(x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls, eps=1e-6):
     return out
 
 
+def int8_attnout_mlp_ln(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q, w2s, b2, ls2,
+                        eps=1e-6):
+    """K12. The whole post-attention half of the chained int8 block:
+
+        x   = res + ls1 * attn_out(quant(ctx))
+        out = x + ls2 * fc2(quant(gelu(fc1(quant(LN2(x))))))
+
+    with x in f32 from the first residual add to the last (K3 followed by K4
+    rounds it to bf16 in between). ctx, res bf16 [B, N, K] -> bf16 [B, N, K].
+    On the card x makes one trip through device memory as f32 scratch; the
+    note above ``caim_int8_attnout_mlp`` in csrc/int8_block.cu says why."""
+    require_device("int8_attnout_mlp_ln", ctx)
+    if ctx.device.type == "cpu":
+        return int8_attnout_mlp_ln_plain(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1,
+                                         w2q, w2s, b2, ls2, eps)
+    name = "int8_attnout_mlp_ln"
+    B, N, K = ctx.shape
+    _check_act(name, ctx, (B, N, K))
+    _check_act(name, res, (B, N, K))
+    _check_quant_width(name, K)
+    if _check_weight(name, ctx, wo, so, K) != K:
+        raise ValueError(f"{name}: the attn_out weight must be [{K}, {K}]")
+    F = _check_weight(name, ctx, w1q, w1s, K)
+    if _check_weight(name, ctx, w2q, w2s, F) != K:
+        raise ValueError(f"{name}: the fc2 weight must be [{K}, {F}]")
+    for v in (bo, ls1, g, be, b2, ls2):
+        _check_vec(name, ctx, v, K)
+    _check_vec(name, ctx, b1, F)
+    M, dev = B * N, ctx.device
+    out = torch.empty_like(res)
+    xf = torch.empty(M, K, dtype=torch.float32, device=dev)
+    aq, sa = _scratch(ctx, M, K)
+    h8, sh = _scratch(ctx, M, F)
+    partial = torch.empty(M, F // TILE_N, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.caim_int8_attnout_mlp(
+            ptr(ctx), ptr(wo), ptr(so), ptr(bo), ptr(ls1), ptr(res), ptr(g), ptr(be),
+            float(eps), ptr(w1q), ptr(w1s), ptr(b1), ptr(w2q), ptr(w2s), ptr(b2), ptr(ls2),
+            ptr(out), ptr(xf), ptr(aq), ptr(sa), ptr(h8), ptr(sh), ptr(partial), M, K, F,
+            stream_of(ctx))
+    _build.check(err)
+    int8_attnout_mlp_ln.launches += 1
+    return out
+
+
 WRAPPERS = (int8_qkv_proj_ln, int8_qkv_proj, int8_out_residual,
             int8_fc1_gelu_ln, int8_out_residual_prequant, int8_mlp_ln,
-            int8_proj, int8_fc1_gelu)
+            int8_proj, int8_fc1_gelu, int8_attnout_mlp_ln)
 for _w in WRAPPERS:
     _w.launches = 0

@@ -25,10 +25,13 @@ projections by their int8 state, and the block runs as the JAX package's
 chained int8 block: K2 ``int8_qkv_proj_ln`` -> K1 -> K3
 ``int8_out_residual`` -> K4 ``int8_mlp_ln`` (kernels/int8_block.py), with no
 bare elementwise op between them. ``attn_impl="plain"`` runs the plain
-versions of the same four steps. The chained block is chosen by the JAX
-package's rule: quantised, a packed attention route, tanh GELU and no live
-adapters. Any other quantised block runs unchained, as every float block
-does: layernorm in the compute dtype, q, k, v through K15
+versions of the same four steps. With ``CAIM_FUSE_AOMLP=1`` in the
+environment (read at each call, the JAX package's switch) K12
+``int8_attnout_mlp_ln`` takes the place of K3 and K4, after any packed
+attention route, with or without a key bias. The chained block is chosen by
+the JAX package's rule: quantised, a packed attention route, tanh GELU and
+no live adapters. Any other quantised block runs unchained, as every float
+block does: layernorm in the compute dtype, q, k, v through K15
 ``int8_linear_fused`` on the fused weight (packed routes) or through
 ``int8_ops.int8_linear`` (the ``[B, N, H, Dh]`` routes), the other three
 projections through ``int8_ops.int8_linear`` (XLA's int8 matmul in the JAX
@@ -69,6 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -359,15 +363,18 @@ class Block(nn.Module):
         fused = attn_impl.startswith("pallas_packed")
         n1, n2, eps = self.norm1, self.norm2, cfg.layer_norm_eps
         qkv_ln = IB.int8_qkv_proj_ln if fused else IB.int8_qkv_proj_ln_plain
-        out_res = IB.int8_out_residual if fused else IB.int8_out_residual_plain
-        mlp_ln = IB.int8_mlp_ln if fused else IB.int8_mlp_ln_plain
         q, k, v = qkv_ln(x, n1.weight, n1.bias, self.qkv.wq, self.qkv.ws,
                          self.qkv.bias, eps, x.dtype)
         ctx = attend(attn_impl, q, k, v, k_bias, cfg.head_dim ** -0.5, cfg.num_heads)
-        x = out_res(ctx, self.attn_out.wq, self.attn_out.ws, self.attn_out.bias,
-                    self.ls1, x)
-        return mlp_ln(x, n2.weight, n2.bias, self.fc1.wq, self.fc1.ws, self.fc1.bias,
-                      self.fc2.wq, self.fc2.ws, self.fc2.bias, self.ls2, eps)
+        out = (self.attn_out.wq, self.attn_out.ws, self.attn_out.bias, self.ls1)
+        mlp = (n2.weight, n2.bias, self.fc1.wq, self.fc1.ws, self.fc1.bias,
+               self.fc2.wq, self.fc2.ws, self.fc2.bias, self.ls2, eps)
+        if os.environ.get("CAIM_FUSE_AOMLP", "0") == "1":  # read at call time, as in JAX
+            aomlp = IB.int8_attnout_mlp_ln if fused else IB.int8_attnout_mlp_ln_plain
+            return aomlp(ctx, *out, x, *mlp)
+        out_res = IB.int8_out_residual if fused else IB.int8_out_residual_plain
+        mlp_ln = IB.int8_mlp_ln if fused else IB.int8_mlp_ln_plain
+        return mlp_ln(out_res(ctx, *out, x), *mlp)
 
     def forward(self, x: torch.Tensor, attn_impl: str, k_bias=None) -> torch.Tensor:
         """k_bias: optional [B, N] f32 additive key-side logit bias, the

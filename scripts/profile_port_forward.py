@@ -3,7 +3,7 @@
 
     python3 scripts/profile_port_forward.py [--policy int8] [--batch 8] [--top 25]
         [--token-filter 2:0.35@p] [--attn-impl pallas_packed_i8qk]
-        [--lora 64 [--lora-targets qkv,attn_out,fc1,fc2] [--fold]]
+        [--lora 64 [--lora-targets qkv,attn_out,fc1,fc2] [--fold]] [--fuse-aomlp [both]]
 
 Builds the ViT-B 518x518 model (2 focal iterations, random weights from a
 seed, ``attn_impl="pallas_packed"`` unless named) under each named policy,
@@ -11,7 +11,11 @@ for each ``--token-filter`` specification (may repeat; "" or "off" is the
 unfiltered forward, the default), runs guided forwards on device-resident
 images, and prints for each (``--lora R`` gives every backbone block rank-R
 adapters with a seeded non-zero ``lora_B`` on ``--lora-targets``; ``--fold``
-merges them into the weights first, as a deployment does):
+merges them into the weights first, as a deployment does; ``--fuse-aomlp``
+sets ``CAIM_FUSE_AOMLP=1``, under which the chained int8 block runs K12
+``int8_attnout_mlp_ln`` in place of K3 and K4; ``--fuse-aomlp both`` profiles
+each configuration without the variable and then with it, in this one
+process, so that the two share a card and its clocks):
 
   * the forward's time with a synchronise (host clock) and the host's time
     to enqueue it (no synchronise), averaged over --iters forwards;
@@ -53,6 +57,8 @@ def profile_policy(name: str, batch: int, iters: int, top: int, token_filter: st
                            **parse_token_filter(token_filter))
     model = CognitiveAimModel(arch, policy_from_name(name), attn_impl)
     name = f"{name} {attn_impl} filter {token_filter or 'off'}"
+    if os.environ.get("CAIM_FUSE_AOMLP", "0") == "1":
+        name += " CAIM_FUSE_AOMLP=1"
     gen = torch.Generator(device="cuda").manual_seed(0)
     model.init(gen)
     if lora_rank:
@@ -121,6 +127,9 @@ def main() -> int:
                     help="comma-separated: qkv, attn_out, fc1, fc2")
     ap.add_argument("--fold", action="store_true",
                     help="merge the adapters into the weights before the policy's transform")
+    ap.add_argument("--fuse-aomlp", nargs="?", const="on", choices=("on", "both"),
+                    help="set CAIM_FUSE_AOMLP=1: K12 in place of K3 and K4 (int8 policy); "
+                         "'both': each configuration without it, then with it")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
@@ -135,11 +144,15 @@ def main() -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    fuse_modes = {None: (None,), "on": ("1",), "both": ("0", "1")}[args.fuse_aomlp]
     for name in args.policy or ["default", "int8"]:
         for spec in args.token_filter or [""]:
-            profile_policy(name, args.batch, args.iters, args.top,
-                           "" if spec == "off" else spec, args.attn_impl, args.lora,
-                           args.lora_targets.split(","), args.fold)
+            for fuse in fuse_modes:
+                if fuse is not None:  # the block reads the variable at every call
+                    os.environ["CAIM_FUSE_AOMLP"] = fuse
+                profile_policy(name, args.batch, args.iters, args.top,
+                               "" if spec == "off" else spec, args.attn_impl, args.lora,
+                               args.lora_targets.split(","), args.fold)
     return 0
 
 

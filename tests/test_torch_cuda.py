@@ -1,6 +1,6 @@
-"""The CUDA kernels K1, K6, K7, K8, K10, K10b and the int8 kernels K2, K3, K4,
-K4a, K4b, K5, K13, K14, K15 against their plain PyTorch versions, on the card. Every test here needs an
-NVIDIA Hopper GPU and skips without one.
+"""The CUDA kernels K1, K6, K7, K8, K9, K10, K10b, K11 and the int8 kernels K2,
+K3, K4, K4a, K4b, K5, K12, K13, K14, K15 against their plain PyTorch versions,
+on the card. Every test here needs an NVIDIA Hopper GPU and skips without one.
 
 This file imports no jax (the GPU machine has none). From the repository
 root on that machine:
@@ -418,8 +418,9 @@ def test_int8_model_counts_its_launches(cuda_device):
         w.launches = 0
     out = model(x, guidance=torch.tensor([0, 4, 8], device=cuda_device))
     torch.cuda.synchronize()
-    # K2, K5, K3, K4a, K4b, K4, then K13 and K14 (no caller in the model), K1, K6
-    assert [w.launches for w in counters] == [2, 2, 2, 2, 2, 2, 0, 0, 2, 2]
+    # K2, K5, K3, K4a, K4b, K4, then K13 and K14 (no caller in the model) and K12
+    # (the variable is unset), K1, K6
+    assert [w.launches for w in counters] == [2, 2, 2, 2, 2, 2, 0, 0, 0, 2, 2]
     model.attn_impl = "plain"
     ref = model(x, guidance=torch.tensor([0, 4, 8], device=cuda_device))
     torch.testing.assert_close(out.depth, ref.depth, atol=0, rtol=2e-2)
@@ -578,3 +579,173 @@ def test_adapter_model_counts_its_launches(case, cuda_device):
     ref = model(x, guidance=gi)
     torch.testing.assert_close(out.depth, ref.depth, atol=0, rtol=2e-2)
     torch.testing.assert_close(out.confidence, ref.confidence, atol=0, rtol=2e-2)
+
+
+# ------------------------------------------------------ K9, K11, K12 ----
+FUSED_ATTN_SHAPES = [(8, 1370, 12), (8, 481, 12), (8, 257, 12), (2, 257, 16), (1, 33, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H", FUSED_ATTN_SHAPES)
+def test_k9_kernel_matches_plain(B, N, H, cuda_device):
+    """K9 through the ``int8_dots`` keyword of K1's wrapper: its own launch
+    count, bf16 outputs within atol 2e-2 of the float32 plain version."""
+    D = 64
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _arrays((B, N, H * D), seed=N))
+    n1, n9 = TFA.flash_attention_packed.launches, TFA.flash_attention_packed_int8.launches
+    got = TFA.flash_attention_packed(q, k, v, D ** -0.5, H, int8_dots=True)
+    torch.cuda.synchronize()
+    assert TFA.flash_attention_packed_int8.launches == n9 + 1
+    assert TFA.flash_attention_packed.launches == n1
+    want = TFA.flash_attention_packed_int8_plain(q.float(), k.float(), v.float(), D ** -0.5, H)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert float((got.float() - want).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_k9_zero_heads_take_the_scale_floor(cuda_device):
+    """All-zero q and k quantise with the 1e-12 floor to zeros: the scores
+    are 0, not NaN, and the output is the mean of v over the N valid keys."""
+    z = torch.zeros(2, 70, 128, device=cuda_device, dtype=torch.bfloat16)
+    v = torch.from_numpy(_arrays((2, 70, 128), n=1)[0]).to(cuda_device, torch.bfloat16)
+    got = TFA.flash_attention_packed_int8(z, z, v, 0.125, 2)
+    torch.cuda.synchronize()
+    want = v.float().mean(dim=1, keepdim=True).expand(-1, 70, -1)
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want).abs().max()) <= 2e-2
+
+
+def _k11_inputs(B, N, H, dev, seed=0):
+    HD = H * 64
+    q, k, v, res = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                    for a in _arrays((B, N, HD), n=4, seed=seed))
+    r = np.random.RandomState(seed + 1)
+    w = quantize_weight(torch.from_numpy((r.randn(HD, HD) * 0.05).astype(np.float32)).to(dev))
+    b = torch.from_numpy((r.randn(HD) * 0.01).astype(np.float32)).to(dev)
+    ls = torch.from_numpy((r.randn(HD) * 0.1 + 0.9).astype(np.float32)).to(dev)
+    return q, k, v, w["q"], w["s"], b, ls, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H", FUSED_ATTN_SHAPES)
+def test_k11_kernel_matches_plain(B, N, H, cuda_device):
+    """The kernel rounds the un-normalised P to bf16, the plain version the
+    normalised P: under 10% of the int8 context values sit one step apart
+    (measured 6-7%), the row scales within 1e-2, the output within
+    1e-2 max(1, |plain|)."""
+    args = _k11_inputs(B, N, H, cuda_device, seed=N)
+    n = TFA.flash_attention_packed_out_res.launches
+    got, c8, sc = TFA.flash_attention_packed_out_res(*args, 0.125, H, return_quantised=True)
+    torch.cuda.synchronize()
+    assert TFA.flash_attention_packed_out_res.launches == n + 1
+    _assert_bf16_close(got, TFA.flash_attention_packed_out_res_plain(*args, 0.125, H))
+    p8, ps = TIB.quantize_activations(TFA.attention_context_f32(*args[:3], 0.125, H))
+    diff = (c8.int() - p8.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-1
+    assert float(((sc - ps).abs() / ps).max()) <= 1e-2
+    assert torch.equal(got, TFA.flash_attention_packed_out_res(*args, 0.125, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B%d-N%d-D%d-F%d" % s)
+def test_k12_kernel_matches_plain_and_is_not_k3_then_k4(shape, cuda_device):
+    t = _int8_inputs(*shape, cuda_device, seed=2)
+    ls2 = (t["ls"] * 0.9).bfloat16().float()
+    args = (t["ctx"], *t["out"], t["ls"], t["x"], t["g"], t["be"], *t["fc1"], *t["fc2"], ls2)
+    others = [w for w in TIB.WRAPPERS if w is not TIB.int8_attnout_mlp_ln]
+    before = [w.launches for w in others]
+    n = TIB.int8_attnout_mlp_ln.launches
+    got = TIB.int8_attnout_mlp_ln(*args)
+    torch.cuda.synchronize()
+    assert TIB.int8_attnout_mlp_ln.launches == n + 1
+    assert [w.launches for w in others] == before  # K12 is not K3's or K4's entry
+    _assert_bf16_close(got, TIB.int8_attnout_mlp_ln_plain(*args))
+    x = TIB.int8_out_residual(t["ctx"], *t["out"], t["ls"], t["x"])
+    pair = TIB.int8_mlp_ln(x, t["g"], t["be"], *t["fc1"], *t["fc2"], ls2)
+    assert not torch.equal(got, pair)  # the f32 carry: other bits than the bf16 round trip
+    lim = 2e-2 * max(1.0, float(pair.float().abs().max()))
+    assert float((got.float() - pair.float()).abs().max()) <= lim
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    t = _int8_inputs(2, 40, 256, 512, cuda_device)
+    k12 = [t["ctx"], *t["out"], t["ls"], t["x"], t["g"], t["be"], *t["fc1"], *t["fc2"], t["ls"]]
+    a = list(_k11_inputs(2, 40, 2, cuda_device))
+    q, k, v = a[:3]
+    wrappers = (TIB.int8_attnout_mlp_ln, TFA.flash_attention_packed_int8,
+                TFA.flash_attention_packed_out_res, TFA.flash_attention_packed)
+    before = [w.launches for w in wrappers]
+
+    def swapped(args, i, value):
+        return [value if j == i else x for j, x in enumerate(args)]
+
+    with pytest.raises(TypeError):  # float32 activations
+        TIB.int8_attnout_mlp_ln(*swapped(k12, 0, k12[0].float()))
+    with pytest.raises(ValueError):  # a residual that is not contiguous
+        TIB.int8_attnout_mlp_ln(*swapped(k12, 5, k12[5].transpose(0, 1).contiguous()
+                                         .transpose(0, 1)))
+    with pytest.raises(ValueError):  # an fc2 weight of the wrong shape
+        TIB.int8_attnout_mlp_ln(*swapped(k12, 11, k12[8]))
+    wide = _int8_inputs(1, 8, 2048, 2048, cuda_device)
+    with pytest.raises(ValueError):  # rows wider than the layernorm prologue holds
+        TIB.int8_attnout_mlp_ln(wide["ctx"], *wide["out"], wide["ls"], wide["x"], wide["g"],
+                                wide["be"], *wide["fc1"], *wide["fc2"], wide["ls"])
+    with pytest.raises(TypeError):  # K9 takes bfloat16 only
+        TFA.flash_attention_packed(q.float(), k.float(), v.float(), 0.125, 2, int8_dots=True)
+    with pytest.raises(ValueError):  # a strided q
+        TFA.flash_attention_packed_int8(q.repeat(1, 1, 2)[..., :128], k, v, 0.125, 2)
+    with pytest.raises(ValueError):  # 128 is not 3 heads of 64
+        TFA.flash_attention_packed_int8(q, k, v, 0.125, 3)
+    with pytest.raises(TypeError):  # a float32 residual
+        TFA.flash_attention_packed_out_res(*swapped(a, 7, a[7].float()), 0.125, 2)
+    with pytest.raises(ValueError):  # a float weight
+        TFA.flash_attention_packed_out_res(*swapped(a, 3, a[3].float()), 0.125, 2)
+    odd = _k11_inputs(1, 40, 3, cuda_device)
+    with pytest.raises(ValueError):  # an odd number of heads
+        TFA.flash_attention_packed_out_res(*odd, 0.125, 3)
+    big = _k11_inputs(1, 8, 18, cuda_device)
+    with pytest.raises(ValueError):  # 1152 wide: the f32 context tile does not fit
+        TFA.flash_attention_packed_out_res(*big, 0.125, 18)
+    assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.cuda
+def test_fused_int8_model_counts_its_launches(cuda_device, monkeypatch):
+    """Under ``CAIM_FUSE_AOMLP=1`` every block launches K2, K1 and K12, and
+    neither K3 nor K4; the variable is read at each call."""
+    from cognitive_aim_tpu_torch.core.precision import policy_from_name
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig
+    from cognitive_aim_tpu_torch.nn.dinov2 import DinoV2Config
+
+    vit = DinoV2Config(hidden_size=128, num_layers=2, num_heads=2, pretrain_image_size=56,
+                       gelu_approx=True)
+    model = CognitiveAimModel(ModelArchConfig(num_iterations=2, image_size=70),
+                              policy_from_name("int8"), vit_cfg=vit)
+    model.init(torch.Generator(device="cuda").manual_seed(0)).prepare_params()
+    x = torch.randn(3, 70, 70, 3, device=cuda_device)
+    gidx = torch.tensor([0, 4, 8], device=cuda_device)
+    counters = (*TIB.WRAPPERS, TFA.flash_attention_packed, TFO.focal_attention_fused)
+
+    def run():
+        for w in counters:
+            w.launches = 0
+        out = model(x, guidance=gidx)
+        torch.cuda.synchronize()
+        return out, [w.launches for w in counters]
+
+    monkeypatch.delenv("CAIM_FUSE_AOMLP", raising=False)
+    unfused, counts = run()
+    assert counts == [2, 2, 2, 2, 2, 2, 0, 0, 0, 2, 2]
+    monkeypatch.setenv("CAIM_FUSE_AOMLP", "1")
+    fused, counts = run()
+    # K2, K5, K3, K4a, K4b, K4, K13, K14, K12, K1, K6
+    assert counts == [2, 2, 0, 0, 0, 0, 0, 0, 2, 2, 2]
+    torch.testing.assert_close(fused.depth, unfused.depth, atol=0, rtol=2e-2)
+    model.attn_impl = "plain"
+    ref, counts = run()
+    assert counts == [0] * 11  # the plain twin launches no kernel
+    torch.testing.assert_close(fused.depth, ref.depth, atol=0, rtol=2e-2)
+    torch.testing.assert_close(fused.confidence, ref.confidence, atol=0, rtol=2e-2)
