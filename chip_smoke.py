@@ -10,7 +10,10 @@ kernels compile for sm_90a) and the CUDA toolkit:
       CUDA, nvcc and triton versions; TF32 off for matmul and cuDNN;
   (b) build: compiles csrc/*.cu with nvcc at first use (one process per
       source, side by side);
-  (c) kernels: K1 flash_attention_packed and K6 focal_attention_fused, and
+  (c) kernels: K1 flash_attention_packed and K6 focal_attention_fused (K1's
+      bf16 program, which K7 and K8 share, also at N 1 to 1370 around its
+      64-row tiles, ViT-B and ViT-L heads, and under a permutation probe: V
+      one-hot by key index), and
       the int8 kernels K2, K3, K4a, K4b, K4 and K5, at the slice shapes, at
       the ragged N 257 and 481 (K1 also at the progressive filter's 826 and
       416) and at ViT-L widths, and the biased and
@@ -63,7 +66,9 @@ kernels compile for sm_90a) and the CUDA toolkit:
       steps assembled by hand (K2 -> K11 -> K4; K2 -> K9 -> K3 -> K4) against
       the same steps' plain versions and against K2 -> K1 -> K3 -> K4;
   (e) times with CUDA events: every kernel beside its plain version and
-      its bound, K1, K7 and K8 beside scaled_dot_product_attention, K13
+      its bound, K1, K7 and K8 beside scaled_dot_product_attention (each
+      ratio printed, timed in turns; K1 also at N 481, by CUDA graphs,
+      whose device time the host's launch rate does not mask), K13
       beside int8_ops.int8_linear at the three shapes the unchained block
       gives that function, the B=8 forward under both policies, through the
       int8 filtered slices and through the int8 adapter slice, and the host
@@ -94,6 +99,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # elements; the plain version runs in float32 on the same input values
 TOL_BF16_OUT = 2e-2  # bf16 outputs of magnitude <~2: bf16 spacing there is
 #                      <=2^-7, plus P rounded to bf16 before the PV product
+# the bf16 attention program of K1, K7, K8 (csrc/flash_wgmma.cu) at N 1..1370:
+# twice its largest error measured on the card (4.6e-3, at short N), so that
+# a lost key tile at N 1370 (outputs of magnitude ~0.04) cannot pass
+TOL_FLASH_BF16 = 1e-2
 TOL_F32_OUT = 1e-4  # f32 kernel vs f32 plain: summation order only
 TOL_VIEWS = 1e-5  # K6's f32 row views (colmean, diag, rowmax), values <= 1
 # int8 kernels: a bf16 output may round the other way than the plain
@@ -187,6 +196,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call of fn: reps calls captured in one CUDA graph,
+    the graph replayed. Where a wrapper takes longer on the host than its
+    kernel on the device (N 481), cuda_ms reads the host's launch rate."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as capture asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, iters=replays, warmup=1) / reps
 
 
 def max_err(a, b) -> float:
@@ -297,6 +324,47 @@ def phase_kernels():
         if N == 1369:
             worst["K6"] = max(errs)
     return worst
+
+
+def phase_flash_body():
+    """The bf16 attention program of K1, K7 and K8 (csrc/flash_wgmma.cu) at
+    the lengths around its 64-row tiles and the model's stream lengths,
+    ViT-B and ViT-L heads; and a permutation probe: V one-hot by key index
+    under peaked scores, where a key moved inside a tile costs an error of
+    1."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import flash_attention as FA
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    B, Dh = 2, 64
+    for H in (12, 16):
+        worst = 0.0
+        for N in (1, 63, 64, 65, 127, 128, 129, 257, 416, 481, 826, 1370):
+            q, k, v = (_rand((B, N, H * Dh), g, torch.bfloat16) for _ in range(3))
+            ref = FA.flash_attention_packed_plain(q.float(), k.float(), v.float(), Dh ** -0.5, H)
+            got = FA.flash_attention_packed(q, k, v, Dh ** -0.5, H)
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            if not (err <= TOL_FLASH_BF16 and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"the bf16 attention program disagrees with its plain "
+                                     f"version at N={N} H={H}: {err:.3e}")
+            worst = max(worst, err)
+        log(f"  bf16 attention program, N 1..1370 (12 lengths), H {H}: "
+            f"max_abs_err {worst:.3e} (tol {TOL_FLASH_BF16:.0e}) ok")
+    B, H, N = 2, 4, 257
+    onehot = torch.zeros(B, N, H, Dh, device="cuda")
+    j = torch.arange(N, device="cuda")
+    onehot[:, j, :, j % Dh] = 1.0
+    k = onehot.reshape(B, N, H * Dh).to(torch.bfloat16)
+    q = (40.0 * onehot).reshape(B, N, H * Dh).to(torch.bfloat16)
+    hot = (j % Dh)[None, :, None].expand(B, N, H)
+    got = FA.flash_attention_packed(q, k, k, 1.0, H)
+    torch.cuda.synchronize()
+    ok = torch.equal(got.view(B, N, H, Dh).float().argmax(-1), hot)
+    log(f"  permutation probe (one-hot V, peaked scores) N {N}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the bf16 attention program moves keys inside a tile")
 
 
 def _bias_rows(B, N, g):
@@ -1354,6 +1422,19 @@ def phase_kernel_times(smi):
     B, N, D, Fh, H = 8, 1370, 768, 3072, 12
     times = {}
 
+    def ratio(name, kernel, library):
+        """The kernel's time over its library call's, timed again in turns
+        (kernel, library, library, kernel) so that both see the same clocks;
+        the means replace the kernel's and the library call's times."""
+        t = times[name]
+        k_ms, l_ms = [cuda_ms(kernel)], [cuda_ms(library)]
+        l_ms.append(cuda_ms(library))
+        k_ms.append(cuda_ms(kernel))
+        t["ms"], t["library_ms"] = sum(k_ms) / 2, sum(l_ms) / 2
+        t["library_ratio"] = t["ms"] / t["library_ms"]
+        log(f"  {name} / library call in turns: kernel {k_ms[0]:.4f}/{k_ms[1]:.4f} ms, library "
+            f"call {l_ms[0]:.4f}/{l_ms[1]:.4f} ms, ratio {t['library_ratio']:.3f}")
+
     def record(name, shape, kernel, plain, bound_, library=None):
         t = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
              "bound_ms": bound_[0], "bound_by": bound_[1],
@@ -1368,19 +1449,26 @@ def phase_kernel_times(smi):
     def heads(t):
         return t.view(B, N, H, D // H).transpose(1, 2)
 
+    def sdpa():
+        return F.scaled_dot_product_attention(heads(q), heads(k), heads(v), scale=0.125)
+
     # K1: 4 B H N^2 Dh operations; q, k, v read and out written once
-    record("K1", f"B{B} N{N} H{H} bf16",
-           lambda: FA.flash_attention_packed(q, k, v, 0.125, H),
+    def k1():
+        return FA.flash_attention_packed(q, k, v, 0.125, H)
+
+    record("K1", f"B{B} N{N} H{H} bf16", k1,
            lambda: FA.flash_attention_packed_plain(q, k, v, 0.125, H),
-           bound(4 * B * N * D * 2, 4 * B * N * N * D, "bf16"),
-           lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), scale=0.125))
+           bound(4 * B * N * D * 2, 4 * B * N * N * D, "bf16"), sdpa)
+    ratio("K1", k1, sdpa)
     # K8: K1's work on [B, N, H, 64] views of the same memory
     q4, k4, v4 = (t.view(B, N, H, D // H) for t in (q, k, v))
-    record("K8", f"B{B} N{N} H{H} bf16",
-           lambda: FA.flash_attention(q4, k4, v4, 0.125),
+    def k8():
+        return FA.flash_attention(q4, k4, v4, 0.125)
+
+    record("K8", f"B{B} N{N} H{H} bf16", k8,
            lambda: FA.attention_reference(q4, k4, v4, 0.125),
-           bound(4 * B * N * D * 2, 4 * B * N * N * D, "bf16"),
-           lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), scale=0.125))
+           bound(4 * B * N * D * 2, 4 * B * N * N * D, "bf16"), sdpa)
+    ratio("K8", k8, sdpa)
     # K7, K10, K10b at the filtered stream's N 481 (the shape of the kernels
     # line for K7 and K10b) and at N 1370 (K10's). Bytes as K1 plus the f32
     # bias row; K10's first product counts at the int8 rate. The wrappers of
@@ -1411,16 +1499,36 @@ def phase_kernel_times(smi):
         }
         for name, (kernel, plain, bnd, library) in cases.items():
             record(name, f"B{B} N{Nk} H{H} bf16", kernel, plain, bnd, library)
+            if library:
+                ratio(name, kernel, library)
             # the kernels line takes K10 at N 1370, K7 and K10b at N 481
             (main if (Nk == N) == (name == "K10") else other)[name] = times.pop(name)
             if name == "K7":  # K1 at the same shape, for the cost of the bias row
-                k1 = cuda_ms(lambda: FA.flash_attention_packed(qn, kn, vn, 0.125, H))
-                log(f"  K1 B{B} N{Nk} H{H} bf16 in the same run: kernel {k1:.3f} ms")
+                def k1n():
+                    return FA.flash_attention_packed(qn, kn, vn, 0.125, H)
+
+                def sdpa_n():
+                    return F.scaled_dot_product_attention(hn(qn), hn(kn), hn(vn), scale=0.125)
+
+                k1_ms, sdpa_ms = cuda_ms(k1n), cuda_ms(sdpa_n)
+                # device time alone, from CUDA graphs (at N 481 cuda_ms reads
+                # the host's launch rate), K7 with them
+                dev = {"K1": graph_ms(k1n), "sdpa": graph_ms(sdpa_n), "K7": graph_ms(kernel),
+                       "masked_sdpa": graph_ms(library)}
+                log(f"  K1 B{B} N{Nk} H{H} bf16 in the same run: kernel {k1_ms:.4f} ms, "
+                    f"scaled_dot_product_attention {sdpa_ms:.4f} ms, ratio "
+                    f"{k1_ms / sdpa_ms:.3f}; device time (CUDA graphs): K1 {dev['K1']:.4f}, "
+                    f"SDPA {dev['sdpa']:.4f} (ratio {dev['K1'] / dev['sdpa']:.3f}), K7 "
+                    f"{dev['K7']:.4f}, masked SDPA {dev['masked_sdpa']:.4f} ms")
+                (main if Nk == 481 else other)["K1_here"] = {
+                    "ms": k1_ms, "sdpa_ms": sdpa_ms, "device_ms": dev}
         # Q: bf16 rows read, int8 rows and f32 scales written; no product
         record("Q", f"B{B} N{Nk} D{D} bf16", lambda: FA.quantize_rows(qn),
                lambda: FA.quantize_rows_plain(qn),
                bound(3 * B * Nk * D + 4 * B * Nk, 0, "bf16"))
         (main if Nk == 481 else other)["Q"] = times.pop("Q")
+    times["K1"]["at_n481"] = main.pop("K1_here")
+    times["K1"]["device_ms_n1370"] = other.pop("K1_here")["device_ms"]
     for name in main:
         times[name] = {**main[name], "other_shape": other[name]}
 
@@ -1624,7 +1732,9 @@ def phase_forward_times(default, int8, filtered=None, adapters=None):
 
 KERNELS = {
     # id: (wrapper name, source, TPU kernel body it replaces)
-    "K1": ("flash_attention_packed", "flash_attention_packed.cu", "flash_attention.py:388"),
+    # K1, K7 and K8 launch one bf16 program, flash_wgmma.cu (their f32
+    # kernels stay in the files of their C entries)
+    "K1": ("flash_attention_packed", "flash_wgmma.cu", "flash_attention.py:388"),
     "K2": ("int8_qkv_proj_ln", "int8_block.cu", "int8_block.py:143"),
     "K3": ("int8_out_residual", "int8_block.cu", "int8_block.py:427"),
     "K4": ("int8_mlp_ln", "int8_block.cu", "int8_block.py:312"),
@@ -1632,8 +1742,7 @@ KERNELS = {
     "K4b": ("int8_out_residual_prequant", "int8_block.cu", "int8_block.py:256"),
     "K5": ("int8_qkv_proj", "int8_block.cu", "int8_block.py:110"),
     "K6": ("focal_attention_fused", "focal_attention.cu", "focal_attention.py:52"),
-    "K7": ("flash_attention_packed_bias", "flash_attention_packed.cu",
-           "flash_attention.py:149"),
+    "K7": ("flash_attention_packed_bias", "flash_wgmma.cu", "flash_attention.py:149"),
     "K10": ("flash_attention_packed_i8qk", "flash_attention_i8qk.cu",
             "flash_attention.py:451"),
     "K10b": ("flash_attention_packed_i8qk_bias", "flash_attention_i8qk.cu",
@@ -1641,7 +1750,7 @@ KERNELS = {
     # the quantisation K10 and K10b read, two launches each (q and k); the JAX
     # package leaves it to XLA, outside its kernels
     "Q": ("quantize_rows", "int8_block.cu", "flash_attention.py:433"),
-    "K8": ("flash_attention", "flash_attention.cu", "flash_attention.py:44"),
+    "K8": ("flash_attention", "flash_wgmma.cu", "flash_attention.py:44"),
     # K13 and K14 have no caller in either package's models: their launches on
     # the main path are 0, and phase (c) holds them against their plain versions
     "K13": ("int8_proj", "int8_block.cu", "int8_block.py:83"),
@@ -1680,6 +1789,7 @@ def main() -> int:
     phase_build()
     log("(c) kernels vs plain versions")
     errs = phase_kernels()
+    phase_flash_body()
     errs.update(phase_int8_kernels())
     errs.update(phase_filter_kernels())
     errs.update(phase_adapter_kernels())

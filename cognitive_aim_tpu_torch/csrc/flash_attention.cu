@@ -9,40 +9,27 @@
 //
 // What bounds it on this card: the work is K1's (flash_attention_packed.cu):
 // at B 8, N 1370, H 12 one call is 46 GFLOP of bf16 products against 67 MB,
-// operation-bound. What the design does about it:
+// operation-bound, with the softmax's exp2 and f32 work about as long again.
+// What the design does about it:
 //   * No transpose and no padding: a head's rows are 64 contiguous values at
 //     a fixed distance, so the kernel takes each operand's batch, token and
 //     head strides and addresses the [B, N, H, 64] tensor in place. The same
 //     kernel therefore reads separately projected q, k, v, and the three
 //     column slices of one fused [B, N, 3 H 64] projection (token stride
 //     3 H 64) without a copy. The output is a new contiguous [B, N, H, 64].
-//   * Everything after the addressing is the program K1 runs
-//     (flash_body.cuh): one block per (64-query tile, head, batch), K and V
-//     streamed in 64-key tiles through an online softmax; bf16 products as
-//     mma.sync m16n8k16 from a cp.async double buffer, f32 products as plain
-//     FMAs for the strict policy; the ragged tail zero-filled and masked.
-//     What K1 has still to gain (wgmma, TMA) this kernel gains with it.
+//   * bf16: the strides become the 4-D tensor maps of K1's program
+//     (flash_wgmma.cu): TMA loads by a producer warp, wgmma products by
+//     a consumer warpgroup of 64 query rows, the softmax between them in
+//     registers. K8 and K1 launch the same kernel, so on the same
+//     memory they give the same bits. A stride the tensor-map encoder
+//     refuses raises in the wrapper.
+//   * f32 (strict policy): flash_body.cuh's plain FMA loops on 64-row tiles.
 #include "flash_body.cuh"
+#include "flash_wgmma.cuh"
 
 #include <climits>
 
 namespace caim {
-
-// element strides of one [B, N, H, 64] operand (the last dimension is 1)
-struct HeadStrides {
-  long long b, n, h;
-};
-
-__global__ void __launch_bounds__(FA_THREADS)
-flash_bnhd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out, HeadStrides sq,
-                       HeadStrides sk, HeadStrides sv, int N, int H, float scale) {
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int HD = H * HEAD_DIM;
-  flash_bf16_body<false>(q + b * sq.b + h * sq.h, (int)sq.n, k + b * sk.b + h * sk.h,
-                         (int)sk.n, v + b * sv.b + h * sv.h, (int)sv.n, nullptr,
-                         out + (size_t)b * N * HD + (size_t)h * HEAD_DIM, HD, q0, b, N, scale);
-}
 
 __global__ void __launch_bounds__(FA_THREADS)
 flash_bnhd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -55,11 +42,11 @@ flash_bnhd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         out + (size_t)b * N * HD + (size_t)h * HEAD_DIM, HD, q0, b, N, scale);
 }
 
-// 16-byte rows for cp.async and the vector loads: every stride a multiple of
-// `vec` elements, and the token stride within an int
-bool strides_ok(const HeadStrides& s, int vec) {
-  return s.b >= 0 && s.n > 0 && s.h >= 0 && s.n <= INT_MAX && s.b % vec == 0 &&
-         s.n % vec == 0 && s.h % vec == 0;
+// 16-byte rows for the f32 body's vector loads: every stride a multiple of
+// 4 elements, and the token stride within an int
+bool f32_strides_ok(const HeadStrides& s) {
+  return s.b >= 0 && s.n > 0 && s.h >= 0 && s.n <= INT_MAX && s.b % 4 == 0 && s.n % 4 == 0 &&
+         s.h % 4 == 0;
 }
 
 }  // namespace caim
@@ -79,20 +66,15 @@ extern "C" int caim_flash_attention(const void* q, const void* k, const void* v,
   const HeadStrides sq{q_strides[0], q_strides[1], q_strides[2]};
   const HeadStrides sk{k_strides[0], k_strides[1], k_strides[2]};
   const HeadStrides sv{v_strides[0], v_strides[1], v_strides[2]};
-  const int vec = dtype == kBF16 ? 8 : 4;
-  if (!strides_ok(sq, vec) || !strides_ok(sk, vec) || !strides_ok(sv, vec))
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + TILE - 1) / TILE, H, B);
-  if (dtype == kBF16) {
-    flash_bnhd_bf16_kernel<<<grid, FA_THREADS, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), sq, sk, sv, N, H, scale);
-    return (int)cudaGetLastError();
-  }
+  if (dtype == kBF16)
+    return (int)launch_flash_bf16(q, sq, k, sk, v, sv, nullptr, out, B, N, H, scale, st);
+  if (!f32_strides_ok(sq) || !f32_strides_ok(sk) || !f32_strides_ok(sv))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bnhd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
   if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + TILE - 1) / TILE, H, B);
   flash_bnhd_f32_kernel<<<grid, FA_THREADS, F32_SMEM, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), sq, sk, sv, N, H, scale);

@@ -1,0 +1,429 @@
+// The bf16 attention body of K1 and K7 (flash_attention_packed.cu) and K8
+// (flash_attention.cu), designed for Hopper.
+//
+// Computes, per (batch b, head h), softmax(Q K^T * scale [+ bias[b, key]]) V
+// with bf16 operands, f32 scores, an f32 online softmax in base 2 (scale *
+// log2 e folded in), keys past N masked, P rounded to bf16 un-normalised
+// before the P V product, and the f32 accumulator divided by the f32 row sum
+// at the end. Each operand is a [B, N, H, 64] view given by its element
+// strides (batch, token, head): K1's packed [B, N, H*64] is the case (N H 64,
+// H 64, 64), K8's views pass their own, so both launch this one kernel.
+//
+// What bounds it on this card: at B 8, N 1370, H 12 one call is 46 GFLOP of
+// bf16 products against 67 MB of q, k, v and out, ~690 FLOP/byte: above the
+// ridge, so operation-bound (0.047 ms at 989 TFLOP/s). Beside the products
+// the softmax spends an exp2 and a few f32 operations on each of the 180 M
+// scores, as long again on the SM's multi-function and FMA pipes; and every
+// block streams its head's K and V through shared memory, which the products
+// read too. What the design does about it:
+//   * A block owns 64 query rows of one (head, batch): one consumer
+//     warpgroup and one producer warp, 64-key tiles. At 122 registers and
+//     74 KB of shared memory a block, three blocks share an SM, whose
+//     warpgroups run out of step, so that one's softmax covers the others'
+//     products. The K and V traffic from L2 does not bound it: blocks of
+//     128 query rows (two consumer warpgroups taking turns, 128-key tiles,
+//     half the traffic) and a cluster of two 64-row blocks sharing each
+//     tile by TMA multicast were both slower at every length measured, and
+//     so were 128-key tiles for 64 rows (166 registers: ptxas serialises
+//     the wgmmas) and fewer stages.
+//   * Loads by TMA: a 4-D tensor map per operand over [B, N, H, 64] (d,
+//     head, token, batch innermost first), box {64, 1, rows, 1}, 128-byte
+//     swizzle (a head row of 64 bf16 is one 128-byte swizzle span). Rows past
+//     N (N is a dimension of its own) arrive as zeros, so a tile never reads
+//     the next batch's rows. One thread of the producer issues them: Q once,
+//     then K and V of each key tile into a ring of stages with a full barrier
+//     each for K and V and an empty barrier the consumers release.
+//   * S = Q K^T: wgmma m64n64k16 over four k-steps of the head's 64 values,
+//     B (K) from shared memory, K-major; A (Q) from registers, where a
+//     64 x 64 x 16 product reading both operands from shared memory would
+//     take its whole bandwidth.
+//   * Softmax in place on the accumulators in registers: row maxima and
+//     sums over the 4 lanes that share a row; P = exp2(S * scale log2 e - m)
+//     in one FFMA and one MUFU.EX2 a score (ex2.approx.ftz: exp2f spends
+//     three more instructions on subnormal results), then packed to bf16 as
+//     the A fragments of the second product (the accumulator's 8-column tiles
+//     2kk and 2kk + 1 are k-step kk's A fragment).
+//   * O += P V: wgmma m64n64k16 with A from registers and B the V tile as it
+//     lies, row-major [keys, 64], read MN-major (the transpose bit).
+//   * Each iteration issues S of the next key tile and P V of this one, and
+//     waits for both before the softmax. Overlapping the softmax with P V
+//     inside a warpgroup (a second set of P registers, wgmma_wait<1>) was
+//     slower: ptxas serialised every wgmma of the kernel (its warning C7514),
+//     as it did when part of the exp2s ran on the FMA pipe.
+//   * K7's bias row [B, N] f32 is only 4-byte aligned at N 481, so the
+//     producer warp stages each key tile's slice with plain loads, times
+//     log2 e and -inf past N, into the stage beside K, and arrives on K's
+//     full barrier. K1 with a zero bias gives K7's bits: with b the staged
+//     bias, K7's P is exp2(fma(S, scale log2 e, b - m)), K1's with b = 0.
+//   * The epilogue writes O / l as bf16 into the consumer's Q tile (in the
+//     same swizzle: no bank conflicts) and stores it with one TMA store,
+//     which drops rows past N.
+#include "flash_wgmma.cuh"
+#include "tile_common.cuh"
+
+#include <cuda.h>
+
+#include <atomic>
+
+namespace caim {
+
+namespace {
+
+constexpr int ROW_BYTES = 128;  // one head row: 64 bf16
+constexpr int QT = 64;          // query rows of a block: one consumer warpgroup
+constexpr int KT = 64;          // keys of a K or V tile
+constexpr int THREADS = 128 + 32;  // the consumer warpgroup and a producer warp
+constexpr int STAGES = 4;  // three blocks an SM still fit in shared memory
+
+template <bool BIAS>
+struct FlashTile {
+  static constexpr int Q_BYTES = QT * ROW_BYTES;
+  static constexpr int KV_BYTES = KT * ROW_BYTES;
+  static constexpr int K_OFF = Q_BYTES;  // every tile starts on a 1024-byte boundary
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int B_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = B_OFF + (BIAS ? STAGES * KT * 4 : 0);
+  static constexpr int NBARS = 1 + 3 * STAGES;  // Q; K full, V full, empty per stage
+  static constexpr size_t SMEM = BAR_OFF + NBARS * 8 + 1024;  // + room to align to 1024
+};
+
+// S = Q K^T of one key tile: four k-steps of 16 head values, A (Q) from
+// registers (qf). Both issue functions pin their register operands first: an
+// instruction that the compiler let sink between wgmma.fence and the wgmma
+// would make ptxas serialise every wgmma.
+__device__ __forceinline__ void issue_qk(float (&s)[KT / 2], const uint32_t (&qf)[4][4],
+                                         uint64_t dk) {
+  fence_operands(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_bf16_64x64_rs<false>(s, qf[kk], dk + 2 * kk, kk);
+  wgmma_commit();
+}
+
+// O += P V of one key tile: KT / 16 k-steps of 16 keys
+__device__ __forceinline__ void issue_pv(float (&o)[32], uint32_t (&p)[KT / 16][4],
+                                         uint64_t dv) {
+  fence_operands(o);
+  fence_operands(p);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) wgmma_bf16_64x64_rs<true>(o, p[kk], dv + 128 * kk, 1);
+  wgmma_commit();
+}
+
+// The online softmax of one key tile, in place. s: its scores (this thread's
+// rows g and g + 8, columns 8j + 2c, + 1), which become the un-normalised
+// probabilities P in f32; bs: BIAS, the staged bias row (bias * log2 e, -inf
+// past N). MASK: keys from kvalid on are past N (K1's last tile). Updates the
+// running maxima m (base 2, scaled) and sums l, and gives the factors a0, a1
+// by which O's rows must be rescaled.
+template <bool BIAS, bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], const float* bs, int kvalid,
+                                             float sl2, int c, float& m0, float& m1, float& l0,
+                                             float& l1, float& a0, float& a1) {
+  if constexpr (MASK) {
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) {
+      if (8 * (i / 4) + 2 * c + (i & 1) >= kvalid) s[i] = -INFINITY;
+    }
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+    if constexpr (BIAS) {
+      const float2 kb = *reinterpret_cast<const float2*>(&bs[8 * j + 2 * c]);
+      mx0 = fmaxf(mx0, fmaxf(fmaf(s[4 * j], sl2, kb.x), fmaf(s[4 * j + 1], sl2, kb.y)));
+      mx1 = fmaxf(mx1, fmaxf(fmaf(s[4 * j + 2], sl2, kb.x), fmaf(s[4 * j + 3], sl2, kb.y)));
+    } else {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+  }
+#pragma unroll
+  for (int o_ = 1; o_ <= 2; o_ <<= 1) {  // the 4 lanes of a row
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+  }
+  if constexpr (!BIAS) {  // scale > 0: the maximum of the scaled scores
+    mx0 *= sl2;
+    mx1 *= sl2;
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: a key is valid
+  a0 = exp2_ftz(m0 - mn0);  // 0 on the first tile
+  a1 = exp2_ftz(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float r0 = 0.0f, r1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+    float b0 = -mn0, b1 = -mn0, b2 = -mn1, b3 = -mn1;
+    if constexpr (BIAS) {
+      const float2 kb = *reinterpret_cast<const float2*>(&bs[8 * j + 2 * c]);
+      b0 = kb.x - mn0;
+      b1 = kb.y - mn0;
+      b2 = kb.x - mn1;
+      b3 = kb.y - mn1;
+    }
+    s[4 * j] = exp2_ftz(fmaf(s[4 * j], sl2, b0));
+    s[4 * j + 1] = exp2_ftz(fmaf(s[4 * j + 1], sl2, b1));
+    s[4 * j + 2] = exp2_ftz(fmaf(s[4 * j + 2], sl2, b2));
+    s[4 * j + 3] = exp2_ftz(fmaf(s[4 * j + 3], sl2, b3));
+    r0 += s[4 * j] + s[4 * j + 1];  // the f32 sum normalises
+    r1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * a0 + r0;
+  l1 = l1 * a1 + r1;
+}
+
+// K1's last tile masks its keys past N; every other tile and K7 (whose
+// staged bias is -inf there) need no mask
+template <bool BIAS>
+__device__ __forceinline__ void softmax_any(float (&s)[KT / 2], const float* bs, int kvalid,
+                                            float sl2, int c, float& m0, float& m1, float& l0,
+                                            float& l1, float& a0, float& a1) {
+  if (!BIAS && kvalid < KT)
+    softmax_tile<BIAS, true>(s, bs, kvalid, sl2, c, m0, m1, l0, l1, a0, a1);
+  else
+    softmax_tile<BIAS, false>(s, bs, kvalid, sl2, c, m0, m1, l0, l1, a0, a1);
+}
+
+// P as bf16 A fragments of the P V product: the accumulator's 8-column tiles
+// 2kk (registers 0, 1) and 2kk + 1 (registers 2, 3) are k-step kk's fragment
+__device__ __forceinline__ void pack_p(const float (&s)[KT / 2], uint32_t (&p)[KT / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);      // row g
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);  // row g + 8
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// The block of (query tile blockIdx.x, head blockIdx.y, batch blockIdx.z).
+// Warpgroup 0 consumes, warp 4 produces.
+template <bool BIAS>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                   const float* __restrict__ bias, int N, float sl2) {
+  using T = FlashTile<BIAS>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle is a function of the address: start on a 1024-byte boundary
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + STAGES;
+  uint64_t* empty = bars + 1 + 2 * STAGES;
+  float* bias_stage = reinterpret_cast<float*>(smem + T::B_OFF);
+  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (N + KT - 1) / KT;
+  const int tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], BIAS ? 33 : 1);  // BIAS: + the producer warp's 32 lanes
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // ---- producer: one warp
+    if (!BIAS && tid != 0) return;
+    if (tid == 0) {
+      mbar_arrive_expect_tx(q_full, T::Q_BYTES);
+      tma_load_4d(smem, &tq, q_full, 0, h, q0, b);
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % STAGES;
+      mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);  // released by the consumers
+      if constexpr (BIAS) {
+        for (int i = tid; i < KT; i += 32) {
+          const int key = t * KT + i;
+          bias_stage[s * KT + i] =
+              key < N ? (bias != nullptr ? bias[(size_t)b * N + key] * LOG2E : 0.0f) : -INFINITY;
+        }
+        mbar_arrive(&k_full[s]);
+      }
+      if (tid == 0) {
+        mbar_arrive_expect_tx(&k_full[s], T::KV_BYTES);
+        tma_load_4d(smem + T::K_OFF + s * T::KV_BYTES, &tk, &k_full[s], 0, h, t * KT, b);
+        mbar_arrive_expect_tx(&v_full[s], T::KV_BYTES);
+        tma_load_4d(smem + T::V_OFF + s * T::KV_BYTES, &tv, &v_full[s], 0, h, t * KT, b);
+      }
+    }
+  } else {  // ---- consumer: the 64 query rows
+    const int warp = tid / 32, lane = tid % 32, g = lane >> 2, c = lane & 3;
+    unsigned char* qs = smem;
+    const unsigned char* ks = smem + T::K_OFF;
+    const unsigned char* vs = smem + T::V_OFF;
+    const int r0 = 16 * warp + g;  // this thread's rows r0, r0 + 8; both g modulo 8
+
+    // s: a tile's scores, then its P in f32; p: P as bf16 A fragments;
+    // o: the f32 accumulator
+    float s[KT / 2], o[32];
+    uint32_t p[KT / 16][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f, a0, a1;
+
+    mbar_wait(q_full, 0);
+    uint32_t qf[4][4];  // Q's A fragments, k-step kk = head values 16kk .. 16kk + 15
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int lo = (((2 * kk) ^ g) << 4) + 4 * c, hi = (((2 * kk + 1) ^ g) << 4) + 4 * c;
+      qf[kk][0] = *reinterpret_cast<const uint32_t*>(qs + r0 * ROW_BYTES + lo);
+      qf[kk][1] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * ROW_BYTES + lo);
+      qf[kk][2] = *reinterpret_cast<const uint32_t*>(qs + r0 * ROW_BYTES + hi);
+      qf[kk][3] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * ROW_BYTES + hi);
+    }
+    mbar_wait(&k_full[0], 0);
+    issue_qk(s, qf, wgmma_desc_sw128(ks));
+    wgmma_wait<0>();
+    fence_operands(s);
+    softmax_any<BIAS>(s, bias_stage, min(KT, N), sl2, c, m0, m1, l0, l1, a0, a1);
+    pack_p(s, p);
+
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % STAGES;
+      const int t1 = t + 1, s1 = t1 % STAGES;
+      if (t1 < ntiles) mbar_wait(&k_full[s1], (t1 / STAGES) & 1);
+      mbar_wait(&v_full[st], (t / STAGES) & 1);
+      if (t1 < ntiles)  // the next tile's scores beside P V of this one
+        issue_qk(s, qf, wgmma_desc_sw128(ks + s1 * T::KV_BYTES));
+      issue_pv(o, p, wgmma_desc_sw128(vs + st * T::KV_BYTES));
+      wgmma_wait<0>();
+      fence_operands(s);
+      fence_operands(o);
+      fence_operands(p);
+      mbar_arrive(&empty[st]);  // this stage's K and V are read
+      if (t1 < ntiles) {
+        softmax_any<BIAS>(s, bias_stage + s1 * KT, min(KT, N - t1 * KT), sl2, c, m0, m1, l0, l1,
+                          a0, a1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[4 * j] *= a0;
+          o[4 * j + 1] *= a0;
+          o[4 * j + 2] *= a1;
+          o[4 * j + 3] *= a1;
+        }
+        pack_p(s, p);
+      }
+    }
+
+    // O / l as bf16 into the Q tile (swizzled as the store's tensor map
+    // expects), then one TMA store of its 64 rows
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = ((j ^ g) << 4) + 4 * c;
+      *reinterpret_cast<uint32_t*>(qs + r0 * ROW_BYTES + col) =
+          pack_bf16(o[4 * j] / l0, o[4 * j + 1] / l0);
+      *reinterpret_cast<uint32_t*>(qs + (r0 + 8) * ROW_BYTES + col) =
+          pack_bf16(o[4 * j + 2] / l1, o[4 * j + 3] / l1);
+    }
+    fence_proxy_async();
+    named_barrier_sync(1, 128);  // the consumer warpgroup only
+    if (tid == 0) {
+      tma_store_4d(&to, qs, 0, h, q0, b);
+      tma_store_wait();
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's encoder, taken through the runtime (the library links no
+// libcuda); null if the driver has none.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// the map of one [B, N, H, 64] bf16 operand, boxes of `rows` tokens of one head
+bool head_map(CUtensorMap* map, const void* base, HeadStrides s, int B, int N, int H, int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.n * 2, (cuuint64_t)s.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The dynamic shared memory allowance, once per device and process.
+template <bool BIAS>
+cudaError_t configure_once() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_wgmma_kernel<BIAS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)FlashTile<BIAS>::SMEM);
+  if (err != cudaSuccess) return err;
+  done.fetch_or(bit, std::memory_order_release);
+  return cudaSuccess;
+}
+
+template <bool BIAS>
+cudaError_t launch(const void* q, HeadStrides sq, const void* k, HeadStrides sk, const void* v,
+                   HeadStrides sv, const float* bias, void* out, int B, int N, int H,
+                   float scale, cudaStream_t stream) {
+  using T = FlashTile<BIAS>;
+  cudaError_t err = configure_once<BIAS>();
+  if (err != cudaSuccess) return err;
+  const HeadStrides so{(long long)N * H * 64, (long long)H * 64, 64};
+  CUtensorMap tq, tk, tv, to;
+  if (!head_map(&tq, q, sq, B, N, H, QT) || !head_map(&tk, k, sk, B, N, H, KT) ||
+      !head_map(&tv, v, sv, B, N, H, KT) || !head_map(&to, out, so, B, N, H, QT))
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + QT - 1) / QT, H, B);
+  flash_wgmma_kernel<BIAS><<<grid, THREADS, T::SMEM, stream>>>(tq, tk, tv, to, bias, N,
+                                                             scale * LOG2E);
+  return cudaGetLastError();
+}
+
+bool strides_ok(const HeadStrides& s) {
+  return s.b >= 0 && s.n >= 0 && s.h >= 0 && s.b % 8 == 0 && s.n % 8 == 0 && s.h % 8 == 0;
+}
+
+}  // namespace
+
+cudaError_t launch_flash_bf16(const void* q, HeadStrides sq, const void* k, HeadStrides sk,
+                              const void* v, HeadStrides sv, const float* bias, void* out,
+                              int B, int N, int H, float scale, cudaStream_t stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || B > 65535 || H > 65535 || !strides_ok(sq) ||
+      !strides_ok(sk) || !strides_ok(sv))
+    return cudaErrorInvalidValue;
+  // K1 without a bias takes the BIAS program (a zero row) where the scale is
+  // not positive: the unbiased program finds the row maximum before scaling
+  const bool biased = bias != nullptr || !(scale > 0.0f);
+  return biased ? launch<true>(q, sq, k, sk, v, sv, bias, out, B, N, H, scale, stream)
+                : launch<false>(q, sq, k, sk, v, sv, bias, out, B, N, H, scale, stream);
+}
+
+}  // namespace caim

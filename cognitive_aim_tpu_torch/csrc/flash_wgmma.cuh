@@ -1,0 +1,26 @@
+// The bf16 attention program of K1, K7 (flash_attention_packed.cu) and K8
+// (flash_attention.cu), for Hopper: wgmma fed by TMA, one producer warp and
+// one consumer warpgroup of 64 query rows. The design notes are in
+// flash_wgmma.cu.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace caim {
+
+// element strides of one [B, N, H, 64] operand (the last dimension is 1)
+struct HeadStrides {
+  long long b, n, h;
+};
+
+// out[b, i, h, :] = softmax(Q_bh K_bh^T * scale [+ bias[b, :]]) V_bh for
+// bf16 q, k, v, each given by its base pointer (16-byte aligned) and its
+// element strides (multiples of 8, i.e. 16 bytes), a contiguous bf16 [B, N,
+// H, 64] out, and bias null or f32 [B, N] contiguous. Launches on `stream`,
+// does not synchronize; returns cudaErrorInvalidValue for what it does not take (among it strides
+// the tensor-map encoder refuses), else cudaGetLastError() after the launch.
+cudaError_t launch_flash_bf16(const void* q, HeadStrides sq, const void* k, HeadStrides sk,
+                              const void* v, HeadStrides sv, const float* bias, void* out,
+                              int B, int N, int H, float scale, cudaStream_t stream);
+
+}  // namespace caim

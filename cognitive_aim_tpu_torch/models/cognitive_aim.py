@@ -193,7 +193,10 @@ class CognitiveAimModel(nn.Module):
         tensors ('camera_idx' int; 'focal_length', 'aperture', 'iso' float).
         guidance: None (unguided) or an instruction index in
         ``guidance.INSTRUCTIONS`` order, an int or a [B] tensor. Noise is
-        drawn from ``generator`` (none: all draws 0)."""
+        drawn from ``generator`` (none: all draws 0). With the focal stream
+        on, ``aux["attention_entropy"]`` is a 0-d f32 tensor of value 0.0, as
+        the JAX ``apply`` sets it at inference; this forward is inference
+        only, and the entropy of a training step waits for the trainer."""
         a = self.arch
         hs = self.backbone(images, **self.backbone_kwargs(images, guidance)).float()
         cls_token = hs[:, 0]
@@ -215,8 +218,8 @@ class CognitiveAimModel(nn.Module):
         if a.use_ambient:
             raw_feats.append(S.ambient_apply(self.ambient_stream, cls_token))
         if a.use_focal:
-            focal_feats, attention = self._focal(patches, reward, guidance,
-                                                 generator, noise_mode)
+            focal_feats, attention, aux["attention_entropy"] = self._focal(
+                patches, reward, guidance, generator, noise_mode)
             raw_feats.append(focal_feats.float())
             attention = attention.float()
         if a.use_exif and exif_data is not None:
@@ -275,13 +278,14 @@ class CognitiveAimModel(nn.Module):
                   noise_mode=noise_mode,
                   fused_attention=self.attn_impl.startswith("pallas"))
         if a.use_iterative:
-            feats, attn = S.iterative_focal_apply(
+            feats, attn, entropy = S.iterative_focal_apply(
                 self.focal_stream, run, curiosity_score,
                 focus_strength=a.focus_strength, **kw)
         else:
-            feats, attn = S.focal_apply(self.focal_stream, run, curiosity_score, **kw)
+            feats, attn, entropy = S.focal_apply(self.focal_stream, run, curiosity_score,
+                                                 **kw)
         if guidance is None:
-            return feats, attn
+            return feats, attn, entropy
 
         # guided blend: 0.7 * mask + 0.3 * attention, temperature-0.05
         # softmax, re-pool of the float32 patch tokens
@@ -296,7 +300,7 @@ class CognitiveAimModel(nn.Module):
             gfeats = L.linear_apply(self.guided_projection, weighted)
         else:
             gfeats = L.mlp_apply(self.focal_stream.projection, weighted)
-        return gfeats, guided
+        return gfeats, guided, entropy
 
     def get_exploration_stats(self):
         return self.exploration_history.statistics()

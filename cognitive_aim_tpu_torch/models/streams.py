@@ -182,7 +182,9 @@ def focal_apply(mod: FocalStream, patch_tokens: torch.Tensor,
                 num_heads: int = 8, curiosity_guided: bool = True,
                 generator=None, noise_mode: NoiseMode = NoiseMode.SAMPLE,
                 fused_attention: bool = False):
-    """Returns (focal_features [B, 64] f32, attention [B, N] f32)."""
+    """Returns (focal_features [B, 64] f32, attention [B, N] f32, entropy):
+    the entropy is a 0-d f32 tensor of value 0.0, what the JAX function
+    returns at inference; its training formula waits for the trainer."""
     B, N, D = patch_tokens.shape
     dt = patch_tokens.dtype
     dev = patch_tokens.device
@@ -224,7 +226,7 @@ def focal_apply(mod: FocalStream, patch_tokens: torch.Tensor,
 
     weighted = (attended.float() * final[..., None]).sum(dim=1)
     feats = L.mlp_apply(mod.projection, weighted, param_dtype=dt)
-    return feats, final
+    return feats, final, torch.zeros((), dtype=torch.float32, device=dev)
 
 
 # ------------------------------------------------- IterativeFocalStream -----
@@ -258,7 +260,10 @@ def iterative_focal_apply(mod: IterativeFocalStream, patch_tokens: torch.Tensor,
                           focus_strength: float = 0.1, curiosity_guided: bool = True,
                           generator=None, noise_mode: NoiseMode = NoiseMode.SAMPLE,
                           fused_attention: bool = False):
-    """Returns (fused_features [B, 64] f32, last attention [B, N] f32)."""
+    """Returns (fused_features [B, 64] f32, last attention [B, N] f32,
+    entropy): a 0-d f32 tensor of value 0.0, what the JAX function returns at
+    inference (under ``train`` it is the members' mean entropy there; the
+    port has no training forward yet)."""
     dt = patch_tokens.dtype
     iter_w = None
     if curiosity_guided and curiosity_score is not None and hasattr(mod, "curiosity_amplifier"):
@@ -271,14 +276,14 @@ def iterative_focal_apply(mod: IterativeFocalStream, patch_tokens: torch.Tensor,
     attn = None
     for i, sp in enumerate(mod.streams):
         ic = curiosity_score if iter_w is None else curiosity_score * iter_w[:, i]
-        f, attn = focal_apply(sp, cur, ic, curiosity_guided=curiosity_guided,
+        f, attn, entropy = focal_apply(sp, cur, ic, curiosity_guided=curiosity_guided,
                               generator=generator, noise_mode=noise_mode,
                               fused_attention=fused_attention)
         feats.append(f)
         if i < n - 1:  # re-focus through f32 and back
             cur = (cur.float() * (1.0 + focus_strength * attn[..., None])).to(dt)
     fused = L.mlp_apply(mod.fusion, torch.cat(feats, dim=1), param_dtype=dt)
-    return fused, attn
+    return fused, attn, entropy
 
 
 # ---------------------------------------------------- EXIFPriorDatabase -----

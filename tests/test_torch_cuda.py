@@ -65,6 +65,105 @@ def test_k1_kernel_matches_plain(N, dtype, cuda_device):
     assert float((got.float() - want).abs().max()) <= tol
 
 
+# ------------------------------- the bf16 attention program of K1, K7, K8 ----
+BODY_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 257, 416, 481, 826, 1370]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", BODY_LENGTHS)
+@pytest.mark.parametrize("H", [12, 16])
+def test_flash_body_matches_plain_at_every_length(N, H, cuda_device):
+    """K1's bf16 program at lengths around its 64-row tiles and the model's
+    stream lengths, ViT-B's 12 heads and ViT-L's 16: atol 1e-2, twice the
+    largest error measured on the card (4.6e-3, at short lengths)."""
+    B, D = 2, 64
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _arrays((B, N, H * D), seed=N))
+    want = TFA.flash_attention_packed_plain(q.float(), k.float(), v.float(), D ** -0.5, H)
+    got = TFA.flash_attention_packed(q, k, v, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want).abs().max()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [65, 257, 1370])
+def test_flash_body_keeps_keys_in_place(N, cuda_device):
+    """A permutation probe: V one-hot by key index (V[b, j, h, d] = 1 where
+    j % 64 == d) and peaked scores (q = 40 k, k one-hot the same way), so row
+    i's output is one-hot at i % 64. A slip in the P fragments or V's
+    transposed descriptor moves the 1 to another column: an error of 1, which
+    random inputs could hide inside 2e-2."""
+    B, H, D = 2, 4, 64
+    onehot = torch.zeros(B, N, H, D, device=cuda_device)
+    j = torch.arange(N, device=cuda_device)
+    onehot[:, j, :, j % D] = 1.0
+    k = onehot.reshape(B, N, H * D).to(torch.bfloat16)
+    q = (40.0 * onehot).reshape(B, N, H * D).to(torch.bfloat16)
+    want = TFA.flash_attention_packed_plain(q.float(), k.float(), k.float(), 1.0, H)
+    hot = want.view(B, N, H, D).argmax(-1)
+    assert torch.equal(hot, (j % D)[None, :, None].expand(B, N, H))
+    got = TFA.flash_attention_packed(q, k, k, 1.0, H)
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 1e-2
+    assert torch.equal(got.view(B, N, H, D).float().argmax(-1), hot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 65, 129, 481])
+@pytest.mark.parametrize("bias", ["zeros", "groups", "every_key"])
+def test_flash_body_bias_rows_at_short_lengths(N, bias, cuda_device):
+    """K7 on the bias rows of the token filter at lengths inside one or two
+    key tiles; atol 2e-2 as K7's other tests: the log-count rows peak the
+    softmax on a few keys, so outputs reach |v| ~ 2, where a bf16 step is
+    2^-7 * 2. A zero row gives K1's bits."""
+    B, H, D = 2, 12, 64
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _arrays((B, N, H * D), seed=N))
+    row = _bias_row(B, N, bias, cuda_device)
+    want = TFA.flash_attention_packed_bias_plain(q.float(), k.float(), v.float(), row,
+                                                 D ** -0.5, H)
+    got = TFA.flash_attention_packed_bias(q, k, v, row, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 2e-2
+    if bias == "zeros":
+        assert torch.equal(got, TFA.flash_attention_packed(q, k, v, D ** -0.5, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 129, 481, 1370])
+def test_flash_body_is_deterministic_and_k8_is_k1(N, cuda_device):
+    """Two launches give the same bits (no atomics); K8 on the column slices
+    of one fused projection gives K1's bits on the same values."""
+    B, H, D = 2, 12, 64
+    (a,) = _arrays((B, N, 3 * H * D), n=1, seed=N)
+    fused = torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+    q, k, v = fused.split(H * D, dim=-1)
+    first = TFA.flash_attention_packed(*(t.contiguous() for t in (q, k, v)), D ** -0.5, H)
+    again = TFA.flash_attention_packed(*(t.contiguous() for t in (q, k, v)), D ** -0.5, H)
+    k8 = TFA.flash_attention(*(t.view(B, N, H, D) for t in (q, k, v)), D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(k8.view(B, N, H * D), first)
+
+
+@pytest.mark.cuda
+def test_flash_body_raises_on_misaligned_strides_before_a_launch(cuda_device):
+    """Rows 16-byte aligned at every stride, as TMA asks: a head stride of
+    68 values, a token stride of 260, or a base 8 bytes off raise, and
+    nothing launches."""
+    n8 = TFA.flash_attention.launches
+    wide = torch.zeros(2, 10, 4, 68, device=cuda_device, dtype=torch.bfloat16)[..., :64]
+    rows = torch.zeros(2, 10, 4 * 64 + 4, device=cuda_device, dtype=torch.bfloat16)
+    tok = rows[..., :256].unflatten(-1, (4, 64))
+    flat = torch.zeros(2 * 10 * 256 + 4, device=cuda_device, dtype=torch.bfloat16)
+    off = flat[4:].view(2, 10, 4, 64)
+    for t in (wide, tok, off):
+        with pytest.raises(ValueError):
+            TFA.flash_attention(t, t, t, 0.125)
+    assert TFA.flash_attention.launches == n8
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,D", [(1369, 768), (77, 128), (256, 64), (300, 1024)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -94,14 +193,17 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
 
 # ------------------------------------------------- K8, [B, N, H, 64] ----
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["contiguous", "packed_view", "fused_slices"])
+@pytest.mark.parametrize("layout", ["contiguous", "packed_view", "fused_slices", "heads_major",
+                                    "batch_broadcast"])
 @pytest.mark.parametrize("N,H", [(257, 12), (481, 12), (1370, 12), (257, 16)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k8_kernel_matches_plain(dtype, N, H, layout, cuda_device):
     """K8 on separately made [B, N, H, 64] tensors, on views of packed
-    [B, N, H*64] projections, and on the column slices of one fused
-    [B, N, 3*H*64] projection (token stride 3*H*64): no copy in between, the
-    same values as K1 on the packed layout bit for bit."""
+    [B, N, H*64] projections, on the column slices of one fused
+    [B, N, 3*H*64] projection (token stride 3*H*64), on [B, H, N, 64] memory
+    read as [B, N, H, 64] (head stride N*64 above the token stride) and on
+    one batch expanded (batch stride 0): no copy in between, the same values
+    as K1 on the packed layout bit for bit."""
     B, D = 2, 64
     a = _arrays((B, N, 3 * H * D), n=1)[0]
     fused = torch.from_numpy(a).to(cuda_device, dtype)
@@ -110,6 +212,10 @@ def test_k8_kernel_matches_plain(dtype, N, H, layout, cuda_device):
         q, k, v = (t.contiguous() for t in (q, k, v))
     if layout == "packed_view":
         q, k, v = (t.view(B, N, H * D).view(B, N, H, D) for t in (q, k, v))
+    if layout == "heads_major":
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    if layout == "batch_broadcast":
+        q, k, v = (t[:1].expand(B, N, H, D) for t in (q, k, v))
     n, n1 = TFA.flash_attention.launches, TFA.flash_attention_packed.launches
     got = TFA.flash_attention(q, k, v, D ** -0.5)
     torch.cuda.synchronize()
@@ -146,12 +252,14 @@ def test_k8_raises_on_what_the_kernel_does_not_take(cuda_device):
 # ------------------------------------- biased and int8-QK^T attention ----
 def _bias_row(B, N, kind, dev):
     """Key-side logit bias [B, N]: zeros; log token counts on the 4 trailing
-    keys with one empty group at log(1e-6); log counts on every key."""
+    keys (all keys below 4) with one empty group at log(1e-6); log counts on
+    every key."""
     r = np.random.RandomState(3)
     b = np.zeros((B, N), np.float32)
-    if kind == "groups":
-        b[:, -4:] = np.log(r.randint(1, 891, (B, 4)))
-        b[0, -2] = np.log(1e-6)
+    if kind == "groups":  # as many trailing keys as there are, up to 4
+        g = min(4, N)
+        b[:, -g:] = np.log(r.randint(1, 891, (B, 4)))[:, 4 - g:]
+        b[0, -min(2, N)] = np.log(1e-6)
     elif kind == "every_key":
         b[:] = np.log(r.randint(1, 891, (B, N)))
     return torch.from_numpy(b).to(dev)

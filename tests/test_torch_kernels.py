@@ -109,6 +109,52 @@ def test_flash_attention_plain_is_the_jax_reference_and_takes_views():
     assert TFA.flash_attention.launches == n8  # CPU tensors launch nothing
 
 
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 127, 128, 129])
+def test_flash_packed_plain_matches_jax_kernel_at_short_lengths(N, pallas_interpret):
+    """The lengths where the CUDA kernel's tiles are mostly padding: one
+    token, one short of a tile, one past it (the card tests hold the kernel
+    to this plain version there)."""
+    B, H, D = 2, 2, 64
+    q, k, v = _arrays((B, N, H * D), seed=N)
+    want = JFA.flash_attention_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      D ** -0.5, H, 128)
+    got = TFA.flash_attention_packed(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), D ** -0.5, H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
+
+
+def _bias_row(B, N, kind):
+    """Key-side logit bias [B, N] as the token filter makes it: zeros; log
+    token counts on the (up to) 4 trailing keys with one empty group at
+    log(1e-6); log counts on every key."""
+    r = np.random.RandomState(3)
+    b = np.zeros((B, N), np.float32)
+    if kind == "groups":
+        g = min(4, N)
+        b[:, -g:] = np.log(r.randint(1, 891, (B, 4)))[:, 4 - g:]
+        b[0, -min(2, N)] = np.log(1e-6)
+    elif kind == "every_key":
+        b[:] = np.log(r.randint(1, 891, (B, N)))
+    return b
+
+
+@pytest.mark.parametrize("N", [1, 65, 129, 481])
+@pytest.mark.parametrize("kind", ["zeros", "groups", "every_key"])
+def test_flash_packed_bias_plain_matches_jax_kernel_at_short_lengths(N, kind,
+                                                                     pallas_interpret):
+    """K7's plain version on the filter's bias rows at lengths inside one or
+    a few key tiles (the card tests hold the kernel to it there)."""
+    B, H, D = 2, 2, 64
+    q, k, v = _arrays((B, N, H * D), seed=N)
+    bias = _bias_row(B, N, kind)
+    want = JFA.flash_attention_packed_bias(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                           jnp.asarray(bias), D ** -0.5, H, 128)
+    got = TFA.flash_attention_packed_bias(torch.from_numpy(q), torch.from_numpy(k),
+                                          torch.from_numpy(v), torch.from_numpy(bias),
+                                          D ** -0.5, H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     """A wrapper counts kernel launches only; CPU tensors run the plain
     version, bit for bit."""

@@ -209,6 +209,29 @@ def test_model_matches_jax_curiosity_guided():
                                    np.asarray(getattr(want, field)), **F32_TOL)
 
 
+@pytest.mark.parametrize("use_focal,use_iterative", [(True, True), (True, False),
+                                                     (False, True)])
+def test_attention_entropy_matches_jax(use_focal, use_iterative):
+    """``aux["attention_entropy"]``: present, 0-d and 0.0 exactly where the
+    JAX ``apply`` sets it at inference (the focal stream on, guided or not),
+    absent with the focal stream off."""
+    arch = ModelArchConfig(num_iterations=2, image_size=IMG, use_focal=use_focal,
+                           use_iterative=use_iterative)
+    jm, params, tm = _pair("strict_f32_erf", arch=arch)
+    x = _images(2, seed=4)
+    for guidance in (None, np.array([2, 5], dtype=np.int32)):
+        want = jm.apply(params, jnp.asarray(x), None, noise_mode=JNoise.ZEROS,
+                        guidance=None if guidance is None else jnp.asarray(guidance))
+        got = tm(torch.from_numpy(x), None, noise_mode=NoiseMode.ZEROS,
+                 guidance=None if guidance is None else torch.from_numpy(guidance))
+        assert ("attention_entropy" in got.aux) == ("attention_entropy" in want.aux) \
+            == use_focal
+        if use_focal:
+            ent, jent = got.aux["attention_entropy"], np.asarray(want.aux["attention_entropy"])
+            assert ent.shape == () == jent.shape and ent.dtype == torch.float32
+            assert float(ent) == float(jent) == 0.0
+
+
 def test_prepare_params_keeps_the_outputs():
     """Casting the backbone and focal weights once gives the same values the
     per-forward casts give."""
