@@ -33,7 +33,16 @@ kernels compile for sm_90a) and the CUDA toolkit:
       and K12 int8_attnout_mlp_ln at N 1370, 481, 257 and ViT-L widths (K11 also
       by the share of its int8 context values that sit one step from the plain
       version's; K12 also against K3 -> K4, which it must not equal bit for
-      bit), and what each raises on;
+      bit), and what each raises on; the one-pass fc1 GEMM of K4a, K14 and
+      K12 (a thread-block cluster a 64-row tile) bit for bit against the plain
+      versions at F 256, 512, 3072 and 4096, M 10960, 8 x 481 and 17 rows (K4a
+      on rows whose layernorm is exact), rows of zeros (the scale's floor) and
+      a cluster probe (each CTA in turn holds every row's maximum), its
+      clusters resident at once and its launches per K4a call; K6's bf16
+      program at D 64 to 1024 and N 1 to 1369 around its 64-row and 64-key
+      tiles (attended within 1e-2 of the plain version's largest value), its
+      outputs bit-identical from run to run, and rows past N filled with NaN
+      kept out of its outputs;
   (d) slices: guided ViT-B 518x518 inference (2 focal iterations, random
       weights from a seeded torch.Generator) answering a 9-instruction
       batch, a mixed batch of 8 and an unguided request through uint8 ->
@@ -75,7 +84,10 @@ kernels compile for sm_90a) and the CUDA toolkit:
       time to enqueue one forward; K9, K11 and K12 in turns with the kernels
       they fuse (K1; K1 + K3; K3 + K4), the int8 exact and 2:0.35 forwards
       with CAIM_FUSE_AOMLP off and on, and the hand-assembled 12 blocks
-      through K1 + K3, K11 and K9.
+      through K1 + K3, K11 and K9; K4a, K14, K12 and K6 also by CUDA graphs,
+      K6 and K4a also at ViT-L's widths (D 1024, F 4096), and the device
+      time of one exact forward under each policy (torch.profiler, kernels
+      summed).
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -104,6 +116,11 @@ TOL_BF16_OUT = 2e-2  # bf16 outputs of magnitude <~2: bf16 spacing there is
 # a lost key tile at N 1370 (outputs of magnitude ~0.04) cannot pass
 TOL_FLASH_BF16 = 1e-2
 TOL_F32_OUT = 1e-4  # f32 kernel vs f32 plain: summation order only
+# K6's bf16 attended (csrc/focal_attention.cu), relative to max |plain|: the
+# bf16 output's rounding is at most 2^-8 of the largest value and rounding the
+# normalised P to bf16 adds ~1e-3 of it, so 1e-2 holds with twice the worst
+# case, where an absolute 2e-2 would pass 0.8 x attended at N 1369 (RMS 0.017)
+TOL_FOCAL_REL = 1e-2
 TOL_VIEWS = 1e-5  # K6's f32 row views (colmean, diag, rowmax), values <= 1
 # int8 kernels: a bf16 output may round the other way than the plain
 # version's (one bf16 step is 2^-7 = 7.8e-3 of the value) and an int8
@@ -277,6 +294,11 @@ def _rand(shape, g, dtype, scale=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
 
 
+def focal_tol(ref):
+    """K6's bf16 attended: TOL_FOCAL_REL of the plain version's largest value."""
+    return TOL_FOCAL_REL * float(ref[0].float().abs().max())
+
+
 def phase_kernels():
     """K1 and K6 against their plain versions at the slice shapes."""
     import torch
@@ -312,11 +334,12 @@ def phase_kernels():
         ref = FO.focal_attention_plain(q.float(), k.float(), v.float(), scale)
         torch.cuda.synchronize()
         errs = [max_err(a, b) for a, b in zip(got, ref)]
-        tols = [tol, TOL_VIEWS, TOL_VIEWS, TOL_VIEWS]
+        tols = [focal_tol(ref) if dt == torch.bfloat16 else tol, TOL_VIEWS, TOL_VIEWS,
+                TOL_VIEWS]
         ok = all(e <= t for e, t in zip(errs, tols)) and all(
             bool(torch.isfinite(t).all()) for t in got)
         names = ("attended", "colmean", "diag", "rowmax")
-        detail = ", ".join(f"{n} {e:.3e} (tol {t:.0e})" for n, e, t in zip(names, errs, tols))
+        detail = ", ".join(f"{n} {e:.3e} (tol {t:.2e})" for n, e, t in zip(names, errs, tols))
         log(f"  K6 focal_attention_fused B{B} N{N} D{D} {str(dt)[6:]}: {detail} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -806,6 +829,169 @@ def phase_fused_kernels():
     expect_raise("K11 on a float32 residual", TypeError, FA.flash_attention_packed_out_res,
                  lambda: FA.flash_attention_packed_out_res(*a[:-1], a[-1].float(), 0.125, 2))
     return worst
+
+
+# ------------------------------ the one-pass fc1 GEMM and K6's program (c) ----
+def _exact_ln_rows(B, N, D, g):
+    """bf16 rows of +-1, +-2 in equal numbers (shuffled): the layernorm's sums
+    are exact in any order, so K4a's prologue gives the plain version's bits."""
+    import torch
+
+    base = torch.tensor([1.0, -1.0, 2.0, -2.0], device="cuda").repeat(D // 4)
+    idx = torch.rand((B * N, D), generator=g, device="cuda").argsort(dim=1)
+    return base[idx].view(B, N, D).to(torch.bfloat16)
+
+
+def _device_events(fn):
+    """(name, microseconds) of each device operation of one call of fn
+    (torch.profiler), after a call outside the trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_kernels(fn):
+    """Names of the device kernels one call of fn launches."""
+    return [name for name, _ in _device_events(fn)]
+
+
+def device_busy_ms(fn) -> float:
+    """Device time of one call of fn: its kernels' durations summed."""
+    busy = sum(us for _, us in _device_events(fn))
+    if busy <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return busy / 1e3
+
+
+def phase_fc1_and_focal():
+    """K4a, K14 and K12's one-pass fc1 GEMM (a thread-block cluster a row
+    tile) held to the plain versions' bits at the model's widths, ragged M and
+    rows of zeros, with a cluster probe; K6's bf16 program at N 1..1369 around
+    its 64-row and 64-key tiles at every width it takes, its colmean run to run,
+    and NaN past N."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import _build
+    from cognitive_aim_tpu_torch.kernels import focal_attention as FO
+    from cognitive_aim_tpu_torch.kernels import int8_block as IB
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    lib = _build.library()
+
+    def report(name, tag, ok, detail=""):
+        log(f"  {name} {tag}{': ' + detail if detail else ''} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at {tag}")
+
+    for F in (256, 512, 3072, 4096):
+        log(f"  fc1 GEMM at F {F}: a cluster of {lib.caim_fc1_cluster_size(F)} CTAs a "
+            f"64-row tile, {lib.caim_fc1_active_clusters(F)} clusters resident at once")
+    # bit-equality: K14 on random rows, K4a on rows whose layernorm is exact
+    for B, N, D, F in ((8, 1370, 768, 3072), (8, 481, 768, 3072), (1, 17, 128, 256),
+                       (2, 40, 256, 512), (2, 257, 1024, 4096)):
+        t = _int8_inputs(B, N, D, F, g)
+        x = _exact_ln_rows(B, N, D, g)
+        for name, (got, want) in (
+                ("K14", (IB.int8_fc1_gelu(t["x"], *t["fc1"]),
+                         IB.int8_fc1_gelu_plain(t["x"], *t["fc1"]))),
+                ("K4a", (IB.int8_fc1_gelu_ln(x, t["gamma"], t["beta"], *t["fc1"]),
+                         IB.int8_fc1_gelu_ln_plain(x, t["gamma"], t["beta"], *t["fc1"])))):
+            torch.cuda.synchronize()
+            report(name, f"B{B} N{N} D{D} F{F} (M {B * N}), bit-equal to the plain version",
+                   torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    # rows whose hidden is zero take the 1e-12 floor of the scale
+    t = _int8_inputs(2, 70, 768, 3072, g)
+    x = t["x"].clone()
+    x[0, 3] = 0.0
+    x[1, 64:] = 0.0
+    wq, ws, b = t["fc1"]
+    h8, sh = IB.int8_fc1_gelu(x, wq, ws, torch.zeros_like(b))
+    want = IB.int8_fc1_gelu_plain(x, wq, ws, torch.zeros_like(b))
+    torch.cuda.synchronize()
+    floor = bool((sh[0, 3] == 1e-12).all() and (sh[1, 64:] == 1e-12).all()
+                 and not h8[0, 3].any() and not h8[1, 64:].any())
+    report("K14", "rows of zeros", floor and torch.equal(h8, want[0]) and torch.equal(sh, want[1]),
+           "scale 1e-12, int8 zeros")
+    # cluster probe: a large bias in one CTA's columns, each CTA in turn
+    for D, F in ((128, 256), (768, 3072), (1024, 4096)):
+        t = _int8_inputs(2, 200, D, F, g)
+        wq, ws, b = t["fc1"]
+        ctas, cols = IB.fc1_cluster_shape(F)
+        ok = ctas == lib.caim_fc1_cluster_size(F)
+        for q in range(ctas):
+            planted = b.clone()
+            planted[q * cols + cols // 2] = 30.0
+            h8, sh = IB.int8_fc1_gelu(t["x"], wq, ws, planted)
+            h8p, shp = IB.int8_fc1_gelu_plain(t["x"], wq, ws, planted)
+            torch.cuda.synchronize()
+            ok &= (torch.equal(h8, h8p) and torch.equal(sh, shp)
+                   and bool((h8[..., q * cols + cols // 2].abs() == 127).all()))
+        report("K14", f"cluster probe D{D} F{F}", ok,
+               f"each of {ctas} CTAs in turn holds every row's maximum; the others read it "
+               f"through distributed shared memory")
+    # K12's fc1 stage is the same kernel: K12 against its plain version
+    t = _int8_inputs(8, 481, 768, 3072, g)
+    k12, k12_plain, _ = _k12_calls(t)
+    got, want = k12(), k12_plain()
+    torch.cuda.synchronize()
+    err, lim = max_err(got, want), TOL_INT8_REL * max(1.0, float(want.float().abs().max()))
+    report("K12", "int8_attnout_mlp_ln B8 N481 D768 F3072", err <= lim,
+           f"max_abs_err {err:.3e} (tol {lim:.2e})")
+    t = _int8_inputs(8, 1370, 768, 3072, g)
+    names = device_kernels(lambda: IB.int8_fc1_gelu_ln(t["x"], t["gamma"], t["beta"], *t["fc1"]))
+    gemms = [n for n in names if "quant_rows" not in n]
+    log(f"  K4a: {len(names)} device kernels a call, {len(gemms)} GEMM after the prologue "
+        f"({', '.join(n.split('(')[0] for n in names)})")
+    if len(gemms) != 1:
+        raise AssertionError("K4a must launch one GEMM a call")
+
+    # K6: every width, lengths around the 64-row and 64-key tiles
+    worst, worst_rel = 0.0, 0.0
+    for D in (64, 128, 256, 512, 768, 1024):
+        for N in (1, 63, 64, 65, 127, 128, 129, 191, 193, 257, 1369):
+            q, k, v = (_rand((2, N, D), g, torch.bfloat16, 0.5) for _ in range(3))
+            got = FO.focal_attention_fused(q, k, v, (D // 8) ** 0.5)
+            ref = FO.focal_attention_plain(q.float(), k.float(), v.float(), (D // 8) ** 0.5)
+            torch.cuda.synchronize()
+            errs = [max_err(a, b) for a, b in zip(got, ref)]
+            tol = focal_tol(ref)
+            ok = (errs[0] <= tol and max(errs[1:]) <= TOL_VIEWS
+                  and all(bool(torch.isfinite(a).all()) for a in got))
+            worst = max(worst, errs[0])
+            worst_rel = max(worst_rel, errs[0] / tol * TOL_FOCAL_REL)
+            if not ok:
+                report("K6", f"B2 N{N} D{D} bf16", False,
+                       f"errors {errs} (attended tol {tol:.2e})")
+    report("K6", "bf16 at D 64..1024, N 1..1369 around the tiles (66 shapes)", True,
+           f"attended max_abs_err {worst:.3e}, at most {worst_rel:.2e} of max |plain| "
+           f"(tol {TOL_FOCAL_REL:.0e}), views within {TOL_VIEWS:.0e}")
+    q, k, v = (_rand((8, 1369, 768), g, torch.bfloat16, 0.5) for _ in range(3))
+    a = FO.focal_attention_fused(q, k, v, 96 ** 0.5)
+    b = FO.focal_attention_fused(q, k, v, 96 ** 0.5)
+    torch.cuda.synchronize()
+    report("K6", "B8 N1369 D768, two runs", all(torch.equal(x, y) for x, y in zip(a, b)),
+           "attended and colmean, diag, rowmax bit-identical")
+    N, D = 481, 256
+    views = []
+    for _ in range(3):
+        buf = torch.full((1, N + 64, D), float("nan"), device="cuda", dtype=torch.bfloat16)
+        buf[:, :N] = _rand((1, N, D), g, torch.bfloat16, 0.5)
+        views.append(buf[:, :N])
+    got = FO.focal_attention_fused(*views, (D // 8) ** 0.5)
+    ref = FO.focal_attention_plain(*(x.float() for x in views), (D // 8) ** 0.5)
+    torch.cuda.synchronize()
+    ok = (all(bool(torch.isfinite(x).all()) for x in got)
+          and max_err(got[0], ref[0]) <= focal_tol(ref)
+          and max(max_err(a, b) for a, b in zip(got[1:], ref[1:])) <= TOL_VIEWS)
+    report("K6", f"B1 N{N} D{D}, rows past N filled with NaN", ok, "no NaN reaches the outputs")
 
 
 # ------------------------------------------------------------- slices (d) ----
@@ -1411,6 +1597,7 @@ def phase_kernel_times(smi):
     import torch
     import torch.nn.functional as F
 
+    from cognitive_aim_tpu_torch.kernels import _build
     from cognitive_aim_tpu_torch.kernels import flash_attention as FA
     from cognitive_aim_tpu_torch.kernels import focal_attention as FO
     from cognitive_aim_tpu_torch.kernels import int8_block as IB
@@ -1533,12 +1720,12 @@ def phase_kernel_times(smi):
         times[name] = {**main[name], "other_shape": other[name]}
 
     Nf = N - 1
-    q, k, v = (_rand((B, Nf, D), g, torch.bfloat16, 0.5) for _ in range(3))
+    q6, k6, v6 = (_rand((B, Nf, D), g, torch.bfloat16, 0.5) for _ in range(3))
     scale = 96 ** 0.5
     # K6: 4 B N^2 D operations; q, k, v, attended once (the three views are 3 B N f32)
     record("K6", f"B{B} N{Nf} D{D} bf16",
-           lambda: FO.focal_attention_fused(q, k, v, scale),
-           lambda: FO.focal_attention_plain(q, k, v, scale),
+           lambda: FO.focal_attention_fused(q6, k6, v6, scale),
+           lambda: FO.focal_attention_plain(q6, k6, v6, scale),
            bound(4 * B * Nf * D * 2 + 3 * B * Nf * 4, 4 * B * Nf * Nf * D, "bf16"))
 
     # int8 kernels: 2 M K N int8 operations; bytes: activations in and out
@@ -1581,11 +1768,43 @@ def phase_kernel_times(smi):
             f"dequantisation): {ms:.3f} ms")
         shapes[(K, Nout)] = {**times.pop("K13"), "int8_linear_ms": ms}
     times["K13"] = {**shapes.pop((D, Fh)), "other_shape": list(shapes.values())}
-    # K14: K4a's work without the layernorm (the kernel runs its GEMM twice;
-    # the bound counts the function's one product)
+    # K14: K4a's work without the layernorm
     record("K14", f"B{B} N{N} D{D} F{Fh}", lambda: IB.int8_fc1_gelu(t["x"], *t["fc1"]),
            lambda: IB.int8_fc1_gelu_plain(t["x"], *t["fc1"]),
            bound(act + Fh * D + M * Fh + 4 * M + 8 * Fh, 2 * M * D * Fh, "int8"))
+
+    # K4a, K14 and K6 also by CUDA graphs: their device time without the
+    # host's launch rate
+    graphed = {"K4a": calls["K4a"][0], "K14": lambda: IB.int8_fc1_gelu(t["x"], *t["fc1"]),
+               "K6": lambda: FO.focal_attention_fused(q6, k6, v6, scale)}
+    for name, fn in graphed.items():
+        times[name]["device_ms"] = graph_ms(fn)
+        log(f"  {name} device time by CUDA graphs: {times[name]['device_ms']:.4f} ms "
+            f"(events {times[name]['ms']:.4f})")
+    log(f"  fc1 GEMM at F {Fh}: {IB.fc1_cluster_shape(Fh)[0]} CTAs a cluster, "
+        f"{_build.library().caim_fc1_active_clusters(Fh)} clusters resident at once; "
+        f"GEMM launches per K4a call: "
+        f"{sum('quant_rows' not in n for n in device_kernels(calls['K4a'][0]))}")
+    # K6 and K4a at ViT-L's widths (D 1024, F 4096), whose builds spill
+    # registers (phase b): events and CUDA graphs, beside their bounds
+    DL, FL = 1024, 4096
+    qL, kL, vL = (_rand((B, Nf, DL), g, torch.bfloat16, 0.5) for _ in range(3))
+    tL = _int8_inputs(B, N, DL, FL, g)
+    vit_l = {
+        "K6": (f"B{B} N{Nf} D{DL} bf16",
+               lambda: FO.focal_attention_fused(qL, kL, vL, (DL // 8) ** 0.5),
+               bound(4 * B * Nf * DL * 2 + 3 * B * Nf * 4, 4 * B * Nf * Nf * DL, "bf16")),
+        "K4a": (f"B{B} N{N} D{DL} F{FL}",
+                lambda: IB.int8_fc1_gelu_ln(tL["x"], tL["gamma"], tL["beta"], *tL["fc1"]),
+                bound(2 * M * DL + FL * DL + M * FL + 4 * M + 8 * DL + 8 * FL,
+                      2 * M * DL * FL, "int8")),
+    }
+    for name, (shape, fn, bnd) in vit_l.items():
+        t_l = {"shape": shape, "ms": cuda_ms(fn), "device_ms": graph_ms(fn),
+               "bound_ms": bnd[0], "bound_by": bnd[1]}
+        times[name]["vit_l"] = t_l
+        log(f"  {name} at ViT-L's widths {shape}: kernel {t_l['ms']:.4f} ms (CUDA graphs "
+            f"{t_l['device_ms']:.4f}), bound {t_l['bound_ms']:.4f} ms ({t_l['bound_by']})")
 
     # The fused variants, each beside the kernels it fuses, timed here in turns
     # (fused, parts, parts, fused). K12: ctx and res in, out out, the three int8
@@ -1603,6 +1822,8 @@ def phase_kernel_times(smi):
     record("K12", f"B{B} N{N} D{D} F{Fh}", k12, k12_plain,
            bound(3 * act + D * D + 2 * Fh * D + 4 * Fh + 40 * D,
                  2 * M * D * D + 4 * M * D * Fh, "int8"))
+    times["K12"]["device_ms"] = graph_ms(k12)
+    log(f"  K12 device time by CUDA graphs: {times['K12']['device_ms']:.4f} ms")
     beside("K12", k12, k3_k4, "K3 + K4")
     a11 = _k11_inputs(B, N, H, g)
     q, k, v = a11[:3]
@@ -1695,6 +1916,10 @@ def phase_forward_times(default, int8, filtered=None, adapters=None):
         f"{8e3 / min(d):.1f} img/s default, {8e3 / min(i8):.1f} img/s int8")
     log(f"  host time to enqueue one forward: default {host['default']:.2f} ms, "
         f"int8 {host['int8']:.2f} ms")
+    busy = {name: device_busy_ms(lambda m=model: m(x, guidance=gidx, noise_mode=NoiseMode.ZEROS))
+            for name, model in (("int8", int8), ("default", default))}
+    log(f"  device time of one forward (torch.profiler, kernels summed): exact int8 "
+        f"{busy['int8']:.3f} ms, exact default {busy['default']:.3f} ms")
     default.attn_impl = "plain"
     plain_ms = cuda_ms(lambda: default(x, guidance=gidx, noise_mode=NoiseMode.ZEROS),
                        iters=5, warmup=1)
@@ -1794,6 +2019,7 @@ def main() -> int:
     errs.update(phase_filter_kernels())
     errs.update(phase_adapter_kernels())
     errs.update(phase_fused_kernels())
+    phase_fc1_and_focal()
     if "--kernels-only" in sys.argv[1:]:
         phase_kernel_times(smi)
         log(f"kernels only: no slice was driven, {time.perf_counter() - t_start:.1f} s")

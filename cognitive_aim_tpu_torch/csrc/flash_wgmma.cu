@@ -61,10 +61,6 @@
 #include "flash_wgmma.cuh"
 #include "tile_common.cuh"
 
-#include <cuda.h>
-
-#include <atomic>
-
 namespace caim {
 
 namespace {
@@ -338,55 +334,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's encoder, taken through the runtime (the library links no
-// libcuda); null if the driver has none.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
 // the map of one [B, N, H, 64] bf16 operand, boxes of `rows` tokens of one head
 bool head_map(CUtensorMap* map, const void* base, HeadStrides s, int B, int N, int H, int rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.n * 2, (cuuint64_t)s.b * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The dynamic shared memory allowance, once per device and process.
-template <bool BIAS>
-cudaError_t configure_once() {
-  static std::atomic<unsigned long long> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_wgmma_kernel<BIAS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)FlashTile<BIAS>::SMEM);
-  if (err != cudaSuccess) return err;
-  done.fetch_or(bit, std::memory_order_release);
-  return cudaSuccess;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box);
 }
 
 template <bool BIAS>
@@ -394,7 +347,8 @@ cudaError_t launch(const void* q, HeadStrides sq, const void* k, HeadStrides sk,
                    HeadStrides sv, const float* bias, void* out, int B, int N, int H,
                    float scale, cudaStream_t stream) {
   using T = FlashTile<BIAS>;
-  cudaError_t err = configure_once<BIAS>();
+  static std::atomic<unsigned long long> smem_set{0};  // the allowance, once per process
+  cudaError_t err = smem_allowance_once(smem_set, (const void*)flash_wgmma_kernel<BIAS>, T::SMEM);
   if (err != cudaSuccess) return err;
   const HeadStrides so{(long long)N * H * 64, (long long)H * 64, 64};
   CUtensorMap tq, tk, tv, to;

@@ -8,37 +8,61 @@
 // the last three in f32 over the unrounded P. P never reaches device memory.
 //
 // What bounds it on this card: the contraction is the full D (768 on the
-// slice) with a single head; at B 8, N 1369 the work is 69 GFLOP (two
-// passes over Q K^T, one P V) against 67 MB of q/k/v/attended traffic, so
-// it is compute-bound. The hazards, and what the design does about each:
-//   * A 64-row f32 accumulator over all of D is 64 x 768 x 4 = 196 KB, too
-//     large for registers. bf16: a block owns 48 query rows and 12 warps
-//     (32 rows and 8 warps at D 1024, where 48 rows overflow shared memory),
-//     3 row groups x 4 column groups of D/4; each warp keeps its 16 x D/4
-//     slice of the output in registers (96 floats a thread at D 768). The
-//     scores are split the same way over D, each warp computing a partial
-//     Q K^T over its D/4 columns, summed in shared memory: every score is
-//     computed once per pass. All products are mma.sync m16n8k16, f32
-//     accumulate. Every block streams all of K (and V) through L2, so the
-//     taller the query tile, the fewer bytes per FLOP: 48 rows is what the
-//     output registers (168 a thread at 384 threads) and 227 KB of shared
-//     memory allow at D 768. f32 (strict policy): 64-row tiles, plain f32
-//     FMAs through shared memory, the output split over blocks of DC
-//     columns that each recompute the scores; exact, not tuned.
+// slice) with a single head; at B 8, N 1369 the function is 46 GFLOP of
+// bf16 products (0.047 ms at 989 TFLOP/s) against 67 MB of q, k, v and
+// attended (0.020 ms): operation-bound. The kernels here do 92 GFLOP (Q K^T in
+// the stats pass and once per column chunk in the attend pass) and stream K
+// into shared memory once per 64 query rows and pass: 1.1 GB at D 768, which
+// an H100 moves into its SMs at ~5 TB/s (multicasting K to two CTAs, which
+// halves what L2 reads, measured no faster). What the design does:
+//   * Two passes, as before: the exact row softmax needs m and l before P
+//     may be normalised and rounded (JAX rounds the normalised P), so a stats
+//     pass finds them and the attend pass computes P once they are known (no
+//     online rescaling). rowmax(P) = 1/l and diag(P) = exp(s_ii - m) / l come
+//     from the row statistics alone.
+//   * bf16, both passes: a block owns 64 query rows (one wgmma M) of one
+//     batch; a producer warp and two consumer warpgroups (288 threads, one
+//     block an SM). The producer loads by TMA (4-D maps over [B, N, D/64, 64]:
+//     64 x 64 boxes, 128-byte swizzle, rows past N read as zeros): the Q tile
+//     once (resident, 64 x D, 96 KB at D 768), then 8 KB boxes of K (and V)
+//     into one ring per warpgroup (3-8 slots each, full and empty mbarriers):
+//     with one ring for both, a warpgroup a ring's length ahead of the other
+//     could wait on a slot whose previous box has not landed, and a parity
+//     wait cannot tell that phase from the one it wants.
+//   * S = Q K^T: the two warpgroups take the two 64-key halves of a 128-key
+//     step; each runs wgmma m64n64k16 with both operands from shared memory
+//     over all of D (4 k-steps a box), one group in flight. S stays in one
+//     warpgroup's registers (32 f32 a thread): no partial sums through
+//     shared memory.
+//   * Stats: an online maximum and sum per row in base 2 (scores times log2 e
+//     / scale), the diagonal score kept where a tile holds it, the warpgroups'
+//     statistics merged at the end. The keys are split over KEY_SPLITS blocks
+//     a q tile (528 blocks at B 8, N 1369: four waves on 132 SMs, where one
+//     block a q tile made 1.33), each leaving its m, l and s_ii; the attend
+//     pass merges them.
+//   * Attend: P = exp2(s - m) / l in f32, rounded to bf16 into shared memory
+//     (K-major, swizzled: the A operand of P V; two buffers, so that a
+//     warpgroup may start the next step while its peer still reads P); the
+//     colsum partials per (batch, q tile) from the f32 P, padded query rows
+//     kept out by a select (a multiply by 0 would let a NaN through), summed
+//     over each warp's rows by shuffles and over the 4 warps in a fixed order.
+//     Then O += P V by wgmma, V's boxes read MN-major (the transpose bit),
+//     each warpgroup owning half the block's columns of O: the f32 O of 64 x
+//     768 would take 75% of the register file, so D 768 and 1024 are split
+//     into two column chunks, a block each (Q K^T computed once per chunk):
+//     96 or 128 f32 of O a thread.
+//   * The epilogue writes O as bf16 into the Q tile's boxes (free by then)
+//     and stores them by TMA, which drops rows past N.
 //   * The TPU kernel accumulated colsum across sequential grid steps. Here
-//     blocks run concurrently, so the attend pass writes one colsum partial
-//     per (batch, q tile) and a third kernel sums them in a fixed order:
-//     deterministic, no atomics.
-//   * rowmax(P) = 1/l_i and diag(P) = exp(s_ii - m_i)/l_i, so the stats pass
-//     gets both from the row statistics alone. Only colmean and attended need
-//     the normalised P, which the attend pass computes exactly once m and l
-//     are known (no online rescaling).
-//   * Padded query rows are kept out of colsum with a select, not a multiply
-//     (a multiply by 0 would let a NaN through).
+//     blocks run concurrently, so a third kernel sums the partials of the q
+//     tiles in a fixed order: deterministic, no atomics.
 //   * The scale divides (streams.py uses sqrt(D/8) as a divisor): the kernel
 //     multiplies by inv_scale = 1/scale, as the TPU kernel does.
-// Kernels: stats (m, l, diag, rowmax), attend (attended, colsum partials),
-// colmean (fixed-order sum of the partials).
+//   * f32 (strict policy): 64-row tiles, plain f32 FMAs through shared
+//     memory, the output split over blocks of DC columns that each recompute
+//     the scores; exact, not tuned.
+// Kernels: stats (m, l, s_ii per key split), attend (attended, colsum
+// partials, diag, rowmax), colmean (fixed-order sum of the partials).
 #include "tile_common.cuh"
 
 namespace caim {
@@ -46,219 +70,356 @@ namespace caim {
 constexpr int COLMEAN_THREADS = 256;
 
 // ------------------------------------------------------------------ bf16 ----
-constexpr int KT = 32;          // keys per tile
-constexpr int LDS = KT + 4;     // row stride of the f32 score tiles
-constexpr int LDP = KT + 8;     // row stride of the bf16 P tile
+constexpr int FQ = 64;                    // query rows of a block
+constexpr int FK = 64;                    // keys of a warpgroup's tile
+constexpr int BOX = 64 * 64 * 2;          // a 64 x 64 bf16 box
+constexpr int FOCAL_THREADS = 256 + 32;   // two consumer warpgroups, a producer warp
+constexpr int MAX_SLOTS = 16;
+constexpr int KEY_SPLITS = 3;  // blocks of the stats pass per q tile, each a third of the keys
 
-// Block shape and shared-memory layout at width D: RG row groups of 16 query
-// rows x 4 column groups of D/4, one warp each.
 template <int D>
 struct FocalTile {
-  static constexpr int RG = D <= 768 ? 3 : 2;
-  static constexpr int BQ = 16 * RG;        // query rows per block
-  static constexpr int THREADS = 128 * RG;  // the softmax gives each row 8 lanes
-  static constexpr int LDQ = D + 8;  // row stride of the Q, K and V tiles (bf16)
-  static constexpr size_t q = align128((size_t)BQ * LDQ * sizeof(bf16));
-  static constexpr size_t kv = align128((size_t)KT * LDQ * sizeof(bf16));  // one of K, V
-  static constexpr size_t s = align128(4 * BQ * LDS * sizeof(float));     // partial S
-  static constexpr size_t p = align128((size_t)BQ * LDP * sizeof(bf16));
-  static constexpr size_t bytes = q + 2 * kv + s + p;
-  static_assert(bytes <= 232448, "tiles exceed a block's shared memory");
+  static constexpr int DB = D / 64;                  // boxes along D
+  static constexpr int CHUNKS = (D + 511) / 512;     // column chunks of attended
+  static constexpr int CB = DB / CHUNKS;             // boxes of a chunk
+  static constexpr int OB = (CB + 1) / 2;            // of them, a warpgroup's at most
+  static constexpr int P_OFF = DB * BOX;             // after Q: P [2 buffers][2 halves]
+  static constexpr int RING_OFF = P_OFF + 4 * BOX;
+  static constexpr int RED_BYTES = 2 * 2 * 4 * 64 * 4;  // colsum partials [2][2][4][64] f32
+  static constexpr int FIXED = RED_BYTES + (1 + 2 * MAX_SLOTS) * 8 + 1024;
+  static constexpr int FREE = (int)((MAX_SMEM - RING_OFF - FIXED) / BOX);
+  static constexpr int SLOTS = FREE < MAX_SLOTS ? FREE : MAX_SLOTS;
+  static constexpr int RS = SLOTS / 2;               // slots of a warpgroup's ring
+  static constexpr int RED_OFF = RING_OFF + SLOTS * BOX;
+  static constexpr int BAR_OFF = RED_OFF + RED_BYTES;
+  static constexpr size_t SMEM = (size_t)BAR_OFF + (1 + 2 * SLOTS) * 8 + 1024;
+  static_assert(DB % CHUNKS == 0 && RS >= 2 && SMEM <= MAX_SMEM, "tiles fit");
 };
 
-// Scores of this block's BQ query rows against the KT keys in Ks, summed
-// over the 4 column groups into Sp[0] ([BQ][LDS] f32, unscaled). Callers
-// make Qs and Ks visible first; ends with a barrier.
-template <int D>
-__device__ __forceinline__ void focal_scores(float* Sp, const bf16* Qs, const bf16* Ks) {
-  using T = FocalTile<D>;
-  constexpr int LDQ = T::LDQ, DG = D / 4, BQ = T::BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rg = warp % T::RG, dg = warp / T::RG, g = lane >> 2, c = lane & 3;
-  float s[KT / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < KT / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-  const bf16* qr = &Qs[(rg * 16 + g) * LDQ + dg * DG + 2 * c];
-#pragma unroll 4
-  for (int ks = 0; ks < DG / 16; ++ks) {
-    const uint32_t a[4] = {lds32(qr + 16 * ks), lds32(qr + 8 * LDQ + 16 * ks),
-                           lds32(qr + 16 * ks + 8), lds32(qr + 8 * LDQ + 16 * ks + 8)};
-#pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) {
-      const bf16* kr = &Ks[(8 * nt + g) * LDQ + dg * DG + 16 * ks + 2 * c];
-      mma_16816(s[nt], a, lds32(kr), lds32(kr + 8));
-    }
-  }
-  float* sp = Sp + dg * BQ * LDS + (rg * 16 + g) * LDS + 2 * c;
-#pragma unroll
-  for (int nt = 0; nt < KT / 8; ++nt) {
-    sp[8 * nt] = s[nt][0];
-    sp[8 * nt + 1] = s[nt][1];
-    sp[8 * LDS + 8 * nt] = s[nt][2];
-    sp[8 * LDS + 8 * nt + 1] = s[nt][3];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < BQ * KT; i += T::THREADS) {
-    const int o = (i / KT) * LDS + i % KT;
-    Sp[o] = Sp[o] + Sp[BQ * LDS + o] + Sp[2 * BQ * LDS + o] + Sp[3 * BQ * LDS + o];
-  }
-  __syncthreads();
+// The first of the CB boxes of a chunk that warpgroup w owns (w = 2: the end)
+template <int CB>
+__device__ __forceinline__ int o_box(int w) {
+  return w * CB / 2;
 }
 
-// ATTEND = false: row statistics m, l and the views diag, rowmax.
-// ATTEND = true: attended (needs m, l) and the colsum partials.
-// Shared memory: Q tile, two KT x D tiles (stats: K ping-pong; attend: K
-// and V, V's copy overlapping the softmax and K(t+1)'s overlapping P V),
-// partial scores, P.
+// Box n of a warpgroup's ring: its slot and the parity of the phase that
+// fills it. Each warpgroup has a ring of its own: with one ring for both, a
+// warpgroup a ring's length ahead of the other's boxes could wait on a slot
+// whose previous box has not landed, and a parity wait cannot tell that phase
+// from the one it wants.
+struct Slot {
+  int i;
+  uint32_t parity;
+};
+template <int RS>
+__device__ __forceinline__ Slot slot_of(int n) {
+  return {n % RS, (uint32_t)((n / RS) & 1)};
+}
+
+// S = Q K^T of one warpgroup's 64 keys over all of D: box j of K is box
+// n + j of the warpgroup's ring, one wgmma group of 4 k-steps a box, one
+// group in flight; each slot is released once its group is done.
+template <int DB, int RS>
+__device__ __forceinline__ void focal_scores(float (&s)[32], const unsigned char* qs,
+                                             const unsigned char* ring, uint64_t* full,
+                                             uint64_t* empty, int n) {
+  int prev = -1;
+  for (int j = 0; j < DB; ++j) {
+    const Slot sl = slot_of<RS>(n + j);
+    mbar_wait(&full[sl.i], sl.parity);
+    const uint64_t dq = wgmma_desc_sw128(qs + j * BOX);
+    const uint64_t dk = wgmma_desc_sw128(ring + sl.i * BOX);
+    fence_operands(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16_64x64_ss<false>(s, dq + 2 * kk, dk + 2 * kk, (j | kk) != 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(s);
+    if (prev >= 0) mbar_arrive(&empty[prev]);
+    prev = sl.i;
+  }
+  wgmma_wait<0>();
+  fence_operands(s);
+  mbar_arrive(&empty[prev]);
+}
+
+// ATTEND = false: row statistics m, l (base 2) and the diagonal score of the
+// key steps of split blockIdx.y into part [KEY_SPLITS][m, l, s_ii][B, N].
+// ATTEND = true: merges the splits' statistics; attended for column chunk
+// blockIdx.y and, in chunk 0, the colsum partials and the views diag, rowmax.
 template <int D, bool ATTEND>
-__global__ void __launch_bounds__(FocalTile<D>::THREADS)
-focal_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, float* __restrict__ m_io,
-                  float* __restrict__ l_io, float* __restrict__ diag,
-                  float* __restrict__ rowmax, bf16* __restrict__ att,
-                  float* __restrict__ partial, int N, float inv_scale) {
-  using L = FocalTile<D>;
-  constexpr int LDQ = L::LDQ, DG = D / 4, OT = ATTEND ? DG / 8 : 1, BQ = L::BQ;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* T0 = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* T1 = reinterpret_cast<bf16*>(smem + L::q + L::kv);
-  float* Sp = reinterpret_cast<float*>(smem + L::q + 2 * L::kv);
-  bf16* Pb = reinterpret_cast<bf16*>(smem + L::q + 2 * L::kv + L::s);
+__global__ void __launch_bounds__(FOCAL_THREADS, 1)
+focal_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                   float* __restrict__ part, float* __restrict__ diag,
+                   float* __restrict__ rowmax, float* __restrict__ partial, int N,
+                   float scale_log2) {
+  using T = FocalTile<D>;
+  constexpr int DB = T::DB, CB = T::CB, OB = T::OB, SLOTS = T::SLOTS, RS = T::RS;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;
+  unsigned char* ring = smem + T::RING_OFF;
+  float* red = reinterpret_cast<float*>(smem + T::RED_OFF);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + SLOTS;
+  const int qt = blockIdx.x, q0 = qt * FQ, chunk = ATTEND ? blockIdx.y : 0, b = blockIdx.z;
+  const int nqt = gridDim.x;
+  const int nkt = (N + FK - 1) / FK, nsteps = (nkt + 1) / 2;
+  // the key steps of this block: a split's in the stats pass, all of them in the attend pass
+  const int i0 = ATTEND ? 0 : blockIdx.y * nsteps / KEY_SPLITS;
+  const int i1 = ATTEND ? nsteps : (blockIdx.y + 1) * nsteps / KEY_SPLITS;
+  const size_t BN = (size_t)gridDim.z * N;
+  const int tid = threadIdx.x;
 
-  const int qt = blockIdx.x, q0 = qt * BQ, b = blockIdx.y;
-  const size_t base = (size_t)b * N * D;
-  const int qvalid = min(BQ, N - q0);
-  const int ntiles = (N + KT - 1) / KT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rg = warp % L::RG, dg = warp / L::RG, g = lane >> 2, c = lane & 3;
-  // softmax-side ownership: 8 consecutive lanes per row, 4 keys each
-  const int sr = threadIdx.x / 8, sj = (threadIdx.x % 8) * 4;
-  const size_t srow = (size_t)b * N + q0 + sr;
-  // base-2 softmax: scores times inv_scale * log2 e, so exp2 gives the same P
-  // (m is kept in that base; the f32 kernels keep it in base e)
-  const float scale_log2 = inv_scale * 1.4426950408889634f;
-
-  load_tile_async(Qs, LDQ, q + base + (size_t)q0 * D, D, BQ, D, qvalid);
-  load_tile_async(T0, LDQ, k + base, D, KT, D, N);
-  cp_async_commit();
-
-  float m = -INFINITY, l = 0.0f, sd = 0.0f;  // stats pass, row sr
-  bool has_diag = false;
-  if (ATTEND) {
-    m = sr < qvalid ? m_io[srow] : 0.0f;
-    l = sr < qvalid ? l_io[srow] : 1.0f;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < SLOTS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128);  // the owning warpgroup
+    }
+    mbar_init_fence();
   }
-  const float inv_l = 1.0f / l;
-  float o[OT][4];
-#pragma unroll
-  for (int dt = 0; dt < OT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
+  __syncthreads();
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * KT, kvalid = min(KT, N - k0);
-    const bool more = t + 1 < ntiles;
-    const size_t nxt = base + (size_t)(k0 + KT) * D;
-    bf16* Ks = ATTEND ? T0 : (t & 1 ? T1 : T0);
-    if (!ATTEND && more) {  // stats: prefetch K(t+1) into the other buffer
-      load_tile_async(t & 1 ? T0 : T1, LDQ, k + nxt, D, KT, D, N - k0 - KT);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // K(t) (and Q) visible to all warps
-    focal_scores<D>(Sp, Qs, Ks);
-    if (ATTEND) {  // K(t) is consumed: fetch V(t), then K(t+1)
-      load_tile_async(T1, LDQ, v + base + (size_t)k0 * D, D, KT, D, kvalid);
-      cp_async_commit();
-      if (more) {
-        load_tile_async(T0, LDQ, k + nxt, D, KT, D, N - k0 - KT);
-        cp_async_commit();
+  if (tid >= 256) {  // ---- producer: one thread issues every load
+    if (tid != 256) return;
+    mbar_arrive_expect_tx(q_full, DB * BOX);
+    for (int j = 0; j < DB; ++j) tma_load_4d(qs + j * BOX, &tq, q_full, 0, j, q0, b);
+    int n[2] = {0, 0};  // boxes loaded into each warpgroup's ring
+    auto load = [&](int w, const CUtensorMap* map, int key_tile, int box) {
+      const Slot sl = slot_of<RS>(n[w]++);
+      const int i = w * RS + sl.i;
+      mbar_wait(&empty[i], sl.parity ^ 1);
+      mbar_arrive_expect_tx(&full[i], BOX);
+      tma_load_4d(ring + i * BOX, map, &full[i], 0, box, key_tile * FK, b);
+    };
+    for (int i = i0; i < i1; ++i) {
+      const int hv = min(2, nkt - 2 * i);  // key tiles of this step, one a warpgroup
+      for (int j = 0; j < DB; ++j)
+        for (int h = 0; h < hv; ++h) load(h, &tk, 2 * i + h, j);
+      if constexpr (ATTEND) {
+        for (int h = 0; h < hv; ++h)
+          for (int cb = 0; cb < CB; ++cb)
+            load(cb < o_box<CB>(1) ? 0 : 1, &tv, 2 * i + h, chunk * CB + cb);
       }
     }
-    float sv[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      sv[e] = sj + e < kvalid ? Sp[sr * LDS + sj + e] * scale_log2 : -INFINITY;
-    if (!ATTEND) {
-      float mx = fmaxf(fmaxf(sv[0], sv[1]), fmaxf(sv[2], sv[3]));
-#pragma unroll
-      for (int o_ = 1; o_ <= 4; o_ <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o_));
-      const float mn = fmaxf(m, mx);
-      float sum = exp2f(sv[0] - mn) + exp2f(sv[1] - mn) + exp2f(sv[2] - mn) + exp2f(sv[3] - mn);
-#pragma unroll
-      for (int o_ = 1; o_ <= 4; o_ <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o_);
-      l = l * exp2f(m - mn) + sum;
-      m = mn;
-      const int dj = q0 + sr - k0 - sj;  // this row's diagonal key, if in my 4
-      if (dj >= 0 && dj < 4) {
-        sd = sv[dj];
-        has_diag = true;
-      }
-      __syncthreads();  // Sp and this K buffer are free for the next tile
-      continue;
-    }
-    // exact P = exp(s - m) / l, rounded to bf16 in Pb for P V; its column
-    // sums over this warp's 4 rows (padded rows excluded by a select) go to
-    // colred, which reuses the partial-score space
-    float* colred = Sp + BQ * LDS;  // [warps][KT]
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = sj + e < kvalid ? exp2f(sv[e] - m) * inv_l : 0.0f;
-      Pb[sr * LDP + sj + e] = __float2bfloat16(p);
-      float cs = sr < qvalid ? p : 0.0f;
-      cs += __shfl_xor_sync(0xffffffffu, cs, 8);
-      cs += __shfl_xor_sync(0xffffffffu, cs, 16);
-      if (lane < 8) colred[warp * KT + sj + e] = cs;
-    }
-    __syncthreads();  // P and colred complete
-    if (threadIdx.x < kvalid) {  // colsum partial of this q tile, fixed order
-      float cs = 0.0f;
-#pragma unroll
-      for (int w = 0; w < L::THREADS / 32; ++w) cs += colred[w * KT + threadIdx.x];
-      partial[((size_t)b * gridDim.x + qt) * N + k0 + threadIdx.x] = cs;
-    }
-    if (more)
-      cp_async_wait<1>();  // V(t) has landed; K(t+1) may still be in flight
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-    const bf16* pr = &Pb[(rg * 16 + g) * LDP + 2 * c];
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      const uint32_t pa[4] = {lds32(pr + 16 * kk), lds32(pr + 8 * LDP + 16 * kk),
-                              lds32(pr + 16 * kk + 8), lds32(pr + 8 * LDP + 16 * kk + 8)};
-      const bf16* vr = &T1[(16 * kk + (lane & 15)) * LDQ + dg * DG + 8 * (lane >> 4)];
-#pragma unroll
-      for (int dp = 0; dp < OT / 2; ++dp) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, vr + 16 * dp);
-        mma_16816(o[2 * dp], pa, bv[0], bv[1]);
-        mma_16816(o[2 * dp + 1], pa, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // V buffer, Sp and Pb are free for the next tile
-  }
-
-  if (!ATTEND) {
-    if (threadIdx.x % 8 == 0 && sr < qvalid) {
-      m_io[srow] = m;
-      l_io[srow] = l;
-      rowmax[srow] = 1.0f / l;  // the largest entry of the row is exp(0) / l
-    }
-    if (has_diag && sr < qvalid) diag[srow] = exp2f(sd - m) / l;
     return;
   }
-  const int r0 = rg * 16 + g;
+
+  // ---- consumers: warpgroup w takes key tile 2i + w of step i
+  const int w = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int r0 = 16 * warp + g;  // this thread's rows r0, r0 + 8 (both g modulo 8)
+  float s[32];
+  unsigned char* my_ring = ring + w * RS * BOX;  // this warpgroup's ring and its barriers
+  uint64_t* my_full = full + w * RS;
+  uint64_t* my_empty = empty + w * RS;
+  int n = 0;  // boxes taken from it
+  mbar_wait(q_full, 0);
+
+  if constexpr (!ATTEND) {
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, sd[2] = {-INFINITY, -INFINITY};
+    for (int i = i0; i < i1; ++i) {
+      const int hv = min(2, nkt - 2 * i);
+      if (w < hv) {
+        const int k0 = (2 * i + w) * FK;
+        focal_scores<DB, RS>(s, qs, my_ring, my_full, my_empty, n);
+        n += DB;
+        float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int dt = 0; dt < OT; ++dt) {
-    const int col = dg * DG + 8 * dt + 2 * c;
-    if (r0 < qvalid)
-      *reinterpret_cast<uint32_t*>(&att[base + (size_t)(q0 + r0) * D + col]) =
-          pack_bf16(o[dt][0], o[dt][1]);
-    if (r0 + 8 < qvalid)
-      *reinterpret_cast<uint32_t*>(&att[base + (size_t)(q0 + r0 + 8) * D + col]) =
-          pack_bf16(o[dt][2], o[dt][3]);
+        for (int e = 0; e < 32; ++e) {
+          const int h = (e >> 1) & 1, key = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
+          s[e] = key < N ? s[e] * scale_log2 : -INFINITY;
+          if (key == q0 + r0 + 8 * h) sd[h] = s[e];  // the diagonal score
+          mx[h] = fmaxf(mx[h], s[e]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        }
+        float sum[2] = {0.0f, 0.0f};
+        const float mn[2] = {fmaxf(m[0], mx[0]), fmaxf(m[1], mx[1])};  // finite
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sum[(e >> 1) & 1] += exp2f(s[e] - mn[(e >> 1) & 1]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+          l[h] = l[h] * exp2f(m[h] - mn[h]) + sum[h];
+          m[h] = mn[h];
+        }
+      }
+    }
+    // merge the two warpgroups' statistics: red [2 warpgroups][m, l, sd][64]
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sd[h] = fmaxf(sd[h], __shfl_xor_sync(0xffffffffu, sd[h], 1));
+      sd[h] = fmaxf(sd[h], __shfl_xor_sync(0xffffffffu, sd[h], 2));
+      if (c == 0) {
+        red[(w * 3 + 0) * 64 + r0 + 8 * h] = m[h];
+        red[(w * 3 + 1) * 64 + r0 + 8 * h] = l[h];
+        red[(w * 3 + 2) * 64 + r0 + 8 * h] = sd[h];
+      }
+    }
+    named_barrier_sync(1, 256);
+    if (tid < FQ && q0 + tid < N) {
+      // a warpgroup or a split without keys leaves m = -inf, l = 0, s_ii = -inf
+      const float ma = red[tid], la = red[64 + tid], mb = red[192 + tid], lb = red[256 + tid];
+      const float mm = fmaxf(ma, mb);
+      const float ll = mm == -INFINITY ? 0.0f : la * exp2f(ma - mm) + lb * exp2f(mb - mm);
+      const size_t row = (size_t)b * N + q0 + tid;
+      float* ps = part + (size_t)blockIdx.y * 3 * BN + row;
+      ps[0] = mm;
+      ps[BN] = ll;
+      ps[2 * BN] = fmaxf(red[128 + tid], red[320 + tid]);
+    }
+  } else {
+    // the splits' statistics merged: m, l of the whole row, and in chunk 0
+    // the views rowmax = 1 / l (the largest entry is exp(0) / l) and
+    // diag = exp2(s_ii - m) / l
+    float mrow[2], inv_l[2];
+    bool valid[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = q0 + r0 + 8 * h;
+      valid[h] = q < N;
+      mrow[h] = 0.0f;
+      inv_l[h] = 1.0f;
+      if (valid[h]) {
+        const float* ps = part + (size_t)b * N + q;
+        float mm = -INFINITY, sdd = -INFINITY, ll = 0.0f;
+        for (int k = 0; k < KEY_SPLITS; ++k) mm = fmaxf(mm, ps[3 * k * BN]);
+        for (int k = 0; k < KEY_SPLITS; ++k) {
+          const float mk = ps[3 * k * BN];
+          if (mk != -INFINITY) ll += ps[(3 * k + 1) * BN] * exp2f(mk - mm);
+          sdd = fmaxf(sdd, ps[(3 * k + 2) * BN]);
+        }
+        mrow[h] = mm;
+        inv_l[h] = 1.0f / ll;
+        if (chunk == 0 && w == 0 && c == 0) {
+          rowmax[(size_t)b * N + q] = inv_l[h];
+          diag[(size_t)b * N + q] = exp2f(sdd - mm) / ll;
+        }
+      }
+    }
+    float o[OB][32];
+#pragma unroll
+    for (int ob = 0; ob < OB; ++ob)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[ob][e] = 0.0f;
+    const int cb_lo = o_box<CB>(w), cb_n = o_box<CB>(w + 1) - cb_lo;
+    unsigned char* pbuf = smem + T::P_OFF;
+    for (int i = 0; i < nsteps; ++i) {
+      const int hv = min(2, nkt - 2 * i);
+      unsigned char* pb = pbuf + (i & 1) * 2 * BOX;  // this step's P buffer, two halves
+      if (w < hv) {
+        const int k0 = (2 * i + w) * FK;
+        focal_scores<DB, RS>(s, qs, my_ring, my_full, my_empty, n);
+        n += DB;
+        // exact P in f32: bf16 into P (K-major, swizzled), column sums
+        unsigned char* pw = pb + w * BOX;
+        float cs[16];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 8 * j + 2 * c + e;
+            float p[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              p[h] = key < N ? exp2f(s[4 * j + 2 * h + e] * scale_log2 - mrow[h]) * inv_l[h]
+                             : 0.0f;
+            s[4 * j + e] = p[0];
+            s[4 * j + 2 + e] = p[1];
+            cs[2 * j + e] = (valid[0] ? p[0] : 0.0f) + (valid[1] ? p[1] : 0.0f);
+          }
+          const int col = ((j ^ g) << 4) + 4 * c;
+          *reinterpret_cast<uint32_t*>(pw + r0 * 128 + col) = pack_bf16(s[4 * j], s[4 * j + 1]);
+          *reinterpret_cast<uint32_t*>(pw + (r0 + 8) * 128 + col) =
+              pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+        }
+        if (chunk == 0) {  // colsum partial of this q tile, in a fixed order
+#pragma unroll
+          for (int t = 0; t < 16; ++t) {
+            cs[t] += __shfl_xor_sync(0xffffffffu, cs[t], 4);
+            cs[t] += __shfl_xor_sync(0xffffffffu, cs[t], 8);
+            cs[t] += __shfl_xor_sync(0xffffffffu, cs[t], 16);
+          }
+          float* rw = red + ((w * 2 + (i & 1)) * 4) * 64;  // [4 warps][64 keys]
+          if (g == 0) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              rw[warp * 64 + 8 * j + 2 * c] = cs[2 * j];
+              rw[warp * 64 + 8 * j + 2 * c + 1] = cs[2 * j + 1];
+            }
+          }
+          named_barrier_sync(2 + w, 128);
+          if (wt < FK && k0 + wt < N)
+            partial[((size_t)b * nqt + qt) * N + k0 + wt] =
+                ((rw[wt] + rw[64 + wt]) + rw[128 + wt]) + rw[192 + wt];
+        }
+      }
+      fence_proxy_async();  // P, written here, is read by wgmma
+      named_barrier_sync(1, 256);
+      // O += P V over this step's keys, V box (h, cb_lo + ob) the ring's box
+      // n + h cb_n + ob: a group a box, one group in flight, each slot
+      // released once its group is done
+      int prev = -1;
+      for (int h = 0; h < hv; ++h) {
+        const uint64_t dp = wgmma_desc_sw128(pb + h * BOX);
+#pragma unroll
+        for (int ob = 0; ob < OB; ++ob) {
+          if (ob < cb_n) {
+            const Slot sl = slot_of<RS>(n + h * cb_n + ob);
+            mbar_wait(&my_full[sl.i], sl.parity);
+            const uint64_t dv = wgmma_desc_sw128(my_ring + sl.i * BOX);
+            fence_operands(o[ob]);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_bf16_64x64_ss<true>(o[ob], dp + 2 * kk, dv + 128 * kk, 1);
+            wgmma_commit();
+            wgmma_wait<1>();
+            if (prev >= 0) mbar_arrive(&my_empty[prev]);
+            prev = sl.i;
+          }
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int ob = 0; ob < OB; ++ob) fence_operands(o[ob]);
+      if (prev >= 0) mbar_arrive(&my_empty[prev]);
+      n += cb_n * hv;
+    }
+    // O as bf16 into the Q tile's boxes (every S product is done: both
+    // warpgroups passed the last P barrier), then TMA stores of this
+    // warpgroup's boxes
+#pragma unroll
+    for (int ob = 0; ob < OB; ++ob) {
+      if (ob < cb_n) {
+        unsigned char* ob_s = qs + (cb_lo + ob) * BOX;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = ((j ^ g) << 4) + 4 * c;
+          *reinterpret_cast<uint32_t*>(ob_s + r0 * 128 + col) =
+              pack_bf16(o[ob][4 * j], o[ob][4 * j + 1]);
+          *reinterpret_cast<uint32_t*>(ob_s + (r0 + 8) * 128 + col) =
+              pack_bf16(o[ob][4 * j + 2], o[ob][4 * j + 3]);
+        }
+      }
+    }
+    fence_proxy_async();
+    named_barrier_sync(2 + w, 128);
+    if (wt == 0) {
+      for (int ob = 0; ob < cb_n; ++ob)
+        tma_store_4d(&to, qs + (cb_lo + ob) * BOX, 0, chunk * CB + cb_lo + ob, q0, b);
+      tma_store_wait();
+    }
   }
 }
 
@@ -416,25 +577,36 @@ focal_colmean_kernel(const float* __restrict__ partial, float* __restrict__ colm
   colmean[(size_t)b * N + j] = s / (float)N;
 }
 
+// the map of one [B, N, D] bf16 operand as [B, N, D / 64, 64]: 64 x 64 boxes
+bool focal_map(CUtensorMap* map, const void* base, int B, int N, int D) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)D / 64, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {128, (cuuint64_t)D * 2, (cuuint64_t)N * D * 2};
+  const cuuint32_t box[4] = {64, 1, FQ, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box);
+}
+
 template <int D>
 cudaError_t launch_focal_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* att,
-                              float* diag, float* rowmax, float* m, float* l,
-                              float* partial, int B, int N, float inv_scale,
-                              cudaStream_t stream) {
-  using L = FocalTile<D>;
-  constexpr size_t smem = L::bytes;
-  const dim3 grid((N + L::BQ - 1) / L::BQ, B);
-  cudaError_t err = cudaFuncSetAttribute(
-      focal_bf16_kernel<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                              float* diag, float* rowmax, float* part, float* partial, int B,
+                              int N, float inv_scale, cudaStream_t stream) {
+  using T = FocalTile<D>;
+  static std::atomic<unsigned long long> stats_set{0}, attend_set{0};  // once per process
+  cudaError_t err = smem_allowance_once(stats_set, (const void*)focal_wgmma_kernel<D, false>,
+                                        T::SMEM);
+  if (err == cudaSuccess)
+    err = smem_allowance_once(attend_set, (const void*)focal_wgmma_kernel<D, true>, T::SMEM);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(focal_bf16_kernel<D, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  focal_bf16_kernel<D, false><<<grid, L::THREADS, smem, stream>>>(
-      q, k, v, m, l, diag, rowmax, att, partial, N, inv_scale);
+  CUtensorMap tq, tk, tv, to;
+  if (!focal_map(&tq, q, B, N, D) || !focal_map(&tk, k, B, N, D) ||
+      !focal_map(&tv, v, B, N, D) || !focal_map(&to, att, B, N, D))
+    return cudaErrorInvalidValue;
+  const int nqt = (N + FQ - 1) / FQ;
+  const float sl2 = inv_scale * LOG2E;
+  focal_wgmma_kernel<D, false><<<dim3(nqt, KEY_SPLITS, B), FOCAL_THREADS, T::SMEM, stream>>>(
+      tq, tk, tv, to, part, diag, rowmax, partial, N, sl2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  focal_bf16_kernel<D, true><<<grid, L::THREADS, smem, stream>>>(
-      q, k, v, m, l, diag, rowmax, att, partial, N, inv_scale);
+  focal_wgmma_kernel<D, true><<<dim3(nqt, T::CHUNKS, B), FOCAL_THREADS, T::SMEM, stream>>>(
+      tq, tk, tv, to, part, diag, rowmax, partial, N, sl2);
   return cudaGetLastError();
 }
 
@@ -445,16 +617,17 @@ cudaError_t launch_focal_f32(const float* q, const float* k, const float* v, flo
   const int dc = D % 128 == 0 ? 128 : 64;
   const int nqt = (N + TILE - 1) / TILE;
   constexpr size_t smem1 = f32_stats_smem();
-  cudaError_t err = cudaFuncSetAttribute(
-      focal_f32_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  const size_t smem2 = f32_attend_smem(dc);
+  // the allowances, once per process (the attend kernel's at its largest chunk)
+  static std::atomic<unsigned long long> stats_set{0}, attend_set{0};
+  cudaError_t err = smem_allowance_once(stats_set, (const void*)focal_f32_stats_kernel, smem1);
+  if (err == cudaSuccess)
+    err = smem_allowance_once(attend_set, (const void*)focal_f32_attend_kernel,
+                              f32_attend_smem(128));
   if (err != cudaSuccess) return err;
   focal_f32_stats_kernel<<<dim3(nqt, B), STATS_THREADS, smem1, stream>>>(
       q, k, m, l, diag, rowmax, N, D, inv_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem2 = f32_attend_smem(dc);
-  err = cudaFuncSetAttribute(focal_f32_attend_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  if (err != cudaSuccess) return err;
   focal_f32_attend_kernel<<<dim3(nqt, D / dc, B), ATTEND_THREADS, smem2, stream>>>(
       q, k, v, m, l, att, partial, N, D, dc, inv_scale);
   return cudaGetLastError();
@@ -474,16 +647,21 @@ extern "C" int caim_focal_q_tile(int dtype, int D) {
   if (dtype != caim::kBF16) return 0;
   switch (D) {
 #define CAIM_CASE(W) \
-  case W: return caim::FocalTile<W>::BQ;
+  case W: return caim::FQ;
     CAIM_FOCAL_BF16_WIDTHS(CAIM_CASE)
 #undef CAIM_CASE
     default: return 0;
   }
 }
 
+// Rows of the ml scratch: the bf16 stats pass leaves m, l and the diagonal
+// score of each of its key splits (the f32 kernels use the first two).
+extern "C" int caim_focal_stats_rows() { return 3 * caim::KEY_SPLITS; }
+
 // q, k, v, att: [B, N, D] contiguous, 16-byte aligned, D a width that
 // caim_focal_q_tile accepts. colmean, diag, rowmax: [B, N] f32.
-// ml: [2, B, N] f32 scratch (m, l). partial: [B, ceil(N / q_tile), N] f32
+// ml: [caim_focal_stats_rows(), B, N] f32 scratch (the row statistics).
+// partial: [B, ceil(N / q_tile), N] f32
 // scratch, q_tile from caim_focal_q_tile. dtype: 0 float32, 1 bfloat16.
 // Launches three kernels on `stream`, does not synchronize, returns the
 // first launch error (cudaGetLastError) or 0.
@@ -508,7 +686,7 @@ extern "C" int caim_focal_attention(const void* q, const void* k, const void* v,
     bf16* ab = static_cast<bf16*>(att);
     switch (D) {
 #define CAIM_CASE(W) \
-  case W: err = launch_focal_bf16<W>(qb, kb, vb, ab, dg, rm, m, l, pp, B, N, inv_scale, s); break;
+  case W: err = launch_focal_bf16<W>(qb, kb, vb, ab, dg, rm, m, pp, B, N, inv_scale, s); break;
       CAIM_FOCAL_BF16_WIDTHS(CAIM_CASE)
 #undef CAIM_CASE
       default: return (int)cudaErrorInvalidValue;

@@ -107,21 +107,28 @@ def _declare(lib):
     lib.caim_focal_attention.restype = i
     lib.caim_focal_q_tile.argtypes = [i, i]
     lib.caim_focal_q_tile.restype = i
+    lib.caim_focal_stats_rows.argtypes = []
+    lib.caim_focal_stats_rows.restype = i
     # x, gamma, beta, eps, wq, ws, bias, qkv, xq, sx, M, D, stream
     lib.caim_int8_qkv.argtypes = [p, p, p, f, p, p, p, p, p, p, i, i, p]
     lib.caim_int8_qkv.restype = i
     # x, aq, sa, wq, ws, bias, ls, res, out, M, K, N, stream
     lib.caim_int8_out_residual.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
     lib.caim_int8_out_residual.restype = i
-    # x, gamma, beta, eps, wq, ws, bias, h8, sh, xq, sx, partial, M, K, F, stream
-    lib.caim_int8_fc1_gelu.argtypes = [p, p, p, f, p, p, p, p, p, p, p, p, i, i, i, p]
+    # x, gamma, beta, eps, wq, ws, bias, h8, sh, xq, sx, M, K, F, stream
+    lib.caim_int8_fc1_gelu.argtypes = [p, p, p, f, p, p, p, p, p, p, p, i, i, i, p]
     lib.caim_int8_fc1_gelu.restype = i
-    # x, wq, ws, bias, h8, sh, xq, sx, partial, M, K, F, stream
-    lib.caim_int8_fc1_gelu_rows.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+    # x, wq, ws, bias, h8, sh, xq, sx, M, K, F, stream
+    lib.caim_int8_fc1_gelu_rows.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
     lib.caim_int8_fc1_gelu_rows.restype = i
+    # F -> the fc1 GEMM's cluster size (0: no kernel takes F); its clusters
+    # resident at once (cudaOccupancyMaxActiveClusters)
+    for fn in (lib.caim_fc1_cluster_size, lib.caim_fc1_active_clusters):
+        fn.argtypes = [i]
+        fn.restype = i
     # ctx, wo, so, bo, ls1, res, gamma, beta, eps, w1, s1, b1, w2, s2, b2, ls2, out,
-    # xf, aq, sa, h8, sh, partial, M, K, F, stream
-    lib.caim_int8_attnout_mlp.argtypes = [p] * 8 + [f] + [p] * 14 + [i, i, i, p]
+    # xf, aq, sa, h8, sh, M, K, F, stream
+    lib.caim_int8_attnout_mlp.argtypes = [p] * 8 + [f] + [p] * 13 + [i, i, i, p]
     lib.caim_int8_attnout_mlp.restype = i
     # x, xq, sx, wq, ws, bias, out, M, K, N, stream
     for fn in (lib.caim_int8_proj, lib.caim_int8_gemm_fused):

@@ -56,7 +56,7 @@ def focal_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     colmean = torch.empty(B, N, **f32)
     diag = torch.empty(B, N, **f32)
     rowmax = torch.empty(B, N, **f32)
-    ml = torch.empty(2, B, N, **f32)  # row max m and row sum l
+    ml = torch.empty(lib.caim_focal_stats_rows(), B, N, **f32)  # row statistics
     partial = torch.empty(B, -(-N // q_tile), N, **f32)  # colsum per q tile
     with torch.cuda.device(q.device):
         err = lib.caim_focal_attention(

@@ -64,6 +64,20 @@ TILE_N = 128  # output columns per thread block (csrc/int8_block.cu: BN)
 TILE_K = 128  # contraction depth per pipeline stage (BK)
 MAX_QUANT_K = 1024  # widest row the layernorm prologue keeps in registers; rows
 #                     without a layernorm may be wider (a two-pass prologue)
+FC1_WARPGROUP_COLS = (64, 192, 256)  # widths of the fc1 GEMM's wgmma, as the C list
+FC1_MAX_CLUSTER = 8  # CTAs of a thread-block cluster (the portable limit)
+
+
+def fc1_cluster_shape(F: int):
+    """(CTAs of the cluster, columns of a CTA) of the one-pass fc1 GEMM of K4a,
+    K14 and K12 at hidden width F: a cluster of C CTAs owns all F columns of
+    a 64-row tile, each CTA 2 NW of them (a consumer warpgroup each NW), NW
+    the narrowest width with C <= 8 (csrc/int8_block.cu, fc1_warpgroup_cols).
+    None where no such cluster splits F evenly: the wrappers raise there."""
+    for nw in FC1_WARPGROUP_COLS:
+        if F > 0 and F % (2 * nw) == 0 and F // (2 * nw) <= FC1_MAX_CLUSTER:
+            return F // (2 * nw), 2 * nw
+    return None
 
 
 # ---------------------------------------------------- shared arithmetic ----
@@ -175,6 +189,13 @@ def _check_quant_width(name, K):
     if K > MAX_QUANT_K:
         raise ValueError(f"{name}: the quantising prologue takes rows up to "
                          f"{MAX_QUANT_K} wide, got {K}")
+
+
+def _check_fc1_width(name, F):
+    if fc1_cluster_shape(F) is None:
+        raise ValueError(f"{name}: the fc1 GEMM takes hidden widths that a cluster of at "
+                         f"most {FC1_MAX_CLUSTER} CTAs splits evenly (F = 2 C NW, NW in "
+                         f"{FC1_WARPGROUP_COLS}), got {F}")
 
 
 def _scratch(x, M, K):
@@ -292,25 +313,25 @@ def _launch_fc1_gelu(name, x, g, be, wq, ws, b, eps):
     _check_act(name, x, (B, N, K))
     F = _check_weight(name, x, wq, ws, K)
     _check_vec(name, x, b, F)
+    _check_fc1_width(name, F)
+    if g is not None:
+        _check_quant_width(name, K)
+        for v in (g, be):
+            _check_vec(name, x, v, K)
     M = B * N
     h8 = torch.empty(B, N, F, dtype=torch.int8, device=x.device)
     sh = torch.empty(B, N, 1, dtype=torch.float32, device=x.device)
     xq, sx = _scratch(x, M, K)
-    partial = torch.empty(M, F // TILE_N, dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         if g is None:
             err = lib.caim_int8_fc1_gelu_rows(
                 ptr(x), ptr(wq), ptr(ws), ptr(b), ptr(h8), ptr(sh), ptr(xq), ptr(sx),
-                ptr(partial), M, K, F, stream_of(x))
+                M, K, F, stream_of(x))
         else:
-            _check_quant_width(name, K)
-            for v in (g, be):
-                _check_vec(name, x, v, K)
             err = lib.caim_int8_fc1_gelu(
                 ptr(x), ptr(g), ptr(be), float(eps), ptr(wq), ptr(ws), ptr(b),
-                ptr(h8), ptr(sh), ptr(xq), ptr(sx), ptr(partial), M, K, F,
-                stream_of(x))
+                ptr(h8), ptr(sh), ptr(xq), ptr(sx), M, K, F, stream_of(x))
     _build.check(err)
     return h8, sh
 
@@ -318,9 +339,9 @@ def _launch_fc1_gelu(name, x, g, be, wq, ws, b, eps):
 def int8_fc1_gelu_ln(x, g, be, wq, ws, b, eps=1e-6):
     """K4a. x [B, N, K] -> (h8 int8 [B, N, F], sh f32 [B, N, 1]): LN, quant,
     GEMM, tanh-GELU and the requantisation over the whole F-wide row. The
-    hidden never reaches device memory in a float type: the kernel runs the
-    GEMM and the GELU twice, first for each row's maximum, then to quantise
-    with it."""
+    hidden never reaches device memory in a float type: one GEMM pass, a
+    thread-block cluster owning all F columns of a row tile and exchanging
+    the rows' maxima on chip (``fc1_cluster_shape``)."""
     require_device("int8_fc1_gelu_ln", x)
     if x.device.type == "cpu":
         return int8_fc1_gelu_ln_plain(x, g, be, wq, ws, b, eps)
@@ -415,6 +436,7 @@ def int8_attnout_mlp_ln(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q, w2s
     F = _check_weight(name, ctx, w1q, w1s, K)
     if _check_weight(name, ctx, w2q, w2s, F) != K:
         raise ValueError(f"{name}: the fc2 weight must be [{K}, {F}]")
+    _check_fc1_width(name, F)
     for v in (bo, ls1, g, be, b2, ls2):
         _check_vec(name, ctx, v, K)
     _check_vec(name, ctx, b1, F)
@@ -423,14 +445,12 @@ def int8_attnout_mlp_ln(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q, w2s
     xf = torch.empty(M, K, dtype=torch.float32, device=dev)
     aq, sa = _scratch(ctx, M, K)
     h8, sh = _scratch(ctx, M, F)
-    partial = torch.empty(M, F // TILE_N, dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.caim_int8_attnout_mlp(
             ptr(ctx), ptr(wo), ptr(so), ptr(bo), ptr(ls1), ptr(res), ptr(g), ptr(be),
             float(eps), ptr(w1q), ptr(w1s), ptr(b1), ptr(w2q), ptr(w2s), ptr(b2), ptr(ls2),
-            ptr(out), ptr(xf), ptr(aq), ptr(sa), ptr(h8), ptr(sh), ptr(partial), M, K, F,
-            stream_of(ctx))
+            ptr(out), ptr(xf), ptr(aq), ptr(sa), ptr(h8), ptr(sh), M, K, F, stream_of(ctx))
     _build.check(err)
     int8_attnout_mlp_ln.launches += 1
     return out

@@ -336,6 +336,26 @@ def test_int8_linear_fused_bf16_rounds_once():
 
 
 # ------------------------------------------------ the port's own contracts ----
+@pytest.mark.parametrize("F,shape", [(256, (2, 128)), (512, (4, 128)), (1536, (4, 384)),
+                                     (3072, (8, 384)), (4096, (8, 512)), (2176, None),
+                                     (1280, None), (0, None)])
+def test_fc1_cluster_shape_covers_the_model_widths(F, shape):
+    """The one-pass fc1 GEMM's cluster: at most 8 CTAs of 2 NW columns each
+    own all F columns of a row tile (ViT-S's 1536 in 4, ViT-B's 3072 and
+    ViT-L's 4096 in 8 CTAs); a width no such cluster splits (17 x 128, or
+    5 x 256: no kernel has 128-column warpgroups) has no kernel."""
+    assert TIB.fc1_cluster_shape(F) == shape
+
+
+def test_fc1_wrappers_raise_on_widths_no_cluster_splits_before_any_launch():
+    """The width check comes before the device check of a launch: a CUDA
+    tensor is not needed to see it, so it is held here on the plain path's
+    inputs by calling the check itself."""
+    with pytest.raises(ValueError):
+        TIB._check_fc1_width("int8_fc1_gelu", 2176)
+    TIB._check_fc1_width("int8_fc1_gelu", 3072)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     t = {k: _t(v) for k, v in _inputs(7).items()}
     w1, w2, wo = (_tq(_inputs(7)[n]) for n in ("w1", "w2", "w_out"))
