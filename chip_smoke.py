@@ -9,7 +9,8 @@ kernels compile for sm_90a) and the CUDA toolkit:
   (a) device: the card's name and power limit (nvidia-smi), the torch,
       CUDA, nvcc and triton versions; TF32 off for matmul and cuDNN;
   (b) build: compiles csrc/*.cu with nvcc at first use (one process per
-      source, side by side);
+      source, side by side) and prints each kernel's registers and spills
+      (the int8 GEMM by epilogue and tile width);
   (c) kernels: K1 flash_attention_packed and K6 focal_attention_fused (K1's
       bf16 program, which K7 and K8 share, also at N 1 to 1370 around its
       64-row tiles, ViT-B and ViT-L heads, and under a permutation probe: V
@@ -42,7 +43,15 @@ kernels compile for sm_90a) and the CUDA toolkit:
       program at D 64 to 1024 and N 1 to 1369 around its 64-row and 64-key
       tiles (attended within 1e-2 of the plain version's largest value), its
       outputs bit-identical from run to run, and rows past N filled with NaN
-      kept out of its outputs;
+      kept out of its outputs; the int8 GEMM program of K2, K5, K3, K4b, K13,
+      K15 and K12's residual stages (int8_gemm_tma_kernel: persistent CTAs, a
+      TMA producer warp, outputs stored by TMA): its tile-width rule equal to
+      the wrappers' at every width up to 8192, every epilogue against its plain
+      version at each tile width and at M 10960, 8 x 481, 8 x 257, 17 and 1
+      rows (bit-equal but K2 and K12, whose layernorm sums in another order),
+      tile counts under, at and over its resident CTAs, outputs that are the
+      first M rows of a larger buffer (no row past M written), and one GEMM
+      launch a call after the prologue;
   (d) slices: guided ViT-B 518x518 inference (2 focal iterations, random
       weights from a seeded torch.Generator) answering a 9-instruction
       batch, a mixed batch of 8 and an unguided request through uint8 ->
@@ -84,7 +93,9 @@ kernels compile for sm_90a) and the CUDA toolkit:
       time to enqueue one forward; K9, K11 and K12 in turns with the kernels
       they fuse (K1; K1 + K3; K3 + K4), the int8 exact and 2:0.35 forwards
       with CAIM_FUSE_AOMLP off and on, and the hand-assembled 12 blocks
-      through K1 + K3, K11 and K9; K4a, K14, K12 and K6 also by CUDA graphs,
+      through K1 + K3, K11 and K9; K2, K3, K4b, K5, K13 and K15 also by CUDA
+      graphs, each beside torch._int_mm at its [M, K] x [K, N] (a yardstick of
+      the product alone, not a port); K4a, K14, K12 and K6 also by CUDA graphs,
       K6 and K4a also at ViT-L's widths (D 1024, F 4096), and the device
       time of one exact forward under each policy (torch.profiler, kernels
       summed).
@@ -282,9 +293,14 @@ def phase_build():
         import re
 
         text = open(ptxas).read()
+        epilogues = ("kQKV", "kResidual", "kPlain", "kResidualToF32", "kResidualFromF32")
         for m in re.finditer(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
                              r"(\d+) bytes spill loads.*?Used (\d+) registers", text, re.S):
-            log(f"  {m.group(1)[:72]}: {m.group(4)} registers, spills "
+            name = m.group(1)
+            gemm = re.search(r"int8_gemm_tma_kernelILi(\d)ELi(\d+)E", name)
+            if gemm:  # the int8 GEMM's instantiations: <epilogue, tile columns>
+                name = f"int8_gemm_tma_kernel<{epilogues[int(gemm.group(1))]}, {gemm.group(2)}>"
+            log(f"  {name[:72]}: {m.group(4)} registers, spills "
                 f"{m.group(2)}/{m.group(3)} bytes")
 
 
@@ -574,6 +590,132 @@ def phase_int8_kernels():
     for B, N, D, F in ((8, 257, 768, 3072), (8, 481, 768, 3072), (2, 257, 1024, 4096)):
         _check_int8_case(f"B{B} N{N} D{D} F{F}", _int8_inputs(B, N, D, F, g))
     return errs
+
+
+# ------------------------------------------ the int8 GEMM's program (c) ----
+def phase_int8_gemm():
+    """The GEMM program of K2, K5, K3, K4b, K13, K15 and K12's residual stages
+    (csrc/int8_block.cu, int8_gemm_tma_kernel): its width rule against the
+    wrappers' (int8_block.gemm_tile_cols), every epilogue against its plain
+    version at each tile width and at M 10960, 8 x 481, 8 x 257, 17 and 1
+    rows, tile counts under, at and over its resident CTAs, outputs that are
+    the first M rows of a larger buffer (the TMA stores write none past M),
+    and one GEMM launch a call after the prologue."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import _build
+    from cognitive_aim_tpu_torch.kernels import int8_block as IB
+    from cognitive_aim_tpu_torch.kernels import int8_gemm as IG
+    from cognitive_aim_tpu_torch.kernels._launch import ptr, stream_of
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    lib = _build.library()
+
+    def report(name, tag, ok, detail=""):
+        log(f"  {name} {tag}{': ' + detail if detail else ''} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at {tag}")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M in (10960, 10952, 3848, 2056, 17, 1):
+        for N in range(0, 8193, 32):
+            for parts in (1, 3):
+                want = IB.gemm_tile_cols(M, N, parts, sms) or 0
+                if lib.caim_gemm_tile_cols(M, N, parts, sms) != want:
+                    raise AssertionError(f"GEMM width rule: C and Python differ at M {M} N {N}")
+    log(f"  GEMM width rule: C and Python agree at N 0..8192, 1 and 3 parts, six row counts; "
+        f"{sms} SMs; resident CTAs {lib.caim_gemm_resident_ctas(192)} (192 columns), "
+        f"{lib.caim_gemm_resident_ctas(128)} (128)")
+
+    def cases(t, M):
+        x, ctx, ga, be, ls = t["x"], t["ctx"], t["gamma"], t["beta"], t["ls"]
+        x2, D = x.view(M, -1), x.shape[-1]
+        h8, sh = IB.int8_fc1_gelu_ln_plain(x, ga, be, *t["fc1"])
+        k12 = (ctx, *t["out"], ls, x, ga, be, *t["fc1"], *t["fc2"], t["ls2"])
+        return {  # name: (kernel, plain, bit-equal?, [M, N, parts] of its GEMM)
+            "K2": (lambda: IB.int8_qkv_proj_ln(x, ga, be, *t["qkv"]),
+                   lambda: IB.int8_qkv_proj_ln_plain(x, ga, be, *t["qkv"]), False, (3 * D, 3)),
+            "K5": (lambda: IB.int8_qkv_proj(x, *t["qkv"]),
+                   lambda: IB.int8_qkv_proj_plain(x, *t["qkv"]), True, (3 * D, 3)),
+            "K3": (lambda: IB.int8_out_residual(ctx, *t["out"], ls, x),
+                   lambda: IB.int8_out_residual_plain(ctx, *t["out"], ls, x), True, (D, 1)),
+            "K4b": (lambda: IB.int8_out_residual_prequant(h8, sh, *t["fc2"], ls, x),
+                    lambda: IB.int8_out_residual_prequant_plain(h8, sh, *t["fc2"], ls, x), True,
+                    (D, 1)),
+            "K13": (lambda: IB.int8_proj(x, *t["fc1"]), lambda: IB.int8_proj_plain(x, *t["fc1"]),
+                    True, (t["fc1"][0].shape[0], 1)),
+            "K15": (lambda: IG.int8_gemm_fused(x2, *t["qkv"]),
+                    lambda: IG.int8_gemm_fused_plain(x2, *t["qkv"]), True, (3 * D, 1)),
+            "K12": (lambda: IB.int8_attnout_mlp_ln(*k12), lambda: IB.int8_attnout_mlp_ln_plain(*k12),
+                    False, (D, 1)),
+        }
+
+    for D, F in ((768, 3072), (1024, 4096), (128, 512)):
+        for M in (10960, 8 * 481, 8 * 257, 17, 1):
+            t = _int8_inputs(1, M, D, F, g)
+            for name, (kern, plain, exact, (Nout, parts)) in cases(t, M).items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                cols = 128 if name == "K12" else IB.gemm_tile_cols(M, Nout, parts, sms)
+                tag = f"GEMM M{M} D{D} F{F}, tiles of 128 x {cols}"
+                if exact:
+                    report(name, tag, all(torch.equal(a, b) for a, b in zip(got, want)),
+                           "bit-equal to the plain version")
+                else:
+                    err = max(max_err(a, b) for a, b in zip(got, want))
+                    lim = TOL_INT8_REL * max(1.0, max(float(b.float().abs().max())
+                                                      for b in want))
+                    report(name, tag, err <= lim, f"max_abs_err {err:.3e} (tol {lim:.2e})")
+    # tile counts under, at and over the resident CTAs (N 128: one column tile)
+    R = lib.caim_gemm_resident_ctas(128)
+    for M in (128 * (R - 1) - 5, 128 * R, 128 * R + 1, 128 * 2 * R + 77):
+        x, w, b = _proj_inputs((M,), 256, 128, g)
+        got, want = IG.int8_gemm_fused(x, w["q"], w["s"], b), IG.int8_gemm_fused_plain(
+            x, w["q"], w["s"], b)
+        torch.cuda.synchronize()
+        report("K15", f"M{M} K256 -> 128: {-(-M // 128)} tiles for {R} resident CTAs",
+               torch.equal(got, want), "bit-equal to the plain version")
+    # outputs that are the first M rows of a larger buffer, and q, k, v followed
+    # by more memory: nothing past M is written
+    sentinel = -3.0e38
+    for D, M in ((768, 10960), (1024, 3848), (128, 17)):
+        t = _int8_inputs(1, M, D, 4 * D, g)
+        x, ctx = t["x"].view(M, D), t["ctx"].view(M, D)
+        xq, sx = IB.quantize_activations(ctx.float())
+        sx = sx.contiguous()
+        wq, ws, b = t["out"]
+        big = torch.full((M + 200, D), sentinel, device="cuda", dtype=torch.bfloat16)
+        err = lib.caim_int8_out_residual(None, ptr(xq), ptr(sx), ptr(wq), ptr(ws), ptr(b),
+                                         ptr(t["ls"]), ptr(x), ptr(big), M, D, D, stream_of(x))
+        torch.cuda.synchronize()
+        want = IB.int8_out_residual_prequant_plain(xq, sx, wq, ws, b, t["ls"], x)
+        report("K4b", f"M{M} D{D} into the first M rows of M + 200",
+               err == 0 and torch.equal(big[:M], want) and bool((big[M:] == big[-1]).all())
+               and float(big[-1, 0]) < -1e38, "rows past M untouched")
+        wq, ws, b = t["qkv"]
+        buf = torch.full((3 * M * D + 4096,), sentinel, device="cuda", dtype=torch.bfloat16)
+        scratch = torch.empty_like(xq), torch.empty_like(sx)
+        err = lib.caim_int8_qkv(ptr(x), None, None, 0.0, ptr(wq), ptr(ws), ptr(b), ptr(buf),
+                                ptr(scratch[0]), ptr(scratch[1]), M, D, stream_of(x))
+        torch.cuda.synchronize()
+        want = IB.int8_qkv_proj_plain(x, wq, ws, b)
+        ok = err == 0 and all(torch.equal(buf[i * M * D:(i + 1) * M * D].view(M, D), want[i])
+                              for i in range(3))
+        report("K5", f"M{M} D{D} q, k, v followed by 4096 more elements",
+               ok and bool((buf[3 * M * D:] == buf[-1]).all()) and float(buf[-1]) < -1e38,
+               "memory past v untouched")
+    # one GEMM launch a call, after the prologue where there is one
+    t = _int8_inputs(8, 1370, 768, 3072, g)
+    for name, (kern, _, _, _) in cases(t, 8 * 1370).items():
+        if name == "K12":
+            continue
+        names = [n.split("(")[0] for n in device_kernels(kern)]
+        gemms = [n for n in names if "int8_gemm_tma_kernel" in n]
+        log(f"  {name}: device kernels a call: {', '.join(names)}")
+        if len(gemms) != 1 or names[-1] != gemms[0] or "int8_gemm_kernel<" in " ".join(names):
+            raise AssertionError(f"{name} must launch one GEMM a call, after its prologue")
 
 
 def _proj_inputs(M_shape, K, Nout, g):
@@ -1756,6 +1898,26 @@ def phase_kernel_times(smi):
     x, w, b = _proj_inputs((M,), D, 3 * D, g)
     record("K15", f"M{M} K{D} -> {3 * D}", lambda: IG.int8_gemm_fused(x, w["q"], w["s"], b),
            lambda: IG.int8_gemm_fused_plain(x, w["q"], w["s"], b), linear_bound(M, D, 3 * D))
+    # The callers of the GEMM program (int8_gemm_tma_kernel) also by CUDA
+    # graphs, each beside torch._int_mm at its [M, K] x [K, N]: a yardstick
+    # of the product alone (int32 out, no prologue or epilogue), not a port
+    def int_mm_ms(Mg, Kg, Ng):
+        a8 = torch.randint(-127, 128, (Mg, Kg), generator=g, device="cuda", dtype=torch.int8)
+        b8 = torch.randint(-127, 128, (Ng, Kg), generator=g, device="cuda", dtype=torch.int8)
+        return graph_ms(lambda: torch._int_mm(a8, b8.t()))
+
+    def gemm_graphs(name, fn, Mg, Kg, Ng):
+        t = times[name]
+        t["device_ms"], t["int_mm_yardstick_ms"] = graph_ms(fn), int_mm_ms(Mg, Kg, Ng)
+        log(f"  {name} [{Mg}, {Kg}] x [{Kg}, {Ng}] device time by CUDA graphs: "
+            f"{t['device_ms']:.4f} ms (events {t['ms']:.4f}); torch._int_mm yardstick "
+            f"{t['int_mm_yardstick_ms']:.4f} ms")
+
+    gemm_graphs("K2", calls["K2"][0], M, D, 3 * D)
+    gemm_graphs("K3", calls["K3"][0], M, D, D)
+    gemm_graphs("K4b", calls["K4b"][0], M, Fh, D)
+    gemm_graphs("K5", _int8_calls(t5)["K5"][0], M5, D, 3 * D)
+    gemm_graphs("K15", lambda: IG.int8_gemm_fused(x, w["q"], w["s"], b), M, D, 3 * D)
     # K13 at the three shapes at which the unchained block calls
     # int8_ops.int8_linear (attn_out, fc1, fc2), beside that function
     shapes = {}
@@ -1766,6 +1928,7 @@ def phase_kernel_times(smi):
         ms = cuda_ms(lambda: I8.int8_linear(x, w, b))
         log(f"  int8_ops.int8_linear at that shape (row quantisation, torch._int_mm, "
             f"dequantisation): {ms:.3f} ms")
+        gemm_graphs("K13", lambda: IB.int8_proj(x, w["q"], w["s"], b), M, K, Nout)
         shapes[(K, Nout)] = {**times.pop("K13"), "int8_linear_ms": ms}
     times["K13"] = {**shapes.pop((D, Fh)), "other_shape": list(shapes.values())}
     # K14: K4a's work without the layernorm
@@ -2016,6 +2179,7 @@ def main() -> int:
     errs = phase_kernels()
     phase_flash_body()
     errs.update(phase_int8_kernels())
+    phase_int8_gemm()
     errs.update(phase_filter_kernels())
     errs.update(phase_adapter_kernels())
     errs.update(phase_fused_kernels())

@@ -18,7 +18,7 @@
 //                                   flattened to [M, K].
 //
 // All of them are one int8 GEMM, acc[m][n] = sum_k a[m][k] w[n][k] in int32 on
-// the tensor cores (wgmma m64n128k32), between a prologue that makes the
+// the tensor cores (wgmma m64nBNk32), between a prologue that makes the
 // int8 A operand and an epilogue that consumes the accumulators:
 //   prologue  quant_rows_kernel<LN, T>: one warp per row of the bf16 input (K12's
 //             second prologue: of the f32 residual stream);
@@ -44,55 +44,23 @@
 // multiply-add is contracted: the values are those of the plain PyTorch
 // version on the same int8 inputs.
 //
-// What bounds them on this card. At the slice's shapes (M = 8 x 1370 rows,
-// D 768, F 3072) K2 and K5 are 38.8 GOP against 69 MB (20 us at the int8
-// peak, 21 us at the memory rate), K3 12.9 GOP against 51 MB (memory-bound,
-// 15 us), K4a and K4b 51.7 GOP each against 53 and 70 MB (operation-bound,
-// 26 us); K15 on the adapter path is K5's shape, K13 one of the above by its
-// widths, K14 K4a's. What the design does about it:
-//   * The TPU kernel kept a whole weight and a 352- or 704-row activation
-//     tile in 16 MB of VMEM. An SM has 227 KB, so a block owns a 128 x 128
-//     output tile and streams 128-deep slices of A and W through a 3-stage
-//     cp.async ring (97 KB; two blocks per SM). The weights (<= 2.4 MB) and
-//     the int8 A operand (8.4 MB) stay in the 50 MB L2 across blocks; column
-//     tiles of one row tile are neighbours in the grid.
-//   * Two warpgroups, 64 rows each, run the products as wgmma straight from
-//     shared memory: rows of 128 bytes in the 128-byte swizzle, which the
-//     cp.async copies write (chunk ch of row r at chunk ch ^ (r & 7)); 64
-//     int32 accumulators a thread. Each stage's wgmma group is waited for
-//     before the next barrier; keeping one in flight measured no faster.
-//   * Rows are independent, so [B, N, K] is flattened to [B N, K] and only
-//     the last row tile is ragged: its rows are zero-filled on load and
-//     never stored.
-//   * The epilogue passes the f32 tile through the ring's shared memory
-//     once the products are done, so that the bf16 and int8 outputs and the
-//     residual are written and read as whole rows, 16 bytes a thread.
-//   * K4a needs each row's maximum over all F GELU outputs before it can
-//     quantise one of them; fc1_gelu_quant_kernel finds it on chip, in one
-//     GEMM pass (its notes below).
-//   * With 128 x 128 tiles every block pulls 32 KB from L2 per 128-deep
-//     slice (400 MB a call for K4b, near what L2 delivers), and at K = 768 a
-//     tile runs only 6 slices between a ring fill and an epilogue. A
-//     persistent block whose producer warp prefetches the next tile through
-//     TMA, larger tiles, or clusters sharing one multicast load are the next
-//     step; so is quantising inside the GEMM block (the int8 activations
-//     make one trip through L2 between the prologue kernel and the GEMM).
+// The TPU kernels kept a whole weight and a 352- or 704-row activation tile
+// in 16 MB of VMEM. An SM has 227 KB, so the GEMM (int8_gemm_tma_kernel, its
+// notes below) streams 128-deep slices of A and W through a TMA ring into
+// persistent CTAs that each own a 128-row output tile at a time; the weights
+// (<= 2.4 MB) and the int8 A operand (8.4 MB at M 10960) stay in the 50 MB L2.
+// Rows are independent, so [B, N, K] is flattened to [B N, K] and only the
+// last row tile is ragged: the tensor maps read its rows past M as zeros and
+// store none of them. K4a needs each row's maximum over all F GELU outputs
+// before it can quantise one of them; fc1_gelu_quant_kernel finds it on chip,
+// in one GEMM pass. The int8 activations make one trip through L2 between
+// the prologue kernel and the GEMM (~0.013 ms a prologue at M 10960).
 #include "tile_common.cuh"
 
 namespace caim {
 
-constexpr int BM = 128, BN = 128;   // output tile of a block
 constexpr int BK = 128;             // contraction depth of a stage: one 128-byte
                                     // swizzled row of int8
-constexpr int STAGES = 3;
-constexpr int GEMM_THREADS = 256;   // 2 warpgroups, 64 rows x 128 columns each
-constexpr int TILE_BYTES = BM * BK;  // one stage of one operand (BM == BN)
-// the ring, plus room to start it on a 1024-byte boundary
-constexpr size_t GEMM_SMEM = (size_t)STAGES * 2 * TILE_BYTES + 1024;
-constexpr int LDC = BN + 8;         // row stride of the epilogue's f32 tile: 8-byte
-                                    // stores of a half-warp fall on distinct banks
-static_assert(BM == BN && (BM * LDC + BM) * sizeof(float) <= GEMM_SMEM - 1024,
-              "epilogue tile fits");
 constexpr int MAX_QUANT_K = 1024;   // widest row quant_rows_kernel holds in registers
 constexpr int QUANT_THREADS = 256;  // 8 rows a block
 
@@ -107,8 +75,8 @@ struct GemmArgs {
   const float* ws;    // [N] per-output-channel scales
   const float* bias;  // [N]
   int M, K, N;
-  bf16* out;          // kQKV: [3, M, D]; kResidual, kPlain: [M, N]
-  int D;              // kQKV: width of each of q, k, v (a multiple of BN)
+  bf16* out;          // kQKV: [3, M, D]; kResidual, kPlain, kResidualFromF32: [M, N]
+  int D;              // kQKV: width of each of q, k, v (a multiple of the tile's BN)
   const bf16* res;    // kResidual, kResidualToF32: [M, N]
   const float* ls;    // the residual epilogues: [N]
   float* xf;          // kResidualToF32 writes: [M, N] f32
@@ -146,6 +114,7 @@ quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                   float* __restrict__ sx, int M, int K) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * (QUANT_THREADS / 32) + threadIdx.x / 32;
+  launch_dependents();  // the GEMM that reads xq, sx may be scheduled now
   if (row >= M) return;
   constexpr int CH = MAX_QUANT_K / 256;  // 8-element chunks a lane may hold
   const T* xr = x + (size_t)row * K;
@@ -221,6 +190,7 @@ quant_rows_wide_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
                        float* __restrict__ sx, int M, int K) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * (QUANT_THREADS / 32) + threadIdx.x / 32;
+  launch_dependents();  // the GEMM that reads xq, sx may be scheduled now
   if (row >= M) return;
   const bf16* xr = x + (size_t)row * K;
   float amax = 0.0f;
@@ -241,127 +211,361 @@ quant_rows_wide_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
 }
 
 // ---------------------------------------------------------------- GEMM -----
+// One program for every epilogue: K2, K5 (kQKV), K3, K4b (kResidual), K13,
+// K15 (kPlain), K12's two residual stages (kResidualToF32, kResidualFromF32).
+//   * A CTA is a producer warp and two consumer warpgroups. It owns a 128-row
+//     x BN-column output tile at a time (BN 192 or 128: gemm_tile_cols; K12's
+//     stages 128) and walks the tiles t = blockIdx.x, + gridDim.x, ...
+//     row-tile-major, one CTA an SM: the CTAs at work hold a few neighbouring
+//     row tiles, whose A slices every column tile reads from L2 while they
+//     are there.
+//   * Mainloop: the producer loads 128-deep slices of the A tile (rows past M
+//     read as zeros by the tensor map) and of BN weight rows by TMA into a
+//     ring of up to 6 stages behind full / empty mbarriers, running on into
+//     the next tile while the consumers are in an epilogue. Each consumer
+//     warpgroup runs wgmma m64nBNk32 on its 64 rows straight from the ring,
+//     one group in flight, and releases a stage once its group is done.
+//   * Epilogue from the accumulators in registers: dequantise, apply the
+//     residual, pack to bf16 into a staging tile in shared memory (each
+//     warpgroup its 64 rows, boxes of 64 rows x 128 bytes in the 128-byte
+//     swizzle; four 8 x 8 tiles of the accumulator fragment a stmatrix, which
+//     fall on distinct banks), then one thread of the warpgroup stores them
+//     with 2-D TMA stores through a tensor map of exactly M rows: nothing past
+//     M is written. The store runs on during the next tile's mainloop; its
+//     thread waits for it to have read the staging rows at the next
+//     epilogue. The residual epilogues have the producer load the next
+//     residual tile by TMA into the staging rows once they are free (its
+//     thread waits for the store after the next tile's first wgmma group),
+//     so that it lands during the mainloop, and each thread reads its
+//     residual values (ldmatrix) where it then writes its outputs.
+//     K12's f32 stages read and write pairs of values, all reads first.
+//   * Launched as a programmatic dependent of the quantising prologue, which
+//     lets it be scheduled at its start: the CTAs set up (barriers, tensor
+//     maps) while the prologue's last blocks run, and wait for it to end
+//     before they read.
+// What bounds it at the slice's shapes (M 10960, D 768, F 3072): K2 and K5
+// 38.8 GOP against 69 MB (20 us at the int8 peak, 21 us at the memory rate;
+// the bf16 q, k, v written are 73% of the bytes), K3 12.9 GOP against 51 MB
+// (15 us, bytes), K4b 51.7 GOP against 70 MB (26 us, operations). A 128 x 192
+// tile reads 40 KB from L2 per 128-deep slice, 0.0065 bytes an operation:
+// 12.9 TB/s at the int8 peak, more than L2 delivers to the SMs. Yet fewer
+// bytes did not pay: measured slower or no faster on an H100 (development
+// builds) were a 2-CTA cluster along M sharing each weight slice by TMA
+// multicast (28 KB a slice and CTA), two wgmma groups in flight, a ring of
+// 4 stages in place of 6, and 128-column tiles everywhere; 192-column tiles
+// everywhere were slower at N 768 and 3072, hence gemm_tile_cols.
+constexpr int BM = 128;                // rows of a tile: two warpgroups of 64
+constexpr int GEMM_THREADS = 256 + 32; // two consumer warpgroups, a producer warp
+constexpr int GEMM_MAX_STAGES = 6;
+constexpr int BOX_BYTES = 64 * 128;    // a staging box: 64 rows of 128 bytes
+constexpr int GEMM_TILE_COLS[] = {192, 128};
+
+// Columns of the GEMM's output tile for M rows and N output columns made of
+// `parts` equal outputs (kQKV: q, k, v, so that a tile lies within one of
+// them), on a card of `sms` SMs (one CTA an SM): of the widths of
+// GEMM_TILE_COLS that divide N / parts, the one whose tiles cost the least
+// counted in rounds of `sms` tiles times the tile's width, ceil(tiles / sms)
+// BN, the wider on a tie; 0 where none divides. A 192-column tile reads A from
+// L2 fewer times and runs fewer epilogues, a 128-column one fills the last
+// round better: at M 10960 on 132 SMs, 192 for the qkv GEMMs (N 2304: 8
+// rounds either way), 128 for N 768 (4 rounds of 128 against 3 of 192) and
+// 3072; ViT-L's 1024 and 4096 take 128 only. kernels/int8_block.py
+// gemm_tile_cols is this rule; a card test holds the two equal.
+int gemm_tile_cols(int M, int N, int parts, int sms) {
+  if (M <= 0 || N <= 0 || parts <= 0 || N % parts != 0 || sms <= 0) return 0;
+  const long long row_tiles = (M + BM - 1) / BM;
+  int best = 0;
+  long long best_cost = 0;
+  for (int bn : GEMM_TILE_COLS) {
+    if ((N / parts) % bn != 0) continue;
+    const long long cost = (row_tiles * (N / bn) + sms - 1) / sms * bn;
+    if (best == 0 || cost < best_cost) best = bn, best_cost = cost;
+  }
+  return best;
+}
+
 template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS, 2) int8_gemm_kernel(const GemmArgs p) {
+struct EpiTypes {  // kQKV, kPlain
+  using Out = bf16;
+  using Res = bf16;
+  static constexpr bool RES = false;
+};
+template <>
+struct EpiTypes<kResidual> {
+  using Out = bf16;
+  using Res = bf16;
+  static constexpr bool RES = true;
+};
+template <>
+struct EpiTypes<kResidualToF32> {
+  using Out = float;
+  using Res = bf16;
+  static constexpr bool RES = true;
+};
+template <>
+struct EpiTypes<kResidualFromF32> {
+  using Out = bf16;
+  using Res = float;
+  static constexpr bool RES = true;
+};
+
+template <int EPI, int BN>
+struct GemmTile {
+  using E = EpiTypes<EPI>;
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int STAGE = A_BYTES + BN * BK;
+  // a warpgroup's staging rows: its 64 rows of the output, or of the
+  // residual where that is the wider type
+  static constexpr int ESZ =
+      E::RES && sizeof(typename E::Res) > sizeof(typename E::Out) ? sizeof(typename E::Res)
+                                                                  : sizeof(typename E::Out);
+  static constexpr int HALF = 64 * BN * ESZ;
+  static constexpr int OUT_BOXES = BN * (int)sizeof(typename E::Out) / 128;
+  static constexpr int RES_BOXES = BN * (int)sizeof(typename E::Res) / 128;
+  static constexpr int FIXED = 2 * HALF + 1024 + 64;  // + alignment + barriers
+  static constexpr int FIT = (int)((MAX_SMEM - FIXED) / STAGE);
+  static constexpr int STAGES = FIT < GEMM_MAX_STAGES ? FIT : GEMM_MAX_STAGES;
+  static constexpr int STAGING_OFF = STAGES * STAGE;
+  static constexpr int BAR_OFF = STAGING_OFF + 2 * HALF;
+  static constexpr size_t SMEM = (size_t)BAR_OFF + (2 * STAGES + 4) * 8 + 1024;
+  // K12's stages: an f32 residual or output (the others: bf16 in and out)
+  static constexpr bool F32 =
+      sizeof(typename E::Out) == 4 || (E::RES && sizeof(typename E::Res) == 4);
+  static_assert(!F32 || E::RES, "an f32 epilogue applies a residual");
+  static_assert(STAGES >= 2 && SMEM <= MAX_SMEM, "ring and staging tile fit");
+  static_assert(BN * sizeof(typename E::Out) % 128 == 0, "whole staging boxes");
+};
+
+struct GemmMaps {
+  CUtensorMap a;       // int8 [M, K], boxes of BK x BM
+  CUtensorMap w;       // int8 [N, K], boxes of BK x BN
+  CUtensorMap out[3];  // the output [M, N] (kQKV: q, k, v [M, D]), boxes of 128 bytes x 64 rows
+  CUtensorMap res;     // the residual epilogues: [M, N], boxes as out
+};
+
+// byte offset in a warpgroup's staging rows of row r (< 64), byte column bc:
+// boxes of 128-byte columns, each 64 rows in the 128-byte swizzle
+__device__ __forceinline__ int staging_offset(int r, int bc) {
+  return (bc >> 7) * BOX_BYTES + r * 128 + ((((bc >> 4) & 7) ^ (r & 7)) << 4) + (bc & 15);
+}
+__device__ __forceinline__ float2 load_pair(const unsigned char* p, bf16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load_pair(const unsigned char* p, float) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store_pair(unsigned char* p, float y0, float y1, bf16) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(y0, y1);
+}
+__device__ __forceinline__ void store_pair(unsigned char* p, float y0, float y1, float) {
+  *reinterpret_cast<float2*>(p) = make_float2(y0, y1);
+}
+
+template <int EPI, int BN>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+int8_gemm_tma_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
+  using T = GemmTile<EPI, BN>;
+  using Out = typename T::E::Out;
+  using Res = typename T::E::Res;
+  constexpr bool RES = T::E::RES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle is a function of the address: start on a 1024-byte boundary
-  unsigned char* smem =
-      smem_raw + ((1024 - (__cvta_generic_to_shared(smem_raw) & 1023)) & 1023);
-  int8_t* As = reinterpret_cast<int8_t*>(smem);  // [STAGES][BM rows of 128 bytes]
-  int8_t* Ws = As + (size_t)STAGES * TILE_BYTES; // [STAGES][BN rows of 128 bytes]
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* empty = full + T::STAGES;
+  uint64_t* res_full = empty + T::STAGES;  // [2]: a warpgroup's residual rows landed
+  uint64_t* res_free = res_full + 2;       // [2]: its last store has read its staging rows
+  const int n_tiles = p.N / BN, tiles = (p.M + BM - 1) / BM * n_tiles;
+  const int KT = p.K / BK, tid = threadIdx.x;
 
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wg = warp / 4;  // warpgroup: rows wg * 64 .. + 63 of the tile
-  const int g = lane >> 2, c = lane & 3;
-  const int KT = p.K / BK;
-
-  auto load_stage = [&](int stage, int kt) {
-    const size_t k0 = (size_t)kt * BK;
-    int8_t* as = As + (size_t)stage * TILE_BYTES;
-    int8_t* wsm = Ws + (size_t)stage * TILE_BYTES;
-    constexpr int CPR = BK / 16;  // 16-byte chunks a row
-    for (int i = tid; i < BM * CPR; i += GEMM_THREADS) {
-      const int r = i / CPR, ch = i % CPR;
-      const int dst = r * BK + ((ch ^ (r & 7)) << 4);  // 128-byte swizzle
-      const bool ok = m0 + r < p.M;  // rows past M: zero-filled, nothing read
-      cp_async16(as + dst, p.a + (ok ? (size_t)(m0 + r) * p.K + k0 + ch * 16 : 0), ok);
-      cp_async16(wsm + dst, p.w + (size_t)(n0 + r) * p.K + k0 + ch * 16, true);
+  if (tid == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // each consumer warp
     }
-  };
-
-  int acc[64];  // wgmma fragment of this warpgroup's 64 x 128 tile (tile_common.cuh)
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0;
-
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();  // this thread's part of slice kt has landed
-    fence_proxy_async();          // ... and is visible to wgmma
-    __syncthreads();              // ... for every thread; slice kt - 1 is consumed
-    if (kt + STAGES - 1 < KT) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
-    const int stage = kt % STAGES;
-    const uint64_t da = wgmma_desc_sw128(As + (size_t)stage * TILE_BYTES + wg * 64 * BK);
-    const uint64_t db = wgmma_desc_sw128(Ws + (size_t)stage * TILE_BYTES);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) wgmma_s8<BN>(acc, da + 2 * ks, db + 2 * ks);
-    wgmma_commit();
-    wgmma_wait<0>();
-  }
-  cp_async_wait<0>();
-
-  // ---- epilogue. This thread's accumulators: rows m0 + wg 64 + w 16 + g
-  // (+ 8), columns n0 + 8j + 2c (+ 1) for j < 16. Phase 1 turns them into
-  // the f32 value y = acc s_x s_w + b; phase 2 reads whole rows back from
-  // shared memory, so that every global load and store is 16 contiguous
-  // bytes a thread and a full row of the tile a half-warp.
-  const int row_l = wg * 64 + (warp % 4) * 16 + g;  // + h * 8
-  __syncthreads();  // every warp is done with the pipeline's shared memory
-  float* Cs = reinterpret_cast<float*>(smem);  // [BM][LDC] f32 tile
-
-  float sx[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = m0 + row_l + h * 8;
-    sx[h] = row < p.M ? p.sa[row] : 0.0f;
-  }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col_l = j * 8 + 2 * c;
-    const float2 w2 = *reinterpret_cast<const float2*>(p.ws + n0 + col_l);
-    const float2 b2 = *reinterpret_cast<const float2*>(p.bias + n0 + col_l);
-#pragma unroll
+    prefetch_tensormap(&maps.a);
+    prefetch_tensormap(&maps.w);
     for (int h = 0; h < 2; ++h) {
-      const float y0 = dequant(acc[4 * j + 2 * h], sx[h], w2.x, b2.x);
-      const float y1 = dequant(acc[4 * j + 2 * h + 1], sx[h], w2.y, b2.y);
-      *reinterpret_cast<float2*>(Cs + (row_l + h * 8) * LDC + col_l) = make_float2(y0, y1);
+      mbar_init(&res_full[h], 1);
+      mbar_init(&res_free[h], 1);
     }
+    mbar_init_fence();
   }
   __syncthreads();
+  // launched as a programmatic dependent of the quantising prologue, the CTA
+  // may start while the prologue runs: nothing it wrote is read before it is done
+  wait_for_prerequisite_grids();
 
-  // phase 2: 8 columns a thread, 16 threads a row
-  bf16* out = p.out;
-  int ldo = p.N, ocol = n0;
-  if constexpr (EPI == kQKV) {  // a column tile lies within one of q, k, v
-    const int which = n0 / p.D;
-    out += (size_t)which * p.M * p.D;
-    ldo = p.D;
-    ocol = n0 - which * p.D;
+  if (tid >= 256) {  // ---- producer warp
+    if (tid == 256) {
+      const int fill = KT < T::STAGES ? KT : T::STAGES;
+      int it = 0;  // slices loaded, over all of this CTA's tiles
+      for (int t = blockIdx.x, i = 0; t < tiles; t += gridDim.x, ++i) {
+        const int m0 = t / n_tiles * BM, n0 = t % n_tiles * BN;
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % T::STAGES;
+          mbar_wait(&empty[s], ((it / T::STAGES) & 1) ^ 1);  // released by both warpgroups
+          unsigned char* st = smem + (size_t)s * T::STAGE;
+          mbar_arrive_expect_tx(&full[s], T::STAGE);
+          tma_load_2d(st, &maps.a, &full[s], kt * BK, m0);
+          tma_load_2d(st + T::A_BYTES, &maps.w, &full[s], kt * BK, n0);
+          if constexpr (RES) {
+            // the ring holds this tile's first slices: its residual next, into
+            // each warpgroup's staging rows once the last tile's store has read them
+            if (kt == fill - 1) {
+              for (int h = 0; h < 2; ++h) {
+                if (i > 0) mbar_wait(&res_free[h], (i - 1) & 1);
+                unsigned char* rows = smem + T::STAGING_OFF + h * T::HALF;
+                if (m0 + 64 * h < p.M) {
+                  mbar_arrive_expect_tx(&res_full[h], T::RES_BOXES * BOX_BYTES);
+                  for (int b = 0; b < T::RES_BOXES; ++b)
+                    tma_load_2d(rows + b * BOX_BYTES, &maps.res, &res_full[h],
+                                n0 + b * (128 / (int)sizeof(Res)), m0 + 64 * h);
+                } else {
+                  mbar_arrive(&res_full[h]);  // rows all past M: nothing to read or store
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    return;
   }
-  for (int idx = tid; idx < BM * (BN / 8); idx += GEMM_THREADS) {
-    const int rl = idx / (BN / 8), cl = (idx % (BN / 8)) * 8;
-    const int row = m0 + rl;
-    if (row >= p.M) continue;
-    __align__(16) float y[8];
-    *reinterpret_cast<float4*>(y) = *reinterpret_cast<const float4*>(Cs + rl * LDC + cl);
-    *reinterpret_cast<float4*>(y + 4) = *reinterpret_cast<const float4*>(Cs + rl * LDC + cl + 4);
-    const size_t o = (size_t)row * ldo + ocol + cl;
-    if constexpr (EPI == kResidual || EPI == kResidualToF32 || EPI == kResidualFromF32) {
-      float r[8];
-      if constexpr (EPI == kResidualFromF32)
-        load8(p.resf + o, r);
-      else
-        load8(p.res + o, r);
-      __align__(16) float l[8];
-      *reinterpret_cast<float4*>(l) = *reinterpret_cast<const float4*>(p.ls + n0 + cl);
-      *reinterpret_cast<float4*>(l + 4) = *reinterpret_cast<const float4*>(p.ls + n0 + cl + 4);
+
+  // ---- consumers: warpgroup wg owns rows wg 64 .. + 63 of each tile
+  const int wg = tid / 128, wtid = tid % 128, warp = wtid / 32, lane = tid % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int r0 = warp * 16 + g;  // this thread's rows r0 and r0 + 8 of the warpgroup's 64
+  unsigned char* rows = smem + T::STAGING_OFF + wg * T::HALF;
+  // a stage is released by lane 0 of each warp once the warp's wgmma group
+  // that read it is done
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  int acc[BN / 2];
+  int it = 0;  // slices consumed
+  for (int t = blockIdx.x, i = 0; t < tiles; t += gridDim.x, ++i) {
+    const int m0 = t / n_tiles * BM, n0 = t % n_tiles * BN;
+    const int row0 = m0 + wg * 64;
 #pragma unroll
-      for (int t = 0; t < 8; ++t) y[t] = __fadd_rn(r[t], __fmul_rn(l[t], y[t]));
+    for (int q = 0; q < BN / 2; ++q) acc[q] = 0;
+    for (int kt = 0; kt < KT; ++kt, ++it) {
+      const int s = it % T::STAGES;
+      mbar_wait(&full[s], (it / T::STAGES) & 1);
+      const unsigned char* st = smem + (size_t)s * T::STAGE;
+      const uint64_t da = wgmma_desc_sw128(st + wg * 64 * BK);
+      const uint64_t db = wgmma_desc_sw128(st + T::A_BYTES);
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 32; ++ks) wgmma_s8<BN>(acc, da + 2 * ks, db + 2 * ks);
+      wgmma_commit();
+      if constexpr (RES) {
+        if (kt == 0 && i > 0 && wtid == 0) {  // free the rows for the next residual
+          tma_store_wait_read();              // once the last tile's store has read them
+          mbar_arrive(&res_free[wg]);
+        }
+      }
+      __syncwarp();
+      wgmma_wait<1>();  // slice kt - 1's group is done: its stage may be refilled
+      fence_operands(acc);
+      if (kt > 0) release((it - 1) % T::STAGES);
     }
-    if constexpr (EPI == kResidualToF32) {  // K12: the residual stream stays f32
-      *reinterpret_cast<float4*>(p.xf + o) = *reinterpret_cast<const float4*>(y);
-      *reinterpret_cast<float4*>(p.xf + o + 4) = *reinterpret_cast<const float4*>(y + 4);
+    wgmma_wait<0>();
+    fence_operands(acc);
+    release((it - 1) % T::STAGES);
+
+    // ---- epilogue: rows row0 + r0 (+ 8), columns n0 + 8j + 2c (+ 1)
+    float sx[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + r0 + 8 * h;
+      sx[h] = row < p.M ? p.sa[row] : 0.0f;
+    }
+    if constexpr (RES) {
+      mbar_wait(&res_full[wg], i & 1);  // the residual rows landed (the last store read them)
     } else {
-      *reinterpret_cast<uint4*>(out + o) =
-          make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
-                     pack_bf16(y[6], y[7]));
+      if (wtid == 0) tma_store_wait_read();  // the last tile's store has read the rows
+      named_barrier_sync(1 + wg, 128);
+    }
+    if constexpr (!T::F32) {
+      // bf16 out (and residual): the 8 x 8 tiles of columns 8j.. of rows
+      // warp 16 (+ 8) and of the next j moved by one stmatrix (one ldmatrix)
+#pragma unroll
+      for (int j = 0; j < BN / 8; j += 2) {
+        unsigned char* at = rows + staging_offset(warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
+                                                  (j + (lane >> 4)) * 16);
+        uint32_t rv[4], ov[4];
+        if constexpr (RES) ldsm_x4(rv, at);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // columns 8 (j + e) + 2c (+ 1): tiles 2e, 2e + 1
+          const int jq = j + e, col = 8 * jq + 2 * c;
+          const float2 w2 = *reinterpret_cast<const float2*>(p.ws + n0 + col);
+          const float2 b2 = *reinterpret_cast<const float2*>(p.bias + n0 + col);
+          float2 l2 = make_float2(0.0f, 0.0f);
+          if constexpr (RES) l2 = *reinterpret_cast<const float2*>(p.ls + n0 + col);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // rows + 8 h: tile 2e + h
+            float y0 = dequant(acc[4 * jq + 2 * h], sx[h], w2.x, b2.x);
+            float y1 = dequant(acc[4 * jq + 2 * h + 1], sx[h], w2.y, b2.y);
+            if constexpr (RES) {
+              const float2 r2 =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv[2 * e + h]));
+              y0 = __fadd_rn(r2.x, __fmul_rn(l2.x, y0));
+              y1 = __fadd_rn(r2.y, __fmul_rn(l2.y, y1));
+            }
+            ov[2 * e + h] = pack_bf16(y0, y1);
+          }
+        }
+        stsm_x4(at, ov);
+      }
+    } else {
+      // K12's stages, an f32 residual or output: a thread's outputs land where
+      // other threads' residual values are, so all of them are read first
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = 8 * j + 2 * c;
+        const float2 w2 = *reinterpret_cast<const float2*>(p.ws + n0 + col);
+        const float2 b2 = *reinterpret_cast<const float2*>(p.bias + n0 + col);
+        const float2 l2 = *reinterpret_cast<const float2*>(p.ls + n0 + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 rv =
+              load_pair(rows + staging_offset(r0 + 8 * h, col * (int)sizeof(Res)), Res{});
+          const float y0 = dequant(acc[4 * j + 2 * h], sx[h], w2.x, b2.x);
+          const float y1 = dequant(acc[4 * j + 2 * h + 1], sx[h], w2.y, b2.y);
+          acc[4 * j + 2 * h] = __float_as_int(__fadd_rn(rv.x, __fmul_rn(l2.x, y0)));
+          acc[4 * j + 2 * h + 1] = __float_as_int(__fadd_rn(rv.y, __fmul_rn(l2.y, y1)));
+        }
+      }
+      named_barrier_sync(1 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          store_pair(rows + staging_offset(r0 + 8 * h, (8 * j + 2 * c) * (int)sizeof(Out)),
+                     __int_as_float(acc[4 * j + 2 * h]), __int_as_float(acc[4 * j + 2 * h + 1]),
+                     Out{});
+    }
+    fence_proxy_async();  // the staging rows, written here, are read by TMA
+    named_barrier_sync(1 + wg, 128);
+    if (wtid == 0 && row0 < p.M) {
+      const CUtensorMap* om = &maps.out[0];
+      int ocol = n0;
+      if constexpr (EPI == kQKV) {  // a column tile lies within one of q, k, v
+        const int which = n0 / p.D;
+        om = &maps.out[which];
+        ocol = n0 - which * p.D;
+      }
+#pragma unroll
+      for (int b = 0; b < T::OUT_BOXES; ++b)
+        tma_store_2d(om, rows + b * BOX_BYTES, ocol + b * (128 / (int)sizeof(Out)), row0);
+      tma_store_commit();
     }
   }
+  if (wtid == 0) tma_store_wait_all();  // before the CTA's shared memory goes
 }
 
 // ------------------------------------- K4a, K14, K12's fc1: one GEMM pass -----
@@ -462,6 +666,9 @@ fc1_gelu_quant_kernel(const __grid_constant__ CUtensorMap ta,
     mbar_init_fence();
   }
   __syncthreads();
+  // launched as a programmatic dependent of the quantising prologue, the CTA
+  // may start while the prologue runs: nothing it wrote is read before it is done
+  wait_for_prerequisite_grids();
 
   if (tid >= 256) {  // ---- producer warp
     if (tid == 256) {
@@ -609,15 +816,119 @@ cudaError_t launch_quant_rows_ln_f32(const float* x, const void* gamma, const vo
   return cudaGetLastError();
 }
 
+// [rows, cols] row-major at base, elements of esz bytes, read or written by
+// TMA in boxes of box_cols x box_rows (128-byte swizzle)
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int esz, const void* base, int rows,
+               int cols, int box_cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)cols * esz};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return encode_map(map, type, 2, base, dims, stride, box);
+}
+
+template <typename V>
+constexpr CUtensorMapDataType map_type() {
+  return sizeof(V) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// SMs of the current device, found once per device
+cudaError_t device_sms(int* n) {
+  static std::atomic<int> found[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int v = found[dev & 63].load(std::memory_order_relaxed);
+  if (v == 0) {
+    if ((err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    found[dev & 63].store(v, std::memory_order_relaxed);
+  }
+  *n = v;
+  return cudaSuccess;
+}
+
+// CTAs of the GEMM that the current device holds at once (SMs x CTAs an SM),
+// found once per device and instantiation; the grid of a launch is at most
+// that many: persistent CTAs, each walking several tiles.
+template <int EPI, int BN>
+cudaError_t gemm_resident_ctas(int* n) {
+  static std::atomic<int> found[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int v = found[dev & 63].load(std::memory_order_relaxed);
+  if (v == 0) {
+    static std::atomic<unsigned long long> smem_set{0};  // the allowance, once per process
+    const void* kernel = (const void*)int8_gemm_tma_kernel<EPI, BN>;
+    int sms = 0, per_sm = 0;
+    if ((err = smem_allowance_once(smem_set, kernel, GemmTile<EPI, BN>::SMEM)) != cudaSuccess ||
+        (err = device_sms(&sms)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, GEMM_THREADS, GemmTile<EPI, BN>::SMEM)) != cudaSuccess)
+      return err;
+    v = sms * per_sm;
+    found[dev & 63].store(v, std::memory_order_relaxed);
+  }
+  *n = v;
+  return v > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+template <int EPI, int BN>
+cudaError_t launch_gemm_cols(const GemmArgs& p, cudaStream_t stream) {
+  using T = GemmTile<EPI, BN>;
+  using Out = typename T::E::Out;
+  using Res = typename T::E::Res;
+  int ctas = 0;
+  cudaError_t err = gemm_resident_ctas<EPI, BN>(&ctas);  // sets the allowance too
+  if (err != cudaSuccess) return err;
+  constexpr int OSZ = sizeof(Out), RSZ = sizeof(Res);
+  GemmMaps maps{};
+  bool ok = encode_2d(&maps.a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.a, p.M, p.K, BK, BM) &&
+            encode_2d(&maps.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.w, p.N, p.K, BK, BN);
+  if constexpr (EPI == kQKV) {
+    for (int q = 0; q < 3; ++q)
+      ok = ok && encode_2d(&maps.out[q], map_type<Out>(), OSZ, p.out + (size_t)q * p.M * p.D,
+                           p.M, p.D, 128 / OSZ, 64);
+  } else {
+    const void* out = EPI == kResidualToF32 ? static_cast<const void*>(p.xf) : p.out;
+    ok = ok && encode_2d(&maps.out[0], map_type<Out>(), OSZ, out, p.M, p.N, 128 / OSZ, 64);
+  }
+  if constexpr (T::E::RES) {
+    const void* res = EPI == kResidualFromF32 ? static_cast<const void*>(p.resf) : p.res;
+    ok = ok && encode_2d(&maps.res, map_type<Res>(), RSZ, res, p.M, p.N, 128 / RSZ, 64);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  const int tiles = (p.M + BM - 1) / BM * (p.N / BN);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles < ctas ? tiles : ctas);
+  cfg.blockDim = dim3(GEMM_THREADS);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;  // may start before the kernel ahead of it on the stream ends
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, int8_gemm_tma_kernel<EPI, BN>, maps, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <int EPI>
 cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
-  static std::atomic<unsigned long long> smem_set{0};  // the allowance, once per process
-  cudaError_t err =
-      smem_allowance_once(smem_set, (const void*)int8_gemm_kernel<EPI>, GEMM_SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
-  int8_gemm_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(p);
-  return cudaGetLastError();
+  if constexpr (GemmTile<EPI, 128>::F32) {
+    // K12's stages (N the model width, a multiple of 128): with 192 columns
+    // the f32 staging tile leaves three stages and the epilogue spills
+    return p.N % 128 == 0 ? launch_gemm_cols<EPI, 128>(p, stream) : cudaErrorInvalidValue;
+  } else {
+    int sms = 0;
+    cudaError_t err = device_sms(&sms);
+    if (err != cudaSuccess) return err;
+    switch (gemm_tile_cols(p.M, p.N, EPI == kQKV ? 3 : 1, sms)) {
+      case 192: return launch_gemm_cols<EPI, 192>(p, stream);
+      case 128: return launch_gemm_cols<EPI, 128>(p, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
 }
 
 // GemmArgs of a [M, K] x [N, K]^T product on quantised rows aq, sa.
@@ -633,8 +944,9 @@ GemmArgs gemm_args(const void* aq, const void* sa, const void* wq, const void* w
   return p;
 }
 
-bool gemm_shape_ok(int M, int K, int N) {
-  return M > 0 && K > 0 && N > 0 && K % BK == 0 && N % BN == 0;
+// M rows, depth K, N output columns in `parts` equal outputs that the GEMM takes
+bool gemm_shape_ok(int M, int K, int N, int parts = 1) {
+  return K > 0 && K % BK == 0 && gemm_tile_cols(M, N, parts, 1) != 0;
 }
 
 }  // namespace caim
@@ -659,11 +971,33 @@ extern "C" int caim_quantize_rows(const void* x, void* xq, void* sx, int M, int 
                                       static_cast<cudaStream_t>(stream));
 }
 
+// The columns of the int8 GEMM's output tile for M rows and N output columns
+// in `parts` equal outputs on a card of `sms` SMs (gemm_tile_cols), 0 where
+// no tile width divides N / parts: no entry point takes that width.
+extern "C" int caim_gemm_tile_cols(int M, int N, int parts, int sms) {
+  return caim::gemm_tile_cols(M, N, parts, sms);
+}
+
+// How many CTAs of the int8 GEMM with tiles `cols` wide (the kPlain epilogue)
+// the device holds at once, the most a launch starts (each then walks several
+// tiles), or minus a CUDA error; 0 for a width that is not a tile width.
+extern "C" int caim_gemm_resident_ctas(int cols) {
+  using namespace caim;
+  int n = 0;
+  cudaError_t err = cudaSuccess;
+  switch (cols) {
+    case 192: err = gemm_resident_ctas<kPlain, 192>(&n); break;
+    case 128: err = gemm_resident_ctas<kPlain, 128>(&n); break;
+    default: break;
+  }
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 // K2 (gamma, beta given) and K5 (both null): x [M, D] -> qkv [3, M, D] bf16.
 extern "C" int caim_int8_qkv(const void* x, const void* gamma, const void* beta, float eps,
                              const void* wq, const void* ws, const void* bias, void* qkv,
                              void* xq, void* sx, int M, int D, void* stream) {
-  if (!caim::gemm_shape_ok(M, D, 3 * D) || D > caim::MAX_QUANT_K)
+  if (!caim::gemm_shape_ok(M, D, 3 * D, 3) || D > caim::MAX_QUANT_K)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = caim::launch_quant_rows(x, gamma, beta, eps, xq, sx, M, D, st);
@@ -739,12 +1073,8 @@ cudaError_t launch_fc1(const void* xq, const void* sx, const void* wq, const voi
   cudaError_t err = fc1_smem_once<NW>();
   if (err != cudaSuccess) return err;
   CUtensorMap ta, tw;
-  const cuuint64_t adims[2] = {(cuuint64_t)K, (cuuint64_t)M};
-  const cuuint64_t wdims[2] = {(cuuint64_t)K, (cuuint64_t)F};
-  const cuuint64_t stride[1] = {(cuuint64_t)K};
-  const cuuint32_t abox[2] = {BK, FC1_ROWS}, wbox[2] = {BK, NW};
-  if (!encode_map(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, adims, stride, abox) ||
-      !encode_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wq, wdims, stride, wbox))
+  if (!encode_2d(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, M, K, BK, FC1_ROWS) ||
+      !encode_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wq, F, K, BK, NW))
     return cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = fc1_config<NW>(M, F, st, &attr);
@@ -777,7 +1107,7 @@ cudaError_t fc1_gelu_gemm(const void* xq, const void* sx, const void* wq, const 
 }
 
 bool fc1_shape_ok(int M, int K, int F) {
-  return gemm_shape_ok(M, K, F) && fc1_warpgroup_cols(F) != 0;
+  return M > 0 && K > 0 && K % BK == 0 && fc1_warpgroup_cols(F) != 0;
 }
 
 // x [M, K] -> h8 int8 [M, F], sh f32 [M]; gamma and beta null: no layernorm.

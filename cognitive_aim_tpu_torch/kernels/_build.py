@@ -126,6 +126,12 @@ def _declare(lib):
     for fn in (lib.caim_fc1_cluster_size, lib.caim_fc1_active_clusters):
         fn.argtypes = [i]
         fn.restype = i
+    # M, N, parts, SMs -> the int8 GEMM's tile columns (0: no kernel takes N)
+    lib.caim_gemm_tile_cols.argtypes = [i, i, i, i]
+    lib.caim_gemm_tile_cols.restype = i
+    # tile columns -> the GEMM's CTAs resident at once, the most a launch starts
+    lib.caim_gemm_resident_ctas.argtypes = [i]
+    lib.caim_gemm_resident_ctas.restype = i
     # ctx, wo, so, bo, ls1, res, gamma, beta, eps, w1, s1, b1, w2, s2, b2, ls2, out,
     # xf, aq, sa, h8, sh, M, K, F, stream
     lib.caim_int8_attnout_mlp.argtypes = [p] * 8 + [f] + [p] * 13 + [i, i, i, p]

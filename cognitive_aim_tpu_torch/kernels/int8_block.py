@@ -43,11 +43,16 @@ Weights are int8 ``[N, K]`` (PyTorch's [out, in], K contiguous) with f32
 scales ``[N]``; biases, layernorm parameters and LayerScales are used in
 f32, whatever type they arrive in.
 
+Every GEMM but the fc1 GEMM of K4a, K14 and K12 is one program (persistent
+CTAs, a TMA producer warp, two ``wgmma`` consumer warpgroups, outputs stored
+by TMA) whose output tile is 128 rows by ``gemm_tile_cols`` columns.
+
 Dispatch is on the tensor's device: CPU tensors take the plain version;
 CUDA tensors launch the kernel or raise (bf16 activations, contiguous,
-widths that are multiples of 128). Each wrapper's ``.launches`` counts its
-kernel launches and nothing else; ``int8_mlp_ln`` also counts in K4a and
-K4b, which it launches.
+contraction depths that are multiples of 128, output widths that a tile
+width divides: ``gemm_tile_cols``, ``fc1_cluster_shape``). Each wrapper's
+``.launches`` counts its kernel launches and nothing else; ``int8_mlp_ln``
+also counts in K4a and K4b, which it launches.
 """
 
 from __future__ import annotations
@@ -60,12 +65,36 @@ from cognitive_aim_tpu_torch.kernels import _build
 from cognitive_aim_tpu_torch.kernels._launch import ptr, require_device, stream_of
 from cognitive_aim_tpu_torch.kernels.int8_ops import int_matmul, quantize_activations
 
-TILE_N = 128  # output columns per thread block (csrc/int8_block.cu: BN)
-TILE_K = 128  # contraction depth per pipeline stage (BK)
+TILE_K = 128  # contraction depth per pipeline stage (csrc/int8_block.cu: BK)
+GEMM_TILE_COLS = (192, 128)  # widths of the GEMM's output tile, as the C list
+GEMM_TILE_ROWS = 128  # rows of the GEMM's output tile (BM)
+H100_SMS = 132  # SMs of an H100 SXM, where gemm_tile_cols is asked without a card
 MAX_QUANT_K = 1024  # widest row the layernorm prologue keeps in registers; rows
 #                     without a layernorm may be wider (a two-pass prologue)
 FC1_WARPGROUP_COLS = (64, 192, 256)  # widths of the fc1 GEMM's wgmma, as the C list
 FC1_MAX_CLUSTER = 8  # CTAs of a thread-block cluster (the portable limit)
+
+
+def gemm_tile_cols(M: int, N: int, parts: int = 1, sms: int = H100_SMS):
+    """Columns of the int8 GEMM's output tile for M rows and N output columns
+    made of ``parts`` equal outputs (the qkv projections: 3, so that a tile
+    lies within one of q, k, v) on a card of ``sms`` SMs, one CTA an SM: of
+    the widths of GEMM_TILE_COLS that divide N / parts, the one whose tiles
+    cost the least counted as ``ceil(tiles / sms) * BN`` (rounds of tiles
+    times their width), the wider on a tie (csrc/int8_block.cu,
+    gemm_tile_cols). At M 10960 on 132 SMs: 192 for the qkv GEMMs, 128 for
+    N 768 and 3072; ViT-L's 1024 and 4096 take 128 only. None where no width
+    divides N / parts: the wrappers raise there, whatever M and sms."""
+    if M <= 0 or N <= 0 or parts <= 0 or N % parts or sms <= 0:
+        return None
+    row_tiles = -(-M // GEMM_TILE_ROWS)
+    best = None
+    for bn in GEMM_TILE_COLS:
+        if (N // parts) % bn == 0:
+            cost = -(-row_tiles * (N // bn) // sms) * bn
+            if best is None or cost < best[0]:
+                best = (cost, bn)
+    return None if best is None else best[1]
 
 
 def fc1_cluster_shape(F: int):
@@ -171,11 +200,19 @@ def _check_weight(name, x, wq, ws, K):
             or not wq.is_contiguous() or wq.data_ptr() % 16 or wq.device != x.device:
         raise ValueError(f"{name}: weight must be contiguous int8 [N, {K}] on "
                          f"{x.device}")
-    if N % TILE_N or K % TILE_K:
-        raise ValueError(f"{name}: widths N {N} and K {K} must be multiples of "
-                         f"{TILE_N} and {TILE_K}")
+    if K % TILE_K:
+        raise ValueError(f"{name}: the contraction depth K {K} must be a multiple of "
+                         f"{TILE_K}")
     _check_vec(name, x, ws, N)
     return N
+
+
+def _check_gemm_width(name, M, N):
+    """The qkv GEMMs' D and K12's widths are multiples of 128 (their K): a
+    tile width divides them. The other GEMMs' output width is checked here."""
+    if gemm_tile_cols(M, N) is None:
+        raise ValueError(f"{name}: the int8 GEMM takes output widths that one of its tile "
+                         f"widths {GEMM_TILE_COLS} divides, got {N}")
 
 
 def _check_vec(name, x, v, n):
@@ -263,6 +300,7 @@ def _launch_out_residual(name, a, sa, wq, ws, b, ls, res):
     prequant = sa is not None
     _check_act(name, a, (B, N, K), torch.int8 if prequant else torch.bfloat16)
     Nout = _check_weight(name, a, wq, ws, K)
+    _check_gemm_width(name, B * N, Nout)
     _check_act(name, res, (B, N, Nout))
     for v in (b, ls):
         _check_vec(name, a, v, Nout)
@@ -368,6 +406,7 @@ def launch_int8_linear(name, entry, x2, wq, ws, b):
     M, K = x2.shape
     _check_act(name, x2, (M, K))
     Nout = _check_weight(name, x2, wq, ws, K)
+    _check_gemm_width(name, M, Nout)
     _check_vec(name, x2, b, Nout)
     out = torch.empty(M, Nout, dtype=x2.dtype, device=x2.device)
     xq, sx = _scratch(x2, M, K)
@@ -381,8 +420,9 @@ def launch_int8_linear(name, entry, x2, wq, ws, b):
 
 def int8_proj(x, wq, ws, b, out_dtype=torch.bfloat16):
     """K13. x [B, N, K] -> [B, N, Nout]: row quant, int8 GEMM,
-    ``acc * s_x * s_w + b``, no split. CUDA: bfloat16 in and out, K and Nout
-    multiples of 128, rows of any such width (K 3072 at the fc2 shape)."""
+    ``acc * s_x * s_w + b``, no split. CUDA: bfloat16 in and out, K a
+    multiple of 128 (rows of any such width: K 3072 at the fc2 shape), Nout
+    a width ``gemm_tile_cols`` takes."""
     require_device("int8_proj", x)
     if x.device.type == "cpu":
         return int8_proj_plain(x, wq, ws, b, out_dtype)

@@ -10,15 +10,17 @@ Counterpart of cognitive_aim_tpu/kernels/int8_gemm.py, with its names:
 The unchained int8 block (nn/dinov2.py) projects q, k and v through
 ``int8_linear_fused`` on the fused [3D, D] weight, as the JAX package's
 ``_mhsa`` does. The kernel is CUDA C++ in ``csrc/int8_block.cu``: the
-quantising prologue and the wgmma GEMM of K2-K5 with an epilogue that writes
-the rows unsplit. Its plain version repeats the TPU kernel body's arithmetic
-(``s = max(max|x| / 127, 1e-12)``, ``q = clip(round_half_even(x / s))``, an
-exact integer product, the dequantisation in f32).
+quantising prologue and the GEMM program of K2, K3, K4b and K5 with an
+epilogue that writes the rows unsplit. Its plain version repeats the TPU
+kernel body's arithmetic (``s = max(max|x| / 127, 1e-12)``,
+``q = clip(round_half_even(x / s))``, an exact integer product, the
+dequantisation in f32).
 
 Dispatch is on the tensor's device: CPU tensors take the plain version, CUDA
-tensors launch the kernel or raise (bfloat16 rows, contiguous, K and N
-multiples of 128). ``int8_gemm_fused.launches`` counts kernel launches and
-nothing else; ``int8_linear_fused`` launches through it.
+tensors launch the kernel or raise (bfloat16 rows, contiguous, K a multiple
+of 128, N a width ``int8_block.gemm_tile_cols`` takes).
+``int8_gemm_fused.launches`` counts kernel launches and nothing else;
+``int8_linear_fused`` launches through it.
 """
 
 from __future__ import annotations

@@ -184,7 +184,15 @@ def focal_apply(mod: FocalStream, patch_tokens: torch.Tensor,
                 fused_attention: bool = False):
     """Returns (focal_features [B, 64] f32, attention [B, N] f32, entropy):
     the entropy is a 0-d f32 tensor of value 0.0, what the JAX function
-    returns at inference; its training formula waits for the trainer."""
+    returns at inference; its training formula waits for the trainer.
+
+    Under the int8 policy the projections are one quantising GEMM on either
+    route: ``fused_attention`` launches K5 ``int8_qkv_proj``, and the plain
+    route (``attn_impl="plain"``) runs its plain twin ``int8_qkv_proj_plain``,
+    the same arithmetic, held against the JAX kernel by
+    tests/test_torch_int8.py::test_qkv_proj_matches_jax_kernel. The port has
+    no ``xla`` route: where the JAX function, not fused, takes its three float
+    projections, the port's plain route is still the kernel's twin."""
     B, N, D = patch_tokens.shape
     dt = patch_tokens.dtype
     dev = patch_tokens.device

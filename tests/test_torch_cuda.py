@@ -771,6 +771,176 @@ def test_int8_linear_kernels_match_plain(kernel, shape, cuda_device):
     _assert_bf16_close(got, want)
 
 
+# ------------------------------------------ the int8 GEMM's program ----
+# K2, K5 (kQKV), K3, K4b (kResidual), K13, K15 (kPlain) and K12's two
+# residual stages run one persistent GEMM program whose tile is 128 rows by
+# gemm_tile_cols columns. (D, F): ViT-B's widths, where the rule takes 192 for
+# the qkv GEMMs at every row count and for N 768 at 8 x 481 and 8 x 257 rows,
+# 128 for N 768 at M 10960 and for N 3072; ViT-L's (128 only); the test width
+# 128. Rows: the slice's M 10960, the filtered streams' 8 x 481 and 8 x 257, a
+# row count under one tile, one row.
+GEMM_WIDTHS = [(768, 3072), (1024, 4096), (128, 512)]
+GEMM_ROWS = [10960, 8 * 481, 8 * 257, 17, 1]
+GEMM_EPILOGUES = ["K2", "K5", "K3", "K4b", "K13", "K15", "K12"]
+
+
+@pytest.mark.cuda
+def test_gemm_tile_cols_is_the_librarys(cuda_device):
+    """The wrappers' width rule (int8_block.gemm_tile_cols) and the C
+    dispatch (caim_gemm_tile_cols) agree at every width up to 8192, in one
+    part and in three (the qkv GEMMs), at the row counts of the slices, of a
+    single tile and of one row, on this card's SMs and on 132."""
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for M in (10960, 10952, 3848, 2056, 17, 1):
+        for N in range(0, 8193, 32):
+            for parts in (1, 3):
+                for n_sm in {sms, 132}:
+                    want = TIB.gemm_tile_cols(M, N, parts, n_sm) or 0
+                    assert lib.caim_gemm_tile_cols(M, N, parts, n_sm) == want, (M, N, parts)
+
+
+def _gemm_case(kernel, M, D, F, dev, seed):
+    """(wrapper call, plain call, bit-equal?) of one epilogue on M rows: the
+    plain version on the same int8 rows gives the kernel's bits but where a
+    layernorm's summation order may move an int8 step (K2, K12)."""
+    t = _int8_inputs(1, M, D, F, dev, seed=seed)
+    x, ctx, g, be, ls = t["x"], t["ctx"], t["g"], t["be"], t["ls"]
+    x2 = x.view(M, D)
+    h8, sh = TIB.int8_fc1_gelu_ln_plain(x, g, be, *t["fc1"])
+    k12 = (ctx, *t["out"], ls, x, g, be, *t["fc1"], *t["fc2"], ls)
+    return {
+        "K2": (lambda: TIB.int8_qkv_proj_ln(x, g, be, *t["qkv"]),
+               lambda: TIB.int8_qkv_proj_ln_plain(x, g, be, *t["qkv"]), False),
+        "K5": (lambda: TIB.int8_qkv_proj(x, *t["qkv"]),
+               lambda: TIB.int8_qkv_proj_plain(x, *t["qkv"]), True),
+        "K3": (lambda: TIB.int8_out_residual(ctx, *t["out"], ls, x),
+               lambda: TIB.int8_out_residual_plain(ctx, *t["out"], ls, x), True),
+        "K4b": (lambda: TIB.int8_out_residual_prequant(h8, sh, *t["fc2"], ls, x),
+                lambda: TIB.int8_out_residual_prequant_plain(h8, sh, *t["fc2"], ls, x), True),
+        "K13": (lambda: TIB.int8_proj(x, *t["fc1"]),
+                lambda: TIB.int8_proj_plain(x, *t["fc1"]), True),
+        "K15": (lambda: TIG.int8_gemm_fused(x2, *t["qkv"]),
+                lambda: TIG.int8_gemm_fused_plain(x2, *t["qkv"]), True),
+        "K12": (lambda: TIB.int8_attnout_mlp_ln(*k12),
+                lambda: TIB.int8_attnout_mlp_ln_plain(*k12), False),
+    }[kernel]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", GEMM_ROWS)
+@pytest.mark.parametrize("D,F", GEMM_WIDTHS, ids=lambda v: str(v))
+@pytest.mark.parametrize("kernel", GEMM_EPILOGUES)
+def test_gemm_epilogues_match_plain_at_every_tile_width_and_row_count(kernel, D, F, M,
+                                                                       cuda_device):
+    """Every epilogue of the GEMM program at each tile width and ragged row
+    count: the plain version's bits on the same int8 rows (K2 and K12 within
+    the layernorm's tolerance)."""
+    kern, plain, exact = _gemm_case(kernel, M, D, F, cuda_device, seed=M % 97 + D)
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if exact:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        _assert_bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K3", "K13"])
+def test_gemm_tile_counts_below_at_and_above_the_resident_ctas(kernel, cuda_device):
+    """The persistent grid holds caim_gemm_resident_ctas CTAs at most: tile
+    counts one under it (a CTA a tile, some SMs idle), equal to it, one over
+    it (one CTA takes two tiles) and twice over it plus a ragged row tile
+    give the plain version's bits. N 128: one column tile, so tiles = row
+    tiles."""
+    R = _build.library().caim_gemm_resident_ctas(128)
+    assert TIB.gemm_tile_cols(1, 128) == 128
+    assert R > 0
+    for M in (128 * (R - 1) - 5, 128 * R, 128 * R + 1, 128 * 2 * R + 77):
+        x, w, b = _proj_inputs(1, M, 256, 128, cuda_device, seed=M % 89)
+        if kernel == "K13":
+            got, want = TIB.int8_proj(x, w["q"], w["s"], b), TIB.int8_proj_plain(x, w["q"],
+                                                                                 w["s"], b)
+        else:
+            res = torch.randn(1, M, 128, device=cuda_device).bfloat16()
+            ls = torch.full((128,), 0.5, device=cuda_device)
+            wo, x2 = quantize_weight(torch.randn(128, 256, device=cuda_device) * 0.05), x
+            got = TIB.int8_out_residual(x2, wo["q"], wo["s"], b, ls, res)
+            want = TIB.int8_out_residual_plain(x2, wo["q"], wo["s"], b, ls, res)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), M
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [768, 1024, 128])
+@pytest.mark.parametrize("M", [17, 8 * 481, 10960])
+def test_gemm_stores_no_row_past_m(D, M, cuda_device):
+    """The TMA stores go through tensor maps of exactly M rows: an output that
+    is the first M rows of a larger buffer leaves the rows past M as they
+    were (kResidual, kPlain), and q, k, v in one [3, M, D] buffer followed by
+    more memory leave that memory alone (kQKV)."""
+    from cognitive_aim_tpu_torch.kernels._launch import ptr, stream_of
+
+    lib = _build.library()
+    t = _int8_inputs(1, M, D, 4 * D, cuda_device, seed=D + M)
+    x, ls = t["x"].view(M, D), t["ls"]
+    xq, sx = TIB.quantize_activations(t["ctx"].view(M, D).float())
+    sx = sx.contiguous()
+    sentinel = torch.tensor(-3.0e38, device=cuda_device).bfloat16()
+    for name in ("K3", "K13"):
+        big = torch.full((M + 200, D), float(sentinel), device=cuda_device,
+                         dtype=torch.bfloat16)
+        wq, ws, b = t["out"]
+        if name == "K3":
+            err = lib.caim_int8_out_residual(None, ptr(xq), ptr(sx), ptr(wq), ptr(ws), ptr(b),
+                                             ptr(ls), ptr(x), ptr(big), M, D, D,
+                                             stream_of(x))
+            want = TIB.int8_out_residual_prequant_plain(xq, sx, wq, ws, b, ls, x)
+        else:
+            scratch = torch.empty_like(xq), torch.empty_like(sx)
+            err = lib.caim_int8_proj(ptr(t["ctx"]), ptr(scratch[0]), ptr(scratch[1]), ptr(wq),
+                                     ptr(ws), ptr(b), ptr(big), M, D, D, stream_of(x))
+            want = TIB.int8_proj_plain(t["ctx"].view(M, D), wq, ws, b)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(big[:M], want)
+        assert bool((big[M:] == sentinel).all()), name
+    tail = 4096
+    buf = torch.full((3 * M * D + tail,), float(sentinel), device=cuda_device,
+                     dtype=torch.bfloat16)
+    wq, ws, b = t["qkv"]
+    scratch = torch.empty_like(xq), torch.empty_like(sx)
+    err = lib.caim_int8_qkv(ptr(x), None, None, 0.0, ptr(wq), ptr(ws), ptr(b), ptr(buf),
+                            ptr(scratch[0]), ptr(scratch[1]), M, D, stream_of(x))
+    torch.cuda.synchronize()
+    assert err == 0
+    want = TIB.int8_qkv_proj_plain(x, wq, ws, b)
+    for i in range(3):
+        assert torch.equal(buf[i * M * D:(i + 1) * M * D].view(M, D), want[i])
+    assert bool((buf[3 * M * D:] == sentinel).all())
+
+
+@pytest.mark.cuda
+def test_gemm_wrappers_raise_on_widths_no_tile_divides(cuda_device):
+    """Output widths that neither 192 nor 128 divides (320 = 5 x 64) raise
+    before any launch, on every wrapper of the GEMM program."""
+    assert TIB.gemm_tile_cols(40, 320) is None
+    x, w, b = _proj_inputs(1, 40, 256, 320, cuda_device)
+    res = torch.zeros(1, 40, 320, device=cuda_device, dtype=torch.bfloat16)
+    ls = torch.ones(320, device=cuda_device)
+    before = [f.launches for f in (*TIB.WRAPPERS, *TIG.WRAPPERS)]
+    with pytest.raises(ValueError):
+        TIB.int8_proj(x, w["q"], w["s"], b)
+    with pytest.raises(ValueError):
+        TIG.int8_gemm_fused(x.view(40, 256), w["q"], w["s"], b)
+    with pytest.raises(ValueError):
+        TIB.int8_out_residual(x, w["q"], w["s"], b, ls, res)
+    assert [f.launches for f in (*TIB.WRAPPERS, *TIG.WRAPPERS)] == before
+
+
 @pytest.mark.cuda
 def test_wide_rows_quantise_as_narrow_ones(cuda_device):
     """The two-pass prologue (K > 1024) and the register prologue give the

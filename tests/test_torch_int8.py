@@ -356,6 +356,53 @@ def test_fc1_wrappers_raise_on_widths_no_cluster_splits_before_any_launch():
     TIB._check_fc1_width("int8_fc1_gelu", 3072)
 
 
+@pytest.mark.parametrize("M,N,parts,cols", [
+    # the ViT-B slice's M 10960 (86 row tiles) on 132 SMs: qkv 2304 in three
+    # parts takes 8 rounds of 192 or 12 of 128 (a tie: the wider), N 768 3 of
+    # 192 against 4 of 128, N 3072 11 of 192 against 16 of 128
+    (10960, 2304, 3, 192), (10952, 2304, 1, 192), (10960, 768, 1, 128),
+    (10960, 3072, 1, 128),
+    # the filtered stream's 8 x 481 rows (31 row tiles): one round of 192 for
+    # N 768 against two of 128
+    (3848, 2304, 3, 192), (3848, 768, 1, 192),
+    # ViT-S (384, 1152, 1536), ViT-L (1024, 3072 in parts, 4096), test widths
+    (10960, 1152, 3, 192), (10960, 384, 1, 128), (10960, 3072, 3, 128),
+    (10960, 4096, 1, 128), (17, 384, 3, 128), (17, 256, 1, 128), (1, 960, 1, 192),
+    # widths no tile divides
+    (10960, 320, 1, None), (17, 192, 3, None), (10960, 0, 1, None), (0, 768, 1, None)])
+def test_gemm_tile_cols_covers_the_model_widths(M, N, parts, cols):
+    """The int8 GEMM's tile width: of 192 and 128, the one that divides the
+    output (each of q, k, v for the qkv GEMMs) and costs the fewest rounds of
+    132 tiles times its width, the wider on a tie; None where neither
+    divides."""
+    assert TIB.gemm_tile_cols(M, N, parts) == cols
+
+
+def test_gemm_wrappers_raise_on_widths_no_tile_divides_before_any_launch(monkeypatch):
+    """The width check comes before the library is built or a launch made:
+    the launch paths of K3 / K4b and of K13 / K15, given tensors that pass
+    every other check, raise on an output width of 320 (5 x 64) without
+    touching the library."""
+    from cognitive_aim_tpu_torch.kernels import _build
+
+    def no_library():
+        raise AssertionError("the library was reached")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    x = torch.zeros(1, 8, 128, dtype=torch.bfloat16)
+    w = {"q": torch.zeros(320, 128, dtype=torch.int8), "s": torch.ones(320)}
+    b, ls = torch.zeros(320), torch.ones(320)
+    res = torch.zeros(1, 8, 320, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="tile"):
+        TIB._launch_out_residual("int8_out_residual", x, None, w["q"], w["s"], b, ls, res)
+    with pytest.raises(ValueError, match="tile"):
+        TIB.launch_int8_linear("int8_proj", "caim_int8_proj", x.view(8, 128), w["q"], w["s"], b)
+    x8, s8 = torch.zeros(1, 8, 128, dtype=torch.int8), torch.ones(1, 8, 1)
+    with pytest.raises(ValueError, match="tile"):
+        TIB._launch_out_residual("int8_out_residual_prequant", x8, s8, w["q"], w["s"], b, ls,
+                                 res)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     t = {k: _t(v) for k, v in _inputs(7).items()}
     w1, w2, wo = (_tq(_inputs(7)[n]) for n in ("w1", "w2", "w_out"))
