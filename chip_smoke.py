@@ -10,11 +10,15 @@ kernels compile for sm_90a) and the CUDA toolkit:
       CUDA, nvcc and triton versions; TF32 off for matmul and cuDNN;
   (b) build: compiles csrc/*.cu with nvcc at first use (one process per
       source, side by side) and prints each kernel's registers and spills
-      (the int8 GEMM by epilogue and tile width);
+      (the int8 GEMM by epilogue and tile width, the attention program by
+      bias and int8 q k), ptxas's wgmma-serialisation warnings (C7512,
+      C7514) and the attention program's blocks an SM;
   (c) kernels: K1 flash_attention_packed and K6 focal_attention_fused (K1's
       bf16 program, which K7 and K8 share, also at N 1 to 1370 around its
       64-row tiles, ViT-B and ViT-L heads, and under a permutation probe: V
-      one-hot by key index), and
+      one-hot by key index; its int8 instantiation, K10 and K10b, at N 1 to
+      1370, ViT-B and ViT-L heads, on rows of +-127 and under the same
+      probe, K10b on a zero row bit for bit K10), and
       the int8 kernels K2, K3, K4a, K4b, K4 and K5, at the slice shapes, at
       the ragged N 257 and 481 (K1 also at the progressive filter's 826 and
       416) and at ViT-L widths, and the biased and
@@ -22,7 +26,8 @@ kernels compile for sm_90a) and the CUDA toolkit:
       ViT-L width; bias rows of zeros, log counts and an empty group; K7
       also in float32), against their plain PyTorch versions, each error
       printed beside its stated tolerance; quantize_rows (Q), which K10 and
-      K10b call on q and k, bit for bit against its plain version; K8
+      K10b call on q and k together (one launch), bit for bit against its
+      plain version; K8
       flash_attention on contiguous [B, N, H, 64] tensors and on the column
       slices of one fused projection (N 257, 481, 1370, ViT-L heads, bf16 and
       float32, also bit for bit against K1 on the same memory), K13 int8_proj
@@ -64,7 +69,7 @@ kernels compile for sm_90a) and the CUDA toolkit:
       token-filter fast path on the same seeded weights, a mixed batch of 8
       through four slices: int8 2:0.35 (K1 12), int8 2:0.35@p (K1 2, K7 10;
       also an unguided request), int8 2:0.35@p with pallas_packed_i8qk (K10
-      2, K10b 10, Q 24) and default 1:0.6,2:0.3@f4 (K1 12 at N 1370, 826, 416),
+      2, K10b 10, Q 12) and default 1:0.6,2:0.3@f4 (K1 12 at N 1370, 826, 416),
       each also through the plain versions, with the stream lengths, the
       frozen dropped tokens and the overlap of the two paths' kept sets
       (at least 0.98) checked; then the adapter (LoRA) slices on seeded
@@ -86,7 +91,9 @@ kernels compile for sm_90a) and the CUDA toolkit:
   (e) times with CUDA events: every kernel beside its plain version and
       its bound, K1, K7 and K8 beside scaled_dot_product_attention (each
       ratio printed, timed in turns; K1 also at N 481, by CUDA graphs,
-      whose device time the host's launch rate does not mask), K13
+      whose device time the host's launch rate does not mask), K10 and K10b
+      by CUDA graphs in turns with K1 and K7 (the attention kernel alone and
+      with its quantising launch), K13
       beside int8_ops.int8_linear at the three shapes the unchained block
       gives that function, the B=8 forward under both policies, through the
       int8 filtered slices and through the int8 adapter slice, and the host
@@ -300,8 +307,24 @@ def phase_build():
             gemm = re.search(r"int8_gemm_tma_kernelILi(\d)ELi(\d+)E", name)
             if gemm:  # the int8 GEMM's instantiations: <epilogue, tile columns>
                 name = f"int8_gemm_tma_kernel<{epilogues[int(gemm.group(1))]}, {gemm.group(2)}>"
+            flash = re.search(r"flash_wgmma_kernelILb(\d)ELb(\d)E", name)
+            if flash:  # the attention program's: <bias, int8 q k> (K10, K10b: i8qk)
+                name = (f"flash_wgmma_kernel<{'bias' if flash.group(1) == '1' else 'no bias'}, "
+                        f"{'i8qk' if flash.group(2) == '1' else 'bf16'}>")
             log(f"  {name[:72]}: {m.group(4)} registers, spills "
                 f"{m.group(2)}/{m.group(3)} bytes")
+        # ptxas's notes that it serialised a kernel's wgmmas (C7512, C7514)
+        serial = [f"{m.group(3)[:60]}: {m.group(1)}, {m.group(2)}" for m in re.finditer(
+            r"\((C751[24])\) Potential Performance Loss: wgmma.mma_async instructions are "
+            r"serialized due to ([^\n]*?) for the function '(\w+)'", text)]
+        flash = [w for w in serial if "flash_wgmma_kernel" in w]
+        log(f"  wgmma serialisation (C7512, C7514): {len(serial)} instantiations, "
+            f"{len(flash)} of the attention program"
+            + "".join(f"\n    {w}" for w in serial))
+    # blocks of the attention program resident on an SM, by the occupancy query
+    log("  attention program blocks an SM: " + ", ".join(
+        f"<{'bias' if b else 'no bias'}, {'i8qk' if i else 'bf16'}> "
+        f"{lib.caim_flash_blocks_per_sm(b, i)}" for i in (0, 1) for b in (0, 1)))
 
 
 def _rand(shape, g, dtype, scale=1.0):
@@ -406,6 +429,89 @@ def phase_flash_body():
         raise AssertionError("the bf16 attention program moves keys inside a tile")
 
 
+def phase_i8qk_program():
+    """K10 and K10b, the int8 instantiation of K1's program, against their
+    plain versions at the lengths around its 64-row tiles and the model's
+    stream lengths, ViT-B and ViT-L heads (one attention launch and one
+    quantising launch a call; K10b on a zero row bit-equal to K10); on rows
+    whose every value quantises to +-127 (integer sums up to 64 x 127^2); and
+    under K1's permutation probe."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import flash_attention as FA
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    B, Dh, scale = 2, 64, 0.125
+
+    def both(q, k, v, row, sc, H):
+        """{kernel: (got, plain)} for K10 and K10b on the same inputs."""
+        qf, kf, vf = q.float(), k.float(), v.float()
+        return {"K10": (FA.flash_attention_packed_i8qk(q, k, v, sc, H),
+                        FA.flash_attention_packed_i8qk_plain(qf, kf, vf, sc, H)),
+                "K10b": (FA.flash_attention_packed_i8qk_bias(q, k, v, row, sc, H),
+                         FA.flash_attention_packed_i8qk_bias_plain(qf, kf, vf, row, sc, H))}
+
+    for H in (12, 16):
+        worst = {"K10": 0.0, "K10b": 0.0}
+        for N in (1, 63, 64, 65, 257, 416, 481, 1370):
+            q, k, v = (_rand((B, N, H * Dh), g, torch.bfloat16) for _ in range(3))
+            row = torch.randint(1, 891, (B, N), generator=g, device="cuda").float().log()
+            before = (FA.flash_attention_packed_i8qk.launches,
+                      FA.flash_attention_packed_i8qk_bias.launches, FA.quantize_rows.launches)
+            outs = both(q, k, v, row, scale, H)
+            after = (FA.flash_attention_packed_i8qk.launches,
+                     FA.flash_attention_packed_i8qk_bias.launches, FA.quantize_rows.launches)
+            if [a - b for a, b in zip(after, before)] != [1, 1, 2]:
+                raise AssertionError(f"K10, K10b: one launch and one quantising launch a "
+                                     f"call, counted {before} -> {after}")
+            zero = FA.flash_attention_packed_i8qk_bias(q, k, v, torch.zeros(B, N, device="cuda"),
+                                                       scale, H)
+            torch.cuda.synchronize()
+            if not torch.equal(zero, outs["K10"][0]):
+                raise AssertionError(f"K10b on a zero row is not K10's bits at N={N} H={H}")
+            for name, (got, ref) in outs.items():
+                err = max_err(got, ref)
+                if not (err <= TOL_BF16_OUT and bool(torch.isfinite(got).all())):
+                    raise AssertionError(f"{name} disagrees with its plain version at N={N} "
+                                         f"H={H}: {err:.3e}")
+                worst[name] = max(worst[name], err)
+        log(f"  int8 attention program, N 1..1370 (8 lengths), H {H}: max_abs_err K10 "
+            f"{worst['K10']:.3e}, K10b {worst['K10b']:.3e} (tol {TOL_BF16_OUT:.0e}); K10b on a "
+            f"zero row equals K10 bit for bit; 1 launch + 1 quantising launch a call: ok")
+    # every value at +-127 after quantisation: sums up to 64 x 127^2 < 2^24
+    H = 12
+    for N in (481, 1370):
+        sign = lambda: torch.where(torch.rand(B, N, H * Dh, generator=g, device="cuda") < 0.5,
+                                   -1.0, 1.0).to(torch.bfloat16)
+        q, k = sign(), sign()
+        v = _rand((B, N, H * Dh), g, torch.bfloat16)
+        if not bool((FA.quantize_rows(q)[0].abs() == 127).all()):
+            raise AssertionError("rows of +-1 must quantise to +-127")
+        for name, (got, ref) in both(q, k, v, _bias_rows(B, N, g)["counts"], scale, H).items():
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            ok = err <= TOL_BF16_OUT
+            log(f"  {name} rows of +-127 N {N}: max_abs_err {err:.3e} (tol {TOL_BF16_OUT:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version on rows of +-127")
+    # the permutation probe: V one-hot by key index, q = 40 k
+    H, N = 4, 257
+    onehot = torch.zeros(B, N, H, Dh, device="cuda")
+    j = torch.arange(N, device="cuda")
+    onehot[:, j, :, j % Dh] = 1.0
+    k = onehot.reshape(B, N, H * Dh).to(torch.bfloat16)
+    q = (40.0 * onehot).reshape(B, N, H * Dh).to(torch.bfloat16)
+    hot = (j % Dh)[None, :, None].expand(B, N, H)
+    for name, (got, _) in both(q, k, k, torch.zeros(B, N, device="cuda"), 1.0, H).items():
+        torch.cuda.synchronize()
+        ok = torch.equal(got.view(B, N, H, Dh).float().argmax(-1), hot)
+        log(f"  {name} permutation probe (one-hot V, peaked scores) N {N}: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: the int8 attention program moves keys inside a tile")
+
+
 def _bias_rows(B, N, g):
     """name -> f32 [B, N] key-side logit bias rows of the kinds the token
     filter makes: zeros; log of token counts (up to 890) on the 4 trailing
@@ -471,8 +577,12 @@ def phase_filter_kernels():
             if kind == "zeros":  # a zero bias is K1 / K10
                 check("K7", f"zero bias against the K1 kernel {shape}", got, k1,
                       TOL_BF16_OUT, False)
-                check("K10b", f"zero bias against the K10 kernel {shape}", got8,
-                      FA.flash_attention_packed_i8qk(q, k, v, scale, H), TOL_BF16_OUT, False)
+                k10 = FA.flash_attention_packed_i8qk(q, k, v, scale, H)
+                torch.cuda.synchronize()
+                log(f"  K10b zero bias against the K10 kernel {shape}: bit for bit "
+                    f"{torch.equal(got8, k10)}")
+                if not torch.equal(got8, k10):
+                    raise AssertionError("K10b on a zero bias row is not K10's bits")
         if N in (257, 481):  # the strict policy's kernel
             for kind in ("zeros", "empty_group", "every_key"):
                 check("K7", f"flash_attention_packed_bias {shape} float32 bias {kind}",
@@ -493,6 +603,16 @@ def phase_filter_kernels():
         if not ok:
             raise AssertionError("quantize_rows disagrees with its plain version")
         worst["Q"] = max(worst["Q"], err)
+        y = _rand((B, N, D), g, torch.bfloat16, 0.5)
+        n = FA.quantize_rows.launches
+        pair = FA.quantize_rows(x, y)
+        ok = FA.quantize_rows.launches == n + 1 and all(
+            torch.equal(a, b) for a, b in zip(pair, FA.quantize_rows_plain(x, y)))
+        torch.cuda.synchronize()
+        log(f"  Q quantize_rows of two tensors (K10's q and k) B{B} N{N} D{D}: one launch, "
+            f"both equal the plain version's: {ok}")
+        if not ok:
+            raise AssertionError("quantize_rows of two tensors disagrees with its plain version")
     return worst
 
 
@@ -1363,7 +1483,7 @@ FILTERED_SLICES = [
      {"K1": 2, "K7": 10, "K2": 12, "K3": 12, "K4": 12, "K4a": 12, "K4b": 12, "K5": 2,
       "K6": 2}),
     ("3", "int8", "2:0.35@p", "pallas_packed_i8qk", (1370, 481),
-     {"K10": 2, "K10b": 10, "Q": 24, "K2": 12, "K3": 12, "K4": 12, "K4a": 12, "K4b": 12,
+     {"K10": 2, "K10b": 10, "Q": 12, "K2": 12, "K3": 12, "K4": 12, "K4a": 12, "K4b": 12,
       "K5": 2, "K6": 2}),
     ("4", "default", "1:0.6,2:0.3@f4", "pallas_packed", (1370, 826, 416),
      {"K1": 12, "K6": 2}),
@@ -1801,7 +1921,7 @@ def phase_kernel_times(smi):
     # K7, K10, K10b at the filtered stream's N 481 (the shape of the kernels
     # line for K7 and K10b) and at N 1370 (K10's). Bytes as K1 plus the f32
     # bias row; K10's first product counts at the int8 rate. The wrappers of
-    # K10 and K10b include the two quantising launches.
+    # K10 and K10b include the quantising launch.
     main, other = {}, {}
     for Nk in (481, N):
         qn, kn, vn = (_rand((B, Nk, D), g, torch.bfloat16) for _ in range(3))
@@ -1851,10 +1971,37 @@ def phase_kernel_times(smi):
                     f"{dev['K7']:.4f}, masked SDPA {dev['masked_sdpa']:.4f} ms")
                 (main if Nk == 481 else other)["K1_here"] = {
                     "ms": k1_ms, "sdpa_ms": sdpa_ms, "device_ms": dev}
-        # Q: bf16 rows read, int8 rows and f32 scales written; no product
-        record("Q", f"B{B} N{Nk} D{D} bf16", lambda: FA.quantize_rows(qn),
-               lambda: FA.quantize_rows_plain(qn),
-               bound(3 * B * Nk * D + 4 * B * Nk, 0, "bf16"))
+        # K10 and K10b beside K1 and K7 by CUDA graphs, in turns (yardstick,
+        # kernel alone, wrapper, wrapper, kernel alone, yardstick): the
+        # attention kernel alone on q and k quantised once, and the wrapper
+        # with its quantising launch
+        q8, sq, k8, sk = FA.quantize_rows(qn, kn)
+        for name, yard, alone in (
+                ("K10", ("K1", lambda: FA.flash_attention_packed(qn, kn, vn, 0.125, H)),
+                 lambda: FA._launch_i8qk_kernel(q8, sq, k8, sk, vn, None, 0.125, H)),
+                ("K10b", ("K7", lambda: FA.flash_attention_packed_bias(qn, kn, vn, bias, 0.125,
+                                                                      H)),
+                 lambda: FA._launch_i8qk_kernel(q8, sq, k8, sk, vn, bias, 0.125, H))):
+            wrapper = cases[name][0]
+            runs = [(yard[0], yard[1]), ("kernel", alone), ("wrapper", wrapper)]
+            dev = {n: [] for n, _ in runs}
+            for n, fn in runs + runs[::-1]:
+                dev[n].append(graph_ms(fn))
+            t = (main if (Nk == N) == (name == "K10") else other)[name]
+            t["graphs"] = {n: sum(v) / 2 for n, v in dev.items()}
+            t["graphs_in_turns"] = dev
+            ratio_ = t["graphs"]["kernel"] / t["graphs"][yard[0]]
+            log(f"  {name} B{B} N{Nk} H{H} by CUDA graphs in turns with {yard[0]}: "
+                f"{yard[0]} {dev[yard[0]][0]:.4f}/{dev[yard[0]][1]:.4f} ms, {name}'s kernel "
+                f"{dev['kernel'][0]:.4f}/{dev['kernel'][1]:.4f} ms (x{ratio_:.2f} {yard[0]}), "
+                f"with its quantising launch {dev['wrapper'][0]:.4f}/{dev['wrapper'][1]:.4f} ms")
+        # Q: bf16 rows read, int8 rows and f32 scales written; no product. The
+        # wrappers of K10 and K10b quantise q and k in one launch
+        record("Q", f"B{B} N{Nk} D{D} bf16, q and k", lambda: FA.quantize_rows(qn, kn),
+               lambda: FA.quantize_rows_plain(qn, kn),
+               bound(2 * (3 * B * Nk * D + 4 * B * Nk), 0, "bf16"))
+        times["Q"]["device_ms"] = graph_ms(lambda: FA.quantize_rows(qn, kn))
+        log(f"  Q device time by CUDA graphs: {times['Q']['device_ms']:.4f} ms")
         (main if Nk == 481 else other)["Q"] = times.pop("Q")
     times["K1"]["at_n481"] = main.pop("K1_here")
     times["K1"]["device_ms_n1370"] = other.pop("K1_here")["device_ms"]
@@ -2010,7 +2157,7 @@ def phase_kernel_times(smi):
             lambda: FA.flash_attention_packed_i8qk(qn, kn, vn, 0.125, H))
         times["K9"]["sdpa_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
             heads(qn), heads(kn), heads(vn), scale=0.125)) if Nk == N else None
-        log(f"  K9 beside K10 with its two quantising launches {times['K9']['k10_ms']:.3f} ms"
+        log(f"  K9 beside K10 with its quantising launch {times['K9']['k10_ms']:.3f} ms"
             + (f", scaled_dot_product_attention (not quantised) {times['K9']['sdpa_ms']:.3f} ms"
                if Nk == N else ""))
         if Nk == N:
@@ -2131,12 +2278,12 @@ KERNELS = {
     "K5": ("int8_qkv_proj", "int8_block.cu", "int8_block.py:110"),
     "K6": ("focal_attention_fused", "focal_attention.cu", "focal_attention.py:52"),
     "K7": ("flash_attention_packed_bias", "flash_wgmma.cu", "flash_attention.py:149"),
-    "K10": ("flash_attention_packed_i8qk", "flash_attention_i8qk.cu",
-            "flash_attention.py:451"),
-    "K10b": ("flash_attention_packed_i8qk_bias", "flash_attention_i8qk.cu",
-             "flash_attention.py:250"),
-    # the quantisation K10 and K10b read, two launches each (q and k); the JAX
-    # package leaves it to XLA, outside its kernels
+    # K10 and K10b: the int8 instantiation of K1's program (their C entry
+    # stays in flash_attention_i8qk.cu)
+    "K10": ("flash_attention_packed_i8qk", "flash_wgmma.cu", "flash_attention.py:451"),
+    "K10b": ("flash_attention_packed_i8qk_bias", "flash_wgmma.cu", "flash_attention.py:250"),
+    # the quantisation K10 and K10b read, one launch each for q and k together;
+    # the JAX package leaves it to XLA, outside its kernels
     "Q": ("quantize_rows", "int8_block.cu", "flash_attention.py:433"),
     "K8": ("flash_attention", "flash_wgmma.cu", "flash_attention.py:44"),
     # K13 and K14 have no caller in either package's models: their launches on
@@ -2178,6 +2325,7 @@ def main() -> int:
     log("(c) kernels vs plain versions")
     errs = phase_kernels()
     phase_flash_body()
+    phase_i8qk_program()
     errs.update(phase_int8_kernels())
     phase_int8_gemm()
     errs.update(phase_filter_kernels())

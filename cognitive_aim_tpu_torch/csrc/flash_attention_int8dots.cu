@@ -16,10 +16,11 @@
 //
 // What bounds it on this card: K10's work (at B 8, N 1370, H 12: 23 GOP of
 // int8 and 23 GFLOP of bf16 products) against 67 MB (q, k, v, out two bytes a
-// value): operations. The design is K10's (flash_attention_i8qk.cu: one block
-// per 64-query tile, head and batch, 4 warps of 16 rows, 64-key tiles through
-// a cp.async double buffer, mma.sync m16n8k32 on int8 fragments, the int32
-// accumulators dequantised in the f32 layout K1's softmax reads). What differs:
+// value): operations. The design is the one K10 had before it moved onto
+// wgmma (one block per 64-query tile, head and batch, 4 warps of 16 rows,
+// 64-key tiles through a cp.async double buffer, mma.sync m16n8k32 on int8
+// fragments, the int32 accumulators dequantised in the f32 layout that
+// flash_step.cuh's softmax reads). What differs:
 //   * K and V arrive as bf16 tiles. Once a K tile has landed, thread pair
 //     (2r, 2r + 1) quantises its row r (32 values each, the maximum joined by
 //     one shuffle) into an int8 tile and a scale in shared memory; one more

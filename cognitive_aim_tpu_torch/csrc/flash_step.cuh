@@ -1,7 +1,7 @@
-// What the mma.sync attention kernels (flash_attention_i8qk.cu: K10, K10b;
-// flash_attention_int8dots.cu: K9; flash_attention_out_res.cu: K11) share
-// after their first product (K1, K7 and K8 run their own program,
-// flash_wgmma.cu, with the same arithmetic on wgmma): the
+// What the mma.sync attention kernels (flash_attention_int8dots.cu: K9;
+// flash_attention_out_res.cu: K11) share after their first product (K1, K7,
+// K8, K10 and K10b run their own program, flash_wgmma.cu, with the same
+// arithmetic on wgmma): the
 // online softmax over one 64-key tile, the bf16 P V product, and the final
 // normalised store. A warp owns 16 query rows; thread (g, c) of it holds rows
 // g and g + 8 of the warp's block in the m16n8 accumulator layout

@@ -1,5 +1,6 @@
-// The bf16 attention body of K1 and K7 (flash_attention_packed.cu) and K8
-// (flash_attention.cu), designed for Hopper.
+// The attention program of K1 and K7 (flash_attention_packed.cu), K8
+// (flash_attention.cu), and K10 and K10b (flash_attention_i8qk.cu), designed
+// for Hopper.
 //
 // Computes, per (batch b, head h), softmax(Q K^T * scale [+ bias[b, key]]) V
 // with bf16 operands, f32 scores, an f32 online softmax in base 2 (scale *
@@ -8,6 +9,9 @@
 // at the end. Each operand is a [B, N, H, 64] view given by its element
 // strides (batch, token, head): K1's packed [B, N, H*64] is the case (N H 64,
 // H 64, 64), K8's views pass their own, so both launch this one kernel.
+// The I8QK instantiation (K10, K10b) takes q and k as int8 [B, N, H*64],
+// quantised per row over all heads, with f32 row scales sq, sk [B, N]: its
+// scores are float(Q8 K8^T) * sq[row] * sk[key], the rest is the same.
 //
 // What bounds it on this card: at B 8, N 1370, H 12 one call is 46 GFLOP of
 // bf16 products against 67 MB of q, k, v and out, ~690 FLOP/byte: above the
@@ -58,6 +62,41 @@
 //   * The epilogue writes O / l as bf16 into the consumer's Q tile (in the
 //     same swizzle: no bank conflicts) and stores it with one TMA store,
 //     which drops rows past N.
+// The I8QK instantiation differs only where its operands do:
+//   * q8 and k8 are read by TMA through int8 maps of the same shape, box
+//     {64, 1, 64, 1}: a head row is 64 bytes, so the swizzle is 64-byte, and
+//     a Q8 or K8 tile is 4 KB in place of 8. V and out keep K1's maps.
+//   * S = Q8 K8^T is wgmma m64n64k32 s32.s8.s8, two k-steps for the head's
+//     64 values, Q8 from registers (the int8 A fragment of mma.sync m16n8k32
+//     within each warp's 16 rows), K8 from shared memory. Its int32 sums are
+//     at most 64 x 127^2 < 2^24, so their conversion to f32 is exact.
+//   * Dequantisation inside the softmax: the producer warp stages each key
+//     tile's 64 sk values beside K (as it stages K7's bias, K's full barrier
+//     counting its 32 lanes), each consumer thread holds sq * scale * log2 e
+//     of its two rows, and a score becomes exp2(fma(float(acc) * sk_j,
+//     sq_i', b_j - m)): a conversion and a multiply a score more than K1,
+//     whose softmax's issue is what bounds it, so this is where the int8
+//     program loses to K1 (the conversion as an integer add and an f32 add
+//     on 1.5 x 2^23, which spares the conversion unit, was slower: one
+//     instruction more a score). K10 masks its keys past N as K1 does.
+//   * K10b's tile maximum is max(scores) * sq_i' + the tile's largest staged
+//     bias (the producer reduces it over its warp): a bound of the biased
+//     maximum, so its max pass is K10's, with no bias read and no FFMA a
+//     score, and the bias is read once, in the exp2 pass. The softmax is the
+//     same for any bound that no exp2 exceeds; the bound exceeds the true
+//     maximum by at most the spread of the bias over the tile's keys, so the
+//     tile's largest P is at least 2^-spread (the token filter's log-count
+//     rows span < 31 in base 2; P underflows only past 126). With a zero row
+//     it is K10's maximum, so K10b gives K10's bits, as K7's zero row gives
+//     K1's. Taking the biased maximum as K7 does held 146 registers in this
+//     instantiation: two blocks an SM, or spills under launch bounds for
+//     three; both were slower at N 481 and 1370.
+//   * The epilogue stages O (8 KB of bf16) in the V stage of the last key
+//     tile, which the last P V has read and no load refills: the 4 KB Q8
+//     tile is too small, and a tile of its own would cost 8 KB a block.
+//   * 55 KB of shared memory and, under launch bounds for three blocks an SM
+//     (5 warps a block: 128 registers a thread), 128 registers, no spill:
+//     three blocks an SM, as K1.
 #include "flash_wgmma.cuh"
 #include "tile_common.cuh"
 
@@ -65,20 +104,25 @@ namespace caim {
 
 namespace {
 
-constexpr int ROW_BYTES = 128;  // one head row: 64 bf16
+constexpr int ROW_BYTES = 128;  // one head row of v and out: 64 bf16
 constexpr int QT = 64;          // query rows of a block: one consumer warpgroup
 constexpr int KT = 64;          // keys of a K or V tile
 constexpr int THREADS = 128 + 32;  // the consumer warpgroup and a producer warp
 constexpr int STAGES = 4;  // three blocks an SM still fit in shared memory
 
-template <bool BIAS>
+template <bool BIAS, bool I8QK>
 struct FlashTile {
-  static constexpr int Q_BYTES = QT * ROW_BYTES;
-  static constexpr int KV_BYTES = KT * ROW_BYTES;
+  static constexpr int QK_ROW = I8QK ? 64 : ROW_BYTES;  // one head row of q, k in bytes
+  static constexpr int Q_BYTES = QT * QK_ROW;
+  static constexpr int K_BYTES = KT * QK_ROW;
+  static constexpr int V_BYTES = KT * ROW_BYTES;
   static constexpr int K_OFF = Q_BYTES;  // every tile starts on a 1024-byte boundary
-  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int B_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = B_OFF + (BIAS ? STAGES * KT * 4 : 0);
+  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int B_OFF = V_OFF + STAGES * V_BYTES;  // BIAS: the staged bias rows
+  static constexpr int S_OFF = B_OFF + (BIAS ? STAGES * KT * 4 : 0);  // I8QK: staged sk
+  // I8QK with BIAS: each stage's largest bias
+  static constexpr int M_OFF = S_OFF + (I8QK ? STAGES * KT * 4 : 0);
+  static constexpr int BAR_OFF = M_OFF + (I8QK && BIAS ? STAGES * 4 : 0);
   static constexpr int NBARS = 1 + 3 * STAGES;  // Q; K full, V full, empty per stage
   static constexpr size_t SMEM = BAR_OFF + NBARS * 8 + 1024;  // + room to align to 1024
 };
@@ -96,6 +140,17 @@ __device__ __forceinline__ void issue_qk(float (&s)[KT / 2], const uint32_t (&qf
   wgmma_commit();
 }
 
+// The int8 S = Q8 K8^T: two k-steps of 32 head values (a k-step advances
+// the 64-byte-swizzled descriptor by 32 bytes)
+__device__ __forceinline__ void issue_qk(int (&s)[KT / 2], const uint32_t (&qf)[2][4],
+                                         uint64_t dk) {
+  fence_operands(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) wgmma_s8_64x64_rs(s, qf[kk], dk + 2 * kk, kk);
+  wgmma_commit();
+}
+
 // O += P V of one key tile: KT / 16 k-steps of 16 keys
 __device__ __forceinline__ void issue_pv(float (&o)[32], uint32_t (&p)[KT / 16][4],
                                          uint64_t dv) {
@@ -107,16 +162,37 @@ __device__ __forceinline__ void issue_pv(float (&o)[32], uint32_t (&p)[KT / 16][
   wgmma_commit();
 }
 
+// The int8 scores of one key tile as f32 times the staged sk of their keys
+// (columns 8j + 2c, + 1): float(acc) exact, one rounding for the product
+__device__ __forceinline__ void dequant_keys(const int (&acc)[KT / 2], float (&s)[KT / 2],
+                                             const float* ks, int c) {
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+    const float2 k2 = *reinterpret_cast<const float2*>(&ks[8 * j + 2 * c]);
+    s[4 * j] = (float)acc[4 * j] * k2.x;
+    s[4 * j + 1] = (float)acc[4 * j + 1] * k2.y;
+    s[4 * j + 2] = (float)acc[4 * j + 2] * k2.x;
+    s[4 * j + 3] = (float)acc[4 * j + 3] * k2.y;
+  }
+}
+
 // The online softmax of one key tile, in place. s: its scores (this thread's
 // rows g and g + 8, columns 8j + 2c, + 1), which become the un-normalised
-// probabilities P in f32; bs: BIAS, the staged bias row (bias * log2 e, -inf
-// past N). MASK: keys from kvalid on are past N (K1's last tile). Updates the
-// running maxima m (base 2, scaled) and sums l, and gives the factors a0, a1
-// by which O's rows must be rescaled.
-template <bool BIAS, bool MASK>
+// probabilities P in f32; sl0, sl1: the scale times log2 e of rows g and
+// g + 8 (the same for bf16 q, k; times each row's sq for I8QK); bs: BIAS,
+// the staged bias row (bias * log2 e, -inf past N). MASK: keys from kvalid
+// on are past N (K1's and K10's last tile, K10b's too). BMAX (K10b): the
+// tile's maximum is taken as max(s) * sl + bmax, bmax the largest staged
+// bias of the tile: a bound of the biased maximum (the softmax does not
+// depend on which bound it subtracts as long as no exp2 overflows) that
+// costs no bias read and no FFMA a score, and that with a zero row is
+// K10's maximum. Updates the running maxima m (base 2, scaled) and sums l,
+// and gives the factors a0, a1 by which O's rows must be rescaled.
+template <bool BIAS, bool MASK, bool BMAX>
 __device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], const float* bs, int kvalid,
-                                             float sl2, int c, float& m0, float& m1, float& l0,
-                                             float& l1, float& a0, float& a1) {
+                                             float sl0, float sl1, float bmax, int c, float& m0,
+                                             float& m1, float& l0, float& l1, float& a0,
+                                             float& a1) {
   if constexpr (MASK) {
 #pragma unroll
     for (int i = 0; i < KT / 2; ++i) {
@@ -126,10 +202,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], const float* bs
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
   for (int j = 0; j < KT / 8; ++j) {
-    if constexpr (BIAS) {
+    if constexpr (BIAS && !BMAX) {
       const float2 kb = *reinterpret_cast<const float2*>(&bs[8 * j + 2 * c]);
-      mx0 = fmaxf(mx0, fmaxf(fmaf(s[4 * j], sl2, kb.x), fmaf(s[4 * j + 1], sl2, kb.y)));
-      mx1 = fmaxf(mx1, fmaxf(fmaf(s[4 * j + 2], sl2, kb.x), fmaf(s[4 * j + 3], sl2, kb.y)));
+      mx0 = fmaxf(mx0, fmaxf(fmaf(s[4 * j], sl0, kb.x), fmaf(s[4 * j + 1], sl0, kb.y)));
+      mx1 = fmaxf(mx1, fmaxf(fmaf(s[4 * j + 2], sl1, kb.x), fmaf(s[4 * j + 3], sl1, kb.y)));
     } else {
       mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
@@ -140,9 +216,12 @@ __device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], const float* bs
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
   }
-  if constexpr (!BIAS) {  // scale > 0: the maximum of the scaled scores
-    mx0 *= sl2;
-    mx1 *= sl2;
+  if constexpr (!BIAS) {  // scale >= 0: the maximum of the scaled scores
+    mx0 *= sl0;
+    mx1 *= sl1;
+  } else if constexpr (BMAX) {
+    mx0 = fmaf(mx0, sl0, bmax);
+    mx1 = fmaf(mx1, sl1, bmax);
   }
   const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite: a key is valid
   a0 = exp2_ftz(m0 - mn0);  // 0 on the first tile
@@ -160,10 +239,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], const float* bs
       b2 = kb.x - mn1;
       b3 = kb.y - mn1;
     }
-    s[4 * j] = exp2_ftz(fmaf(s[4 * j], sl2, b0));
-    s[4 * j + 1] = exp2_ftz(fmaf(s[4 * j + 1], sl2, b1));
-    s[4 * j + 2] = exp2_ftz(fmaf(s[4 * j + 2], sl2, b2));
-    s[4 * j + 3] = exp2_ftz(fmaf(s[4 * j + 3], sl2, b3));
+    s[4 * j] = exp2_ftz(fmaf(s[4 * j], sl0, b0));
+    s[4 * j + 1] = exp2_ftz(fmaf(s[4 * j + 1], sl0, b1));
+    s[4 * j + 2] = exp2_ftz(fmaf(s[4 * j + 2], sl1, b2));
+    s[4 * j + 3] = exp2_ftz(fmaf(s[4 * j + 3], sl1, b3));
     r0 += s[4 * j] + s[4 * j + 1];  // the f32 sum normalises
     r1 += s[4 * j + 2] + s[4 * j + 3];
   }
@@ -171,16 +250,19 @@ __device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], const float* bs
   l1 = l1 * a1 + r1;
 }
 
-// K1's last tile masks its keys past N; every other tile and K7 (whose
-// staged bias is -inf there) need no mask
-template <bool BIAS>
+// The last tile of K1, K10 and K10b masks its keys past N; every other tile
+// and K7 (whose staged bias is -inf there) need no mask. K10b's maximum
+// reads the scores without the bias, so they are masked too.
+template <bool BIAS, bool I8QK>
 __device__ __forceinline__ void softmax_any(float (&s)[KT / 2], const float* bs, int kvalid,
-                                            float sl2, int c, float& m0, float& m1, float& l0,
-                                            float& l1, float& a0, float& a1) {
-  if (!BIAS && kvalid < KT)
-    softmax_tile<BIAS, true>(s, bs, kvalid, sl2, c, m0, m1, l0, l1, a0, a1);
+                                            float sl0, float sl1, float bmax, int c, float& m0,
+                                            float& m1, float& l0, float& l1, float& a0,
+                                            float& a1) {
+  constexpr bool BMAX = BIAS && I8QK;
+  if ((!BIAS || BMAX) && kvalid < KT)
+    softmax_tile<BIAS, true, BMAX>(s, bs, kvalid, sl0, sl1, bmax, c, m0, m1, l0, l1, a0, a1);
   else
-    softmax_tile<BIAS, false>(s, bs, kvalid, sl2, c, m0, m1, l0, l1, a0, a1);
+    softmax_tile<BIAS, false, BMAX>(s, bs, kvalid, sl0, sl1, bmax, c, m0, m1, l0, l1, a0, a1);
 }
 
 // P as bf16 A fragments of the P V product: the accumulator's 8-column tiles
@@ -196,13 +278,16 @@ __device__ __forceinline__ void pack_p(const float (&s)[KT / 2], uint32_t (&p)[K
 }
 
 // The block of (query tile blockIdx.x, head blockIdx.y, batch blockIdx.z).
-// Warpgroup 0 consumes, warp 4 produces.
-template <bool BIAS>
-__global__ void __launch_bounds__(THREADS, 2)
+// Warpgroup 0 consumes, warp 4 produces. q_scale, k_scale: I8QK's row scales
+// sq, sk [B, N] (null otherwise).
+template <bool BIAS, bool I8QK>
+__global__ void __launch_bounds__(THREADS, I8QK ? 3 : 2)  // I8QK: 128 registers, 3 an SM
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
-                   const float* __restrict__ bias, int N, float sl2) {
-  using T = FlashTile<BIAS>;
+                   const float* __restrict__ bias, const float* __restrict__ q_scale,
+                   const float* __restrict__ k_scale, int N, float sl2) {
+  using T = FlashTile<BIAS, I8QK>;
+  constexpr bool STAGED = BIAS || I8QK;  // the producer warp stages rows beside K
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle is a function of the address: start on a 1024-byte boundary
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -212,6 +297,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   uint64_t* v_full = bars + 1 + STAGES;
   uint64_t* empty = bars + 1 + 2 * STAGES;
   float* bias_stage = reinterpret_cast<float*>(smem + T::B_OFF);
+  float* sk_stage = reinterpret_cast<float*>(smem + T::S_OFF);
+  float* bmax_stage = reinterpret_cast<float*>(smem + T::M_OFF);
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const int ntiles = (N + KT - 1) / KT;
   const int tid = threadIdx.x % 128;
@@ -219,7 +306,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&k_full[s], BIAS ? 33 : 1);  // BIAS: + the producer warp's 32 lanes
+      mbar_init(&k_full[s], STAGED ? 33 : 1);  // STAGED: + the producer warp's 32 lanes
       mbar_init(&v_full[s], 1);
       mbar_init(&empty[s], 128);
     }
@@ -228,7 +315,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   __syncthreads();
 
   if (threadIdx.x >= 128) {  // ---- producer: one warp
-    if (!BIAS && tid != 0) return;
+    if (!STAGED && tid != 0) return;
     if (tid == 0) {
       mbar_arrive_expect_tx(q_full, T::Q_BYTES);
       tma_load_4d(smem, &tq, q_full, 0, h, q0, b);
@@ -236,19 +323,30 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     for (int t = 0; t < ntiles; ++t) {
       const int s = t % STAGES;
       mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);  // released by the consumers
-      if constexpr (BIAS) {
+      if constexpr (STAGED) {
+        [[maybe_unused]] float bm = -INFINITY;  // K10b: the stage's largest bias
         for (int i = tid; i < KT; i += 32) {
           const int key = t * KT + i;
-          bias_stage[s * KT + i] =
-              key < N ? (bias != nullptr ? bias[(size_t)b * N + key] * LOG2E : 0.0f) : -INFINITY;
+          if constexpr (BIAS) {
+            const float kb =
+                key < N ? (bias != nullptr ? bias[(size_t)b * N + key] * LOG2E : 0.0f)
+                        : -INFINITY;
+            bias_stage[s * KT + i] = kb;
+            if constexpr (I8QK) bm = fmaxf(bm, kb);
+          }
+          if constexpr (I8QK) sk_stage[s * KT + i] = key < N ? k_scale[(size_t)b * N + key] : 0.0f;
+        }
+        if constexpr (I8QK && BIAS) {
+          bm = warp_max(bm);
+          if (tid == 0) bmax_stage[s] = bm;
         }
         mbar_arrive(&k_full[s]);
       }
       if (tid == 0) {
-        mbar_arrive_expect_tx(&k_full[s], T::KV_BYTES);
-        tma_load_4d(smem + T::K_OFF + s * T::KV_BYTES, &tk, &k_full[s], 0, h, t * KT, b);
-        mbar_arrive_expect_tx(&v_full[s], T::KV_BYTES);
-        tma_load_4d(smem + T::V_OFF + s * T::KV_BYTES, &tv, &v_full[s], 0, h, t * KT, b);
+        mbar_arrive_expect_tx(&k_full[s], T::K_BYTES);
+        tma_load_4d(smem + T::K_OFF + s * T::K_BYTES, &tk, &k_full[s], 0, h, t * KT, b);
+        mbar_arrive_expect_tx(&v_full[s], T::V_BYTES);
+        tma_load_4d(smem + T::V_OFF + s * T::V_BYTES, &tv, &v_full[s], 0, h, t * KT, b);
       }
     }
   } else {  // ---- consumer: the 64 query rows
@@ -258,29 +356,65 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     const unsigned char* vs = smem + T::V_OFF;
     const int r0 = 16 * warp + g;  // this thread's rows r0, r0 + 8; both g modulo 8
 
-    // s: a tile's scores, then its P in f32; p: P as bf16 A fragments;
-    // o: the f32 accumulator
+    // s: a tile's scores, then its P in f32; si: I8QK, its int32 scores;
+    // p: P as bf16 A fragments; o: the f32 accumulator
     float s[KT / 2], o[32];
+    [[maybe_unused]] int si[KT / 2];
     uint32_t p[KT / 16][4];
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.0f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f, a0, a1;
+    float sl0 = sl2, sl1 = sl2;  // rows r0, r0 + 8
+    if constexpr (I8QK) {  // rows past N keep sl2: their outputs are not stored
+      const int row0 = q0 + r0, row1 = row0 + 8;
+      if (row0 < N) sl0 = q_scale[(size_t)b * N + row0] * sl2;
+      if (row1 < N) sl1 = q_scale[(size_t)b * N + row1] * sl2;
+    }
 
     mbar_wait(q_full, 0);
-    uint32_t qf[4][4];  // Q's A fragments, k-step kk = head values 16kk .. 16kk + 15
+    // Q's A fragments. bf16: k-step kk = head values 16kk .. 16kk + 15, the
+    // 16-byte chunk ch of row r at chunk ch ^ (r & 7) (128-byte swizzle).
+    // int8: k-step kk = bytes 32kk .. 32kk + 31, chunk ch of row r at chunk
+    // ch ^ ((r >> 1) & 3) (64-byte swizzle), for rows r0, r0 + 8 (g >> 1) & 3.
+    uint32_t qf[I8QK ? 2 : 4][4];
+    if constexpr (I8QK) {
+      const int sw = (g >> 1) & 3;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int lo = (((2 * kk) ^ g) << 4) + 4 * c, hi = (((2 * kk + 1) ^ g) << 4) + 4 * c;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(qs + r0 * ROW_BYTES + lo);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * ROW_BYTES + lo);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(qs + r0 * ROW_BYTES + hi);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * ROW_BYTES + hi);
+      for (int kk = 0; kk < 2; ++kk) {
+        const int lo = (((2 * kk) ^ sw) << 4) + 4 * c, hi = (((2 * kk + 1) ^ sw) << 4) + 4 * c;
+        qf[kk][0] = *reinterpret_cast<const uint32_t*>(qs + r0 * T::QK_ROW + lo);
+        qf[kk][1] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * T::QK_ROW + lo);
+        qf[kk][2] = *reinterpret_cast<const uint32_t*>(qs + r0 * T::QK_ROW + hi);
+        qf[kk][3] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * T::QK_ROW + hi);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int lo = (((2 * kk) ^ g) << 4) + 4 * c, hi = (((2 * kk + 1) ^ g) << 4) + 4 * c;
+        qf[kk][0] = *reinterpret_cast<const uint32_t*>(qs + r0 * ROW_BYTES + lo);
+        qf[kk][1] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * ROW_BYTES + lo);
+        qf[kk][2] = *reinterpret_cast<const uint32_t*>(qs + r0 * ROW_BYTES + hi);
+        qf[kk][3] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * ROW_BYTES + hi);
+      }
     }
+    // the K tile of stage st as a wgmma operand
+    auto k_desc = [&](int st) {
+      if constexpr (I8QK) return wgmma_desc_sw64(ks + st * T::K_BYTES);
+      else return wgmma_desc_sw128(ks + st * T::K_BYTES);
+    };
     mbar_wait(&k_full[0], 0);
-    issue_qk(s, qf, wgmma_desc_sw128(ks));
-    wgmma_wait<0>();
-    fence_operands(s);
-    softmax_any<BIAS>(s, bias_stage, min(KT, N), sl2, c, m0, m1, l0, l1, a0, a1);
+    if constexpr (I8QK) {
+      issue_qk(si, qf, k_desc(0));
+      wgmma_wait<0>();
+      fence_operands(si);
+      dequant_keys(si, s, sk_stage, c);
+    } else {
+      issue_qk(s, qf, k_desc(0));
+      wgmma_wait<0>();
+      fence_operands(s);
+    }
+    softmax_any<BIAS, I8QK>(s, bias_stage, min(KT, N), sl0, sl1,
+                            I8QK && BIAS ? bmax_stage[0] : 0.0f, c, m0, m1, l0, l1, a0, a1);
     pack_p(s, p);
 
     for (int t = 0; t < ntiles; ++t) {
@@ -288,17 +422,26 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       const int t1 = t + 1, s1 = t1 % STAGES;
       if (t1 < ntiles) mbar_wait(&k_full[s1], (t1 / STAGES) & 1);
       mbar_wait(&v_full[st], (t / STAGES) & 1);
-      if (t1 < ntiles)  // the next tile's scores beside P V of this one
-        issue_qk(s, qf, wgmma_desc_sw128(ks + s1 * T::KV_BYTES));
-      issue_pv(o, p, wgmma_desc_sw128(vs + st * T::KV_BYTES));
+      if (t1 < ntiles) {  // the next tile's scores beside P V of this one
+        if constexpr (I8QK)
+          issue_qk(si, qf, k_desc(s1));
+        else
+          issue_qk(s, qf, k_desc(s1));
+      }
+      issue_pv(o, p, wgmma_desc_sw128(vs + st * T::V_BYTES));
       wgmma_wait<0>();
-      fence_operands(s);
+      if constexpr (I8QK)
+        fence_operands(si);
+      else
+        fence_operands(s);
       fence_operands(o);
       fence_operands(p);
       mbar_arrive(&empty[st]);  // this stage's K and V are read
       if (t1 < ntiles) {
-        softmax_any<BIAS>(s, bias_stage + s1 * KT, min(KT, N - t1 * KT), sl2, c, m0, m1, l0, l1,
-                          a0, a1);
+        if constexpr (I8QK) dequant_keys(si, s, sk_stage + s1 * KT, c);
+        softmax_any<BIAS, I8QK>(s, bias_stage + s1 * KT, min(KT, N - t1 * KT), sl0, sl1,
+                                I8QK && BIAS ? bmax_stage[s1] : 0.0f, c, m0, m1, l0, l1, a0,
+                                a1);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           o[4 * j] *= a0;
@@ -310,8 +453,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       }
     }
 
-    // O / l as bf16 into the Q tile (swizzled as the store's tensor map
-    // expects), then one TMA store of its 64 rows
+    // O / l as bf16 into a 128-byte-swizzled staging tile (as the store's
+    // tensor map expects): the Q tile, or I8QK the last tile's V stage, which
+    // the last P V has read and no load refills; then one TMA store of its
+    // 64 rows
+    unsigned char* os = I8QK ? smem + T::V_OFF + ((ntiles - 1) % STAGES) * T::V_BYTES : qs;
 #pragma unroll
     for (int o_ = 1; o_ <= 2; o_ <<= 1) {
       l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
@@ -320,15 +466,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = ((j ^ g) << 4) + 4 * c;
-      *reinterpret_cast<uint32_t*>(qs + r0 * ROW_BYTES + col) =
+      *reinterpret_cast<uint32_t*>(os + r0 * ROW_BYTES + col) =
           pack_bf16(o[4 * j] / l0, o[4 * j + 1] / l0);
-      *reinterpret_cast<uint32_t*>(qs + (r0 + 8) * ROW_BYTES + col) =
+      *reinterpret_cast<uint32_t*>(os + (r0 + 8) * ROW_BYTES + col) =
           pack_bf16(o[4 * j + 2] / l1, o[4 * j + 3] / l1);
     }
     fence_proxy_async();
     named_barrier_sync(1, 128);  // the consumer warpgroup only
     if (tid == 0) {
-      tma_store_4d(&to, qs, 0, h, q0, b);
+      tma_store_4d(&to, os, 0, h, q0, b);
       tma_store_wait();
     }
   }
@@ -342,22 +488,37 @@ bool head_map(CUtensorMap* map, const void* base, HeadStrides s, int B, int N, i
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box);
 }
 
-template <bool BIAS>
-cudaError_t launch(const void* q, HeadStrides sq, const void* k, HeadStrides sk, const void* v,
-                   HeadStrides sv, const float* bias, void* out, int B, int N, int H,
-                   float scale, cudaStream_t stream) {
-  using T = FlashTile<BIAS>;
+// the map of a contiguous int8 [B, N, H*64] operand as [B, N, H, 64], boxes
+// of 64 tokens of one head, 64-byte swizzle (one head row)
+bool head_map_i8(CUtensorMap* map, const void* base, int B, int N, int H) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {64, (cuuint64_t)H * 64, (cuuint64_t)N * H * 64};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, base, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+template <bool BIAS, bool I8QK>
+cudaError_t smem_once() {
   static std::atomic<unsigned long long> smem_set{0};  // the allowance, once per process
-  cudaError_t err = smem_allowance_once(smem_set, (const void*)flash_wgmma_kernel<BIAS>, T::SMEM);
+  return smem_allowance_once(smem_set, (const void*)flash_wgmma_kernel<BIAS, I8QK>,
+                             FlashTile<BIAS, I8QK>::SMEM);
+}
+
+// tq, tk: the q and k maps (bf16, or I8QK int8); v and out bf16
+template <bool BIAS, bool I8QK>
+cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const void* v, HeadStrides sv,
+                   const float* bias, const float* q_scale, const float* k_scale, void* out,
+                   int B, int N, int H, float scale, cudaStream_t stream) {
+  cudaError_t err = smem_once<BIAS, I8QK>();
   if (err != cudaSuccess) return err;
   const HeadStrides so{(long long)N * H * 64, (long long)H * 64, 64};
-  CUtensorMap tq, tk, tv, to;
-  if (!head_map(&tq, q, sq, B, N, H, QT) || !head_map(&tk, k, sk, B, N, H, KT) ||
-      !head_map(&tv, v, sv, B, N, H, KT) || !head_map(&to, out, so, B, N, H, QT))
+  CUtensorMap tv, to;
+  if (!head_map(&tv, v, sv, B, N, H, KT) || !head_map(&to, out, so, B, N, H, QT))
     return cudaErrorInvalidValue;
   const dim3 grid((N + QT - 1) / QT, H, B);
-  flash_wgmma_kernel<BIAS><<<grid, THREADS, T::SMEM, stream>>>(tq, tk, tv, to, bias, N,
-                                                             scale * LOG2E);
+  flash_wgmma_kernel<BIAS, I8QK><<<grid, THREADS, FlashTile<BIAS, I8QK>::SMEM, stream>>>(
+      tq, tk, tv, to, bias, q_scale, k_scale, N, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -365,19 +526,58 @@ bool strides_ok(const HeadStrides& s) {
   return s.b >= 0 && s.n >= 0 && s.h >= 0 && s.b % 8 == 0 && s.n % 8 == 0 && s.h % 8 == 0;
 }
 
+bool shape_ok(int B, int N, int H) {
+  return B > 0 && N > 0 && H > 0 && B <= 65535 && H <= 65535;
+}
+
+template <bool I8QK>
+cudaError_t blocks_per_sm(bool biased, int* n) {
+  cudaError_t err = biased ? smem_once<true, I8QK>() : smem_once<false, I8QK>();
+  if (err != cudaSuccess) return err;
+  return biased ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      n, flash_wgmma_kernel<true, I8QK>, THREADS, FlashTile<true, I8QK>::SMEM)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      n, flash_wgmma_kernel<false, I8QK>, THREADS, FlashTile<false, I8QK>::SMEM);
+}
+
 }  // namespace
 
 cudaError_t launch_flash_bf16(const void* q, HeadStrides sq, const void* k, HeadStrides sk,
                               const void* v, HeadStrides sv, const float* bias, void* out,
                               int B, int N, int H, float scale, cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || H <= 0 || B > 65535 || H > 65535 || !strides_ok(sq) ||
-      !strides_ok(sk) || !strides_ok(sv))
+  if (!shape_ok(B, N, H) || !strides_ok(sq) || !strides_ok(sk) || !strides_ok(sv))
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk;
+  if (!head_map(&tq, q, sq, B, N, H, QT) || !head_map(&tk, k, sk, B, N, H, KT))
     return cudaErrorInvalidValue;
   // K1 without a bias takes the BIAS program (a zero row) where the scale is
   // not positive: the unbiased program finds the row maximum before scaling
   const bool biased = bias != nullptr || !(scale > 0.0f);
-  return biased ? launch<true>(q, sq, k, sk, v, sv, bias, out, B, N, H, scale, stream)
-                : launch<false>(q, sq, k, sk, v, sv, bias, out, B, N, H, scale, stream);
+  return biased ? launch<true, false>(tq, tk, v, sv, bias, nullptr, nullptr, out, B, N, H,
+                                      scale, stream)
+                : launch<false, false>(tq, tk, v, sv, bias, nullptr, nullptr, out, B, N, H,
+                                       scale, stream);
+}
+
+cudaError_t launch_flash_i8qk(const void* q8, const float* q_scale, const void* k8,
+                              const float* k_scale, const void* v, const float* bias,
+                              void* out, int B, int N, int H, float scale,
+                              cudaStream_t stream) {
+  if (!shape_ok(B, N, H)) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk;
+  if (!head_map_i8(&tq, q8, B, N, H) || !head_map_i8(&tk, k8, B, N, H))
+    return cudaErrorInvalidValue;
+  const HeadStrides sv{(long long)N * H * 64, (long long)H * 64, 64};
+  // as K1: a scale that is not positive takes the BIAS program (sq > 0)
+  const bool biased = bias != nullptr || !(scale > 0.0f);
+  return biased ? launch<true, true>(tq, tk, v, sv, bias, q_scale, k_scale, out, B, N, H,
+                                     scale, stream)
+                : launch<false, true>(tq, tk, v, sv, bias, q_scale, k_scale, out, B, N, H,
+                                      scale, stream);
+}
+
+cudaError_t flash_blocks_per_sm(bool biased, bool i8qk, int* n) {
+  return i8qk ? blocks_per_sm<true>(biased, n) : blocks_per_sm<false>(biased, n);
 }
 
 }  // namespace caim

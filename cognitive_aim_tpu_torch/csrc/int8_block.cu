@@ -31,6 +31,8 @@
 //             quant_rows_wide_kernel: the same arithmetic without the
 //             layernorm, the row read twice (maximum, then quantise; the
 //             second read is served by L1/L2) instead of held in registers.
+//             quant_rows_pair_kernel quantises one or two tensors' rows
+//             without layernorm in one launch: K10's q and k, for no GEMM.
 //   epilogue  kQKV:       acc * s_x * s_w + b -> bf16, split at columns D and
 //                         2D into three contiguous [M, D] tensors;
 //             kResidual:  res + ls * (acc * s_x * s_w + b) -> bf16;
@@ -107,15 +109,13 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
 
+// Row `row` of x [M, K], K <= MAX_QUANT_K, quantised by one warp (lane
+// `lane`) into the same row of xq and sx[row]
 template <bool LN, typename T>
-__global__ void __launch_bounds__(QUANT_THREADS)
-quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, float eps, int8_t* __restrict__ xq,
-                  float* __restrict__ sx, int M, int K) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * (QUANT_THREADS / 32) + threadIdx.x / 32;
-  launch_dependents();  // the GEMM that reads xq, sx may be scheduled now
-  if (row >= M) return;
+__device__ __forceinline__ void quant_row(const T* __restrict__ x, const float* __restrict__ gamma,
+                                          const float* __restrict__ beta, float eps,
+                                          int8_t* __restrict__ xq, float* __restrict__ sx,
+                                          int row, int K, int lane) {
   constexpr int CH = MAX_QUANT_K / 256;  // 8-element chunks a lane may hold
   const T* xr = x + (size_t)row * K;
   float v[CH][8];
@@ -181,6 +181,30 @@ quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     }
   }
   if (lane == 0) sx[row] = s;
+}
+
+template <bool LN, typename T>
+__global__ void __launch_bounds__(QUANT_THREADS)
+quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, float eps, int8_t* __restrict__ xq,
+                  float* __restrict__ sx, int M, int K) {
+  const int row = blockIdx.x * (QUANT_THREADS / 32) + threadIdx.x / 32;
+  launch_dependents();  // the GEMM that reads xq, sx may be scheduled now
+  if (row >= M) return;
+  quant_row<LN, T>(x, gamma, beta, eps, xq, sx, row, K, threadIdx.x % 32);
+}
+
+// gridDim.y bf16 tensors (one or two) of M rows each, without layernorm, in
+// one launch (blockIdx.y picks the tensor): the int8-QK^T attention's q and k
+__global__ void __launch_bounds__(QUANT_THREADS)
+quant_rows_pair_kernel(const bf16* __restrict__ x0, const bf16* __restrict__ x1,
+                       int8_t* __restrict__ xq0, int8_t* __restrict__ xq1,
+                       float* __restrict__ sx0, float* __restrict__ sx1, int M, int K) {
+  const int row = blockIdx.x * (QUANT_THREADS / 32) + threadIdx.x / 32;
+  if (row >= M) return;
+  const bool second = blockIdx.y != 0;
+  quant_row<false, bf16>(second ? x1 : x0, nullptr, nullptr, 0.0f, second ? xq1 : xq0,
+                         second ? sx1 : sx0, row, K, threadIdx.x % 32);
 }
 
 // Rows of any width K (a multiple of 8), no layernorm: the row is read
@@ -805,6 +829,17 @@ cudaError_t launch_quant_rows(const void* x, const void* gamma, const void* beta
   return cudaGetLastError();
 }
 
+// x1 null: x0 alone
+cudaError_t launch_quant_rows_pair(const void* x0, const void* x1, void* xq0, void* xq1,
+                                   void* sx0, void* sx1, int M, int K, cudaStream_t stream) {
+  const int rows = QUANT_THREADS / 32;
+  const dim3 grid((M + rows - 1) / rows, x1 != nullptr ? 2 : 1);
+  quant_rows_pair_kernel<<<grid, QUANT_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(x0), static_cast<const bf16*>(x1), static_cast<int8_t*>(xq0),
+      static_cast<int8_t*>(xq1), static_cast<float*>(sx0), static_cast<float*>(sx1), M, K);
+  return cudaGetLastError();
+}
+
 // The layernorm prologue on f32 rows [M, K], K <= MAX_QUANT_K (K12's second).
 cudaError_t launch_quant_rows_ln_f32(const float* x, const void* gamma, const void* beta,
                                      float eps, void* xq, void* sx, int M, int K,
@@ -960,15 +995,16 @@ using caim::GemmArgs;
 // quantised activations. Each launches on `stream`, does not synchronize,
 // and returns the first CUDA error of its launches (0: none).
 
-// The quantising prologue alone, without layernorm: x bf16 [M, K] -> xq int8
-// [M, K], sx f32 [M] (s = max(max|x| / 127, 1e-12), q = clip(rint(x / s))).
-// The int8-QK^T attention quantises q and k with it. K a multiple of 8.
-extern "C" int caim_quantize_rows(const void* x, void* xq, void* sx, int M, int K,
-                                  void* stream) {
+// The quantising prologue alone, without layernorm, on one or two tensors in
+// one launch (the int8-QK^T attention's q and k): x bf16 [M, K] -> xq int8
+// [M, K], sx f32 [M] (s = max(max|x| / 127, 1e-12), q = clip(rint(x / s))),
+// and likewise y -> yq, sy unless y is null. K a multiple of 8.
+extern "C" int caim_quantize_rows(const void* x, const void* y, void* xq, void* yq, void* sx,
+                                  void* sy, int M, int K, void* stream) {
   if (M <= 0 || K <= 0 || K % 8 != 0 || K > caim::MAX_QUANT_K)
     return (int)cudaErrorInvalidValue;
-  return (int)caim::launch_quant_rows(x, nullptr, nullptr, 0.0f, xq, sx, M, K,
-                                      static_cast<cudaStream_t>(stream));
+  return (int)caim::launch_quant_rows_pair(x, y, xq, yq, sx, sy, M, K,
+                                           static_cast<cudaStream_t>(stream));
 }
 
 // The columns of the int8 GEMM's output tile for M rows and N output columns

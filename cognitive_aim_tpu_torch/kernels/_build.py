@@ -100,8 +100,11 @@ def _declare(lib):
     # head_dim, scale, stream
     lib.caim_flash_attention_out_res.argtypes = [p] * 11 + [i, i, i, i, f, p]
     lib.caim_flash_attention_out_res.restype = i
-    # x, xq, sx, M, K, stream
-    lib.caim_quantize_rows.argtypes = [p, p, p, i, i, p]
+    # bias, i8qk -> the attention program's blocks resident on an SM
+    lib.caim_flash_blocks_per_sm.argtypes = [i, i]
+    lib.caim_flash_blocks_per_sm.restype = i
+    # x, y (or null), xq, yq, sx, sy, M, K, stream
+    lib.caim_quantize_rows.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.caim_quantize_rows.restype = i
     lib.caim_focal_attention.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
     lib.caim_focal_attention.restype = i

@@ -21,11 +21,12 @@ all on the packed [B, N, H*64] layout of the projections, and
 
 whose kernel takes each operand's batch, token and head strides, so it reads
 separately projected tensors and the column slices of one fused projection
-alike, without a copy. The kernels are CUDA C++ in
-``csrc/flash_attention_packed.cu`` (K1, K7), ``csrc/flash_attention.cu`` (K8)
-``csrc/flash_attention_i8qk.cu`` (K10, K10b),
-``csrc/flash_attention_int8dots.cu`` (K9) and
-``csrc/flash_attention_out_res.cu`` (K11). Beside each wrapper stands its
+alike, without a copy. The kernels are CUDA C++: K1, K7, K8, K10 and K10b
+launch one attention program, ``csrc/flash_wgmma.cu`` (K10 and K10b its int8
+instantiation), from the C entries of ``csrc/flash_attention_packed.cu`` (K1,
+K7), ``csrc/flash_attention.cu`` (K8) and ``csrc/flash_attention_i8qk.cu``
+(K10, K10b); K9 is ``csrc/flash_attention_int8dots.cu`` and K11
+``csrc/flash_attention_out_res.cu``. Beside each wrapper stands its
 plain PyTorch version, which mirrors the JAX package's ``_packed_reference``
 and ``_packed_reference_bias`` for K1 and K7, ``attention_reference`` for K8,
 and repeats the kernel body's arithmetic for K10 and K10b (an exact integer
@@ -35,9 +36,10 @@ package calls K9 or K11.
 
 ``quantize_rows`` is the joint-row symmetric quantisation that K10 and K10b
 read. The JAX package runs it outside its Pallas kernel; here CUDA rows go
-through the int8 block's quantising prologue (``quant_rows_kernel<false>``
-of ``csrc/int8_block.cu``, one launch a tensor: contiguous bfloat16 rows up
-to 1024 wide), CPU rows through plain PyTorch with the same f32 arithmetic.
+through the int8 block's quantising prologue (``quant_rows_pair_kernel`` of
+``csrc/int8_block.cu``, the arithmetic of ``quant_rows_kernel<false>`` on one
+tensor or on q and k together in one launch; contiguous bfloat16 rows up to
+1024 wide), CPU rows through plain PyTorch with the same f32 arithmetic.
 
 Dispatch is on the tensor's device: CPU tensors take the plain version,
 CUDA tensors launch the kernel or raise. Each wrapper's ``.launches`` counts
@@ -114,7 +116,7 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs, vt).transpose(1, 2)
 
 
-def quantize_rows_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     xf = x.float()
     # a tensor divisor on x's device: by a Python scalar PyTorch's CUDA
     # division multiplies by the rounded 1/127, which is not a true division
@@ -122,9 +124,16 @@ def quantize_rows_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
 
 
+def quantize_rows_plain(x: torch.Tensor, y: Optional[torch.Tensor] = None):
+    """``quantize_rows``'s plain version: (x8, sx), or with ``y`` (x8, sx,
+    y8, sy), each tensor quantised on its own rows."""
+    if y is None:
+        return _quantize_plain(x)
+    return (*_quantize_plain(x), *_quantize_plain(y))
+
+
 def _i8qk_plain(q, k, v, k_bias, scale, num_heads):
-    q8, sq = quantize_rows_plain(q)
-    k8, sk = quantize_rows_plain(k)
+    q8, sq, k8, sk = quantize_rows_plain(q, k)
     sq = sq * scale  # the softmax scale folded into the row scales
     # 64 products of at most 127^2 sum below 2^24: the f32 product is exact
     s32 = torch.matmul(_heads(q8.float(), num_heads),
@@ -225,15 +234,22 @@ def _launch_i8qk(name, q, k, v, k_bias, scale, num_heads):
         raise TypeError(f"{name}: the CUDA kernel takes bfloat16 q, k, v, got {v.dtype}")
     check_cuda_inputs(name, (q, k, v), (B, N, HD))
     bias = _check_bias(name, q, k_bias) if k_bias is not None else None
-    q8, sq = quantize_rows(q)  # scales [B, N, 1]: the rows as the kernel reads them
-    k8, sk = quantize_rows(k)
+    q8, sq, k8, sk = quantize_rows(q, k)  # one launch; scales [B, N, 1]
+    return _launch_i8qk_kernel(q8, sq, k8, sk, v, bias, scale, num_heads)
+
+
+def _launch_i8qk_kernel(q8, sq, k8, sk, v, bias, scale, num_heads):
+    """The attention kernel of K10 / K10b alone on quantised q8, k8 (int8
+    [B, N, H*64]) with their f32 row scales [B, N, 1], v bf16, bias None or
+    contiguous f32 [B, N]: the wrappers' launch after ``quantize_rows``."""
+    B, N, _ = q8.shape
     lib = _build.library()
     out = torch.empty_like(v)
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q8.device):
         err = lib.caim_flash_attention_i8qk(
             ptr(q8), ptr(sq), ptr(k8), ptr(sk), ptr(v),
             ptr(bias) if bias is not None else None, ptr(out), B, N, num_heads,
-            HEAD_DIM, float(scale), stream_of(q))  # the kernel folds scale into sq
+            HEAD_DIM, float(scale), stream_of(q8))  # the kernel folds scale into sq
     _build.check(err)
     return out
 
@@ -390,29 +406,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, y: Optional[torch.Tensor] = None):
     """[B, N, HD] -> (int8 [B, N, HD], f32 scales [B, N, 1]): symmetric per
     row, joint across heads; ``s = max(max|x| / 127, 1e-12)``, a true
-    division, round-half-even, clip to +-127, all in f32. CPU -> plain
-    version; CUDA -> the kernel (bfloat16, width a multiple of 8 up to 1024)."""
+    division, round-half-even, clip to +-127, all in f32. With ``y`` (the
+    shape of x) -> (x8, sx, y8, sy), both quantised in one launch, as K10
+    does q and k. CPU -> plain version; CUDA -> the kernel (bfloat16, width a
+    multiple of 8 up to 1024)."""
     require_device("quantize_rows", x)
     if x.device.type == "cpu":
-        return quantize_rows_plain(x)
+        return quantize_rows_plain(x, y)
     B, N, HD = x.shape
     if x.dtype != torch.bfloat16:
         raise TypeError(f"quantize_rows: the CUDA kernel takes bfloat16, got {x.dtype}")
     if HD % 8 or HD > MAX_QUANT_WIDTH:
         raise ValueError(f"quantize_rows: width {HD} is not a multiple of 8 up to "
                          f"{MAX_QUANT_WIDTH}")
-    check_cuda_inputs("quantize_rows", (x,), (B, N, HD))
-    xq = torch.empty(B, N, HD, dtype=torch.int8, device=x.device)
-    sx = torch.empty(B, N, 1, dtype=torch.float32, device=x.device)
+    check_cuda_inputs("quantize_rows", (x,) if y is None else (x, y), (B, N, HD))
+    # separate tensors: a view of a stacked one costs the host more than an
+    # allocation
+    out = [torch.empty(B, N, HD, dtype=torch.int8, device=x.device),
+           torch.empty(B, N, 1, dtype=torch.float32, device=x.device)]
+    if y is not None:
+        out += [torch.empty_like(out[0]), torch.empty_like(out[1])]
     lib = _build.library()
     with torch.cuda.device(x.device):
-        err = lib.caim_quantize_rows(ptr(x), ptr(xq), ptr(sx), B * N, HD, stream_of(x))
+        err = lib.caim_quantize_rows(ptr(x), ptr(y) if y is not None else None, ptr(out[0]),
+                                     ptr(out[-2]), ptr(out[1]), ptr(out[-1]), B * N, HD,
+                                     stream_of(x))
     _build.check(err)
     quantize_rows.launches += 1
-    return xq, sx
+    return tuple(out)
 
 
 def flash_attention_packed_i8qk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

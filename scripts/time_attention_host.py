@@ -3,8 +3,10 @@
 
     python3 scripts/time_attention_host.py [--root DIR] [--calls 1000]
 
-Times K1 ``flash_attention_packed``, K7 ``flash_attention_packed_bias`` and
-K8 ``flash_attention`` on the host's clock around ``--calls`` back-to-back
+Times K1 ``flash_attention_packed``, K7 ``flash_attention_packed_bias``, K8
+``flash_attention``, and K10 ``flash_attention_packed_i8qk`` and K10b
+``flash_attention_packed_i8qk_bias`` with their quantisation of q and k, on
+the host's clock around ``--calls`` back-to-back
 calls that nothing synchronises: what the wrapper, its checks, the ctypes
 call and the C entry (among it the bf16 program's tensor-map encoding) cost
 the host a launch. Two shapes: B 1, N 64, H 12, whose kernel takes less time
@@ -55,7 +57,9 @@ def main() -> int:
         q4, k4, v4 = (t.view(B, N, H, 64) for t in (q, k, v))
         cases = {"K1": lambda: FA.flash_attention_packed(q, k, v, 0.125, H),
                  "K7": lambda: FA.flash_attention_packed_bias(q, k, v, bias, 0.125, H),
-                 "K8": lambda: FA.flash_attention(q4, k4, v4, 0.125)}
+                 "K8": lambda: FA.flash_attention(q4, k4, v4, 0.125),
+                 "K10": lambda: FA.flash_attention_packed_i8qk(q, k, v, 0.125, H),
+                 "K10b": lambda: FA.flash_attention_packed_i8qk_bias(q, k, v, bias, 0.125, H)}
         for name, fn in cases.items():
             for _ in range(20):
                 fn()

@@ -1,6 +1,8 @@
 """The CUDA kernels K1, K6, K7, K8, K9, K10, K10b, K11 and the int8 kernels K2,
 K3, K4, K4a, K4b, K5, K12, K13, K14, K15 against their plain PyTorch versions,
-on the card. Every test here needs an NVIDIA Hopper GPU and skips without one.
+on the card; K10 and K10b, the int8 instantiation of K1's program, at every
+length around its tiles, on rows of full int8 scale and under K1's
+permutation probe. Every test here needs an NVIDIA Hopper GPU and skips without one.
 The one-pass fc1 GEMM of K4a and K14 (a thread-block cluster per row tile)
 is held to the plain version's bits, with a probe that makes every row's
 scale come from another CTA of the cluster.
@@ -380,9 +382,122 @@ def test_k10_kernel_matches_plain(N, H, cuda_device):
     got = TFA.flash_attention_packed_i8qk(q, k, v, D ** -0.5, H)
     torch.cuda.synchronize()
     assert TFA.flash_attention_packed_i8qk.launches == n + 1
-    assert TFA.quantize_rows.launches == nq + 2  # q and k, through the quantising kernel
+    assert TFA.quantize_rows.launches == nq + 1  # q and k in one quantising launch
     want = TFA.flash_attention_packed_i8qk_plain(q.float(), k.float(), v.float(), D ** -0.5, H)
     assert float((got.float() - want).abs().max()) <= 2e-2
+
+
+# -------------------------- the int8 instantiation of the program: K10, K10b ----
+I8QK_LENGTHS = [1, 63, 64, 65, 257, 416, 481, 1370]
+
+
+def _i8qk_call(kernel, q, k, v, row, scale, H):
+    if kernel == "K10":
+        return (TFA.flash_attention_packed_i8qk(q, k, v, scale, H),
+                TFA.flash_attention_packed_i8qk_plain(q.float(), k.float(), v.float(), scale, H))
+    return (TFA.flash_attention_packed_i8qk_bias(q, k, v, row, scale, H),
+            TFA.flash_attention_packed_i8qk_bias_plain(q.float(), k.float(), v.float(), row,
+                                                       scale, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", I8QK_LENGTHS)
+@pytest.mark.parametrize("H", [12, 16])
+@pytest.mark.parametrize("kernel", ["K10", "K10b"])
+def test_i8qk_program_matches_plain_at_every_length(kernel, H, N, cuda_device):
+    """K10 and K10b (bias: log counts on every key) at lengths around the
+    64-row tiles and the model's stream lengths, ViT-B's 12 heads and ViT-L's
+    16: atol 2e-2 (bf16 outputs, P rounded before P V); one attention launch
+    and one quantising launch a call; K10b on a zero row gives K10's bits."""
+    B, D = 2, 64
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _arrays((B, N, H * D), seed=N))
+    row = _bias_row(B, N, "every_key", cuda_device)
+    wrapper = (TFA.flash_attention_packed_i8qk if kernel == "K10"
+               else TFA.flash_attention_packed_i8qk_bias)
+    n, nq = wrapper.launches, TFA.quantize_rows.launches
+    got, want = _i8qk_call(kernel, q, k, v, row, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, TFA.quantize_rows.launches) == (n + 1, nq + 1)
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want).abs().max()) <= 2e-2
+    if kernel == "K10b":
+        zero = torch.zeros(B, N, device=cuda_device)
+        assert torch.equal(TFA.flash_attention_packed_i8qk_bias(q, k, v, zero, D ** -0.5, H),
+                           TFA.flash_attention_packed_i8qk(q, k, v, D ** -0.5, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [65, 481, 1370])
+@pytest.mark.parametrize("kernel", ["K10", "K10b"])
+def test_i8qk_rows_of_full_scale(kernel, N, cuda_device):
+    """Every q and k value at +-127 after quantisation (rows of +-1: the
+    integer sums reach 64 x 127^2, where an f32 conversion that is not exact
+    would show): atol 2e-2 against the plain version's exact product."""
+    B, H, D = 2, 12, 64
+    r = np.random.RandomState(N)
+    q, k = (torch.from_numpy(np.where(r.rand(B, N, H * D) < 0.5, -1.0, 1.0).astype(np.float32))
+            .to(cuda_device, torch.bfloat16) for _ in range(2))
+    (v,) = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+            for a in _arrays((B, N, H * D), n=1, seed=N))
+    assert bool((TFA.quantize_rows(q)[0].abs() == 127).all())
+    row = _bias_row(B, N, "groups", cuda_device)
+    got, want = _i8qk_call(kernel, q, k, v, row, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [65, 257, 1370])
+@pytest.mark.parametrize("kernel", ["K10", "K10b"])
+def test_i8qk_program_keeps_keys_in_place(kernel, N, cuda_device):
+    """The permutation probe of K1's program on the int8 one: V one-hot by
+    key index (V[b, j, h, d] = 1 where j % 64 == d), q = 40 k with k one-hot
+    the same way, so that each quantised row holds one 127 and row i's output
+    is one-hot at i % 64; a key moved inside a tile or a stage costs an error
+    of 1. K10b with a zero row."""
+    B, H, D = 2, 4, 64
+    onehot = torch.zeros(B, N, H, D, device=cuda_device)
+    j = torch.arange(N, device=cuda_device)
+    onehot[:, j, :, j % D] = 1.0
+    k = onehot.reshape(B, N, H * D).to(torch.bfloat16)
+    q = (40.0 * onehot).reshape(B, N, H * D).to(torch.bfloat16)
+    row = torch.zeros(B, N, device=cuda_device)
+    got, want = _i8qk_call(kernel, q, k, k, row, 1.0, H)
+    torch.cuda.synchronize()
+    hot = (j % D)[None, :, None].expand(B, N, H)
+    assert torch.equal(want.view(B, N, H, D).argmax(-1), hot)
+    assert float((got.float() - want).abs().max()) <= 2e-2
+    assert torch.equal(got.view(B, N, H, D).float().argmax(-1), hot)
+
+
+@pytest.mark.cuda
+def test_i8qk_blocks_per_sm_are_reported(cuda_device):
+    """The occupancy query of each instantiation answers (at least one
+    block an SM); the int8 one needs less shared memory than K1's."""
+    lib = _build.library()
+    for bias in (0, 1):
+        for i8qk in (0, 1):
+            assert lib.caim_flash_blocks_per_sm(bias, i8qk) >= 1
+    assert lib.caim_flash_blocks_per_sm(0, 1) >= lib.caim_flash_blocks_per_sm(0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 481, 768), (8, 1370, 768), (2, 257, 1024), (1, 1, 64)])
+def test_quantize_rows_of_q_and_k_in_one_launch(shape, cuda_device):
+    """q and k quantised together: one launch, each tensor's int8 values
+    and scales bit-equal to the plain version's, and to the one-tensor
+    kernel's."""
+    a, b = _arrays(shape, n=2, seed=5, scale=2.0)
+    q, k = (torch.from_numpy(t).to(cuda_device, torch.bfloat16) for t in (a, b))
+    n = TFA.quantize_rows.launches
+    got = TFA.quantize_rows(q, k)
+    assert TFA.quantize_rows.launches == n + 1
+    want = TFA.quantize_rows_plain(q, k)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+    assert all(torch.equal(g, w) for g, w in zip(got, (*TFA.quantize_rows(q),
+                                                       *TFA.quantize_rows(k))))
 
 
 @pytest.mark.cuda
@@ -416,6 +531,9 @@ def test_quantize_rows_raises_on_what_the_kernel_does_not_take(cuda_device):
                 ok.reshape(-1)[4:4 + 2 * 9 * 1024].view(2, 9, 1024)):  # 8-byte aligned
         with pytest.raises(ValueError):
             TFA.quantize_rows(bad)
+    for other in (ok[:, :9], ok.float(), ok[:, :, ::2]):  # q and k that differ
+        with pytest.raises(ValueError):
+            TFA.quantize_rows(ok, other)
     assert TFA.quantize_rows.launches == n
     y = torch.zeros(1, 10, 17 * 64, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # 17 heads: wider than the quantising kernel takes

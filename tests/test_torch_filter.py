@@ -151,6 +151,29 @@ def test_quantize_rows_matches_jax_exactly(dtype):
     np.testing.assert_array_equal(gots.numpy(), np.asarray(wants))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_rows_of_q_and_k_together_match_jax_exactly(dtype):
+    """The one-launch quantiser of K10's q and k (``quantize_rows(q, k)``):
+    its plain version gives JAX ``quantize_rows`` of each tensor bit for bit,
+    rows of zeros and a row of +-127 times a power of two included, and
+    counts no launch on the CPU."""
+    q, k = _arrays((2, 65, 128), n=2, seed=6, scale=1.7)
+    q[1, 7] = 0.0
+    k[0, 0] = 0.0
+    k[1, 3] = np.where(np.arange(128) % 2, 127.0, -127.0) * 0.25  # scale exactly 0.25
+    jq, jk = (jnp.asarray(a).astype(getattr(jnp, dtype)) for a in (q, k))
+    tq, tk = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k))
+    n = TFA.quantize_rows.launches
+    got = TFA.quantize_rows(tq, tk)
+    assert TFA.quantize_rows.launches == n and len(got) == 4
+    want = (*JFA.quantize_rows(jq), *JFA.quantize_rows(jk))
+    for g, w in zip(got, want):
+        assert g.dtype == (torch.int8 if w.dtype == jnp.int8 else torch.float32)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert float(got[3][1, 3, 0]) == 0.25
+    assert torch.equal(got[2][1, 3].abs(), torch.full((128,), 127, dtype=torch.int8))
+
+
 def test_bf16_plain_versions_keep_the_dtype_and_count_no_launch():
     q, k, v = (torch.from_numpy(a).bfloat16() for a in _arrays((2, 65, 128)))
     bias = torch.from_numpy(_bias(2, 65))
