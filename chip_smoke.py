@@ -11,14 +11,17 @@ kernels compile for sm_90a) and the CUDA toolkit:
   (b) build: compiles csrc/*.cu with nvcc at first use (one process per
       source, side by side) and prints each kernel's registers and spills
       (the int8 GEMM by epilogue and tile width, the attention program by
-      bias and int8 q k), ptxas's wgmma-serialisation warnings (C7512,
-      C7514) and the attention program's blocks an SM;
+      bias and int8 q k, K12 by cluster and widths), ptxas's
+      wgmma-serialisation warnings (C7512, C7514), the attention program's
+      blocks an SM and K12's clusters resident at once;
   (c) kernels: K1 flash_attention_packed and K6 focal_attention_fused (K1's
       bf16 program, which K7 and K8 share, also at N 1 to 1370 around its
       64-row tiles, ViT-B and ViT-L heads, and under a permutation probe: V
-      one-hot by key index; its int8 instantiation, K10 and K10b, at N 1 to
-      1370, ViT-B and ViT-L heads, on rows of +-127 and under the same
-      probe, K10b on a zero row bit for bit K10), and
+      one-hot by key index; its int8 instantiation, K10, K10b and K9, at N 1
+      to 1370, ViT-B and ViT-L heads, on rows of +-127 and under the same
+      probe, K10b on a zero row bit for bit K10, K9 bit for bit K10 where
+      every head of a row has the same largest value, K9's per-(row, head)
+      quantiser Qh bit for bit its plain version), and
       the int8 kernels K2, K3, K4a, K4b, K4 and K5, at the slice shapes, at
       the ragged N 257 and 481 (K1 also at the progressive filter's 826 and
       416) and at ViT-L widths, and the biased and
@@ -39,8 +42,11 @@ kernels compile for sm_90a) and the CUDA toolkit:
       and K12 int8_attnout_mlp_ln at N 1370, 481, 257 and ViT-L widths (K11 also
       by the share of its int8 context values that sit one step from the plain
       version's; K12 also against K3 -> K4, which it must not equal bit for
-      bit), and what each raises on; the one-pass fc1 GEMM of K4a, K14 and
-      K12 (a thread-block cluster a 64-row tile) bit for bit against the plain
+      bit), and what each raises on; K12's one kernel (a thread-block cluster
+      a 64-row tile) at M 10960, 8 x 481, 8 x 257, 17 and 1 rows, ViT-B,
+      ViT-L and the tests' widths, rows of zeros, its shape rule equal to the
+      wrappers' and one device kernel a call; the one-pass fc1 GEMM of K4a and
+      K14 (a thread-block cluster a 64-row tile) bit for bit against the plain
       versions at F 256, 512, 3072 and 4096, M 10960, 8 x 481 and 17 rows (K4a
       on rows whose layernorm is exact), rows of zeros (the scale's floor) and
       a cluster probe (each CTA in turn holds every row's maximum), its
@@ -48,12 +54,12 @@ kernels compile for sm_90a) and the CUDA toolkit:
       program at D 64 to 1024 and N 1 to 1369 around its 64-row and 64-key
       tiles (attended within 1e-2 of the plain version's largest value), its
       outputs bit-identical from run to run, and rows past N filled with NaN
-      kept out of its outputs; the int8 GEMM program of K2, K5, K3, K4b, K13,
-      K15 and K12's residual stages (int8_gemm_tma_kernel: persistent CTAs, a
-      TMA producer warp, outputs stored by TMA): its tile-width rule equal to
-      the wrappers' at every width up to 8192, every epilogue against its plain
-      version at each tile width and at M 10960, 8 x 481, 8 x 257, 17 and 1
-      rows (bit-equal but K2 and K12, whose layernorm sums in another order),
+      kept out of its outputs; the int8 GEMM program of K2, K5, K3, K4b, K13
+      and K15 (int8_gemm_tma_kernel: persistent CTAs, a TMA producer warp,
+      outputs stored by TMA): its tile-width rule equal to the wrappers' at
+      every width up to 8192, every epilogue against its plain version at each
+      tile width and at M 10960, 8 x 481, 8 x 257, 17 and 1 rows (bit-equal
+      but K2, whose layernorm sums in another order),
       tile counts under, at and over its resident CTAs, outputs that are the
       first M rows of a larger buffer (no row past M written), and one GEMM
       launch a call after the prologue;
@@ -98,7 +104,9 @@ kernels compile for sm_90a) and the CUDA toolkit:
       gives that function, the B=8 forward under both policies, through the
       int8 filtered slices and through the int8 adapter slice, and the host
       time to enqueue one forward; K9, K11 and K12 in turns with the kernels
-      they fuse (K1; K1 + K3; K3 + K4), the int8 exact and 2:0.35 forwards
+      they fuse (K1; K1 + K3; K3 + K4), K12 and K3 -> K4 also by CUDA graphs
+      in turns at N 1370 and 481, K9's kernel and wrapper by CUDA graphs in
+      turns with K10's at N 1370 and 481, the int8 exact and 2:0.35 forwards
       with CAIM_FUSE_AOMLP off and on, and the hand-assembled 12 blocks
       through K1 + K3, K11 and K9; K2, K3, K4b, K5, K13 and K15 also by CUDA
       graphs, each beside torch._int_mm at its [M, K] x [K, N] (a yardstick of
@@ -300,13 +308,17 @@ def phase_build():
         import re
 
         text = open(ptxas).read()
-        epilogues = ("kQKV", "kResidual", "kPlain", "kResidualToF32", "kResidualFromF32")
+        epilogues = ("kQKV", "kResidual", "kPlain")
         for m in re.finditer(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
                              r"(\d+) bytes spill loads.*?Used (\d+) registers", text, re.S):
             name = m.group(1)
             gemm = re.search(r"int8_gemm_tma_kernelILi(\d)ELi(\d+)E", name)
             if gemm:  # the int8 GEMM's instantiations: <epilogue, tile columns>
                 name = f"int8_gemm_tma_kernel<{epilogues[int(gemm.group(1))]}, {gemm.group(2)}>"
+            k12 = re.search(r"AoTileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", name)
+            if k12:  # K12's: <CTAs of the cluster, columns a CTA, a sweep's, sweeps>
+                name = (f"attnout_mlp_kernel<cluster {k12.group(1)}, KC {k12.group(2)}, "
+                        f"NWC {k12.group(3)}, sweeps {k12.group(4)}>")
             flash = re.search(r"flash_wgmma_kernelILb(\d)ELb(\d)E", name)
             if flash:  # the attention program's: <bias, int8 q k> (K10, K10b: i8qk)
                 name = (f"flash_wgmma_kernel<{'bias' if flash.group(1) == '1' else 'no bias'}, "
@@ -325,6 +337,10 @@ def phase_build():
     log("  attention program blocks an SM: " + ", ".join(
         f"<{'bias' if b else 'no bias'}, {'i8qk' if i else 'bf16'}> "
         f"{lib.caim_flash_blocks_per_sm(b, i)}" for i in (0, 1) for b in (0, 1)))
+    log("  K12 clusters resident at once: " + ", ".join(
+        f"K {k} F {f}: {lib.caim_attnout_mlp_active_clusters(k, f)} clusters of "
+        f"{lib.caim_attnout_mlp_cluster_size(k, f)} CTAs"
+        for k, f in ((768, 3072), (1024, 4096), (128, 512))))
 
 
 def _rand(shape, g, dtype, scale=1.0):
@@ -430,12 +446,14 @@ def phase_flash_body():
 
 
 def phase_i8qk_program():
-    """K10 and K10b, the int8 instantiation of K1's program, against their
-    plain versions at the lengths around its 64-row tiles and the model's
-    stream lengths, ViT-B and ViT-L heads (one attention launch and one
-    quantising launch a call; K10b on a zero row bit-equal to K10); on rows
-    whose every value quantises to +-127 (integer sums up to 64 x 127^2); and
-    under K1's permutation probe."""
+    """K10, K10b and K9, the int8 instantiation of K1's program, against
+    their plain versions at the lengths around its 64-row tiles and the
+    model's stream lengths, ViT-B and ViT-L heads (one attention launch and
+    one quantising launch a call; K10b on a zero row bit-equal to K10; K9 bit
+    for bit K10 where every head of a row has the same largest value, so that
+    its per-(row, head) scales are K10's joint ones; K9's quantiser Qh bit for
+    bit its plain version); on rows whose every value quantises to +-127
+    (integer sums up to 64 x 127^2); and under K1's permutation probe."""
     import torch
 
     from cognitive_aim_tpu_torch.kernels import flash_attention as FA
@@ -444,26 +462,37 @@ def phase_i8qk_program():
     B, Dh, scale = 2, 64, 0.125
 
     def both(q, k, v, row, sc, H):
-        """{kernel: (got, plain)} for K10 and K10b on the same inputs."""
+        """{kernel: (got, plain)} for K10, K10b and K9 on the same inputs."""
         qf, kf, vf = q.float(), k.float(), v.float()
         return {"K10": (FA.flash_attention_packed_i8qk(q, k, v, sc, H),
                         FA.flash_attention_packed_i8qk_plain(qf, kf, vf, sc, H)),
                 "K10b": (FA.flash_attention_packed_i8qk_bias(q, k, v, row, sc, H),
-                         FA.flash_attention_packed_i8qk_bias_plain(qf, kf, vf, row, sc, H))}
+                         FA.flash_attention_packed_i8qk_bias_plain(qf, kf, vf, row, sc, H)),
+                "K9": (FA.flash_attention_packed_int8(q, k, v, sc, H),
+                       FA.flash_attention_packed_int8_plain(qf, kf, vf, sc, H))}
 
+    counters = (FA.flash_attention_packed_i8qk, FA.flash_attention_packed_i8qk_bias,
+                FA.quantize_rows, FA.flash_attention_packed_int8, FA.quantize_heads)
+    worst_qh = 0.0
     for H in (12, 16):
-        worst = {"K10": 0.0, "K10b": 0.0}
-        for N in (1, 63, 64, 65, 257, 416, 481, 1370):
+        worst = {"K10": 0.0, "K10b": 0.0, "K9": 0.0}
+        for N in (1, 63, 64, 65, 127, 128, 129, 257, 416, 481, 826, 1370):
             q, k, v = (_rand((B, N, H * Dh), g, torch.bfloat16) for _ in range(3))
             row = torch.randint(1, 891, (B, N), generator=g, device="cuda").float().log()
-            before = (FA.flash_attention_packed_i8qk.launches,
-                      FA.flash_attention_packed_i8qk_bias.launches, FA.quantize_rows.launches)
+            before = [w.launches for w in counters]
             outs = both(q, k, v, row, scale, H)
-            after = (FA.flash_attention_packed_i8qk.launches,
-                     FA.flash_attention_packed_i8qk_bias.launches, FA.quantize_rows.launches)
-            if [a - b for a, b in zip(after, before)] != [1, 1, 2]:
-                raise AssertionError(f"K10, K10b: one launch and one quantising launch a "
+            after = [w.launches for w in counters]
+            if [a - b for a, b in zip(after, before)] != [1, 1, 2, 1, 1]:
+                raise AssertionError(f"K10, K10b, K9: one launch and one quantising launch a "
                                      f"call, counted {before} -> {after}")
+            qh, qh_plain = FA.quantize_heads(q, H, k), FA.quantize_heads_plain(q, H, k)
+            if not all(torch.equal(a, b) for a, b in zip(qh, qh_plain)):
+                raise AssertionError(f"Qh disagrees with its plain version at N={N} H={H}")
+
+            def rows(x8, sx):  # the dequantised rows [B, N, H, 64]
+                return x8.view(B, N, H, Dh).float() * sx.transpose(1, 2)[..., None]
+
+            worst_qh = max(worst_qh, max_err(rows(*qh[:2]), rows(*qh_plain[:2])))
             zero = FA.flash_attention_packed_i8qk_bias(q, k, v, torch.zeros(B, N, device="cuda"),
                                                        scale, H)
             torch.cuda.synchronize()
@@ -475,9 +504,25 @@ def phase_i8qk_program():
                     raise AssertionError(f"{name} disagrees with its plain version at N={N} "
                                          f"H={H}: {err:.3e}")
                 worst[name] = max(worst[name], err)
-        log(f"  int8 attention program, N 1..1370 (8 lengths), H {H}: max_abs_err K10 "
-            f"{worst['K10']:.3e}, K10b {worst['K10b']:.3e} (tol {TOL_BF16_OUT:.0e}); K10b on a "
-            f"zero row equals K10 bit for bit; 1 launch + 1 quantising launch a call: ok")
+        log(f"  int8 attention program, N 1..1370 (12 lengths), H {H}: max_abs_err K10 "
+            f"{worst['K10']:.3e}, K10b {worst['K10b']:.3e}, K9 {worst['K9']:.3e} (tol "
+            f"{TOL_BF16_OUT:.0e}); K10b on a zero row equals K10 bit for bit; Qh (K9's "
+            f"quantiser) equals its plain version bit for bit; 1 launch + 1 quantising launch "
+            f"a call: ok")
+    # K9 on rows whose every head has the same largest value: its (row, head)
+    # scales are K10's joint-row scales, so it gives K10's bits
+    for H, N in ((12, 481), (12, 1370), (16, 257)):
+        q, k, v = (_rand((B, N, H * Dh), g, torch.bfloat16, 0.5) for _ in range(3))
+        for t in (q, k):
+            t.view(B, N, H, Dh)[..., 5] = 3.0  # each head's largest |value|
+        got9, got10 = (FA.flash_attention_packed_int8(q, k, v, scale, H),
+                       FA.flash_attention_packed_i8qk(q, k, v, scale, H))
+        torch.cuda.synchronize()
+        if not torch.equal(got9, got10):
+            raise AssertionError(f"K9 on equal head maxima is not K10's bits at N={N} H={H}")
+    log("  K9 on rows whose heads share their largest value equals K10 bit for bit "
+        "(N 481, 1370 at H 12; N 257 at H 16): ok")
+    errs = {"Qh": worst_qh}
     # every value at +-127 after quantisation: sums up to 64 x 127^2 < 2^24
     H = 12
     for N in (481, 1370):
@@ -510,6 +555,7 @@ def phase_i8qk_program():
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name}: the int8 attention program moves keys inside a tile")
+    return errs
 
 
 def _bias_rows(B, N, g):
@@ -714,8 +760,8 @@ def phase_int8_kernels():
 
 # ------------------------------------------ the int8 GEMM's program (c) ----
 def phase_int8_gemm():
-    """The GEMM program of K2, K5, K3, K4b, K13, K15 and K12's residual stages
-    (csrc/int8_block.cu, int8_gemm_tma_kernel): its width rule against the
+    """The GEMM program of K2, K5, K3, K4b, K13 and K15 (csrc/int8_block.cu,
+    int8_gemm_tma_kernel): its width rule against the
     wrappers' (int8_block.gemm_tile_cols), every epilogue against its plain
     version at each tile width and at M 10960, 8 x 481, 8 x 257, 17 and 1
     rows, tile counts under, at and over its resident CTAs, outputs that are
@@ -751,7 +797,6 @@ def phase_int8_gemm():
         x, ctx, ga, be, ls = t["x"], t["ctx"], t["gamma"], t["beta"], t["ls"]
         x2, D = x.view(M, -1), x.shape[-1]
         h8, sh = IB.int8_fc1_gelu_ln_plain(x, ga, be, *t["fc1"])
-        k12 = (ctx, *t["out"], ls, x, ga, be, *t["fc1"], *t["fc2"], t["ls2"])
         return {  # name: (kernel, plain, bit-equal?, [M, N, parts] of its GEMM)
             "K2": (lambda: IB.int8_qkv_proj_ln(x, ga, be, *t["qkv"]),
                    lambda: IB.int8_qkv_proj_ln_plain(x, ga, be, *t["qkv"]), False, (3 * D, 3)),
@@ -766,8 +811,6 @@ def phase_int8_gemm():
                     True, (t["fc1"][0].shape[0], 1)),
             "K15": (lambda: IG.int8_gemm_fused(x2, *t["qkv"]),
                     lambda: IG.int8_gemm_fused_plain(x2, *t["qkv"]), True, (3 * D, 1)),
-            "K12": (lambda: IB.int8_attnout_mlp_ln(*k12), lambda: IB.int8_attnout_mlp_ln_plain(*k12),
-                    False, (D, 1)),
         }
 
     for D, F in ((768, 3072), (1024, 4096), (128, 512)):
@@ -778,7 +821,7 @@ def phase_int8_gemm():
                 torch.cuda.synchronize()
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
-                cols = 128 if name == "K12" else IB.gemm_tile_cols(M, Nout, parts, sms)
+                cols = IB.gemm_tile_cols(M, Nout, parts, sms)
                 tag = f"GEMM M{M} D{D} F{F}, tiles of 128 x {cols}"
                 if exact:
                     report(name, tag, all(torch.equal(a, b) for a, b in zip(got, want)),
@@ -829,8 +872,6 @@ def phase_int8_gemm():
     # one GEMM launch a call, after the prologue where there is one
     t = _int8_inputs(8, 1370, 768, 3072, g)
     for name, (kern, _, _, _) in cases(t, 8 * 1370).items():
-        if name == "K12":
-            continue
         names = [n.split("(")[0] for n in device_kernels(kern)]
         gemms = [n for n in names if "int8_gemm_tma_kernel" in n]
         log(f"  {name}: device kernels a call: {', '.join(names)}")
@@ -1024,14 +1065,15 @@ def phase_fused_kernels():
                f"{gap_lim:.2e}), {1 - same:.2e} of the outputs differ (must not be 0)", ok)
         if N == 1370:
             worst["K12"] = err
-    x = _int8_inputs(2, 70, 256, 512, g)
+    x = _int8_inputs(2, 70, 128, 512, g)
     for name, change in (("float32 activations", {"ctx": x["ctx"].float()}),
                          ("a transposed residual",
                           {"x": x["x"].transpose(0, 1).contiguous().transpose(0, 1)})):
         expect_raise(f"K12 on {name}", (TypeError, ValueError), IB.int8_attnout_mlp_ln,
                      _k12_calls({**x, **change})[0])
-    wide = _int8_inputs(1, 8, 2048, 2048, g)  # the layernorm prologue holds rows up to 1024
-    expect_raise("K12 at width 2048", ValueError, IB.int8_attnout_mlp_ln, _k12_calls(wide)[0])
+    for D, F in ((2048, 2048), (256, 512), (768, 4096)):  # no instantiation takes these
+        expect_raise(f"K12 at widths {D}, {F}", ValueError, IB.int8_attnout_mlp_ln,
+                     _k12_calls(_int8_inputs(1, 8, D, F, g))[0])
 
     Dh = 64
     for B, H, N in ((8, 12, 1370), (8, 12, 481), (8, 12, 257), (2, 16, 257)):
@@ -1093,6 +1135,56 @@ def phase_fused_kernels():
     return worst
 
 
+def phase_k12_kernel():
+    """K12's one kernel (csrc/int8_fused_block.cu: a thread-block cluster owns
+    a 64-row tile across all of its columns): its shape rule equal to the
+    wrappers' (int8_block.attnout_mlp_shape); against its plain version and
+    against K3 -> K4, which it must not equal, at M 10960, 8 x 481, 8 x 257,
+    17 and 1 rows and ViT-B, ViT-L and the tests' widths, with rows of zeros
+    in ctx and the residual; one device kernel a call."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import _build
+    from cognitive_aim_tpu_torch.kernels import int8_block as IB
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    lib = _build.library()
+    for K in range(0, 2049, 64):
+        for F in range(0, 8193, 128):
+            if lib.caim_attnout_mlp_cluster_size(K, F) != (IB.attnout_mlp_shape(K, F) or (0,))[0]:
+                raise AssertionError(f"K12 shape rule: C and Python differ at K {K} F {F}")
+    log(f"  K12 shape rule: C and Python agree at K 0..2048, F 0..8192; it takes "
+        f"{sorted(IB.ATTNOUT_MLP_SHAPES)}")
+    for D, F in ((768, 3072), (1024, 4096), (128, 512)):
+        worst, worst_gap = 0.0, 0.0
+        for M in (10960, 8 * 481, 8 * 257, 17, 1):
+            t = _int8_inputs(1, M, D, F, g)
+            if M > 4:  # rows of zeros: the scale's floor in quant(ctx)
+                t["ctx"][0, 3], t["x"][0, 3] = 0.0, 0.0
+                t["ctx"][0, M // 2:] = 0.0
+            kernel, plain, split = _k12_calls(t)
+            got, want, two = kernel(), plain(), split()
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            lim = TOL_INT8_REL * max(1.0, float(want.float().abs().max()))
+            gap = max_err(got, two)
+            gap_lim = TOL_K12_SPLIT * max(1.0, float(two.float().abs().max()))
+            if not (err <= lim and gap <= gap_lim and not torch.equal(got, two)
+                    and bool(torch.isfinite(got).all()) and got.shape == want.shape):
+                raise AssertionError(f"K12 at M {M} D {D} F {F}: max_abs_err {err:.3e} (tol "
+                                     f"{lim:.2e}), against K3 -> K4 {gap:.3e} (tol {gap_lim:.2e})")
+            worst, worst_gap = max(worst, err / lim), max(worst_gap, gap / gap_lim)
+        log(f"  K12 D{D} F{F} at M 10960, 8x481, 8x257, 17, 1 (rows of zeros in ctx): within "
+            f"{worst:.2f} of its tolerance to the plain version, {worst_gap:.2f} of its "
+            f"tolerance to K3 -> K4 and never equal to it: ok")
+    t = _int8_inputs(8, 1370, 768, 3072, g)
+    names = device_kernels(_k12_calls(t)[0])
+    log(f"  K12: {len(names)} device kernel(s) a call: "
+        + ", ".join("attnout_mlp_kernel" if "attnout_mlp_kernel" in n else n[:60] for n in names))
+    if len(names) != 1 or "attnout_mlp_kernel" not in names[0]:
+        raise AssertionError("K12 must launch one kernel a call")
+
+
 # ------------------------------ the one-pass fc1 GEMM and K6's program (c) ----
 def _exact_ln_rows(B, N, D, g):
     """bf16 rows of +-1, +-2 in equal numbers (shuffled): the layernorm's sums
@@ -1134,8 +1226,8 @@ def device_busy_ms(fn) -> float:
 
 
 def phase_fc1_and_focal():
-    """K4a, K14 and K12's one-pass fc1 GEMM (a thread-block cluster a row
-    tile) held to the plain versions' bits at the model's widths, ragged M and
+    """K4a and K14's one-pass fc1 GEMM (a thread-block cluster a row tile)
+    held to the plain versions' bits at the model's widths, ragged M and
     rows of zeros, with a cluster probe; K6's bf16 program at N 1..1369 around
     its 64-row and 64-key tiles at every width it takes, its colmean run to run,
     and NaN past N."""
@@ -1199,14 +1291,6 @@ def phase_fc1_and_focal():
         report("K14", f"cluster probe D{D} F{F}", ok,
                f"each of {ctas} CTAs in turn holds every row's maximum; the others read it "
                f"through distributed shared memory")
-    # K12's fc1 stage is the same kernel: K12 against its plain version
-    t = _int8_inputs(8, 481, 768, 3072, g)
-    k12, k12_plain, _ = _k12_calls(t)
-    got, want = k12(), k12_plain()
-    torch.cuda.synchronize()
-    err, lim = max_err(got, want), TOL_INT8_REL * max(1.0, float(want.float().abs().max()))
-    report("K12", "int8_attnout_mlp_ln B8 N481 D768 F3072", err <= lim,
-           f"max_abs_err {err:.3e} (tol {lim:.2e})")
     t = _int8_inputs(8, 1370, 768, 3072, g)
     names = device_kernels(lambda: IB.int8_fc1_gelu_ln(t["x"], t["gamma"], t["beta"], *t["fc1"]))
     gemms = [n for n in names if "quant_rows" not in n]
@@ -1332,7 +1416,8 @@ def _wrappers():
             "K10b": FA.flash_attention_packed_i8qk_bias, "Q": FA.quantize_rows,
             "K8": FA.flash_attention, "K13": IB.int8_proj, "K14": IB.int8_fc1_gelu,
             "K15": IG.int8_gemm_fused, "K9": FA.flash_attention_packed_int8,
-            "K11": FA.flash_attention_packed_out_res, "K12": IB.int8_attnout_mlp_ln}
+            "K11": FA.flash_attention_packed_out_res, "K12": IB.int8_attnout_mlp_ln,
+            "Qh": FA.quantize_heads}
 
 
 def _build_model(policy, image_size, seed, token_filter="", attn_impl="pallas_packed",
@@ -1753,7 +1838,7 @@ def _block_chain(model, x, route, plain=False):
 BLOCK_CHAINS = {
     # route: launches in one pass over the 12 blocks
     "K11": {"K2": 12, "K11": 12, "K4": 12, "K4a": 12, "K4b": 12},
-    "K9": {"K2": 12, "K9": 12, "K3": 12, "K4": 12, "K4a": 12, "K4b": 12},
+    "K9": {"K2": 12, "K9": 12, "Qh": 12, "K3": 12, "K4": 12, "K4a": 12, "K4b": 12},
 }
 
 
@@ -2135,6 +2220,16 @@ def phase_kernel_times(smi):
     times["K12"]["device_ms"] = graph_ms(k12)
     log(f"  K12 device time by CUDA graphs: {times['K12']['device_ms']:.4f} ms")
     beside("K12", k12, k3_k4, "K3 + K4")
+    # K12 and K3 -> K4 by CUDA graphs in turns (K12, pair, pair, K12), at the
+    # exact slice's rows and the filtered stream's
+    times["K12"]["graphs_in_turns"] = {}
+    for Nk in (N, 481):
+        tk = t if Nk == N else _int8_inputs(B, Nk, D, Fh, g)
+        fused, _, pair = _k12_calls(tk)
+        a = [graph_ms(fused), graph_ms(pair), graph_ms(pair), graph_ms(fused)]
+        times["K12"]["graphs_in_turns"][f"N{Nk}"] = {"K12": [a[0], a[3]], "K3 + K4": a[1:3]}
+        log(f"  K12 B{B} N{Nk} by CUDA graphs in turns with K3 -> K4: K12 {a[0]:.4f}/{a[3]:.4f} "
+            f"ms, K3 -> K4 {a[1]:.4f}/{a[2]:.4f} ms (x{(a[0] + a[3]) / (a[1] + a[2]):.2f})")
     a11 = _k11_inputs(B, N, H, g)
     q, k, v = a11[:3]
     record("K11", f"B{B} N{N} H{H} bf16",
@@ -2160,9 +2255,35 @@ def phase_kernel_times(smi):
         log(f"  K9 beside K10 with its quantising launch {times['K9']['k10_ms']:.3f} ms"
             + (f", scaled_dot_product_attention (not quantised) {times['K9']['sdpa_ms']:.3f} ms"
                if Nk == N else ""))
+        # K9 and K10 by CUDA graphs in turns: each attention kernel alone on q
+        # and k quantised once (K9 per (row, head), K10 per row), and each
+        # wrapper with its quantising launch
+        q8h, sqh, k8h, skh = FA.quantize_heads(qn, H, kn)
+        q8r, sqr, k8r, skr = FA.quantize_rows(qn, kn)
+        runs = [("K10 kernel", lambda: FA._launch_i8qk_kernel(q8r, sqr, k8r, skr, vn, None,
+                                                              0.125, H)),
+                ("K9 kernel", lambda: FA._launch_i8qk_kernel(q8h, sqh, k8h, skh, vn, None, 0.125,
+                                                             H, head_scales=True)),
+                ("K9", lambda: FA.flash_attention_packed_int8(qn, kn, vn, 0.125, H)),
+                ("K10", lambda: FA.flash_attention_packed_i8qk(qn, kn, vn, 0.125, H))]
+        dev = {n: [] for n, _ in runs}
+        for n, fn in runs + runs[::-1]:
+            dev[n].append(graph_ms(fn))
+        times["K9"]["graphs_in_turns"] = dev
+        times["K9"]["device_ms"] = sum(dev["K9"]) / 2
+        log(f"  K9 B{B} N{Nk} H{H} by CUDA graphs in turns with K10: " + ", ".join(
+            f"{n} {v[0]:.4f}/{v[1]:.4f} ms" for n, v in dev.items())
+            + f"; K9's kernel x{sum(dev['K9 kernel']) / sum(dev['K10 kernel']):.2f} K10's")
+        # Qh: bf16 q and k read, int8 and the f32 (row, head) scales written
+        record("Qh", f"B{B} N{Nk} D{D} bf16, q and k", lambda: FA.quantize_heads(qn, H, kn),
+               lambda: FA.quantize_heads_plain(qn, H, kn),
+               bound(2 * (3 * B * Nk * D + 4 * B * Nk * H), 0, "bf16"))
+        times["Qh"]["device_ms"] = graph_ms(lambda: FA.quantize_heads(qn, H, kn))
+        log(f"  Qh device time by CUDA graphs: {times['Qh']['device_ms']:.4f} ms")
         if Nk == N:
-            k9_main = times.pop("K9")
+            k9_main, qh_main = times.pop("K9"), times.pop("Qh")
     times["K9"] = {**k9_main, "other_shape": times["K9"]}
+    times["Qh"] = {**qh_main, "other_shape": times["Qh"]}
     return times
 
 
@@ -2293,17 +2414,20 @@ KERNELS = {
     "K15": ("int8_gemm_fused", "int8_block.cu", "int8_gemm.py:31"),
     # the fused variants of the chained int8 block. K12 runs in the model under
     # CAIM_FUSE_AOMLP=1 (slices F1, F2); K9 and K11 have no model route in either
-    # package: their launches are those of the 12 blocks assembled by hand
-    "K9": ("flash_attention_packed_int8", "flash_attention_int8dots.cu",
-           "flash_attention.py:356"),
+    # package: their launches are those of the 12 blocks assembled by hand. K9
+    # is the int8 instantiation of K1's program on (row, head) scales (its C
+    # entry in flash_attention_i8qk.cu), after its quantiser Qh, which the TPU
+    # kernel runs inside its body (_quant_rows)
+    "K9": ("flash_attention_packed_int8", "flash_wgmma.cu", "flash_attention.py:356"),
+    "Qh": ("quantize_heads", "int8_block.cu", "flash_attention.py:349"),
     "K11": ("flash_attention_packed_out_res", "flash_attention_out_res.cu",
             "flash_attention.py:645"),
-    "K12": ("int8_attnout_mlp_ln", "int8_block.cu", "int8_block.py:365"),
+    "K12": ("int8_attnout_mlp_ln", "int8_fused_block.cu", "int8_block.py:365"),
 }
 # the path whose run gives a kernel's ``launches``: the unfiltered int8 slice,
 # or the first filtered or adapter slice that reaches the kernel
 LAUNCHES_FROM = {"K7": "2", "K10": "3", "K10b": "3", "Q": "3", "K8": "A2", "K15": "A3",
-                 "K9": "K9", "K11": "K11", "K12": "F1"}
+                 "K9": "K9", "Qh": "K9", "K11": "K11", "K12": "F1"}
 
 
 def main() -> int:
@@ -2325,12 +2449,13 @@ def main() -> int:
     log("(c) kernels vs plain versions")
     errs = phase_kernels()
     phase_flash_body()
-    phase_i8qk_program()
+    errs.update(phase_i8qk_program())
     errs.update(phase_int8_kernels())
     phase_int8_gemm()
     errs.update(phase_filter_kernels())
     errs.update(phase_adapter_kernels())
     errs.update(phase_fused_kernels())
+    phase_k12_kernel()
     phase_fc1_and_focal()
     if "--kernels-only" in sys.argv[1:]:
         phase_kernel_times(smi)

@@ -1,6 +1,6 @@
 // The attention program of K1 and K7 (flash_attention_packed.cu), K8
-// (flash_attention.cu), and K10 and K10b (flash_attention_i8qk.cu), designed
-// for Hopper.
+// (flash_attention.cu), and K10, K10b and K9 (flash_attention_i8qk.cu),
+// designed for Hopper.
 //
 // Computes, per (batch b, head h), softmax(Q K^T * scale [+ bias[b, key]]) V
 // with bf16 operands, f32 scores, an f32 online softmax in base 2 (scale *
@@ -9,9 +9,10 @@
 // at the end. Each operand is a [B, N, H, 64] view given by its element
 // strides (batch, token, head): K1's packed [B, N, H*64] is the case (N H 64,
 // H 64, 64), K8's views pass their own, so both launch this one kernel.
-// The I8QK instantiation (K10, K10b) takes q and k as int8 [B, N, H*64],
-// quantised per row over all heads, with f32 row scales sq, sk [B, N]: its
-// scores are float(Q8 K8^T) * sq[row] * sk[key], the rest is the same.
+// The I8QK instantiation (K10, K10b, K9) takes q and k as int8 [B, N, H*64]
+// with f32 scales sq, sk: K10's [B, N], one a row over all heads, or K9's
+// [B, H, N], one a (row, head) over the head's 64 values; its scores are
+// float(Q8 K8^T) * sq[(h,) row] * sk[(h,) key], the rest is the same.
 //
 // What bounds it on this card: at B 8, N 1370, H 12 one call is 46 GFLOP of
 // bf16 products against 67 MB of q, k, v and out, ~690 FLOP/byte: above the
@@ -71,10 +72,11 @@
 //     within each warp's 16 rows), K8 from shared memory. Its int32 sums are
 //     at most 64 x 127^2 < 2^24, so their conversion to f32 is exact.
 //   * Dequantisation inside the softmax: the producer warp stages each key
-//     tile's 64 sk values beside K (as it stages K7's bias, K's full barrier
-//     counting its 32 lanes), each consumer thread holds sq * scale * log2 e
-//     of its two rows, and a score becomes exp2(fma(float(acc) * sk_j,
-//     sq_i', b_j - m)): a conversion and a multiply a score more than K1,
+//     tile's 64 sk values (K9's: its head's) beside K (as it stages K7's
+//     bias, K's full barrier counting its 32 lanes), each consumer thread
+//     holds sq * scale * log2 e of its two rows, and a score becomes
+//     exp2(fma(float(acc) * sk_j, sq_i', b_j - m)): a conversion and a
+//     multiply a score more than K1,
 //     whose softmax's issue is what bounds it, so this is where the int8
 //     program loses to K1 (the conversion as an integer add and an f32 add
 //     on 1.5 x 2^23, which spares the conversion unit, was slower: one
@@ -278,14 +280,14 @@ __device__ __forceinline__ void pack_p(const float (&s)[KT / 2], uint32_t (&p)[K
 }
 
 // The block of (query tile blockIdx.x, head blockIdx.y, batch blockIdx.z).
-// Warpgroup 0 consumes, warp 4 produces. q_scale, k_scale: I8QK's row scales
-// sq, sk [B, N] (null otherwise).
+// Warpgroup 0 consumes, warp 4 produces. q_scale, k_scale: I8QK's scales
+// (null otherwise): K10's sq, sk [B, N], or with head_scales K9's [B, H, N].
 template <bool BIAS, bool I8QK>
 __global__ void __launch_bounds__(THREADS, I8QK ? 3 : 2)  // I8QK: 128 registers, 3 an SM
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
                    const float* __restrict__ bias, const float* __restrict__ q_scale,
-                   const float* __restrict__ k_scale, int N, float sl2) {
+                   const float* __restrict__ k_scale, int head_scales, int N, float sl2) {
   using T = FlashTile<BIAS, I8QK>;
   constexpr bool STAGED = BIAS || I8QK;  // the producer warp stages rows beside K
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -300,6 +302,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   float* sk_stage = reinterpret_cast<float*>(smem + T::S_OFF);
   float* bmax_stage = reinterpret_cast<float*>(smem + T::M_OFF);
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  // I8QK: this (batch, head)'s scales of rows 0 .. N - 1
+  const size_t s0 = head_scales ? ((size_t)b * gridDim.y + h) * N : (size_t)b * N;
   const int ntiles = (N + KT - 1) / KT;
   const int tid = threadIdx.x % 128;
 
@@ -334,7 +338,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
             bias_stage[s * KT + i] = kb;
             if constexpr (I8QK) bm = fmaxf(bm, kb);
           }
-          if constexpr (I8QK) sk_stage[s * KT + i] = key < N ? k_scale[(size_t)b * N + key] : 0.0f;
+          if constexpr (I8QK)
+            sk_stage[s * KT + i] = key < N ? k_scale[s0 + key] : 0.0f;
         }
         if constexpr (I8QK && BIAS) {
           bm = warp_max(bm);
@@ -367,8 +372,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     float sl0 = sl2, sl1 = sl2;  // rows r0, r0 + 8
     if constexpr (I8QK) {  // rows past N keep sl2: their outputs are not stored
       const int row0 = q0 + r0, row1 = row0 + 8;
-      if (row0 < N) sl0 = q_scale[(size_t)b * N + row0] * sl2;
-      if (row1 < N) sl1 = q_scale[(size_t)b * N + row1] * sl2;
+      if (row0 < N) sl0 = q_scale[s0 + row0] * sl2;
+      if (row1 < N) sl1 = q_scale[s0 + row1] * sl2;
     }
 
     mbar_wait(q_full, 0);
@@ -508,8 +513,9 @@ cudaError_t smem_once() {
 // tq, tk: the q and k maps (bf16, or I8QK int8); v and out bf16
 template <bool BIAS, bool I8QK>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const void* v, HeadStrides sv,
-                   const float* bias, const float* q_scale, const float* k_scale, void* out,
-                   int B, int N, int H, float scale, cudaStream_t stream) {
+                   const float* bias, const float* q_scale, const float* k_scale,
+                   bool head_scales, void* out, int B, int N, int H, float scale,
+                   cudaStream_t stream) {
   cudaError_t err = smem_once<BIAS, I8QK>();
   if (err != cudaSuccess) return err;
   const HeadStrides so{(long long)N * H * 64, (long long)H * 64, 64};
@@ -518,7 +524,7 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const void* v, 
     return cudaErrorInvalidValue;
   const dim3 grid((N + QT - 1) / QT, H, B);
   flash_wgmma_kernel<BIAS, I8QK><<<grid, THREADS, FlashTile<BIAS, I8QK>::SMEM, stream>>>(
-      tq, tk, tv, to, bias, q_scale, k_scale, N, scale * LOG2E);
+      tq, tk, tv, to, bias, q_scale, k_scale, head_scales ? 1 : 0, N, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -553,15 +559,15 @@ cudaError_t launch_flash_bf16(const void* q, HeadStrides sq, const void* k, Head
   // K1 without a bias takes the BIAS program (a zero row) where the scale is
   // not positive: the unbiased program finds the row maximum before scaling
   const bool biased = bias != nullptr || !(scale > 0.0f);
-  return biased ? launch<true, false>(tq, tk, v, sv, bias, nullptr, nullptr, out, B, N, H,
+  return biased ? launch<true, false>(tq, tk, v, sv, bias, nullptr, nullptr, false, out, B, N, H,
                                       scale, stream)
-                : launch<false, false>(tq, tk, v, sv, bias, nullptr, nullptr, out, B, N, H,
+                : launch<false, false>(tq, tk, v, sv, bias, nullptr, nullptr, false, out, B, N, H,
                                        scale, stream);
 }
 
 cudaError_t launch_flash_i8qk(const void* q8, const float* q_scale, const void* k8,
-                              const float* k_scale, const void* v, const float* bias,
-                              void* out, int B, int N, int H, float scale,
+                              const float* k_scale, bool head_scales, const void* v,
+                              const float* bias, void* out, int B, int N, int H, float scale,
                               cudaStream_t stream) {
   if (!shape_ok(B, N, H)) return cudaErrorInvalidValue;
   CUtensorMap tq, tk;
@@ -570,10 +576,10 @@ cudaError_t launch_flash_i8qk(const void* q8, const float* q_scale, const void* 
   const HeadStrides sv{(long long)N * H * 64, (long long)H * 64, 64};
   // as K1: a scale that is not positive takes the BIAS program (sq > 0)
   const bool biased = bias != nullptr || !(scale > 0.0f);
-  return biased ? launch<true, true>(tq, tk, v, sv, bias, q_scale, k_scale, out, B, N, H,
-                                     scale, stream)
-                : launch<false, true>(tq, tk, v, sv, bias, q_scale, k_scale, out, B, N, H,
-                                      scale, stream);
+  return biased ? launch<true, true>(tq, tk, v, sv, bias, q_scale, k_scale, head_scales, out,
+                                     B, N, H, scale, stream)
+                : launch<false, true>(tq, tk, v, sv, bias, q_scale, k_scale, head_scales, out,
+                                      B, N, H, scale, stream);
 }
 
 cudaError_t flash_blocks_per_sm(bool biased, bool i8qk, int* n) {

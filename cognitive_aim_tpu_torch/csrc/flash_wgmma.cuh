@@ -1,5 +1,5 @@
 // The attention program of K1, K7 (flash_attention_packed.cu), K8
-// (flash_attention.cu), K10 and K10b (flash_attention_i8qk.cu), for Hopper:
+// (flash_attention.cu), K10, K10b and K9 (flash_attention_i8qk.cu), for Hopper:
 // wgmma fed by TMA, one producer warp and one consumer warpgroup of 64 query
 // rows. The design notes are in flash_wgmma.cu.
 #pragma once
@@ -24,12 +24,13 @@ cudaError_t launch_flash_bf16(const void* q, HeadStrides sq, const void* k, Head
                               int B, int N, int H, float scale, cudaStream_t stream);
 
 // The same with an int8 first product: q8, k8 contiguous int8 [B, N, H*64]
-// (16-byte aligned) quantised per row, q_scale, k_scale their f32 row scales
-// [B, N]; scores float(Q8 K8^T) * q_scale[row] * k_scale[key] * scale
-// (+ bias). v and out contiguous bf16 [B, N, H*64]. Returns as above.
+// (16-byte aligned), q_scale, k_scale their f32 scales: [B, N], one a row
+// over all heads, or with head_scales [B, H, N], one a (row, head); scores
+// float(Q8 K8^T) * q_scale[(h,) row] * k_scale[(h,) key] * scale (+ bias). v
+// and out contiguous bf16 [B, N, H*64]. Returns as above.
 cudaError_t launch_flash_i8qk(const void* q8, const float* q_scale, const void* k8,
-                              const float* k_scale, const void* v, const float* bias,
-                              void* out, int B, int N, int H, float scale,
+                              const float* k_scale, bool head_scales, const void* v,
+                              const float* bias, void* out, int B, int N, int H, float scale,
                               cudaStream_t stream);
 
 // Blocks of the program's instantiation <biased, i8qk> resident on one SM of

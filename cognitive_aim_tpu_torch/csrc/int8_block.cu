@@ -10,9 +10,6 @@
 // and, as K4a followed by K4b, K4 int8_mlp_ln (body _mlp_ln_kernel);
 //   K13 int8_proj                   (body _qkv_kernel)
 //   K14 int8_fc1_gelu               (body _fc1_kernel): K4a without the layernorm
-//   K12 int8_attnout_mlp_ln         (body _attnout_mlp_kernel): K3 then K4 with
-//                                   the post-attention residual carried in f32
-//                                   (the note above caim_int8_attnout_mlp)
 // and, in cognitive_aim_tpu/kernels/int8_gemm.py,
 //   K15 int8_gemm_fused             (body _kernel): K13's function on rows
 //                                   flattened to [M, K].
@@ -20,8 +17,7 @@
 // All of them are one int8 GEMM, acc[m][n] = sum_k a[m][k] w[n][k] in int32 on
 // the tensor cores (wgmma m64nBNk32), between a prologue that makes the
 // int8 A operand and an epilogue that consumes the accumulators:
-//   prologue  quant_rows_kernel<LN, T>: one warp per row of the bf16 input (K12's
-//             second prologue: of the f32 residual stream);
+//   prologue  quant_rows_kernel<LN>: one warp per row of the bf16 input;
 //             optional layernorm in f32 (variance as the mean of squared
 //             deviations, two passes over the row held in registers), then
 //             s = max(max|x| / 127, 1e-12), q = clip(rint(x / s)) with a
@@ -32,14 +28,13 @@
 //             layernorm, the row read twice (maximum, then quantise; the
 //             second read is served by L1/L2) instead of held in registers.
 //             quant_rows_pair_kernel quantises one or two tensors' rows
-//             without layernorm in one launch: K10's q and k, for no GEMM.
+//             without layernorm in one launch: K10's q and k, for no GEMM;
+//             quant_heads_pair_kernel the same per (row, head): K9's.
 //   epilogue  kQKV:       acc * s_x * s_w + b -> bf16, split at columns D and
 //                         2D into three contiguous [M, D] tensors;
 //             kResidual:  res + ls * (acc * s_x * s_w + b) -> bf16;
-//             kResidualToF32, kResidualFromF32 (K12): the same value left in
-//                         f32 [M, N], and the same with res read as f32;
 //             kPlain:     acc * s_x * s_w + b -> bf16 [M, N], unsplit (K13, K15).
-// K4a, K14 and K12's fc1 stage run a GEMM of their own after the same
+// K4a and K14 run a GEMM of their own after the same
 // prologue: fc1_gelu_quant_kernel, tanh-GELU and the requantisation over the
 // whole F-wide row in its epilogue (its notes below).
 // Every f32 step is written with round-to-nearest intrinsics, so no
@@ -57,6 +52,8 @@
 // before it can quantise one of them; fc1_gelu_quant_kernel finds it on chip,
 // in one GEMM pass. The int8 activations make one trip through L2 between
 // the prologue kernel and the GEMM (~0.013 ms a prologue at M 10960).
+// K12, the post-attention half of the block in one kernel, is
+// int8_fused_block.cu.
 #include "tile_common.cuh"
 
 namespace caim {
@@ -66,9 +63,7 @@ constexpr int BK = 128;             // contraction depth of a stage: one 128-byt
 constexpr int MAX_QUANT_K = 1024;   // widest row quant_rows_kernel holds in registers
 constexpr int QUANT_THREADS = 256;  // 8 rows a block
 
-enum Epilogue : int {
-  kQKV = 0, kResidual = 1, kPlain = 2, kResidualToF32 = 3, kResidualFromF32 = 4
-};
+enum Epilogue : int { kQKV = 0, kResidual = 1, kPlain = 2 };
 
 struct GemmArgs {
   const int8_t* a;    // [M, K] int8 activations
@@ -77,22 +72,14 @@ struct GemmArgs {
   const float* ws;    // [N] per-output-channel scales
   const float* bias;  // [N]
   int M, K, N;
-  bf16* out;          // kQKV: [3, M, D]; kResidual, kPlain, kResidualFromF32: [M, N]
+  bf16* out;          // kQKV: [3, M, D]; kResidual, kPlain: [M, N]
   int D;              // kQKV: width of each of q, k, v (a multiple of the tile's BN)
-  const bf16* res;    // kResidual, kResidualToF32: [M, N]
-  const float* ls;    // the residual epilogues: [N]
-  float* xf;          // kResidualToF32 writes: [M, N] f32
-  const float* resf;  // kResidualFromF32: the residual in f32 [M, N]
+  const bf16* res;    // kResidual: [M, N]
+  const float* ls;    // kResidual: [N]
 };
 
-// ------------------------------------------------------ f32 arithmetic -----
-// (dequant, quant_scale, quant_value, quant_pack4: tile_common.cuh)
-// 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float x3 = __fmul_rn(__fmul_rn(x, x), x);
-  const float t = tanhf(__fmul_rn(0.7978845608028654f, __fadd_rn(x, __fmul_rn(0.044715f, x3))));
-  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, t));
-}
+// (the f32 arithmetic, dequant, quant_scale, quant_value, quant_pack4 and
+// gelu_tanh: tile_common.cuh)
 
 // ------------------------------------------------------------ prologue -----
 // eight consecutive values of a row (16-byte aligned at p) as f32
@@ -102,22 +89,16 @@ __device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
 #pragma unroll
   for (int t = 0; t < 8; ++t) v[t] = __bfloat162float(e[t]);
 }
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
 
 // Row `row` of x [M, K], K <= MAX_QUANT_K, quantised by one warp (lane
 // `lane`) into the same row of xq and sx[row]
-template <bool LN, typename T>
-__device__ __forceinline__ void quant_row(const T* __restrict__ x, const float* __restrict__ gamma,
+template <bool LN>
+__device__ __forceinline__ void quant_row(const bf16* __restrict__ x, const float* __restrict__ gamma,
                                           const float* __restrict__ beta, float eps,
                                           int8_t* __restrict__ xq, float* __restrict__ sx,
                                           int row, int K, int lane) {
   constexpr int CH = MAX_QUANT_K / 256;  // 8-element chunks a lane may hold
-  const T* xr = x + (size_t)row * K;
+  const bf16* xr = x + (size_t)row * K;
   float v[CH][8];
 #pragma unroll
   for (int i = 0; i < CH; ++i) {
@@ -183,15 +164,15 @@ __device__ __forceinline__ void quant_row(const T* __restrict__ x, const float* 
   if (lane == 0) sx[row] = s;
 }
 
-template <bool LN, typename T>
+template <bool LN>
 __global__ void __launch_bounds__(QUANT_THREADS)
-quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, float eps, int8_t* __restrict__ xq,
                   float* __restrict__ sx, int M, int K) {
   const int row = blockIdx.x * (QUANT_THREADS / 32) + threadIdx.x / 32;
   launch_dependents();  // the GEMM that reads xq, sx may be scheduled now
   if (row >= M) return;
-  quant_row<LN, T>(x, gamma, beta, eps, xq, sx, row, K, threadIdx.x % 32);
+  quant_row<LN>(x, gamma, beta, eps, xq, sx, row, K, threadIdx.x % 32);
 }
 
 // gridDim.y bf16 tensors (one or two) of M rows each, without layernorm, in
@@ -203,8 +184,55 @@ quant_rows_pair_kernel(const bf16* __restrict__ x0, const bf16* __restrict__ x1,
   const int row = blockIdx.x * (QUANT_THREADS / 32) + threadIdx.x / 32;
   if (row >= M) return;
   const bool second = blockIdx.y != 0;
-  quant_row<false, bf16>(second ? x1 : x0, nullptr, nullptr, 0.0f, second ? xq1 : xq0,
+  quant_row<false>(second ? x1 : x0, nullptr, nullptr, 0.0f, second ? xq1 : xq0,
                          second ? sx1 : sx0, row, K, threadIdx.x % 32);
+}
+
+// Row `row` = b N + n of x [B N, K] (K = H 64 <= MAX_QUANT_K) quantised per
+// head, over each head's 64 values, by one warp (lane `lane`) into the same
+// row of xq and sx [B, H, N] at (b H + head) N + n (head-major: the attention
+// program stages a key tile's 64 scales of one head from contiguous memory):
+// quant_row's arithmetic on each head's slice. A lane holds 8 values of a
+// chunk of 256, so the 8 lanes 8 (lane / 8) .. + 7 hold one head and reduce
+// its maximum among themselves.
+__device__ __forceinline__ void quant_row_heads(const bf16* __restrict__ x,
+                                                int8_t* __restrict__ xq, float* __restrict__ sx,
+                                                int row, int K, int N, int lane) {
+  const int H = K / 64;
+  float* srow = sx + (size_t)(row / N) * H * N + row % N;  // head 0's scale of the row
+  constexpr int CH = MAX_QUANT_K / 256;
+  const bf16* xr = x + (size_t)row * K;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int k = i * 256 + lane * 8;
+    if (i * 256 >= K) break;  // the same for every lane
+    float v[8], amax = 0.0f;
+    if (k < K) {
+      load8(xr + k, v);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(v[t]));
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (k < K) {
+      const float s = quant_scale(amax);
+      *reinterpret_cast<uint2*>(xq + (size_t)row * K + k) =
+          make_uint2(quant_pack4(v[0], v[1], v[2], v[3], s), quant_pack4(v[4], v[5], v[6], v[7], s));
+      if ((lane & 7) == 0) srow[(size_t)(k / 64) * N] = s;
+    }
+  }
+}
+
+// quant_rows_pair_kernel per (row, head): K9's q and k, N rows a batch
+__global__ void __launch_bounds__(QUANT_THREADS)
+quant_heads_pair_kernel(const bf16* __restrict__ x0, const bf16* __restrict__ x1,
+                        int8_t* __restrict__ xq0, int8_t* __restrict__ xq1,
+                        float* __restrict__ sx0, float* __restrict__ sx1, int M, int K, int N) {
+  const int row = blockIdx.x * (QUANT_THREADS / 32) + threadIdx.x / 32;
+  if (row >= M) return;
+  const bool second = blockIdx.y != 0;
+  quant_row_heads(second ? x1 : x0, second ? xq1 : xq0, second ? sx1 : sx0, row, K, N,
+                  threadIdx.x % 32);
 }
 
 // Rows of any width K (a multiple of 8), no layernorm: the row is read
@@ -236,10 +264,9 @@ quant_rows_wide_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
 
 // ---------------------------------------------------------------- GEMM -----
 // One program for every epilogue: K2, K5 (kQKV), K3, K4b (kResidual), K13,
-// K15 (kPlain), K12's two residual stages (kResidualToF32, kResidualFromF32).
+// K15 (kPlain).
 //   * A CTA is a producer warp and two consumer warpgroups. It owns a 128-row
-//     x BN-column output tile at a time (BN 192 or 128: gemm_tile_cols; K12's
-//     stages 128) and walks the tiles t = blockIdx.x, + gridDim.x, ...
+//     x BN-column output tile at a time (BN 192 or 128: gemm_tile_cols) and walks the tiles t = blockIdx.x, + gridDim.x, ...
 //     row-tile-major, one CTA an SM: the CTAs at work hold a few neighbouring
 //     row tiles, whose A slices every column tile reads from L2 while they
 //     are there.
@@ -262,7 +289,6 @@ quant_rows_wide_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
 //     thread waits for the store after the next tile's first wgmma group),
 //     so that it lands during the mainloop, and each thread reads its
 //     residual values (ldmatrix) where it then writes its outputs.
-//     K12's f32 stages read and write pairs of values, all reads first.
 //   * Launched as a programmatic dependent of the quantising prologue, which
 //     lets it be scheduled at its start: the CTAs set up (barriers, tensor
 //     maps) while the prologue's last blocks run, and wait for it to end
@@ -308,56 +334,21 @@ int gemm_tile_cols(int M, int N, int parts, int sms) {
   return best;
 }
 
-template <int EPI>
-struct EpiTypes {  // kQKV, kPlain
-  using Out = bf16;
-  using Res = bf16;
-  static constexpr bool RES = false;
-};
-template <>
-struct EpiTypes<kResidual> {
-  using Out = bf16;
-  using Res = bf16;
-  static constexpr bool RES = true;
-};
-template <>
-struct EpiTypes<kResidualToF32> {
-  using Out = float;
-  using Res = bf16;
-  static constexpr bool RES = true;
-};
-template <>
-struct EpiTypes<kResidualFromF32> {
-  using Out = bf16;
-  using Res = float;
-  static constexpr bool RES = true;
-};
-
 template <int EPI, int BN>
 struct GemmTile {
-  using E = EpiTypes<EPI>;
+  static constexpr bool RES = EPI == kResidual;  // reads a bf16 residual [M, N]
   static constexpr int A_BYTES = BM * BK;
   static constexpr int STAGE = A_BYTES + BN * BK;
-  // a warpgroup's staging rows: its 64 rows of the output, or of the
-  // residual where that is the wider type
-  static constexpr int ESZ =
-      E::RES && sizeof(typename E::Res) > sizeof(typename E::Out) ? sizeof(typename E::Res)
-                                                                  : sizeof(typename E::Out);
-  static constexpr int HALF = 64 * BN * ESZ;
-  static constexpr int OUT_BOXES = BN * (int)sizeof(typename E::Out) / 128;
-  static constexpr int RES_BOXES = BN * (int)sizeof(typename E::Res) / 128;
+  static constexpr int HALF = 64 * BN * 2;  // a warpgroup's staging rows: its 64 bf16 rows
+  static constexpr int BOXES = BN * 2 / 128;  // staging boxes of a row (out and residual)
   static constexpr int FIXED = 2 * HALF + 1024 + 64;  // + alignment + barriers
   static constexpr int FIT = (int)((MAX_SMEM - FIXED) / STAGE);
   static constexpr int STAGES = FIT < GEMM_MAX_STAGES ? FIT : GEMM_MAX_STAGES;
   static constexpr int STAGING_OFF = STAGES * STAGE;
   static constexpr int BAR_OFF = STAGING_OFF + 2 * HALF;
   static constexpr size_t SMEM = (size_t)BAR_OFF + (2 * STAGES + 4) * 8 + 1024;
-  // K12's stages: an f32 residual or output (the others: bf16 in and out)
-  static constexpr bool F32 =
-      sizeof(typename E::Out) == 4 || (E::RES && sizeof(typename E::Res) == 4);
-  static_assert(!F32 || E::RES, "an f32 epilogue applies a residual");
   static_assert(STAGES >= 2 && SMEM <= MAX_SMEM, "ring and staging tile fit");
-  static_assert(BN * sizeof(typename E::Out) % 128 == 0, "whole staging boxes");
+  static_assert(BN * 2 % 128 == 0, "whole staging boxes");
 };
 
 struct GemmMaps {
@@ -372,26 +363,12 @@ struct GemmMaps {
 __device__ __forceinline__ int staging_offset(int r, int bc) {
   return (bc >> 7) * BOX_BYTES + r * 128 + ((((bc >> 4) & 7) ^ (r & 7)) << 4) + (bc & 15);
 }
-__device__ __forceinline__ float2 load_pair(const unsigned char* p, bf16) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load_pair(const unsigned char* p, float) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ void store_pair(unsigned char* p, float y0, float y1, bf16) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(y0, y1);
-}
-__device__ __forceinline__ void store_pair(unsigned char* p, float y0, float y1, float) {
-  *reinterpret_cast<float2*>(p) = make_float2(y0, y1);
-}
 
 template <int EPI, int BN>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
 int8_gemm_tma_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
   using T = GemmTile<EPI, BN>;
-  using Out = typename T::E::Out;
-  using Res = typename T::E::Res;
-  constexpr bool RES = T::E::RES;
+  constexpr bool RES = T::RES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle is a function of the address: start on a 1024-byte boundary
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -441,10 +418,10 @@ int8_gemm_tma_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
                 if (i > 0) mbar_wait(&res_free[h], (i - 1) & 1);
                 unsigned char* rows = smem + T::STAGING_OFF + h * T::HALF;
                 if (m0 + 64 * h < p.M) {
-                  mbar_arrive_expect_tx(&res_full[h], T::RES_BOXES * BOX_BYTES);
-                  for (int b = 0; b < T::RES_BOXES; ++b)
-                    tma_load_2d(rows + b * BOX_BYTES, &maps.res, &res_full[h],
-                                n0 + b * (128 / (int)sizeof(Res)), m0 + 64 * h);
+                  mbar_arrive_expect_tx(&res_full[h], T::BOXES * BOX_BYTES);
+                  for (int b = 0; b < T::BOXES; ++b)
+                    tma_load_2d(rows + b * BOX_BYTES, &maps.res, &res_full[h], n0 + b * 64,
+                                m0 + 64 * h);
                 } else {
                   mbar_arrive(&res_full[h]);  // rows all past M: nothing to read or store
                 }
@@ -514,64 +491,35 @@ int8_gemm_tma_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
       if (wtid == 0) tma_store_wait_read();  // the last tile's store has read the rows
       named_barrier_sync(1 + wg, 128);
     }
-    if constexpr (!T::F32) {
-      // bf16 out (and residual): the 8 x 8 tiles of columns 8j.. of rows
-      // warp 16 (+ 8) and of the next j moved by one stmatrix (one ldmatrix)
+    // bf16 out (and residual): the 8 x 8 tiles of columns 8j.. of rows
+    // warp 16 (+ 8) and of the next j moved by one stmatrix (one ldmatrix)
 #pragma unroll
-      for (int j = 0; j < BN / 8; j += 2) {
-        unsigned char* at = rows + staging_offset(warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
-                                                  (j + (lane >> 4)) * 16);
-        uint32_t rv[4], ov[4];
-        if constexpr (RES) ldsm_x4(rv, at);
+    for (int j = 0; j < BN / 8; j += 2) {
+      unsigned char* at = rows + staging_offset(warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
+                                                (j + (lane >> 4)) * 16);
+      uint32_t rv[4], ov[4];
+      if constexpr (RES) ldsm_x4(rv, at);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {  // columns 8 (j + e) + 2c (+ 1): tiles 2e, 2e + 1
-          const int jq = j + e, col = 8 * jq + 2 * c;
-          const float2 w2 = *reinterpret_cast<const float2*>(p.ws + n0 + col);
-          const float2 b2 = *reinterpret_cast<const float2*>(p.bias + n0 + col);
-          float2 l2 = make_float2(0.0f, 0.0f);
-          if constexpr (RES) l2 = *reinterpret_cast<const float2*>(p.ls + n0 + col);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {  // rows + 8 h: tile 2e + h
-            float y0 = dequant(acc[4 * jq + 2 * h], sx[h], w2.x, b2.x);
-            float y1 = dequant(acc[4 * jq + 2 * h + 1], sx[h], w2.y, b2.y);
-            if constexpr (RES) {
-              const float2 r2 =
-                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv[2 * e + h]));
-              y0 = __fadd_rn(r2.x, __fmul_rn(l2.x, y0));
-              y1 = __fadd_rn(r2.y, __fmul_rn(l2.y, y1));
-            }
-            ov[2 * e + h] = pack_bf16(y0, y1);
-          }
-        }
-        stsm_x4(at, ov);
-      }
-    } else {
-      // K12's stages, an f32 residual or output: a thread's outputs land where
-      // other threads' residual values are, so all of them are read first
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = 8 * j + 2 * c;
+      for (int e = 0; e < 2; ++e) {  // columns 8 (j + e) + 2c (+ 1): tiles 2e, 2e + 1
+        const int jq = j + e, col = 8 * jq + 2 * c;
         const float2 w2 = *reinterpret_cast<const float2*>(p.ws + n0 + col);
         const float2 b2 = *reinterpret_cast<const float2*>(p.bias + n0 + col);
-        const float2 l2 = *reinterpret_cast<const float2*>(p.ls + n0 + col);
+        float2 l2 = make_float2(0.0f, 0.0f);
+        if constexpr (RES) l2 = *reinterpret_cast<const float2*>(p.ls + n0 + col);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float2 rv =
-              load_pair(rows + staging_offset(r0 + 8 * h, col * (int)sizeof(Res)), Res{});
-          const float y0 = dequant(acc[4 * j + 2 * h], sx[h], w2.x, b2.x);
-          const float y1 = dequant(acc[4 * j + 2 * h + 1], sx[h], w2.y, b2.y);
-          acc[4 * j + 2 * h] = __float_as_int(__fadd_rn(rv.x, __fmul_rn(l2.x, y0)));
-          acc[4 * j + 2 * h + 1] = __float_as_int(__fadd_rn(rv.y, __fmul_rn(l2.y, y1)));
+        for (int h = 0; h < 2; ++h) {  // rows + 8 h: tile 2e + h
+          float y0 = dequant(acc[4 * jq + 2 * h], sx[h], w2.x, b2.x);
+          float y1 = dequant(acc[4 * jq + 2 * h + 1], sx[h], w2.y, b2.y);
+          if constexpr (RES) {
+            const float2 r2 =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv[2 * e + h]));
+            y0 = __fadd_rn(r2.x, __fmul_rn(l2.x, y0));
+            y1 = __fadd_rn(r2.y, __fmul_rn(l2.y, y1));
+          }
+          ov[2 * e + h] = pack_bf16(y0, y1);
         }
       }
-      named_barrier_sync(1 + wg, 128);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          store_pair(rows + staging_offset(r0 + 8 * h, (8 * j + 2 * c) * (int)sizeof(Out)),
-                     __int_as_float(acc[4 * j + 2 * h]), __int_as_float(acc[4 * j + 2 * h + 1]),
-                     Out{});
+      stsm_x4(at, ov);
     }
     fence_proxy_async();  // the staging rows, written here, are read by TMA
     named_barrier_sync(1 + wg, 128);
@@ -584,15 +532,15 @@ int8_gemm_tma_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs p) {
         ocol = n0 - which * p.D;
       }
 #pragma unroll
-      for (int b = 0; b < T::OUT_BOXES; ++b)
-        tma_store_2d(om, rows + b * BOX_BYTES, ocol + b * (128 / (int)sizeof(Out)), row0);
+      for (int b = 0; b < T::BOXES; ++b)
+        tma_store_2d(om, rows + b * BOX_BYTES, ocol + b * 64, row0);
       tma_store_commit();
     }
   }
   if (wtid == 0) tma_store_wait_all();  // before the CTA's shared memory goes
 }
 
-// ------------------------------------- K4a, K14, K12's fc1: one GEMM pass -----
+// ------------------------------------------ K4a, K14: one GEMM pass -----
 // h = gelu_tanh(acc s_x s_w + b) over a whole row of F columns, quantised with
 // that row's scale s = max(max|h| / 127, 1e-12): int8 h8 [M, F] and f32 sh [M].
 // Replaces the TPU body _fc1_ln_kernel's GEMM, GELU and requantisation (the
@@ -815,12 +763,12 @@ cudaError_t launch_quant_rows(const void* x, const void* gamma, const void* beta
   const int rows = QUANT_THREADS / 32;
   const dim3 grid((M + rows - 1) / rows);
   if (gamma != nullptr)
-    quant_rows_kernel<true, bf16><<<grid, QUANT_THREADS, 0, stream>>>(
+    quant_rows_kernel<true><<<grid, QUANT_THREADS, 0, stream>>>(
         static_cast<const bf16*>(x), static_cast<const float*>(gamma),
         static_cast<const float*>(beta), eps, static_cast<int8_t*>(xq),
         static_cast<float*>(sx), M, K);
   else if (K <= MAX_QUANT_K)
-    quant_rows_kernel<false, bf16><<<grid, QUANT_THREADS, 0, stream>>>(
+    quant_rows_kernel<false><<<grid, QUANT_THREADS, 0, stream>>>(
         static_cast<const bf16*>(x), nullptr, nullptr, 0.0f, static_cast<int8_t*>(xq),
         static_cast<float*>(sx), M, K);
   else
@@ -829,41 +777,22 @@ cudaError_t launch_quant_rows(const void* x, const void* gamma, const void* beta
   return cudaGetLastError();
 }
 
-// x1 null: x0 alone
+// x1 null: x0 alone; heads_n > 0: per (row, head) of 64 values, heads_n rows
+// a batch (scales [B, H, N])
 cudaError_t launch_quant_rows_pair(const void* x0, const void* x1, void* xq0, void* xq1,
-                                   void* sx0, void* sx1, int M, int K, cudaStream_t stream) {
+                                   void* sx0, void* sx1, int M, int K, int heads_n,
+                                   cudaStream_t stream) {
   const int rows = QUANT_THREADS / 32;
   const dim3 grid((M + rows - 1) / rows, x1 != nullptr ? 2 : 1);
-  quant_rows_pair_kernel<<<grid, QUANT_THREADS, 0, stream>>>(
-      static_cast<const bf16*>(x0), static_cast<const bf16*>(x1), static_cast<int8_t*>(xq0),
-      static_cast<int8_t*>(xq1), static_cast<float*>(sx0), static_cast<float*>(sx1), M, K);
+  const bf16 *a = static_cast<const bf16*>(x0), *b = static_cast<const bf16*>(x1);
+  int8_t *qa = static_cast<int8_t*>(xq0), *qb = static_cast<int8_t*>(xq1);
+  float *sa = static_cast<float*>(sx0), *sb = static_cast<float*>(sx1);
+  if (heads_n > 0)
+    quant_heads_pair_kernel<<<grid, QUANT_THREADS, 0, stream>>>(a, b, qa, qb, sa, sb, M, K,
+                                                                heads_n);
+  else
+    quant_rows_pair_kernel<<<grid, QUANT_THREADS, 0, stream>>>(a, b, qa, qb, sa, sb, M, K);
   return cudaGetLastError();
-}
-
-// The layernorm prologue on f32 rows [M, K], K <= MAX_QUANT_K (K12's second).
-cudaError_t launch_quant_rows_ln_f32(const float* x, const void* gamma, const void* beta,
-                                     float eps, void* xq, void* sx, int M, int K,
-                                     cudaStream_t stream) {
-  const int rows = QUANT_THREADS / 32;
-  quant_rows_kernel<true, float><<<dim3((M + rows - 1) / rows), QUANT_THREADS, 0, stream>>>(
-      x, static_cast<const float*>(gamma), static_cast<const float*>(beta), eps,
-      static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K);
-  return cudaGetLastError();
-}
-
-// [rows, cols] row-major at base, elements of esz bytes, read or written by
-// TMA in boxes of box_cols x box_rows (128-byte swizzle)
-bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int esz, const void* base, int rows,
-               int cols, int box_cols, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t stride[1] = {(cuuint64_t)cols * esz};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  return encode_map(map, type, 2, base, dims, stride, box);
-}
-
-template <typename V>
-constexpr CUtensorMapDataType map_type() {
-  return sizeof(V) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 // SMs of the current device, found once per device
@@ -911,27 +840,21 @@ cudaError_t gemm_resident_ctas(int* n) {
 template <int EPI, int BN>
 cudaError_t launch_gemm_cols(const GemmArgs& p, cudaStream_t stream) {
   using T = GemmTile<EPI, BN>;
-  using Out = typename T::E::Out;
-  using Res = typename T::E::Res;
   int ctas = 0;
   cudaError_t err = gemm_resident_ctas<EPI, BN>(&ctas);  // sets the allowance too
   if (err != cudaSuccess) return err;
-  constexpr int OSZ = sizeof(Out), RSZ = sizeof(Res);
+  constexpr auto BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   GemmMaps maps{};
   bool ok = encode_2d(&maps.a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.a, p.M, p.K, BK, BM) &&
             encode_2d(&maps.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.w, p.N, p.K, BK, BN);
   if constexpr (EPI == kQKV) {
     for (int q = 0; q < 3; ++q)
-      ok = ok && encode_2d(&maps.out[q], map_type<Out>(), OSZ, p.out + (size_t)q * p.M * p.D,
-                           p.M, p.D, 128 / OSZ, 64);
+      ok = ok && encode_2d(&maps.out[q], BF16, 2, p.out + (size_t)q * p.M * p.D, p.M, p.D, 64,
+                           64);
   } else {
-    const void* out = EPI == kResidualToF32 ? static_cast<const void*>(p.xf) : p.out;
-    ok = ok && encode_2d(&maps.out[0], map_type<Out>(), OSZ, out, p.M, p.N, 128 / OSZ, 64);
+    ok = ok && encode_2d(&maps.out[0], BF16, 2, p.out, p.M, p.N, 64, 64);
   }
-  if constexpr (T::E::RES) {
-    const void* res = EPI == kResidualFromF32 ? static_cast<const void*>(p.resf) : p.res;
-    ok = ok && encode_2d(&maps.res, map_type<Res>(), RSZ, res, p.M, p.N, 128 / RSZ, 64);
-  }
+  if constexpr (T::RES) ok = ok && encode_2d(&maps.res, BF16, 2, p.res, p.M, p.N, 64, 64);
   if (!ok) return cudaErrorInvalidValue;
   const int tiles = (p.M + BM - 1) / BM * (p.N / BN);
   cudaLaunchConfig_t cfg = {};
@@ -950,19 +873,13 @@ cudaError_t launch_gemm_cols(const GemmArgs& p, cudaStream_t stream) {
 
 template <int EPI>
 cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
-  if constexpr (GemmTile<EPI, 128>::F32) {
-    // K12's stages (N the model width, a multiple of 128): with 192 columns
-    // the f32 staging tile leaves three stages and the epilogue spills
-    return p.N % 128 == 0 ? launch_gemm_cols<EPI, 128>(p, stream) : cudaErrorInvalidValue;
-  } else {
-    int sms = 0;
-    cudaError_t err = device_sms(&sms);
-    if (err != cudaSuccess) return err;
-    switch (gemm_tile_cols(p.M, p.N, EPI == kQKV ? 3 : 1, sms)) {
-      case 192: return launch_gemm_cols<EPI, 192>(p, stream);
-      case 128: return launch_gemm_cols<EPI, 128>(p, stream);
-      default: return cudaErrorInvalidValue;
-    }
+  int sms = 0;
+  cudaError_t err = device_sms(&sms);
+  if (err != cudaSuccess) return err;
+  switch (gemm_tile_cols(p.M, p.N, EPI == kQKV ? 3 : 1, sms)) {
+    case 192: return launch_gemm_cols<EPI, 192>(p, stream);
+    case 128: return launch_gemm_cols<EPI, 128>(p, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -1003,7 +920,18 @@ extern "C" int caim_quantize_rows(const void* x, const void* y, void* xq, void* 
                                   void* sy, int M, int K, void* stream) {
   if (M <= 0 || K <= 0 || K % 8 != 0 || K > caim::MAX_QUANT_K)
     return (int)cudaErrorInvalidValue;
-  return (int)caim::launch_quant_rows_pair(x, y, xq, yq, sx, sy, M, K,
+  return (int)caim::launch_quant_rows_pair(x, y, xq, yq, sx, sy, M, K, 0,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+// The same per (row, head) over each head's 64 values (K9's q and k): x bf16
+// [B, N, K] -> xq int8 [B, N, K], sx f32 [B, K / 64, N] (head-major), and y
+// likewise unless null. K a multiple of 64 up to 1024.
+extern "C" int caim_quantize_heads(const void* x, const void* y, void* xq, void* yq, void* sx,
+                                   void* sy, int B, int N, int K, void* stream) {
+  if (B <= 0 || N <= 0 || K <= 0 || K % 64 != 0 || K > caim::MAX_QUANT_K)
+    return (int)cudaErrorInvalidValue;
+  return (int)caim::launch_quant_rows_pair(x, y, xq, yq, sx, sy, B * N, K, N,
                                            static_cast<cudaStream_t>(stream));
 }
 
@@ -1216,60 +1144,4 @@ extern "C" int caim_int8_gemm_fused(const void* x, void* xq, void* sx, const voi
                                     int N, void* stream) {
   return caim::int8_linear(x, xq, sx, wq, ws, bias, out, M, K, N,
                            static_cast<cudaStream_t>(stream));
-}
-
-// K12: the whole post-attention half of the chained int8 block,
-//   xf  = res + ls1 * (quant(ctx) wo^T * s * so + bo)                 (f32)
-//   out = xf + ls2 * fc2(quant(gelu(fc1(quant(LN2(xf))))))            (one cast, at the end)
-// ctx, res, out bf16 [M, K]; wo [K, K], w1 [F, K], w2 [K, F] int8; K <= 1024.
-// Scratch: xf f32 [M, K]; aq int8 [M, K] and sa f32 [M] (ctx quantised, then
-// LN2(xf) quantised); h8 int8 [M, F], sh f32 [M].
-//
-// Replaces cognitive_aim_tpu/kernels/int8_block.py int8_attnout_mlp_ln (body
-// _attnout_mlp_kernel), one TPU program that keeps the three weights (5.2 MB)
-// and a row tile's f32 residual and f32 hidden resident in VMEM. A thread block
-// has 227 KB, and the requantisation needs a row's maximum over all F hidden
-// columns before fc2 may start, so K12 here is a chain over this file's GEMM:
-// quantise ctx -> GEMM (kResidualToF32) -> layernorm and quantise the f32 rows
-// -> the fc1 GEMM (fc1_gelu_quant_kernel) -> GEMM (kResidualFromF32): five
-// launches, as K3 followed by K4. What it lets through device memory that the TPU kernel
-// kept on chip: the int8 activations and scales between each prologue and its
-// GEMM, the int8 hidden and its scales (as K4 does), and the residual stream xf
-// in f32, written once and read twice (33.7 MB at M 10960, inside the 50 MB
-// L2), where K3 -> K4 moves the same rows rounded to bf16 (half the bytes).
-// The arithmetic is the TPU kernel's: xf never rounds to bf16. Bound: 116 GOP
-// of int8 products (0.059 ms at the peak) against 2 x 16.8 MB of activations
-// in, 16.8 MB out and 5.3 MB of weights (0.017 ms): operations. Keeping xf on
-// chip (a block owning a row tile across all K / 128 column tiles of attn_out,
-// layernorm in its epilogue) is the next step.
-extern "C" int caim_int8_attnout_mlp(const void* ctx, const void* wo, const void* so,
-                                     const void* bo, const void* ls1, const void* res,
-                                     const void* gamma, const void* beta, float eps,
-                                     const void* w1, const void* s1, const void* b1,
-                                     const void* w2, const void* s2, const void* b2,
-                                     const void* ls2, void* out, void* xf, void* aq, void* sa,
-                                     void* h8, void* sh, int M, int K, int F, void* stream) {
-  using namespace caim;
-  if (!gemm_shape_ok(M, K, K) || !fc1_shape_ok(M, K, F) || K > MAX_QUANT_K ||
-      gamma == nullptr || beta == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_quant_rows(ctx, nullptr, nullptr, 0.0f, aq, sa, M, K, st);
-  if (err != cudaSuccess) return (int)err;
-  GemmArgs p = gemm_args(aq, sa, wo, so, bo, M, K, K);
-  p.ls = static_cast<const float*>(ls1);
-  p.res = static_cast<const bf16*>(res);
-  p.xf = static_cast<float*>(xf);
-  err = launch_gemm<kResidualToF32>(p, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_quant_rows_ln_f32(static_cast<const float*>(xf), gamma, beta, eps, aq, sa, M, K,
-                                 st);
-  if (err != cudaSuccess) return (int)err;
-  err = fc1_gelu_gemm(aq, sa, w1, s1, b1, h8, sh, M, K, F, st);
-  if (err != cudaSuccess) return (int)err;
-  p = gemm_args(h8, sh, w2, s2, b2, M, F, K);
-  p.ls = static_cast<const float*>(ls2);
-  p.resf = static_cast<const float*>(xf);
-  p.out = static_cast<bf16*>(out);
-  return (int)launch_gemm<kResidualFromF32>(p, st);
 }

@@ -93,9 +93,9 @@ def _declare(lib):
     # q8, sq, k8, sk, v, bias (or null), out, B, N, H, head_dim, scale, stream
     lib.caim_flash_attention_i8qk.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, p]
     lib.caim_flash_attention_i8qk.restype = i
-    # q, k, v, out, B, N, H, head_dim, scale, stream
-    lib.caim_flash_attention_int8dots.argtypes = [p, p, p, p, i, i, i, i, f, p]
-    lib.caim_flash_attention_int8dots.restype = i
+    # q8, sq, k8, sk ([B, H, N] scales), v, out, B, N, H, head_dim, scale, stream
+    lib.caim_flash_attention_i8qk_heads.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.caim_flash_attention_i8qk_heads.restype = i
     # q, k, v, wq, ws, bias, ls, res, out, ctx8 (or null), sc (or null), B, N, H,
     # head_dim, scale, stream
     lib.caim_flash_attention_out_res.argtypes = [p] * 11 + [i, i, i, i, f, p]
@@ -103,9 +103,12 @@ def _declare(lib):
     # bias, i8qk -> the attention program's blocks resident on an SM
     lib.caim_flash_blocks_per_sm.argtypes = [i, i]
     lib.caim_flash_blocks_per_sm.restype = i
-    # x, y (or null), xq, yq, sx, sy, M, K, stream
+    # x, y (or null), xq, yq, sx, sy, M, K, stream: per row
     lib.caim_quantize_rows.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.caim_quantize_rows.restype = i
+    # x, y (or null), xq, yq, sx, sy, B, N, K, stream: per (row, head)
+    lib.caim_quantize_heads.argtypes = [p, p, p, p, p, p, i, i, i, p]
+    lib.caim_quantize_heads.restype = i
     lib.caim_focal_attention.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
     lib.caim_focal_attention.restype = i
     lib.caim_focal_q_tile.argtypes = [i, i]
@@ -136,9 +139,13 @@ def _declare(lib):
     lib.caim_gemm_resident_ctas.argtypes = [i]
     lib.caim_gemm_resident_ctas.restype = i
     # ctx, wo, so, bo, ls1, res, gamma, beta, eps, w1, s1, b1, w2, s2, b2, ls2, out,
-    # xf, aq, sa, h8, sh, M, K, F, stream
-    lib.caim_int8_attnout_mlp.argtypes = [p] * 8 + [f] + [p] * 13 + [i, i, i, p]
+    # M, K, F, stream
+    lib.caim_int8_attnout_mlp.argtypes = [p] * 8 + [f] + [p] * 8 + [i, i, i, p]
     lib.caim_int8_attnout_mlp.restype = i
+    # K, F -> K12's cluster size (0: no kernel takes them); its clusters resident
+    for fn in (lib.caim_attnout_mlp_cluster_size, lib.caim_attnout_mlp_active_clusters):
+        fn.argtypes = [i, i]
+        fn.restype = i
     # x, xq, sx, wq, ws, bias, out, M, K, N, stream
     for fn in (lib.caim_int8_proj, lib.caim_int8_gemm_fused):
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, p]

@@ -8,8 +8,10 @@ Counterparts, in cognitive_aim_tpu/kernels/flash_attention.py, of
                                              and k quantised per row
   K10b ``flash_attention_packed_i8qk_bias``  K10 with the bias row of K7
   K9   ``flash_attention_packed(..., int8_dots=True)``: an int8 first product
-       on q and k quantised inside the kernel per (row, head), over the head's
-       64 values; here also under its own name, ``flash_attention_packed_int8``
+       on q and k quantised per (row, head), over the head's 64 values (inside
+       the TPU kernel; here by ``quantize_heads``, one launch, before the
+       attention kernel); also under its own name,
+       ``flash_attention_packed_int8``
   K11  ``flash_attention_packed_out_res``    K1, then the int8 attn_out
        projection of the f32 context, LayerScale and the residual add, in
        one kernel
@@ -21,17 +23,17 @@ all on the packed [B, N, H*64] layout of the projections, and
 
 whose kernel takes each operand's batch, token and head strides, so it reads
 separately projected tensors and the column slices of one fused projection
-alike, without a copy. The kernels are CUDA C++: K1, K7, K8, K10 and K10b
-launch one attention program, ``csrc/flash_wgmma.cu`` (K10 and K10b its int8
-instantiation), from the C entries of ``csrc/flash_attention_packed.cu`` (K1,
-K7), ``csrc/flash_attention.cu`` (K8) and ``csrc/flash_attention_i8qk.cu``
-(K10, K10b); K9 is ``csrc/flash_attention_int8dots.cu`` and K11
+alike, without a copy. The kernels are CUDA C++: K1, K7, K8, K10, K10b and K9
+launch one attention program, ``csrc/flash_wgmma.cu`` (K10, K10b and K9 its
+int8 instantiation, K9 with one scale a (row, head)), from the C entries of
+``csrc/flash_attention_packed.cu`` (K1, K7), ``csrc/flash_attention.cu``
+(K8) and ``csrc/flash_attention_i8qk.cu`` (K10, K10b, K9); K11 is
 ``csrc/flash_attention_out_res.cu``. Beside each wrapper stands its
 plain PyTorch version, which mirrors the JAX package's ``_packed_reference``
 and ``_packed_reference_bias`` for K1 and K7, ``attention_reference`` for K8,
-and repeats the kernel body's arithmetic for K10 and K10b (an exact integer
-product, ``s32 * sq * sk`` with the softmax scale folded into ``sq``, f32
-softmax, P cast to v's dtype), and likewise for K9 and K11. No model of either
+and repeats the kernel body's arithmetic for K10, K10b and K9 (an exact
+integer product, ``s32 * sq * sk`` with the softmax scale folded into ``sq``,
+f32 softmax, P cast to v's dtype), and likewise for K11. No model of either
 package calls K9 or K11.
 
 ``quantize_rows`` is the joint-row symmetric quantisation that K10 and K10b
@@ -40,6 +42,8 @@ through the int8 block's quantising prologue (``quant_rows_pair_kernel`` of
 ``csrc/int8_block.cu``, the arithmetic of ``quant_rows_kernel<false>`` on one
 tensor or on q and k together in one launch; contiguous bfloat16 rows up to
 1024 wide), CPU rows through plain PyTorch with the same f32 arithmetic.
+``quantize_heads`` is K9's: the same arithmetic on each head's 64 values
+(``quant_heads_pair_kernel``), scales [B, H, N].
 
 Dispatch is on the tensor's device: CPU tensors take the plain version,
 CUDA tensors launch the kernel or raise. Each wrapper's ``.launches`` counts
@@ -132,16 +136,40 @@ def quantize_rows_plain(x: torch.Tensor, y: Optional[torch.Tensor] = None):
     return (*_quantize_plain(x), *_quantize_plain(y))
 
 
-def _i8qk_plain(q, k, v, k_bias, scale, num_heads):
-    q8, sq, k8, sk = quantize_rows_plain(q, k)
-    sq = sq * scale  # the softmax scale folded into the row scales
+def quantize_heads_plain(x: torch.Tensor, num_heads: int, y: Optional[torch.Tensor] = None):
+    """``quantize_heads``'s plain version: [B, N, H*Dh] -> (int8 [B, N, H*Dh],
+    f32 scales [B, H, N]), each head's Dh values of a row quantised on their
+    own (``_quantize_plain`` on the [B, N, H, Dh] view), the scales head-major
+    as the kernel writes them; with ``y`` (x8, sx, y8, sy)."""
+    def one(t):
+        B, N, HD = t.shape
+        t8, s = _quantize_plain(t.reshape(B, N, num_heads, HD // num_heads))
+        return t8.reshape(B, N, HD), s.squeeze(-1).transpose(1, 2).contiguous()
+
+    return one(x) if y is None else (*one(x), *one(y))
+
+
+def _i8qk_attend_plain(q8, sq, k8, sk, v, k_bias, scale, num_heads, head_scales=False):
+    """The int8 attention program's arithmetic on quantised q8, k8 [B, N, H*Dh]
+    with f32 scales [B, N, 1] (one a row: K10, K10b) or, ``head_scales``,
+    [B, H, N] (one a (row, head): K9): an exact integer q k^T per head,
+    ``s32 * (sq * scale) * sk``, the bias, f32 softmax, P cast to v's dtype,
+    P V in v's dtype."""
     # 64 products of at most 127^2 sum below 2^24: the f32 product is exact
     s32 = torch.matmul(_heads(q8.float(), num_heads),
-                       _heads(k8.float(), num_heads).transpose(-1, -2))
-    s = s32 * sq[:, None] * sk.transpose(1, 2)[:, None]
+                       _heads(k8.float(), num_heads).transpose(-1, -2))  # [B, H, N, N]
+    # the softmax scale folded into the query scales: [B, 1 or H, N, 1] and
+    # [B, 1 or H, 1, N]
+    if not head_scales:
+        sq, sk = sq.transpose(1, 2), sk.transpose(1, 2)  # [B, 1, N]
+    s = s32 * (sq * scale)[..., None] * sk[:, :, None, :]
     if k_bias is not None:
         s = s + k_bias[:, None, None, :].float()
     return _attend(s, v, num_heads)
+
+
+def _i8qk_plain(q, k, v, k_bias, scale, num_heads):
+    return _i8qk_attend_plain(*quantize_rows_plain(q, k), v, k_bias, scale, num_heads)
 
 
 def flash_attention_packed_i8qk_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -162,15 +190,13 @@ def flash_attention_packed_i8qk_bias_plain(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_packed_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       scale: float, num_heads: int) -> torch.Tensor:
-    """The arithmetic of ``_flash_packed_int8_kernel``: q and k quantised per
-    (row, head) over the head's values (``quantize_rows_plain`` on the
-    [B, H, N, Dh] view: a true division), an exact integer q k^T,
-    ``s32 * (sq * scale) * sk`` in f32, f32 softmax, P cast to v's dtype, P V
-    in v's dtype."""
-    q8, sq = quantize_rows_plain(_heads(q, num_heads))  # [B, H, N, Dh], [B, H, N, 1]
-    k8, sk = quantize_rows_plain(_heads(k, num_heads))
-    s32 = torch.matmul(q8.float(), k8.float().transpose(-1, -2))  # exact: sums < 2^24
-    return _attend(s32 * (sq * scale) * sk.transpose(-1, -2), v, num_heads)
+    """The arithmetic of ``_flash_packed_int8_kernel``, decomposed as the CUDA
+    wrapper runs it: q and k quantised per (row, head) over the head's values
+    (``quantize_heads_plain``: a true division), then K10's arithmetic on
+    those scales: an exact integer q k^T, ``s32 * (sq * scale) * sk`` in f32,
+    f32 softmax, P cast to v's dtype, P V in v's dtype."""
+    return _i8qk_attend_plain(*quantize_heads_plain(q, num_heads, k), v, None, scale,
+                              num_heads, head_scales=True)
 
 
 def attention_context_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -238,18 +264,25 @@ def _launch_i8qk(name, q, k, v, k_bias, scale, num_heads):
     return _launch_i8qk_kernel(q8, sq, k8, sk, v, bias, scale, num_heads)
 
 
-def _launch_i8qk_kernel(q8, sq, k8, sk, v, bias, scale, num_heads):
-    """The attention kernel of K10 / K10b alone on quantised q8, k8 (int8
-    [B, N, H*64]) with their f32 row scales [B, N, 1], v bf16, bias None or
-    contiguous f32 [B, N]: the wrappers' launch after ``quantize_rows``."""
+def _launch_i8qk_kernel(q8, sq, k8, sk, v, bias, scale, num_heads, head_scales=False):
+    """The int8 attention kernel alone on quantised q8, k8 (int8 [B, N, H*64])
+    with their f32 scales, v bf16: K10 / K10b on row scales [B, N, 1] (bias
+    None or contiguous f32 [B, N]), the wrappers' launch after
+    ``quantize_rows``; ``head_scales``: K9 on (row, head) scales [B, H, N]
+    (no bias), after ``quantize_heads``."""
     B, N, _ = q8.shape
     lib = _build.library()
     out = torch.empty_like(v)
-    with torch.cuda.device(q8.device):
-        err = lib.caim_flash_attention_i8qk(
-            ptr(q8), ptr(sq), ptr(k8), ptr(sk), ptr(v),
-            ptr(bias) if bias is not None else None, ptr(out), B, N, num_heads,
-            HEAD_DIM, float(scale), stream_of(q8))  # the kernel folds scale into sq
+    with torch.cuda.device(q8.device):  # the kernel folds scale into sq
+        if not head_scales:
+            err = lib.caim_flash_attention_i8qk(
+                ptr(q8), ptr(sq), ptr(k8), ptr(sk), ptr(v),
+                ptr(bias) if bias is not None else None, ptr(out), B, N, num_heads,
+                HEAD_DIM, float(scale), stream_of(q8))
+        else:
+            err = lib.caim_flash_attention_i8qk_heads(
+                ptr(q8), ptr(sq), ptr(k8), ptr(sk), ptr(v), ptr(out), B, N, num_heads,
+                HEAD_DIM, float(scale), stream_of(q8))
     _build.check(err)
     return out
 
@@ -291,8 +324,9 @@ def flash_attention_packed_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 def flash_attention_packed_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 scale: float, num_heads: int) -> torch.Tensor:
     """K9. Packed attention whose q k^T runs in int8 on q and k quantised
-    per (row, head) inside the kernel; P V stays in v's dtype. CUDA: bfloat16
-    [B, N, H*64] in and out."""
+    per (row, head); P V stays in v's dtype. CUDA: bfloat16 [B, N, H*64] in
+    and out; q and k quantised once, in one launch (``quantize_heads``), then
+    the int8 attention program of K10 on (row, head) scales."""
     name = "flash_attention_packed_int8"
     require_device(name, q)
     if q.device.type == "cpu":
@@ -302,13 +336,8 @@ def flash_attention_packed_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     if q.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bfloat16 q, k, v, got {q.dtype}")
     check_cuda_inputs(name, (q, k, v), (B, N, HD))
-    lib = _build.library()
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.caim_flash_attention_int8dots(ptr(q), ptr(k), ptr(v), ptr(out), B, N,
-                                                num_heads, HEAD_DIM, float(scale),
-                                                stream_of(q))
-    _build.check(err)
+    q8, sq, k8, sk = quantize_heads(q, num_heads, k)  # one launch; scales [B, H, N]
+    out = _launch_i8qk_kernel(q8, sq, k8, sk, v, None, scale, num_heads, head_scales=True)
     flash_attention_packed_int8.launches += 1
     return out
 
@@ -439,6 +468,37 @@ def quantize_rows(x: torch.Tensor, y: Optional[torch.Tensor] = None):
     return tuple(out)
 
 
+def quantize_heads(x: torch.Tensor, num_heads: int, y: Optional[torch.Tensor] = None):
+    """[B, N, H*64] -> (int8 [B, N, H*64], f32 scales [B, H, N], head-major):
+    symmetric per (row, head) over the head's 64 values, ``quantize_rows``'
+    arithmetic on each head's slice; with ``y`` (the shape of x) -> (x8, sx, y8, sy) in
+    one launch, as K9 does q and k. CPU -> plain version; CUDA -> the kernel
+    (bfloat16, width up to 1024)."""
+    name = "quantize_heads"
+    require_device(name, x)
+    if x.device.type == "cpu":
+        return quantize_heads_plain(x, num_heads, y)
+    B, N, HD = x.shape
+    _check_width(name, HD, num_heads)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {x.dtype}")
+    if HD > MAX_QUANT_WIDTH:
+        raise ValueError(f"{name}: width {HD} is over {MAX_QUANT_WIDTH}")
+    check_cuda_inputs(name, (x,) if y is None else (x, y), (B, N, HD))
+    out = [torch.empty(B, N, HD, dtype=torch.int8, device=x.device),
+           torch.empty(B, num_heads, N, dtype=torch.float32, device=x.device)]
+    if y is not None:
+        out += [torch.empty_like(out[0]), torch.empty_like(out[1])]
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.caim_quantize_heads(ptr(x), ptr(y) if y is not None else None, ptr(out[0]),
+                                      ptr(out[-2]), ptr(out[1]), ptr(out[-1]), B, N, HD,
+                                      stream_of(x))
+    _build.check(err)
+    quantize_heads.launches += 1
+    return tuple(out)
+
+
 def flash_attention_packed_i8qk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 scale: float, num_heads: int) -> torch.Tensor:
     """K10. Packed attention with an int8 q k^T: float q, k, v in, v's dtype
@@ -468,6 +528,6 @@ def flash_attention_packed_i8qk_bias(q: torch.Tensor, k: torch.Tensor, v: torch.
 WRAPPERS = (flash_attention_packed, flash_attention_packed_bias,
             flash_attention_packed_i8qk, flash_attention_packed_i8qk_bias,
             quantize_rows, flash_attention, flash_attention_packed_int8,
-            flash_attention_packed_out_res)
+            flash_attention_packed_out_res, quantize_heads)
 for _w in WRAPPERS:
     _w.launches = 0

@@ -43,14 +43,18 @@ Weights are int8 ``[N, K]`` (PyTorch's [out, in], K contiguous) with f32
 scales ``[N]``; biases, layernorm parameters and LayerScales are used in
 f32, whatever type they arrive in.
 
-Every GEMM but the fc1 GEMM of K4a, K14 and K12 is one program (persistent
+Every GEMM but the fc1 GEMM of K4a and K14 is one program (persistent
 CTAs, a TMA producer warp, two ``wgmma`` consumer warpgroups, outputs stored
-by TMA) whose output tile is 128 rows by ``gemm_tile_cols`` columns.
+by TMA) whose output tile is 128 rows by ``gemm_tile_cols`` columns. K12 is
+one kernel of its own (``csrc/int8_fused_block.cu``): a thread-block cluster
+owns a 64-row tile across all of its columns, from the ctx rows to the
+output, at the widths of ``ATTNOUT_MLP_SHAPES``.
 
 Dispatch is on the tensor's device: CPU tensors take the plain version;
 CUDA tensors launch the kernel or raise (bf16 activations, contiguous,
 contraction depths that are multiples of 128, output widths that a tile
-width divides: ``gemm_tile_cols``, ``fc1_cluster_shape``). Each wrapper's
+width divides: ``gemm_tile_cols``, ``fc1_cluster_shape``,
+``attnout_mlp_shape``). Each wrapper's
 ``.launches`` counts its kernel launches and nothing else; ``int8_mlp_ln``
 also counts in K4a and K4b, which it launches.
 """
@@ -73,6 +77,11 @@ MAX_QUANT_K = 1024  # widest row the layernorm prologue keeps in registers; rows
 #                     without a layernorm may be wider (a two-pass prologue)
 FC1_WARPGROUP_COLS = (64, 192, 256)  # widths of the fc1 GEMM's wgmma, as the C list
 FC1_MAX_CLUSTER = 8  # CTAs of a thread-block cluster (the portable limit)
+# K12's instantiations, as csrc/int8_fused_block.cu AO_SHAPES: (model width K,
+# hidden width F) -> (CTAs of the cluster, hidden columns of a warpgroup's
+# sweep, sweeps a warpgroup makes of them)
+ATTNOUT_MLP_SHAPES = {(768, 3072): (8, 192, 1), (1024, 4096): (8, 128, 2),
+                      (128, 512): (2, 128, 1)}
 
 
 def gemm_tile_cols(M: int, N: int, parts: int = 1, sms: int = H100_SMS):
@@ -98,8 +107,8 @@ def gemm_tile_cols(M: int, N: int, parts: int = 1, sms: int = H100_SMS):
 
 
 def fc1_cluster_shape(F: int):
-    """(CTAs of the cluster, columns of a CTA) of the one-pass fc1 GEMM of K4a,
-    K14 and K12 at hidden width F: a cluster of C CTAs owns all F columns of
+    """(CTAs of the cluster, columns of a CTA) of the one-pass fc1 GEMM of K4a
+    and K14 at hidden width F: a cluster of C CTAs owns all F columns of
     a 64-row tile, each CTA 2 NW of them (a consumer warpgroup each NW), NW
     the narrowest width with C <= 8 (csrc/int8_block.cu, fc1_warpgroup_cols).
     None where no such cluster splits F evenly: the wrappers raise there."""
@@ -107,6 +116,16 @@ def fc1_cluster_shape(F: int):
         if F > 0 and F % (2 * nw) == 0 and F // (2 * nw) <= FC1_MAX_CLUSTER:
             return F // (2 * nw), 2 * nw
     return None
+
+
+def attnout_mlp_shape(K: int, F: int):
+    """(CTAs of the cluster, hidden columns of a warpgroup's sweep, sweeps) of
+    K12's one kernel at model width K and hidden width F: a cluster of C CTAs
+    owns a 64-row tile, each CTA K / C model and F / C hidden columns
+    (csrc/int8_fused_block.cu, ``caim_attnout_mlp_cluster_size``). ViT-B's
+    (768, 3072), ViT-L's (1024, 4096) and the tests' (128, 512); None for any
+    other pair: the wrapper raises there."""
+    return ATTNOUT_MLP_SHAPES.get((K, F))
 
 
 # ---------------------------------------------------- shared arithmetic ----
@@ -208,8 +227,8 @@ def _check_weight(name, x, wq, ws, K):
 
 
 def _check_gemm_width(name, M, N):
-    """The qkv GEMMs' D and K12's widths are multiples of 128 (their K): a
-    tile width divides them. The other GEMMs' output width is checked here."""
+    """The qkv GEMMs' D is a multiple of 128 (their K): a tile width divides
+    it. The other GEMMs' output width is checked here."""
     if gemm_tile_cols(M, N) is None:
         raise ValueError(f"{name}: the int8 GEMM takes output widths that one of its tile "
                          f"widths {GEMM_TILE_COLS} divides, got {N}")
@@ -226,6 +245,12 @@ def _check_quant_width(name, K):
     if K > MAX_QUANT_K:
         raise ValueError(f"{name}: the quantising prologue takes rows up to "
                          f"{MAX_QUANT_K} wide, got {K}")
+
+
+def _check_attnout_mlp_width(name, K, F):
+    if attnout_mlp_shape(K, F) is None:
+        raise ValueError(f"{name}: the kernel takes (model width, hidden width) in "
+                         f"{sorted(ATTNOUT_MLP_SHAPES)}, got ({K}, {F})")
 
 
 def _check_fc1_width(name, F):
@@ -460,8 +485,9 @@ def int8_attnout_mlp_ln(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q, w2s
 
     with x in f32 from the first residual add to the last (K3 followed by K4
     rounds it to bf16 in between). ctx, res bf16 [B, N, K] -> bf16 [B, N, K].
-    On the card x makes one trip through device memory as f32 scratch; the
-    note above ``caim_int8_attnout_mlp`` in csrc/int8_block.cu says why."""
+    On the card: one launch, a thread-block cluster a 64-row tile that keeps
+    x, the int8 activations and the int8 hidden on chip (the notes at the top
+    of csrc/int8_fused_block.cu); (K, F) one of ``ATTNOUT_MLP_SHAPES``."""
     require_device("int8_attnout_mlp_ln", ctx)
     if ctx.device.type == "cpu":
         return int8_attnout_mlp_ln_plain(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1,
@@ -470,27 +496,22 @@ def int8_attnout_mlp_ln(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q, w2s
     B, N, K = ctx.shape
     _check_act(name, ctx, (B, N, K))
     _check_act(name, res, (B, N, K))
-    _check_quant_width(name, K)
     if _check_weight(name, ctx, wo, so, K) != K:
         raise ValueError(f"{name}: the attn_out weight must be [{K}, {K}]")
     F = _check_weight(name, ctx, w1q, w1s, K)
     if _check_weight(name, ctx, w2q, w2s, F) != K:
         raise ValueError(f"{name}: the fc2 weight must be [{K}, {F}]")
-    _check_fc1_width(name, F)
+    _check_attnout_mlp_width(name, K, F)
     for v in (bo, ls1, g, be, b2, ls2):
         _check_vec(name, ctx, v, K)
     _check_vec(name, ctx, b1, F)
-    M, dev = B * N, ctx.device
     out = torch.empty_like(res)
-    xf = torch.empty(M, K, dtype=torch.float32, device=dev)
-    aq, sa = _scratch(ctx, M, K)
-    h8, sh = _scratch(ctx, M, F)
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(ctx.device):
         err = lib.caim_int8_attnout_mlp(
             ptr(ctx), ptr(wo), ptr(so), ptr(bo), ptr(ls1), ptr(res), ptr(g), ptr(be),
             float(eps), ptr(w1q), ptr(w1s), ptr(b1), ptr(w2q), ptr(w2s), ptr(b2), ptr(ls2),
-            ptr(out), ptr(xf), ptr(aq), ptr(sa), ptr(h8), ptr(sh), M, K, F, stream_of(ctx))
+            ptr(out), B * N, K, F, stream_of(ctx))
     _build.check(err)
     int8_attnout_mlp_ln.launches += 1
     return out

@@ -1,8 +1,9 @@
 """The CUDA kernels K1, K6, K7, K8, K9, K10, K10b, K11 and the int8 kernels K2,
 K3, K4, K4a, K4b, K5, K12, K13, K14, K15 against their plain PyTorch versions,
-on the card; K10 and K10b, the int8 instantiation of K1's program, at every
-length around its tiles, on rows of full int8 scale and under K1's
-permutation probe. Every test here needs an NVIDIA Hopper GPU and skips without one.
+on the card; K10, K10b and K9, the int8 instantiation of K1's program, at
+every length around its tiles, on rows of full int8 scale and under K1's
+permutation probe; K12's one kernel (a thread-block cluster a 64-row tile) at
+every row count and width it takes. Every test here needs an NVIDIA Hopper GPU and skips without one.
 The one-pass fc1 GEMM of K4a and K14 (a thread-block cluster per row tile)
 is held to the plain version's bits, with a probe that makes every row's
 scale come from another CTA of the cluster.
@@ -387,14 +388,18 @@ def test_k10_kernel_matches_plain(N, H, cuda_device):
     assert float((got.float() - want).abs().max()) <= 2e-2
 
 
-# -------------------------- the int8 instantiation of the program: K10, K10b ----
+# --------------------- the int8 instantiation of the program: K10, K10b, K9 ----
 I8QK_LENGTHS = [1, 63, 64, 65, 257, 416, 481, 1370]
+I8QK_KERNELS = ["K10", "K10b", "K9"]
 
 
 def _i8qk_call(kernel, q, k, v, row, scale, H):
     if kernel == "K10":
         return (TFA.flash_attention_packed_i8qk(q, k, v, scale, H),
                 TFA.flash_attention_packed_i8qk_plain(q.float(), k.float(), v.float(), scale, H))
+    if kernel == "K9":
+        return (TFA.flash_attention_packed_int8(q, k, v, scale, H),
+                TFA.flash_attention_packed_int8_plain(q.float(), k.float(), v.float(), scale, H))
     return (TFA.flash_attention_packed_i8qk_bias(q, k, v, row, scale, H),
             TFA.flash_attention_packed_i8qk_bias_plain(q.float(), k.float(), v.float(), row,
                                                        scale, H))
@@ -403,22 +408,24 @@ def _i8qk_call(kernel, q, k, v, row, scale, H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", I8QK_LENGTHS)
 @pytest.mark.parametrize("H", [12, 16])
-@pytest.mark.parametrize("kernel", ["K10", "K10b"])
+@pytest.mark.parametrize("kernel", I8QK_KERNELS)
 def test_i8qk_program_matches_plain_at_every_length(kernel, H, N, cuda_device):
-    """K10 and K10b (bias: log counts on every key) at lengths around the
-    64-row tiles and the model's stream lengths, ViT-B's 12 heads and ViT-L's
-    16: atol 2e-2 (bf16 outputs, P rounded before P V); one attention launch
-    and one quantising launch a call; K10b on a zero row gives K10's bits."""
+    """K10, K10b (bias: log counts on every key) and K9 (scales per (row,
+    head)) at lengths around the 64-row tiles and the model's stream lengths,
+    ViT-B's 12 heads and ViT-L's 16: atol 2e-2 (bf16 outputs, P rounded before
+    P V); one attention launch and one quantising launch a call (K9's:
+    quantize_heads); K10b on a zero row gives K10's bits."""
     B, D = 2, 64
     q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
                for a in _arrays((B, N, H * D), seed=N))
     row = _bias_row(B, N, "every_key", cuda_device)
-    wrapper = (TFA.flash_attention_packed_i8qk if kernel == "K10"
-               else TFA.flash_attention_packed_i8qk_bias)
-    n, nq = wrapper.launches, TFA.quantize_rows.launches
+    wrapper = {"K10": TFA.flash_attention_packed_i8qk, "K10b": TFA.flash_attention_packed_i8qk_bias,
+               "K9": TFA.flash_attention_packed_int8}[kernel]
+    quant = TFA.quantize_heads if kernel == "K9" else TFA.quantize_rows
+    n, nq = wrapper.launches, quant.launches
     got, want = _i8qk_call(kernel, q, k, v, row, D ** -0.5, H)
     torch.cuda.synchronize()
-    assert (wrapper.launches, TFA.quantize_rows.launches) == (n + 1, nq + 1)
+    assert (wrapper.launches, quant.launches) == (n + 1, nq + 1)
     assert bool(torch.isfinite(got).all())
     assert float((got.float() - want).abs().max()) <= 2e-2
     if kernel == "K10b":
@@ -429,7 +436,7 @@ def test_i8qk_program_matches_plain_at_every_length(kernel, H, N, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [65, 481, 1370])
-@pytest.mark.parametrize("kernel", ["K10", "K10b"])
+@pytest.mark.parametrize("kernel", I8QK_KERNELS)
 def test_i8qk_rows_of_full_scale(kernel, N, cuda_device):
     """Every q and k value at +-127 after quantisation (rows of +-1: the
     integer sums reach 64 x 127^2, where an f32 conversion that is not exact
@@ -449,7 +456,7 @@ def test_i8qk_rows_of_full_scale(kernel, N, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [65, 257, 1370])
-@pytest.mark.parametrize("kernel", ["K10", "K10b"])
+@pytest.mark.parametrize("kernel", I8QK_KERNELS)
 def test_i8qk_program_keeps_keys_in_place(kernel, N, cuda_device):
     """The permutation probe of K1's program on the int8 one: V one-hot by
     key index (V[b, j, h, d] = 1 where j % 64 == d), q = 40 k with k one-hot
@@ -469,6 +476,46 @@ def test_i8qk_program_keeps_keys_in_place(kernel, N, cuda_device):
     assert torch.equal(want.view(B, N, H, D).argmax(-1), hot)
     assert float((got.float() - want).abs().max()) <= 2e-2
     assert torch.equal(got.view(B, N, H, D).float().argmax(-1), hot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H", [(481, 12), (1370, 12), (257, 16), (65, 16)])
+def test_k9_is_k10_where_every_head_shares_the_row_maximum(N, H, cuda_device):
+    """Where every head of a row has the same largest |value|, its (row, head)
+    scales are K10's joint-row scales and its int8 rows are K10's: K9 gives
+    K10's bits (the one program, on scales read [B, H, N] in place of
+    [B, N])."""
+    B = 2
+    q, k, v = (torch.from_numpy(a * 0.5).to(cuda_device, torch.bfloat16)
+               for a in _arrays((B, N, H * 64), seed=N + H))
+    for t in (q, k):
+        t.view(B, N, H, 64)[..., 5] = 3.0
+    got9 = TFA.flash_attention_packed_int8(q, k, v, 0.125, H)
+    got10 = TFA.flash_attention_packed_i8qk(q, k, v, 0.125, H)
+    torch.cuda.synchronize()
+    assert torch.equal(got9, got10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 481, 768), (8, 1370, 768), (2, 257, 1024), (1, 1, 128)])
+def test_quantize_heads_kernel_matches_plain(shape, cuda_device):
+    """K9's quantiser: q and k in one launch, per (row, head) over each
+    head's 64 values, scales [B, H, N]; int8 values and scales bit for bit
+    the plain version's (both divide in f32, round half to even, clip)."""
+    B, N, HD = shape
+    H = HD // 64
+    a, b = _arrays(shape, n=2, seed=6, scale=2.0)
+    a *= np.random.RandomState(7).rand(B, N, H).repeat(64, axis=-1)
+    q, k = (torch.from_numpy(t).to(cuda_device, torch.bfloat16) for t in (a, b))
+    q.view(B, N, H, 64)[0, 0, 0] = 0.0  # a head's slice of zeros: the 1e-12 floor
+    n = TFA.quantize_heads.launches
+    got = TFA.quantize_heads(q, H, k)
+    torch.cuda.synchronize()
+    assert TFA.quantize_heads.launches == n + 1
+    want = TFA.quantize_heads_plain(q, H, k)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+    assert got[1].shape == (B, H, N) and float(got[1][0, 0, 0]) == np.float32(1e-12)
 
 
 @pytest.mark.cuda
@@ -729,7 +776,7 @@ def test_int8_model_counts_its_launches(cuda_device):
     torch.testing.assert_close(out.confidence, ref.confidence, atol=0, rtol=2e-2)
 
 
-# ------------------------- the one-pass fc1 GEMM of K4a, K14 and K12 ----
+# ------------------------------ the one-pass fc1 GEMM of K4a and K14 ----
 # (B, N, K, F): the slice's M 10960, the filtered stream's 8 x 481, ViT-L
 # widths, a row count under one tile, and the smallest width
 FC1_SHAPES = [(8, 1370, 768, 3072), (8, 481, 768, 3072), (1, 100, 1024, 4096),
@@ -890,8 +937,8 @@ def test_int8_linear_kernels_match_plain(kernel, shape, cuda_device):
 
 
 # ------------------------------------------ the int8 GEMM's program ----
-# K2, K5 (kQKV), K3, K4b (kResidual), K13, K15 (kPlain) and K12's two
-# residual stages run one persistent GEMM program whose tile is 128 rows by
+# K2, K5 (kQKV), K3, K4b (kResidual), K13 and K15 (kPlain) run one
+# persistent GEMM program whose tile is 128 rows by
 # gemm_tile_cols columns. (D, F): ViT-B's widths, where the rule takes 192 for
 # the qkv GEMMs at every row count and for N 768 at 8 x 481 and 8 x 257 rows,
 # 128 for N 768 at M 10960 and for N 3072; ViT-L's (128 only); the test width
@@ -899,7 +946,7 @@ def test_int8_linear_kernels_match_plain(kernel, shape, cuda_device):
 # row count under one tile, one row.
 GEMM_WIDTHS = [(768, 3072), (1024, 4096), (128, 512)]
 GEMM_ROWS = [10960, 8 * 481, 8 * 257, 17, 1]
-GEMM_EPILOGUES = ["K2", "K5", "K3", "K4b", "K13", "K15", "K12"]
+GEMM_EPILOGUES = ["K2", "K5", "K3", "K4b", "K13", "K15"]
 
 
 @pytest.mark.cuda
@@ -921,12 +968,11 @@ def test_gemm_tile_cols_is_the_librarys(cuda_device):
 def _gemm_case(kernel, M, D, F, dev, seed):
     """(wrapper call, plain call, bit-equal?) of one epilogue on M rows: the
     plain version on the same int8 rows gives the kernel's bits but where a
-    layernorm's summation order may move an int8 step (K2, K12)."""
+    layernorm's summation order may move an int8 step (K2)."""
     t = _int8_inputs(1, M, D, F, dev, seed=seed)
     x, ctx, g, be, ls = t["x"], t["ctx"], t["g"], t["be"], t["ls"]
     x2 = x.view(M, D)
     h8, sh = TIB.int8_fc1_gelu_ln_plain(x, g, be, *t["fc1"])
-    k12 = (ctx, *t["out"], ls, x, g, be, *t["fc1"], *t["fc2"], ls)
     return {
         "K2": (lambda: TIB.int8_qkv_proj_ln(x, g, be, *t["qkv"]),
                lambda: TIB.int8_qkv_proj_ln_plain(x, g, be, *t["qkv"]), False),
@@ -940,8 +986,6 @@ def _gemm_case(kernel, M, D, F, dev, seed):
                 lambda: TIB.int8_proj_plain(x, *t["fc1"]), True),
         "K15": (lambda: TIG.int8_gemm_fused(x2, *t["qkv"]),
                 lambda: TIG.int8_gemm_fused_plain(x2, *t["qkv"]), True),
-        "K12": (lambda: TIB.int8_attnout_mlp_ln(*k12),
-                lambda: TIB.int8_attnout_mlp_ln_plain(*k12), False),
     }[kernel]
 
 
@@ -952,7 +996,7 @@ def _gemm_case(kernel, M, D, F, dev, seed):
 def test_gemm_epilogues_match_plain_at_every_tile_width_and_row_count(kernel, D, F, M,
                                                                        cuda_device):
     """Every epilogue of the GEMM program at each tile width and ragged row
-    count: the plain version's bits on the same int8 rows (K2 and K12 within
+    count: the plain version's bits on the same int8 rows (K2 within
     the layernorm's tolerance)."""
     kern, plain, exact = _gemm_case(kernel, M, D, F, cuda_device, seed=M % 97 + D)
     got = kern()
@@ -1238,10 +1282,25 @@ def test_k11_kernel_matches_plain(B, N, H, cuda_device):
     assert torch.equal(got, TFA.flash_attention_packed_out_res(*args, 0.125, H))
 
 
+# K12's one kernel: the rows of the exact slice, of the filtered streams, a row
+# count under one 64-row tile and one row, at the widths it takes (ViT-B,
+# ViT-L, the tests' 128 / 512)
+K12_ROWS = [10960, 8 * 481, 8 * 257, 17, 1]
+K12_WIDTHS = [(768, 3072), (1024, 4096), (128, 512)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B%d-N%d-D%d-F%d" % s)
-def test_k12_kernel_matches_plain_and_is_not_k3_then_k4(shape, cuda_device):
-    t = _int8_inputs(*shape, cuda_device, seed=2)
+@pytest.mark.parametrize("M", K12_ROWS)
+@pytest.mark.parametrize("D,F", K12_WIDTHS, ids=lambda v: str(v))
+def test_k12_kernel_matches_plain_and_is_not_k3_then_k4(D, F, M, cuda_device):
+    """Within 1e-2 max(1, |plain|) of its plain version (the layernorm's sums
+    run in another order), within 2e-2 of K3 -> K4 and never equal to it (the
+    pair rounds the residual to bf16 between the halves); rows of zeros in
+    ctx and the residual; one launch counted, on K12's counter only."""
+    t = _int8_inputs(1, M, D, F, cuda_device, seed=M % 89 + D)
+    if M > 4:  # rows of zeros: the scale's floor in quant(ctx)
+        t["ctx"][0, 3], t["x"][0, 3] = 0.0, 0.0
+        t["ctx"][0, M // 2:] = 0.0
     ls2 = (t["ls"] * 0.9).bfloat16().float()
     args = (t["ctx"], *t["out"], t["ls"], t["x"], t["g"], t["be"], *t["fc1"], *t["fc2"], ls2)
     others = [w for w in TIB.WRAPPERS if w is not TIB.int8_attnout_mlp_ln]
@@ -1260,8 +1319,40 @@ def test_k12_kernel_matches_plain_and_is_not_k3_then_k4(shape, cuda_device):
 
 
 @pytest.mark.cuda
+def test_k12_is_one_device_kernel_a_call(cuda_device):
+    """The whole post-attention half in one launch: torch.profiler sees one
+    device kernel a call, K12's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t = _int8_inputs(8, 1370, 768, 3072, cuda_device)
+    args = (t["ctx"], *t["out"], t["ls"], t["x"], t["g"], t["be"], *t["fc1"], *t["fc2"], t["ls"])
+    TIB.int8_attnout_mlp_ln(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        TIB.int8_attnout_mlp_ln(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "attnout_mlp_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_k12_shape_rule_is_the_librarys(cuda_device):
+    """The wrapper's shape rule (int8_block.attnout_mlp_shape) and the C one
+    (caim_attnout_mlp_cluster_size) agree at every width pair up to 2048 x
+    8192, and the card holds at least one cluster of each instantiation."""
+    lib = _build.library()
+    for K in range(0, 2049, 64):
+        for F in range(0, 8193, 128):
+            want = TIB.attnout_mlp_shape(K, F)
+            assert lib.caim_attnout_mlp_cluster_size(K, F) == (want[0] if want else 0), (K, F)
+    for K, F in K12_WIDTHS:
+        assert lib.caim_attnout_mlp_active_clusters(K, F) >= 1
+
+
+@pytest.mark.cuda
 def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
-    t = _int8_inputs(2, 40, 256, 512, cuda_device)
+    t = _int8_inputs(2, 40, 128, 512, cuda_device)
     k12 = [t["ctx"], *t["out"], t["ls"], t["x"], t["g"], t["be"], *t["fc1"], *t["fc2"], t["ls"]]
     a = list(_k11_inputs(2, 40, 2, cuda_device))
     q, k, v = a[:3]
@@ -1279,10 +1370,11 @@ def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
                                          .transpose(0, 1)))
     with pytest.raises(ValueError):  # an fc2 weight of the wrong shape
         TIB.int8_attnout_mlp_ln(*swapped(k12, 11, k12[8]))
-    wide = _int8_inputs(1, 8, 2048, 2048, cuda_device)
-    with pytest.raises(ValueError):  # rows wider than the layernorm prologue holds
-        TIB.int8_attnout_mlp_ln(wide["ctx"], *wide["out"], wide["ls"], wide["x"], wide["g"],
-                                wide["be"], *wide["fc1"], *wide["fc2"], wide["ls"])
+    for D, F in ((2048, 2048), (256, 512)):  # widths no instantiation of K12 takes
+        wide = _int8_inputs(1, 8, D, F, cuda_device)
+        with pytest.raises(ValueError):
+            TIB.int8_attnout_mlp_ln(wide["ctx"], *wide["out"], wide["ls"], wide["x"], wide["g"],
+                                    wide["be"], *wide["fc1"], *wide["fc2"], wide["ls"])
     with pytest.raises(TypeError):  # K9 takes bfloat16 only
         TFA.flash_attention_packed(q.float(), k.float(), v.float(), 0.125, 2, int8_dots=True)
     with pytest.raises(ValueError):  # a strided q
