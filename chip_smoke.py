@@ -11,9 +11,10 @@ kernels compile for sm_90a) and the CUDA toolkit:
   (b) build: compiles csrc/*.cu with nvcc at first use (one process per
       source, side by side) and prints each kernel's registers and spills
       (the int8 GEMM by epilogue and tile width, the attention program by
-      bias and int8 q k, K12 by cluster and widths), ptxas's
-      wgmma-serialisation warnings (C7512, C7514), the attention program's
-      blocks an SM and K12's clusters resident at once;
+      bias and int8 q k and its out_res instantiation, K11, K12 by cluster
+      and widths), ptxas's wgmma-serialisation warnings (C7512, C7514), the
+      attention program's blocks an SM and K11's and K12's clusters resident
+      at once;
   (c) kernels: K1 flash_attention_packed and K6 focal_attention_fused (K1's
       bf16 program, which K7 and K8 share, also at N 1 to 1370 around its
       64-row tiles, ViT-B and ViT-L heads, and under a permutation probe: V
@@ -42,7 +43,13 @@ kernels compile for sm_90a) and the CUDA toolkit:
       and K12 int8_attnout_mlp_ln at N 1370, 481, 257 and ViT-L widths (K11 also
       by the share of its int8 context values that sit one step from the plain
       version's; K12 also against K3 -> K4, which it must not equal bit for
-      bit), and what each raises on; K12's one kernel (a thread-block cluster
+      bit), and what each raises on; K11's kernel (the out_res instantiation
+      of K1's program, a thread-block cluster of one CTA a head over a 64-row
+      tile): its cluster rule equal to the wrapper's, N 1 to 1370 around its
+      tiles, every head count from 1 to 16, a batch element whose context is
+      zero (c8 0, the scale's floor, out = res + ls b), the int8 context and
+      scales return_quantised gives, one device kernel a call, its bits
+      repeated run to run; K12's one kernel (a thread-block cluster
       a 64-row tile) at M 10960, 8 x 481, 8 x 257, 17 and 1 rows, ViT-B,
       ViT-L and the tests' widths, rows of zeros, its shape rule equal to the
       wrappers' and one device kernel a call; the one-pass fc1 GEMM of K4a and
@@ -105,7 +112,8 @@ kernels compile for sm_90a) and the CUDA toolkit:
       int8 filtered slices and through the int8 adapter slice, and the host
       time to enqueue one forward; K9, K11 and K12 in turns with the kernels
       they fuse (K1; K1 + K3; K3 + K4), K12 and K3 -> K4 also by CUDA graphs
-      in turns at N 1370 and 481, K9's kernel and wrapper by CUDA graphs in
+      in turns at N 1370 and 481, K11 and K1 -> K3 at N 1370, 481 and 257,
+      K9's kernel and wrapper by CUDA graphs in
       turns with K10's at N 1370 and 481, the int8 exact and 2:0.35 forwards
       with CAIM_FUSE_AOMLP off and on, and the hand-assembled 12 blocks
       through K1 + K3, K11 and K9; K2, K3, K4b, K5, K13 and K15 also by CUDA
@@ -319,8 +327,10 @@ def phase_build():
             if k12:  # K12's: <CTAs of the cluster, columns a CTA, a sweep's, sweeps>
                 name = (f"attnout_mlp_kernel<cluster {k12.group(1)}, KC {k12.group(2)}, "
                         f"NWC {k12.group(3)}, sweeps {k12.group(4)}>")
-            flash = re.search(r"flash_wgmma_kernelILb(\d)ELb(\d)E", name)
-            if flash:  # the attention program's: <bias, int8 q k> (K10, K10b: i8qk)
+            flash = re.search(r"flash_wgmma_kernelILb(\d)ELb(\d)ELb(\d)E", name)
+            if flash and flash.group(3) == "1":  # K11: its out_res instantiation
+                name = "flash_wgmma_kernel<out_res> (K11)"
+            elif flash:  # the attention program's: <bias, int8 q k> (K10, K10b: i8qk)
                 name = (f"flash_wgmma_kernel<{'bias' if flash.group(1) == '1' else 'no bias'}, "
                         f"{'i8qk' if flash.group(2) == '1' else 'bf16'}>")
             log(f"  {name[:72]}: {m.group(4)} registers, spills "
@@ -337,6 +347,8 @@ def phase_build():
     log("  attention program blocks an SM: " + ", ".join(
         f"<{'bias' if b else 'no bias'}, {'i8qk' if i else 'bf16'}> "
         f"{lib.caim_flash_blocks_per_sm(b, i)}" for i in (0, 1) for b in (0, 1)))
+    log("  K11 clusters resident at once (a cluster of H CTAs, one a head of a 64-row tile): "
+        + ", ".join(f"H {h}: {lib.caim_out_res_active_clusters(h)}" for h in range(1, 17)))
     log("  K12 clusters resident at once: " + ", ".join(
         f"K {k} F {f}: {lib.caim_attnout_mlp_active_clusters(k, f)} clusters of "
         f"{lib.caim_attnout_mlp_cluster_size(k, f)} CTAs"
@@ -1126,10 +1138,12 @@ def phase_fused_kernels():
                f"{srel:.2e} (tol {TOL_K11_SCALE:.0e})", ok)
         if N == 1370:
             worst["K11"] = err
-    a = _k11_inputs(2, 70, 3, g)
-    expect_raise("K11 with 3 heads", ValueError, FA.flash_attention_packed_out_res,
-                 lambda: FA.flash_attention_packed_out_res(*a, 0.125, 3))
+    a = _k11_inputs(1, 8, 17, g)  # 17 heads: more CTAs than a cluster takes
+    expect_raise("K11 with 17 heads", ValueError, FA.flash_attention_packed_out_res,
+                 lambda: FA.flash_attention_packed_out_res(*a, 0.125, 17))
     a = _k11_inputs(2, 70, 2, g)
+    expect_raise("K11 with a scale of 0", ValueError, FA.flash_attention_packed_out_res,
+                 lambda: FA.flash_attention_packed_out_res(*a, 0.0, 2))
     expect_raise("K11 on a float32 residual", TypeError, FA.flash_attention_packed_out_res,
                  lambda: FA.flash_attention_packed_out_res(*a[:-1], a[-1].float(), 0.125, 2))
     return worst
@@ -1183,6 +1197,86 @@ def phase_k12_kernel():
         + ", ".join("attnout_mlp_kernel" if "attnout_mlp_kernel" in n else n[:60] for n in names))
     if len(names) != 1 or "attnout_mlp_kernel" not in names[0]:
         raise AssertionError("K12 must launch one kernel a call")
+
+
+def phase_k11_kernel():
+    """K11's kernel (the OUT_RES instantiation of the attention program,
+    csrc/flash_wgmma.cu: a thread-block cluster of one CTA a head over a
+    64-row tile): its cluster rule equal to the wrapper's
+    (flash_attention.out_res_cluster_size); against its plain version at N 1
+    to 1370 around its 64-row tiles (H 12) and at every head count the rule
+    takes (1 to 16), with the tolerances of phase_fused_kernels; the int8
+    context and row scales that return_quantised gives; a batch element
+    whose context is zero (c8 0, the scale's floor, out = res + ls b); one
+    device kernel a call; bit-identical run to run."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import _build
+    from cognitive_aim_tpu_torch.kernels import flash_attention as FA
+    from cognitive_aim_tpu_torch.kernels import int8_block as IB
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    lib = _build.library()
+    rule = [lib.caim_out_res_cluster_size(h) for h in range(0, 33)]
+    if rule != [FA.out_res_cluster_size(h) for h in range(0, 33)]:
+        raise AssertionError(f"K11 cluster rule: C {rule} differs from the wrapper's")
+    log(f"  K11 cluster rule: C and Python agree at H 0..32; it takes H "
+        f"{min(h for h in rule if h)}..{max(rule)}, a cluster of H CTAs")
+
+    def check(B, N, H, v_zero=False):
+        """(error / tolerance, share of context values one step off) of one call"""
+        args = list(_k11_inputs(B, N, H, g))
+        if v_zero:  # batch element 0: every context value 0
+            args[2][0] = 0.0
+        n = FA.flash_attention_packed_out_res.launches
+        got, c8, sc = FA.flash_attention_packed_out_res(*args, 0.125, H, return_quantised=True)
+        if FA.flash_attention_packed_out_res.launches != n + 1:
+            raise AssertionError("K11 counts one launch a call")
+        want = FA.flash_attention_packed_out_res_plain(*args, 0.125, H)
+        p8, ps = IB.quantize_activations(FA.attention_context_f32(*args[:3], 0.125, H))
+        torch.cuda.synchronize()
+        diff = (c8.int() - p8.int()).abs()
+        share, most = float((diff > 0).float().mean()), int(diff.max())
+        srel = float(((sc - ps).abs() / ps).max())
+        err, lim = max_err(got, want), TOL_INT8_REL * max(1.0, float(want.float().abs().max()))
+        ok = (err <= lim and share <= TOL_K11_CTX_SHARE and most <= 1 and srel <= TOL_K11_SCALE
+              and got.shape == want.shape and bool(torch.isfinite(got).all()))
+        if v_zero:  # c8 0 and the floor 1e-12, out = res + ls b in f32, one rounding
+            res, ls, b = args[7][0].float(), args[6], args[5]
+            ok = ok and not bool(c8[0].any()) and bool((sc[0] == 1e-12).all()) and torch.equal(
+                got[0], (res + ls * b).bfloat16()) and torch.equal(got[0], want[0])
+        if not ok:
+            raise AssertionError(f"K11 at B {B} N {N} H {H}{' (zero context)' if v_zero else ''}:"
+                                 f" max_abs_err {err:.3e} (tol {lim:.2e}), int8 context off in "
+                                 f"{share:.2e} by at most {most}, scales rel {srel:.2e}")
+        return err / lim, share
+
+    worst, worst_share = 0.0, 0.0
+    for N in (1, 63, 64, 65, 481, 1369, 1370):
+        e, sh = check(2, N, 12)
+        worst, worst_share = max(worst, e), max(worst_share, sh)
+    log(f"  K11 N 1, 63, 64, 65, 481, 1369, 1370 at H 12: within {worst:.2f} of its tolerance, "
+        f"int8 context one step off in at most {worst_share:.2e} (tol {TOL_K11_CTX_SHARE:.0e}): ok")
+    worst, worst_share = 0.0, 0.0
+    for H in range(1, 17):
+        e, sh = check(2, 65 + 64 * (H % 3), H)
+        worst, worst_share = max(worst, e), max(worst_share, sh)
+    log(f"  K11 H 1..16 (N 65, 129, 193): within {worst:.2f} of its tolerance, int8 context one "
+        f"step off in at most {worst_share:.2e}: ok")
+    for B, N, H in ((2, 257, 12), (1, 70, 3)):
+        check(B, N, H, v_zero=True)
+    log("  K11 on a batch element whose context is zero (H 12, 3): c8 0, scales 1e-12, out = "
+        "res + ls b bit for bit: ok")
+    args = _k11_inputs(8, 1370, 12, g)
+    names = device_kernels(lambda: FA.flash_attention_packed_out_res(*args, 0.125, 12))
+    again = [FA.flash_attention_packed_out_res(*args, 0.125, 12) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = torch.equal(*again)
+    log(f"  K11: {len(names)} device kernel(s) a call: "
+        + ", ".join("flash_wgmma_kernel<out_res>" if "flash_wgmma_kernel" in n else n[:60]
+                    for n in names) + f"; bit-identical run to run: {same}")
+    if len(names) != 1 or "flash_wgmma_kernel" not in names[0] or not same:
+        raise AssertionError("K11 must launch one kernel a call and repeat its bits")
 
 
 # ------------------------------ the one-pass fc1 GEMM and K6's program (c) ----
@@ -2239,6 +2333,18 @@ def phase_kernel_times(smi):
     beside("K11", lambda: FA.flash_attention_packed_out_res(*a11, 0.125, H),
            lambda: IB.int8_out_residual(FA.flash_attention_packed(q, k, v, 0.125, H),
                                         *a11[3:]), "K1 + K3")
+    # K11 and K1 -> K3 by CUDA graphs in turns (K11, pair, pair, K11), at the
+    # exact slice's rows and the filtered streams'
+    times["K11"]["graphs_in_turns"] = {}
+    for Nk in (N, 481, 257):
+        an = a11 if Nk == N else _k11_inputs(B, Nk, H, g)
+        fused = (lambda an=an: FA.flash_attention_packed_out_res(*an, 0.125, H))
+        pair = (lambda an=an: IB.int8_out_residual(
+            FA.flash_attention_packed(*an[:3], 0.125, H), *an[3:]))
+        a = [graph_ms(fused), graph_ms(pair), graph_ms(pair), graph_ms(fused)]
+        times["K11"]["graphs_in_turns"][f"N{Nk}"] = {"K11": [a[0], a[3]], "K1 + K3": a[1:3]}
+        log(f"  K11 B{B} N{Nk} by CUDA graphs in turns with K1 -> K3: K11 {a[0]:.4f}/{a[3]:.4f} "
+            f"ms, K1 -> K3 {a[1]:.4f}/{a[2]:.4f} ms (x{(a[0] + a[3]) / (a[1] + a[2]):.2f})")
     for Nk in (N, 481):
         qn, kn, vn = (_rand((B, Nk, D), g, torch.bfloat16) for _ in range(3))
         half = 2 * B * Nk * Nk * D
@@ -2420,8 +2526,9 @@ KERNELS = {
     # kernel runs inside its body (_quant_rows)
     "K9": ("flash_attention_packed_int8", "flash_wgmma.cu", "flash_attention.py:356"),
     "Qh": ("quantize_heads", "int8_block.cu", "flash_attention.py:349"),
-    "K11": ("flash_attention_packed_out_res", "flash_attention_out_res.cu",
-            "flash_attention.py:645"),
+    # K11: the OUT_RES instantiation of K1's program, a thread-block cluster
+    # over the heads of a 64-row tile (its C entry in flash_attention_out_res.cu)
+    "K11": ("flash_attention_packed_out_res", "flash_wgmma.cu", "flash_attention.py:645"),
     "K12": ("int8_attnout_mlp_ln", "int8_fused_block.cu", "int8_block.py:365"),
 }
 # the path whose run gives a kernel's ``launches``: the unfiltered int8 slice,
@@ -2455,6 +2562,7 @@ def main() -> int:
     errs.update(phase_filter_kernels())
     errs.update(phase_adapter_kernels())
     errs.update(phase_fused_kernels())
+    phase_k11_kernel()
     phase_k12_kernel()
     phase_fc1_and_focal()
     if "--kernels-only" in sys.argv[1:]:

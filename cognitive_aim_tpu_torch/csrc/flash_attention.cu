@@ -71,8 +71,8 @@ extern "C" int caim_flash_attention(const void* q, const void* k, const void* v,
     return (int)launch_flash_bf16(q, sq, k, sk, v, sv, nullptr, out, B, N, H, scale, st);
   if (!f32_strides_ok(sq) || !f32_strides_ok(sk) || !f32_strides_ok(sv))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bnhd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
+  static std::atomic<unsigned long long> smem_set{0};  // the allowance, once per process
+  cudaError_t err = smem_allowance_once(smem_set, (const void*)flash_bnhd_f32_kernel, F32_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + TILE - 1) / TILE, H, B);
   flash_bnhd_f32_kernel<<<grid, FA_THREADS, F32_SMEM, st>>>(

@@ -68,8 +68,8 @@ template <bool BIAS>
 cudaError_t launch_flash_f32(const void* q, const void* k, const void* v, const void* bias,
                              void* out, int B, int N, int H, float scale, cudaStream_t stream) {
   const dim3 grid((N + TILE - 1) / TILE, H, B);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
+  static std::atomic<unsigned long long> smem_set{0};  // the allowance, once per process
+  cudaError_t err = smem_allowance_once(smem_set, (const void*)flash_f32_kernel<BIAS>, F32_SMEM);
   if (err != cudaSuccess) return err;
   flash_f32_kernel<BIAS><<<grid, FA_THREADS, F32_SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),

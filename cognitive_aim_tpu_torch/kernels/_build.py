@@ -96,10 +96,15 @@ def _declare(lib):
     # q8, sq, k8, sk ([B, H, N] scales), v, out, B, N, H, head_dim, scale, stream
     lib.caim_flash_attention_i8qk_heads.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
     lib.caim_flash_attention_i8qk_heads.restype = i
-    # q, k, v, wq, ws, bias, ls, res, out, ctx8 (or null), sc (or null), B, N, H,
-    # head_dim, scale, stream
+    # q, k, v, wq, ws, bias, ls, res, out, ctx8, sc (or null), B, N, H, head_dim,
+    # scale, stream
     lib.caim_flash_attention_out_res.argtypes = [p] * 11 + [i, i, i, i, f, p]
     lib.caim_flash_attention_out_res.restype = i
+    # H -> K11's CTAs a cluster (0: not taken); its clusters resident at once
+    lib.caim_out_res_cluster_size.argtypes = [i]
+    lib.caim_out_res_cluster_size.restype = i
+    lib.caim_out_res_active_clusters.argtypes = [i]
+    lib.caim_out_res_active_clusters.restype = i
     # bias, i8qk -> the attention program's blocks resident on an SM
     lib.caim_flash_blocks_per_sm.argtypes = [i, i]
     lib.caim_flash_blocks_per_sm.restype = i

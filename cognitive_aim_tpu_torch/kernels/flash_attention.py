@@ -27,8 +27,9 @@ alike, without a copy. The kernels are CUDA C++: K1, K7, K8, K10, K10b and K9
 launch one attention program, ``csrc/flash_wgmma.cu`` (K10, K10b and K9 its
 int8 instantiation, K9 with one scale a (row, head)), from the C entries of
 ``csrc/flash_attention_packed.cu`` (K1, K7), ``csrc/flash_attention.cu``
-(K8) and ``csrc/flash_attention_i8qk.cu`` (K10, K10b, K9); K11 is
-``csrc/flash_attention_out_res.cu``. Beside each wrapper stands its
+(K8) and ``csrc/flash_attention_i8qk.cu`` (K10, K10b, K9); K11 is its
+OUT_RES instantiation, a thread-block cluster over the heads of a 64-row
+tile, launched from ``csrc/flash_attention_out_res.cu``. Beside each wrapper stands its
 plain PyTorch version, which mirrors the JAX package's ``_packed_reference``
 and ``_packed_reference_bias`` for K1 and K7, ``attention_reference`` for K8,
 and repeats the kernel body's arithmetic for K10, K10b and K9 (an exact
@@ -67,7 +68,6 @@ from cognitive_aim_tpu_torch.kernels._launch import (
     stream_of,
 )
 from cognitive_aim_tpu_torch.kernels.int8_block import _check_vec as check_channel_vector
-from cognitive_aim_tpu_torch.kernels.int8_block import _check_weight as check_int8_weight
 from cognitive_aim_tpu_torch.kernels.int8_ops import int_matmul, quantize_activations
 
 HEAD_DIM = 64  # the kernels' head width (ViT-B and ViT-L both use 64)
@@ -342,7 +342,25 @@ def flash_attention_packed_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return out
 
 
-OUT_RES_MAX_WIDTH = 1024  # K11: the f32 context tile of 32 rows fits an SM up to here
+OUT_RES_MAX_HEADS = 16  # K11: one CTA a head in a cluster; the card takes 16 at most
+
+
+def out_res_cluster_size(num_heads: int) -> int:
+    """The CTAs of K11's thread-block cluster at ``num_heads`` heads (one a
+    head of a 64-row tile), 0 where the kernel takes no such count: the rule
+    of ``caim_out_res_cluster_size`` (a card test holds the two equal)."""
+    return num_heads if 1 <= num_heads <= OUT_RES_MAX_HEADS else 0
+
+
+def _check_out_res(name: str, HD: int, num_heads: int, scale: float):
+    """What K11's kernel takes: ``num_heads`` heads of 64, 1 to 16 (a cluster
+    of one CTA a head), and a positive scale. Raises ValueError otherwise."""
+    _check_width(name, HD, num_heads)
+    if out_res_cluster_size(num_heads) == 0:
+        raise ValueError(f"{name}: the CUDA kernel takes 1 to {OUT_RES_MAX_HEADS} heads (a "
+                         f"cluster of one CTA a head), got {num_heads}")
+    if not scale > 0:
+        raise ValueError(f"{name}: the CUDA kernel takes a positive scale, got {scale}")
 
 
 def flash_attention_packed_out_res(q, k, v, wq, ws, b, ls, res, scale: float,
@@ -352,10 +370,11 @@ def flash_attention_packed_out_res(q, k, v, wq, ws, b, ls, res, scale: float,
     attention context stays f32 on chip, is quantised per row and goes
     through the int8 attn_out weight ``wq`` (int8 [HD, HD], rows the output
     channels; ``ws``, ``b``, ``ls`` f32 [HD]). q, k, v, res [B, N, H*64] ->
-    [B, N, H*64] in res's dtype. CUDA: bfloat16, an even number of heads,
-    width up to 1024. ``q_block`` as in ``flash_attention_packed``.
-    ``return_quantised`` also returns the int8 context [B, N, HD] and its f32
-    row scales [B, N, 1], for checks."""
+    [B, N, H*64] in res's dtype. CUDA: bfloat16, 1 to 16 heads
+    (``out_res_cluster_size``), a positive scale; one device kernel a call,
+    whose CTAs share the int8 context through a scratch ``ctx8``. ``q_block``
+    as in ``flash_attention_packed``. ``return_quantised`` also returns the
+    int8 context [B, N, HD] and its f32 row scales [B, N, 1], for checks."""
     name = "flash_attention_packed_out_res"
     require_device(name, q)
     if q.device.type == "cpu":
@@ -366,29 +385,26 @@ def flash_attention_packed_out_res(q, k, v, wq, ws, b, ls, res, scale: float,
                 attention_context_f32(q, k, v, scale, num_heads)))
         return out
     B, N, HD = q.shape
-    _check_width(name, HD, num_heads)
+    _check_out_res(name, HD, num_heads, scale)
     if q.dtype != torch.bfloat16 or res.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bfloat16 q, k, v, res, got "
                         f"{q.dtype} and {res.dtype}")
-    if num_heads % 2 or HD > OUT_RES_MAX_WIDTH:
-        raise ValueError(f"{name}: the CUDA kernel takes an even number of heads and a "
-                         f"width up to {OUT_RES_MAX_WIDTH}, got {num_heads} heads, {HD}")
     check_cuda_inputs(name, (q, k, v, res), (B, N, HD))
-    if check_int8_weight(name, q, wq, ws, HD) != HD:
-        raise ValueError(f"{name}: the attn_out weight must be [{HD}, {HD}]")
-    for vec in (b, ls):
+    if (wq.dtype != torch.int8 or tuple(wq.shape) != (HD, HD) or not wq.is_contiguous()
+            or wq.data_ptr() % 16 or wq.device != q.device):
+        raise ValueError(f"{name}: the attn_out weight must be contiguous int8 [{HD}, {HD}] "
+                         f"on {q.device}")
+    for vec in (ws, b, ls):
         check_channel_vector(name, q, vec, HD)
     out = torch.empty_like(res)
-    ctx8 = sc = None
-    if return_quantised:
-        ctx8 = torch.empty(B, N, HD, dtype=torch.int8, device=q.device)
-        sc = torch.empty(B, N, 1, dtype=torch.float32, device=q.device)
+    ctx8 = torch.empty(B, N, HD, dtype=torch.int8, device=q.device)
+    sc = torch.empty(B, N, 1, dtype=torch.float32, device=q.device) if return_quantised else None
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.caim_flash_attention_out_res(
             ptr(q), ptr(k), ptr(v), ptr(wq), ptr(ws), ptr(b), ptr(ls), ptr(res), ptr(out),
-            ptr(ctx8) if return_quantised else None, ptr(sc) if return_quantised else None,
-            B, N, num_heads, HEAD_DIM, float(scale), stream_of(q))
+            ptr(ctx8), ptr(sc) if return_quantised else None, B, N, num_heads, HEAD_DIM,
+            float(scale), stream_of(q))
     _build.check(err)
     flash_attention_packed_out_res.launches += 1
     return (out, ctx8, sc) if return_quantised else out

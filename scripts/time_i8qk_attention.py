@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device time of the port's int8-QK^T attention (K10, K10b) beside K1 and K7.
 
-    python3 scripts/time_i8qk_attention.py [--root DIR] [--lib PATH] [--reps 20]
+    python3 scripts/time_i8qk_attention.py [--root DIR] [--lib PATH] [--reps 20] [--bits]
 
 At B 8, H 12 (D 768) on seeded bf16 inputs, by CUDA graphs (``--reps`` calls
 captured, the graph replayed: device time without the host's launch rate),
@@ -16,8 +16,9 @@ kernel, yardstick:
 "kernel" is the attention kernel alone on q and k quantised beforehand
 (``caim_flash_attention_i8qk``, whose C signature every tree of the port
 shares), "wrapper" the wrapper with its quantising launches. Also prints a
-SHA-256 of the bits of K1, K7 and K8 outputs on seeded inputs, so that two
-trees' runs show whether those kernels' outputs are the same.
+SHA-256 of the bits of K1, K7, K8, K9, K10, K10b (and K1 in float32)
+outputs on seeded inputs, so that two trees' runs show whether those
+kernels' outputs are the same; ``--bits`` prints those alone.
 
 ``--root`` imports ``cognitive_aim_tpu_torch`` from another checkout (the
 parent commit unpacked by ``git archive``), so two trees compare by running
@@ -80,6 +81,7 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--lib", default=None)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--bits", action="store_true", help="the outputs' digests only, no times")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -131,7 +133,7 @@ def main() -> int:
                      lambda: alone(bias),
                      lambda: FA.flash_attention_packed_i8qk_bias(q, k, v, bias, 0.125, H)),
         }
-        for name, ((yname, yard), kernel, wrapper) in cases.items():
+        for name, ((yname, yard), kernel, wrapper) in cases.items() if not args.bits else ():
             runs = [(yname, yard), ("kernel", kernel), ("wrapper", wrapper)]
             ms = {n: [] for n, _ in runs}
             for n, fn in runs + runs[::-1]:
@@ -146,6 +148,11 @@ def main() -> int:
             "K1": digest(FA.flash_attention_packed(q, k, v, 0.125, H)),
             "K7": digest(FA.flash_attention_packed_bias(q, k, v, bias, 0.125, H)),
             "K8": digest(FA.flash_attention(*(t.view(B, N, H, 64) for t in (q, k, v)), 0.125)),
+            "K9": digest(FA.flash_attention_packed_int8(q, k, v, 0.125, H)),
+            "K10": digest(FA.flash_attention_packed_i8qk(q, k, v, 0.125, H)),
+            "K10b": digest(FA.flash_attention_packed_i8qk_bias(q, k, v, bias, 0.125, H)),
+            "K1 f32": digest(FA.flash_attention_packed(q.float(), k.float(), v.float(), 0.125,
+                                                       H)),
         }
         result["sha256"][f"N{N}"] = hashes
         print(f"output bits N{N}: " + ", ".join(f"{n} {h}" for n, h in hashes.items()))

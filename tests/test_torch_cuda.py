@@ -2,8 +2,10 @@
 K3, K4, K4a, K4b, K5, K12, K13, K14, K15 against their plain PyTorch versions,
 on the card; K10, K10b and K9, the int8 instantiation of K1's program, at
 every length around its tiles, on rows of full int8 scale and under K1's
-permutation probe; K12's one kernel (a thread-block cluster a 64-row tile) at
-every row count and width it takes. Every test here needs an NVIDIA Hopper GPU and skips without one.
+permutation probe; K11, its OUT_RES instantiation (a thread-block cluster of
+one CTA a head), at the lengths around its tiles and every head count it
+takes; K12's one kernel (a thread-block cluster a 64-row tile) at every row
+count and width it takes. Every test here needs an NVIDIA Hopper GPU and skips without one.
 The one-pass fc1 GEMM of K4a and K14 (a thread-block cluster per row tile)
 is held to the plain version's bits, with a probe that makes every row's
 scale come from another CTA of the cluster.
@@ -1262,8 +1264,14 @@ def _k11_inputs(B, N, H, dev, seed=0):
     return q, k, v, w["q"], w["s"], b, ls, res
 
 
+# K11 beside the fused shapes: the lengths around its 64-row tiles at ViT-B's
+# heads, and every head count its cluster rule takes (one CTA a head)
+K11_SHAPES = FUSED_ATTN_SHAPES + [(2, N, 12) for N in (1, 63, 64, 65, 1369)] + [
+    (2, 65 + 64 * (H % 3), H) for H in range(1, 17) if H not in (2, 12, 16)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,H", FUSED_ATTN_SHAPES)
+@pytest.mark.parametrize("B,N,H", K11_SHAPES)
 def test_k11_kernel_matches_plain(B, N, H, cuda_device):
     """The kernel rounds the un-normalised P to bf16, the plain version the
     normalised P: under 10% of the int8 context values sit one step apart
@@ -1280,6 +1288,52 @@ def test_k11_kernel_matches_plain(B, N, H, cuda_device):
     assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-1
     assert float(((sc - ps).abs() / ps).max()) <= 1e-2
     assert torch.equal(got, TFA.flash_attention_packed_out_res(*args, 0.125, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [3, 12])
+def test_k11_zero_context_takes_the_scale_floor(H, cuda_device):
+    """v = 0 in one batch element: its context is 0, so c8 is 0, the scale
+    is the floor 1e-12 and out = res + ls b with one rounding, bit for bit
+    the plain version's; the other element is unaffected."""
+    args = list(_k11_inputs(2, 70, H, cuda_device, seed=H))
+    args[2][0] = 0.0
+    got, c8, sc = TFA.flash_attention_packed_out_res(*args, 0.125, H, return_quantised=True)
+    want = TFA.flash_attention_packed_out_res_plain(*args, 0.125, H)
+    torch.cuda.synchronize()
+    res, b, ls = args[7][0].float(), args[5], args[6]
+    assert not bool(c8[0].any()) and bool((sc[0] == 1e-12).all())
+    assert torch.equal(got[0], (res + ls * b).bfloat16()) and torch.equal(got[0], want[0])
+    _assert_bf16_close(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_k11_is_one_device_kernel_a_call(cuda_device):
+    """Attention, quantisation and projection in one launch: torch.profiler
+    sees one device kernel a call, the attention program's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _k11_inputs(8, 1370, 12, cuda_device)
+    TFA.flash_attention_packed_out_res(*args, 0.125, 12)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        TFA.flash_attention_packed_out_res(*args, 0.125, 12)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "flash_wgmma_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_k11_cluster_rule_is_the_librarys(cuda_device):
+    """The wrapper's rule (out_res_cluster_size) and the C one agree at every
+    head count up to 32, and the card holds at least one cluster of each
+    size the rule takes."""
+    lib = _build.library()
+    for H in range(0, 33):
+        assert lib.caim_out_res_cluster_size(H) == TFA.out_res_cluster_size(H), H
+    for H in range(1, 17):
+        assert lib.caim_out_res_active_clusters(H) >= 1, H
 
 
 # K12's one kernel: the rows of the exact slice, of the filtered streams, a row
@@ -1385,12 +1439,11 @@ def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         TFA.flash_attention_packed_out_res(*swapped(a, 7, a[7].float()), 0.125, 2)
     with pytest.raises(ValueError):  # a float weight
         TFA.flash_attention_packed_out_res(*swapped(a, 3, a[3].float()), 0.125, 2)
-    odd = _k11_inputs(1, 40, 3, cuda_device)
-    with pytest.raises(ValueError):  # an odd number of heads
-        TFA.flash_attention_packed_out_res(*odd, 0.125, 3)
-    big = _k11_inputs(1, 8, 18, cuda_device)
-    with pytest.raises(ValueError):  # 1152 wide: the f32 context tile does not fit
-        TFA.flash_attention_packed_out_res(*big, 0.125, 18)
+    with pytest.raises(ValueError):  # a scale that is not positive
+        TFA.flash_attention_packed_out_res(*a, 0.0, 2)
+    big = _k11_inputs(1, 8, 17, cuda_device)
+    with pytest.raises(ValueError):  # 17 heads: more CTAs than a cluster takes
+        TFA.flash_attention_packed_out_res(*big, 0.125, 17)
     assert [w.launches for w in wrappers] == before
 
 
