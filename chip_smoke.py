@@ -121,7 +121,29 @@ kernels compile for sm_90a) and the CUDA toolkit:
       the product alone, not a port); K4a, K14, K12 and K6 also by CUDA graphs,
       K6 and K4a also at ViT-L's widths (D 1024, F 4096), and the device
       time of one exact forward under each policy (torch.profiler, kernels
-      summed).
+      summed);
+  (f) serving: the port's engine (cognitive_aim_tpu_torch.api) and HTTP
+      server (cognitive_aim_tpu_torch.serve) on the card at ViT-B 518x518,
+      eval_configs/full_cognitive_fast_tpu.yaml (use_lora off, as the main
+      path has no adapters), policy int8, pallas_packed, seeded weights:
+      an exact engine (token filter off) saves its float32 npz, a second
+      engine loads it and answers a batch of 8 bit for bit as the first; the
+      config's 2:0.35 engine loads the same npz and warns that it carries no
+      filter stamp, and under CAIM_REQUIRE_FILTER_STAMP=1 refuses it; then
+      each engine behind serve(port=0, max_batch=8) on loopback: /healthz,
+      24 concurrent /predict of PNGs with mixed instructions (each within
+      2e-2 of the engine's own batched forward of the same pixels), one
+      /predict_batch of 10 server-local JPEGs (the tail chunk padded; equal
+      to predict_paths_batched on the same files, with the host decoder
+      named), a bad request (400), the launches of one served forward (K1,
+      K2, K3, K4, K4a, K4b 12, K5, K6 2; K1 at N 1370, under 2:0.35 at 481
+      after block 2), and a timed load (96 requests from 16 threads):
+      requests/s, p50 and p99 latency beside the card's name and power
+      limit, and the time per stage (host decode and resize, dispatch, the
+      forward on the stream by CUDA events, drain). Phase (a) prints what
+      the host offers that path (PIL, PyYAML, matplotlib, g++, the native
+      loader's build); a step a missing package stops is printed as not
+      driven.
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -137,7 +159,10 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -2492,6 +2517,383 @@ def phase_forward_times(default, int8, filtered=None, adapters=None):
                   **{f"slice {n}": m for n, m in adapters.items()}})
 
 
+# ------------------------------------------------------------ serving (f) ----
+SERVE_CONFIG = "eval_configs/full_cognitive_fast_tpu.yaml"
+SERVE_MAX_BATCH = 8
+SERVE_DIR = os.path.join(ROOT, "build", "smoke_serving")  # listed in .gitignore
+
+
+def host_packages():
+    """What the host offers the serving path: PIL (request decode, image
+    files), PyYAML (the config), matplotlib (prediction PNGs) and the native
+    loader's build (g++ with the libjpeg / libpng headers)."""
+    from cognitive_aim_tpu_torch.io import native_loader
+
+    found = {}
+    for name in ("PIL", "yaml", "matplotlib"):
+        try:
+            found[name] = __import__(name).__version__
+        except ImportError:
+            found[name] = None
+    found["g++"] = shutil.which("g++")
+    found["native loader"] = "built" if native_loader.available() else None
+    found["native loader error"] = native_loader.build_error
+    return found
+
+
+def _serving_configs(raw):
+    """Two copies of the config as JSON files (JSON is YAML): exact, without
+    the token_filter_* keys, and fast, the config's own 2:0.35 with
+    token_filter_fuse. Both drop use_lora: the config's live rank-16
+    adapters would run the unchained int8 block (K15), and the main path
+    bench.py times builds its model without adapters."""
+    import copy
+
+    fast = copy.deepcopy(raw)
+    for d in (fast, fast.get("model", {})):
+        d["use_lora"] = False
+    exact = copy.deepcopy(fast)
+    for d in (exact, exact.get("model", {})):
+        for k in [k for k in d if k.startswith("token_filter")]:
+            del d[k]
+    paths = {}
+    for name, cfg in (("exact", exact), ("fast", fast)):
+        paths[name] = os.path.join(SERVE_DIR, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(cfg, f)
+    return paths
+
+
+def _png_b64(rng, h, w):
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, "PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _image_files(rng, n):
+    """n JPEGs of seeded pixels under SERVE_DIR/images, every other one with
+    an EXIF block (focal length, f-number, ISO)."""
+    from PIL import Image
+
+    root = os.path.join(SERVE_DIR, "images")
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for i in range(n):
+        img = Image.fromarray(rng.randint(0, 256, (480 + 8 * i, 640, 3), dtype=np.uint8))
+        p = os.path.join(root, f"im{i}.jpg")
+        if i % 2:
+            ex = Image.Exif()
+            ex[272] = "SmokeCam"
+            sub = ex.get_ifd(0x8769)
+            sub[37386], sub[33437], sub[34855] = 24.0 + i, 2.0 + 0.1 * i, 200 * (i + 1)
+            img.save(p, "JPEG", quality=95, exif=ex)
+        else:
+            img.save(p, "JPEG", quality=95)
+        paths.append(p)
+    return root, paths
+
+
+def _http(url, payload=None, timeout=120):
+    """(status, body, seconds) of one request."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+
+def _concurrently(fn, args, threads):
+    """fn(arg) for every arg from a pool of threads; results in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(fn, args))
+
+
+def _engine_reference(engine, decoded, gidx):
+    """The engine's own batched forward of decoded requests, in batches of
+    SERVE_MAX_BATCH: (depth [n], confidence [n])."""
+    import torch
+
+    depth, conf = [], []
+    for s in range(0, len(decoded), SERVE_MAX_BATCH):
+        part = decoded[s:s + SERVE_MAX_BATCH]
+        x = torch.from_numpy(np.stack([img for img, _ in part])).to(engine.device)
+        e = engine._to_device({k: np.asarray([ex[k] for _, ex in part]) for k in part[0][1]})
+        out = engine._forward(x, e, engine._guidance(gidx[s:s + SERVE_MAX_BATCH]))
+        depth.append(out.depth[:, 0].cpu().numpy())
+        conf.append(out.confidence[:, 0].cpu().numpy())
+    return np.concatenate(depth), np.concatenate(conf)
+
+
+def _relerr(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-6)).max())
+
+
+class _attention_lengths:
+    """Record the token count of every attention call of the backbone."""
+
+    def __enter__(self):
+        from cognitive_aim_tpu_torch.nn import dinov2
+
+        self.seen, self.module, self.orig = [], dinov2, dinov2.attend
+
+        def spy(attn_impl, q, *rest):
+            self.seen.append(int(q.shape[1]))
+            return self.orig(attn_impl, q, *rest)
+
+        dinov2.attend = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.attend = self.orig
+
+
+def _serve_engine(tag, engine, smi, rng, image_root, image_paths):
+    """Serve one engine on loopback and drive it: /healthz, 24 concurrent
+    /predict with mixed instructions, one /predict_batch of 10 server-local
+    paths (a padded tail chunk), one bad request, the launches of one served
+    forward, then a timed load. Returns the load's numbers."""
+    import torch
+
+    from cognitive_aim_tpu_torch.models.guidance import INSTRUCTIONS
+    from cognitive_aim_tpu_torch.serve import _decode_request_image, serve
+
+    wrappers = _wrappers()
+    t0 = time.perf_counter()
+    httpd, batcher = serve(engine, port=0, max_batch=SERVE_MAX_BATCH, max_delay_ms=5.0,
+                           data_root=image_root)
+    warm_s = time.perf_counter() - t0
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        code, health, _ = _http(base + "/healthz")
+        if code != 200 or health["max_batch"] != SERVE_MAX_BATCH:
+            raise AssertionError(f"{tag}: /healthz answered {code} {health}")
+        # the launches of one served forward, one request driving
+        first = {"image_b64": _png_b64(rng, 480, 640), "instruction": "top-left"}
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        with _attention_lengths() as k1n:
+            code, body, first_s = _http(base + "/predict", first)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+        if code != 200:
+            raise AssertionError(f"{tag}: first /predict answered {code} {body}")
+        # the same request alone once more: what the first paid beyond it is
+        # one-time work the warmup left
+        _, _, second_s = _http(base + "/predict", first)
+        layers = engine.model.vit_cfg.num_layers
+        iters = engine.arch.num_iterations
+        want = {**{k: layers for k in ("K1", "K2", "K3", "K4", "K4a", "K4b")},
+                "K5": iters, "K6": iters}
+        # K1 at N 1370 in every block; under 2:0.35 at N 481 after block 2
+        # (CLS, round(0.35 x 1369) = 479 kept patches, one fused context token)
+        a, P = engine.arch, (engine.image_size // 14) ** 2
+        filt = a.token_filter_layer if a.token_filter_active else layers
+        kept = 1 + max(1, round(a.token_filter_keep * P)) + \
+            (a.token_filter_fuse_k if a.token_filter_fuse else 0)
+        lengths = [1 + P] * filt + [kept] * (layers - filt)
+        log(f"  {tag}: warmup {warm_s:.2f} s before the server took traffic; first "
+            f"/predict {first_s * 1e3:.1f} ms, the same request alone again "
+            f"{second_s * 1e3:.1f} ms; launches of the first's forward: "
+            + ", ".join(f"{k} {n}" for k, n in launches.items())
+            + f"; K1's token count by block {k1n.seen}")
+        if launches != want:
+            raise AssertionError(f"{tag}: launches {launches} != {want}")
+        if k1n.seen != lengths:
+            raise AssertionError(f"{tag}: K1 token counts {k1n.seen} != {lengths}")
+
+        # 24 concurrent /predict, mixed instructions, each against the
+        # engine's own batched forward of the same pixels
+        reqs = [{"image_b64": _png_b64(rng, 360 + 16 * (i % 5), 500 + 20 * (i % 7)),
+                 "instruction": INSTRUCTIONS[i % 9]} for i in range(24)]
+        answers = _concurrently(lambda p: _http(base + "/predict", p), reqs, 24)
+        if any(c != 200 for c, _, _ in answers):
+            raise AssertionError(f"{tag}: /predict codes {[c for c, _, _ in answers]}")
+        decoded = [_decode_request_image(p, engine) for p in reqs]
+        gidx = np.asarray([i % 9 for i in range(24)])
+        ref_d, ref_c = _engine_reference(engine, decoded, gidx)
+        rd = _relerr([b["depth"] for _, b, _ in answers], ref_d)
+        rc = _relerr([b["confidence"] for _, b, _ in answers], ref_c)
+        # /predict_batch: 10 server-local paths at max_batch 8 (the tail padded)
+        code, body, _ = _http(base + "/predict_batch", {
+            "paths": image_paths, "instructions": [INSTRUCTIONS[i % 9] for i in range(10)],
+            "batch_size": 3})
+        if code != 200 or len(body["results"]) != len(image_paths):
+            raise AssertionError(f"{tag}: /predict_batch answered {code}")
+        # the loader's pixels (bilinear, no antialias) differ from /predict's PIL
+        # resize by design: held against the engine's batched path on the same files
+        direct = engine.predict_paths_batched(
+            image_paths, instructions=[INSTRUCTIONS[i % 9] for i in range(10)],
+            batch_size=SERVE_MAX_BATCH)
+        rbd = _relerr([r[0] for r in body["results"]], [d for d, _ in direct])
+        rbc = _relerr([r[1] for r in body["results"]], [c for _, c in direct])
+        code_bad, bad, _ = _http(base + "/predict", {"instruction": "center"})
+        log(f"  {tag}: /healthz ok; 24 concurrent /predict against the engine's batched "
+            f"forward: depth rel {rd:.2e}, confidence rel {rc:.2e}; /predict_batch of 10 "
+            f"paths (decoder {engine.last_decoder}, chunks of {SERVE_MAX_BATCH}, the tail "
+            f"padded) against predict_paths_batched on the same files: depth rel {rbd:.2e}, confidence rel {rbc:.2e} "
+            f"(tol {TOL_SLICE_BF16:.0e}); bad request {code_bad}")
+        if max(rd, rc, rbd, rbc) > TOL_SLICE_BF16:
+            raise AssertionError(f"{tag}: served answers disagree with the engine")
+        if code_bad != 400 or "error" not in bad:
+            raise AssertionError(f"{tag}: a bad request answered {code_bad}")
+
+        # the timed load: 96 requests from 16 client threads
+        load = [{"image_b64": _png_b64(rng, 480, 640), "instruction": INSTRUCTIONS[i % 9]}
+                for i in range(96)]
+        batcher.batches.clear()
+        batcher.decode_ms.clear()
+        t0 = time.perf_counter()
+        timed = _concurrently(lambda p: _http(base + "/predict", p), load, 16)
+        wall = time.perf_counter() - t0
+        if any(c != 200 for c, _, _ in timed):
+            raise AssertionError(f"{tag}: load codes {[c for c, _, _ in timed]}")
+        lat = np.asarray([s for _, _, s in timed]) * 1e3
+        bt = list(batcher.batches)
+        stage = {k: float(np.mean([b[k] for b in bt if b[k] is not None] or [np.nan]))
+                 for k in ("dispatch_ms", "device_ms", "drain_ms")}
+        numbers = {
+            "requests_per_s": len(load) / wall, "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)), "first_ms": first_s * 1e3,
+            "second_alone_ms": second_s * 1e3,
+            "warmup_s": warm_s, "decode_ms": float(np.mean(batcher.decode_ms)),
+            "batches": len(bt), "mean_batch": float(np.mean([b["n"] for b in bt])), **stage}
+        log(f"  {tag}: {len(load)} requests from 16 threads in {wall:.2f} s: "
+            f"{numbers['requests_per_s']:.1f} requests/s, latency p50 "
+            f"{numbers['p50_ms']:.1f} ms, p99 {numbers['p99_ms']:.1f} ms ({smi})")
+        log(f"  {tag}: per stage: host decode + resize {numbers['decode_ms']:.1f} ms a "
+            f"request (handler threads); {len(bt)} batches of {numbers['mean_batch']:.2f} on "
+            f"average: dispatch {stage['dispatch_ms']:.2f} ms (stack, pad, copy, enqueue), "
+            f"the forward on the stream {stage['device_ms']:.2f} ms (CUDA events from its "
+            f"first launch to its last: gaps while the host enqueues count), drain "
+            f"{stage['drain_ms']:.2f} ms (wait for the outputs)")
+        return numbers
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.stop()
+
+
+def phase_serving(smi, packages):
+    """(f) the port's engine and server at ViT-B 518 int8, exact and at the
+    config's 2:0.35: checkpoint round trip, the stamp check, the served
+    answers against the engine's own forward, launches, and the load."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cognitive_aim_tpu_torch.api import (
+        CheckpointRefused,
+        CognitiveAimInference,
+        load_config,
+    )
+
+    log(f"(f) serving: the port's engine and HTTP server, {SERVE_CONFIG}, policy int8, "
+        f"pallas_packed, max_batch {SERVE_MAX_BATCH}")
+    not_driven = []
+    if packages["matplotlib"] is None:
+        not_driven.append("prediction PNGs (utils/visualize): matplotlib is not installed; "
+                          "the engines run with save_images=False")
+    if packages["native loader"] is None:
+        not_driven.append("the native C++ loader (io/native_loader): it did not build "
+                          f"({packages['native loader error']}); /predict_batch decodes "
+                          "with its PIL fallback")
+    if packages["yaml"] is None or packages["PIL"] is None:
+        not_driven.insert(0, "phase (f): it needs PyYAML for the config and PIL for the "
+                             "requests' images")
+        for s in not_driven:
+            log(f"  not driven: {s}")
+        return {"not_driven": not_driven}
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    cfgs = _serving_configs(load_config(os.path.join(ROOT, SERVE_CONFIG)))
+    kw = dict(policy="int8", attn_impl="pallas_packed", noise_mode="zeros",
+              save_images=False)
+    t0 = time.perf_counter()
+    exact = CognitiveAimInference(cfgs["exact"], None, seed=0, **kw)
+    torch.cuda.synchronize()
+    log(f"  engine (exact) built on {exact.device} in {time.perf_counter() - t0:.1f} s: "
+        f"ViT-B {exact.image_size}x{exact.image_size}, "
+        f"{exact.arch.num_iterations} focal iterations, token filter off")
+
+    # checkpoint round trip, bit for bit
+    npz = os.path.join(SERVE_DIR, "engine.npz")
+    exact.save_native_checkpoint(npz)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        again = CognitiveAimInference(cfgs["exact"], npz, seed=1, **kw)
+    dev, S = exact.device, exact.image_size
+    x = torch.randn((8, S, S, 3), generator=torch.Generator(dev).manual_seed(11), device=dev)
+    exif = {"camera_idx": torch.zeros(8, dtype=torch.long, device=dev),
+            "focal_length": torch.full((8,), 50.0, device=dev),
+            "aperture": torch.full((8,), 2.8, device=dev),
+            "iso": torch.full((8,), 100.0, device=dev)}
+    gidx = torch.arange(8, device=dev)
+    a, b = exact._forward(x, exif, gidx), again._forward(x, exif, gidx)
+    same = all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("depth", "confidence", "attention"))
+    log(f"  checkpoint round trip ({os.path.getsize(npz) / 2 ** 20:.0f} MiB float32 npz; "
+        f"{buf.getvalue().strip()}): depth, confidence and attention of a batch of 8 "
+        f"{'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("the engine loaded from its own npz gives other outputs")
+    del again
+
+    # the 2:0.35 engine from the same npz: unstamped, it warns; required, it raises
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fast = CognitiveAimInference(cfgs["fast"], npz, seed=2, **kw)
+    warned = "WARNING: token filter '2:0.35' is active" in buf.getvalue() \
+        and "carries no train-filter stamp" in buf.getvalue()
+    saved = os.environ.get("CAIM_REQUIRE_FILTER_STAMP")
+    os.environ["CAIM_REQUIRE_FILTER_STAMP"] = "1"
+    try:
+        CognitiveAimInference(cfgs["fast"], npz, seed=2, **kw)
+        refused = False
+    except CheckpointRefused:
+        refused = True
+    finally:
+        if saved is None:
+            del os.environ["CAIM_REQUIRE_FILTER_STAMP"]
+        else:
+            os.environ["CAIM_REQUIRE_FILTER_STAMP"] = saved
+    log(f"  engine (2:0.35, token_filter_fuse) from the same npz: unstamped-checkpoint "
+        f"warning {'printed' if warned else 'MISSING'}; with CAIM_REQUIRE_FILTER_STAMP=1 "
+        f"{'raised CheckpointRefused' if refused else 'did NOT raise'}")
+    if not (warned and refused):
+        raise AssertionError("the filter stamp check did not warn and refuse")
+    os.remove(npz)
+
+    rng = np.random.RandomState(5)
+    image_root, image_paths = _image_files(rng, 10)
+    numbers = {}
+    for tag, engine in (("exact", exact), ("2:0.35", fast)):
+        numbers[tag] = _serve_engine(tag, engine, smi, rng, image_root, image_paths)
+    for s in not_driven:
+        log(f"  not driven: {s}")
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
+    if foreign:
+        raise AssertionError(f"phase (f) imported JAX or the JAX package: {foreign}")
+    return {**numbers, "not_driven": not_driven}
+
+
 KERNELS = {
     # id: (wrapper name, source, TPU kernel body it replaces)
     # K1, K7 and K8 launch one bf16 program, flash_wgmma.cu (their f32
@@ -2552,6 +2954,10 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = phase_device()
+    packages = host_packages()
+    log("host packages of the serving path (f): " + ", ".join(
+        f"{k} {v or 'missing'}" for k, v in packages.items() if k != "native loader error")
+        + (f" ({packages['native loader error']})" if packages["native loader error"] else ""))
     phase_build()
     log("(c) kernels vs plain versions")
     errs = phase_kernels()
@@ -2576,6 +2982,11 @@ def main() -> int:
     times = phase_kernel_times(smi)
     phase_forward_times(default, int8, filtered, adapters)
     phase_fused_times(int8, filtered["1"], x0)
+    del default, int8, filtered, adapters
+    t_serve = time.perf_counter()
+    serving = phase_serving(smi, packages)
+    log(f"serving {json.dumps(serving)}")
+    log(f"phase (f) took {time.perf_counter() - t_serve:.1f} s")
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
     if foreign:

@@ -19,18 +19,26 @@ jax. It handles
 
 and raises on a key it did not consume or a parameter it left unset.
 
+``flat_params(model)`` is its inverse: the model's float32 parameters as the
+same flat interchange (the keys and shapes of the JAX ``api.flatten_tree``),
+the form that ``np.savez`` writes and the inference engine keeps. It reads
+float parameters, so it runs before ``prepare_params``, which casts and
+quantises them in place.
+
 The token filter and the attention kernels it reaches (K7, K10, K10b) add no
 weights: a filtered model loads the same interchange as an exact one.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Set
+from collections import defaultdict
+from typing import Dict, Iterable, List, Set
 
 import numpy as np
 import torch
 from torch import nn
 
+from cognitive_aim_tpu_torch.nn import layers as L
 from cognitive_aim_tpu_torch.nn.dinov2 import LORA_TARGETS, adapter_names
 
 _LAYERS = "backbone/layers/"
@@ -109,3 +117,41 @@ def load_flat_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module
         raise ValueError(f"load_flat_params: keys not consumed {leftover}; "
                          f"parameters left unset {unset}")
     return model
+
+
+@torch.no_grad()
+def flat_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The model's parameters as the flat interchange (float32 numpy): the
+    backbone's blocks stacked on a leading [L] axis, the fused ``qkv`` split
+    back into ``q``, ``k``, ``v``, Linear weights as [in, out], layernorm
+    ``scale`` and embedding ``table`` leaves, the adapters a block holds."""
+    out: Dict[str, np.ndarray] = {}
+    layers: Dict[str, List[np.ndarray]] = defaultdict(list)
+    for mod_name, mod in model.named_modules():
+        if isinstance(mod, L.Int8Linear):
+            raise ValueError(f"flat_params: {mod_name} is quantised; take the flat "
+                             "parameters before prepare_params")
+        for attr, p in mod.named_parameters(recurse=False):
+            value = p.detach().float().cpu().numpy()
+            if isinstance(mod, nn.Linear) and attr == "weight":
+                leaf, value = "w", np.ascontiguousarray(value.T)
+            elif isinstance(mod, nn.Linear) and attr == "bias":
+                leaf = "b"
+            elif isinstance(mod, nn.LayerNorm) and attr == "weight":
+                leaf = "scale"
+            elif isinstance(mod, nn.Embedding) and attr == "weight":
+                leaf = "table"
+            else:
+                leaf = attr
+            parts = (mod_name.split(".") if mod_name else []) + [leaf]
+            if parts[:2] == ["backbone", "layers"]:
+                sub = parts[3:]  # drop the block index, stacked below
+                if sub[0] == "qkv":  # [in, 3D] columns q, k, v
+                    for n, v in zip(_QKV, np.split(value, 3, axis=-1)):
+                        layers[f"{n}/{sub[1]}"].append(v)
+                else:
+                    layers["/".join(sub)].append(value)
+            else:
+                out["/".join(parts)] = value
+    out.update({_LAYERS + k: np.stack(v, 0) for k, v in layers.items()})
+    return out

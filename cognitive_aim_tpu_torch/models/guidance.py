@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from cognitive_aim_tpu_torch.core.device import resolve_device
 from cognitive_aim_tpu_torch.nn.torch_interp import resize_weights
 
 # Instruction order is the public vocabulary (demo.py --instruction).
@@ -103,3 +104,12 @@ def mask_table(grid_size: int, num_patches: int | None = None,
         table = np.einsum("pw,kow->kop", Wh, table)
     flat = np.ascontiguousarray(table.reshape(len(INSTRUCTIONS), -1), np.float32)
     return torch.from_numpy(flat.copy()).to(device)
+
+
+def guidance_vector(instruction: str, num_patches: int, device=None) -> torch.Tensor:
+    """[N] float32 guidance weights for one instruction; the patch layout is
+    taken to be square, a grid of int(sqrt(N)). On the CUDA device unless the
+    caller passes ``device``."""
+    g = int(math.sqrt(num_patches))
+    table = mask_table(g, num_patches, resolve_device(device))
+    return table[instruction_index(instruction)].clone()

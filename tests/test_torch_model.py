@@ -600,17 +600,26 @@ def test_config_copy_matches_the_original():
 # ------------------------------------------------------------- imports ----
 def test_port_imports_no_jax():
     """The card's machine has no jax: after importing every module of the
-    port, neither jax nor any module of the JAX package is loaded."""
+    port (the engine, the server, the host IO and the utilities among them),
+    neither jax nor any module of the JAX package is loaded; and PIL,
+    matplotlib and yaml, which the functions that need them import, are not
+    loaded by an import either."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cognitive_aim_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 20, names\n"
+        "need = ['api', 'serve', 'io.exif', 'io.checkpoint_torch', 'io.native_loader',\n"
+        "        'io.preprocess', 'utils.visualize', 'utils.logging']\n"
+        "missing = [n for n in need if pkg.__name__ + '.' + n not in names]\n"
+        "assert not missing, missing\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cognitive_aim_tpu' or m.startswith('cognitive_aim_tpu.')]\n"
         "assert not bad, bad\n"
+        "lazy = [m for m in sys.modules if m.split('.')[0] in ('PIL', 'matplotlib', 'yaml')]\n"
+        "assert not lazy, lazy\n"
     )
     root = __file__.rsplit("/tests/", 1)[0]
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)
