@@ -143,7 +143,32 @@ kernels compile for sm_90a) and the CUDA toolkit:
       forward on the stream by CUDA events, drain). Phase (a) prints what
       the host offers that path (PIL, PyYAML, matplotlib, g++, the native
       loader's build); a step a missing package stops is printed as not
-      driven.
+      driven;
+  (g) training: configs/experiment_B.yaml (ViT-B/14 at 224, LoRA rank 16 on
+      attn_out, every parameter trained, 6 focal iterations, batch 128,
+      accumulation 4) under the default policy with pallas_packed, seeded
+      weights (lora_B drawn N(0, 0.02)): the gradients of the trainer's loss
+      on one batch (dropout off, noise 0) through the kernels and through the
+      plain versions, in float32 (every gradient within 1e-4, relative L2;
+      the analytically zero ones within 1e-6 of the global norm) and in bf16
+      (global relative L2 and loss within 2e-2; per parameter the kernels no
+      further from the float32 gradient than twice the plain versions plus
+      1e-2); the launches of one micro-step (K1 24 and K6 6 with
+      per-block recompute, K1 12 without, every other kernel 0); every
+      kernel without a backward raising under grad; the micro-step's time
+      (CUDA events, median of the steps after the first), images/s and peak
+      memory with recompute on and off; one profiled micro-step (K1's and
+      K6's forward kernels, the plain recompute of their backward) and K1
+      forward + backward at the training shape beside the plain version and
+      scaled_dot_product_attention; then train_torch.main on a synthetic
+      dataset (512 train and 128 val PNGs of 256x256 with depth maps, from a
+      numpy seed) for 2 epochs: 8 micro-steps, 2 optimizer updates, finite
+      losses, the parameters unmoved before the first update and moved at
+      each, the checkpoints written, the launches of the run, and
+      model_best.npz served by the port's engine within 1e-5 of the
+      trainer's own eval forward on a val batch. Phases (d) to (f) run
+      under torch.no_grad(), as the engine serves; a ``training`` JSON line
+      holds (g)'s numbers beside the card's name and power limit.
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -2894,6 +2919,490 @@ def phase_serving(smi, packages):
     return {**numbers, "not_driven": not_driven}
 
 
+# ------------------------------------------------------------ training (g) ----
+TRAIN_CONFIG = os.path.join("configs", "experiment_B.yaml")
+# the gradient check of a training step on experiment_B.yaml's ViT-B at batch
+# 128, kernels against plain versions on one batch and one set of weights. The
+# backward is the same plain recompute on both routes, so the forwards' rounding
+# is all that differs. In float32 (tanh GELU, as the default policy) that is
+# summation order: each parameter's gradient within 1e-4 (relative L2; measured
+# 6.5e-6 at worst on the card), where the parameter holds at least 1e-6 of the
+# global gradient norm. Below that share the gradients are analytically zero (the
+# focal curiosity modulators and adaptive weights, which the per-row
+# renormalisation cancels; the focal key biases, which softmax's shift invariance
+# cancels) and only rounding is left: |difference| <= 1e-6 of the global norm.
+TOL_TRAIN_GRAD_F32 = 1e-4
+TRAIN_GRAD_FLOOR = 1e-6
+# In bf16, the trained policy, each route is ~2e-2 (median) from the float32
+# gradient, up to 0.12 for the patch embedding: the plain version rounds the
+# scores to bf16, the kernels P. So: the global relative L2 of kernels against
+# plain and the loss within 2e-2 (measured 1.4e-2, 6.8e-5), and per parameter the
+# kernel route's distance to the float32 gradient at most twice the plain
+# route's own plus 1e-2 (measured ratio <= 1.64)
+TOL_TRAIN_GRAD = 2e-2
+TRAIN_GRAD_RATIO = 2.0
+# the trained checkpoint served by the port's engine against the trainer's own
+# eval forward on a val batch: one set of bf16 weights, cast once against cast
+# at each call, one program: bit-equal in practice
+TOL_TRAIN_SERVE = 1e-5
+
+
+def _gradless_calls():
+    """Each kernel wrapper without a backward, on a small CUDA input that
+    requires grad: it must raise before it launches anything."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import flash_attention as FA
+    from cognitive_aim_tpu_torch.kernels import int8_block as IB
+    from cognitive_aim_tpu_torch.kernels import int8_gemm as IG
+    from cognitive_aim_tpu_torch.kernels.int8_ops import quantize_weight
+
+    B, N, D, F, H = 1, 64, 128, 256, 2
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def w8(n, k):
+        w = quantize_weight(torch.randn(n, k, generator=g, device="cuda"))
+        return w["q"], w["s"]
+
+    def f(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    ln, ls = (torch.ones(D, device="cuda"), torch.zeros(D, device="cuda")), f(D)
+    wqkv, wo, w1, w2 = w8(3 * D, D), w8(D, D), w8(F, D), w8(D, F)
+    h8 = torch.zeros(B, N, F, dtype=torch.int8, device="cuda")
+    sh = torch.ones(B, N, 1, device="cuda")
+    return {
+        "K2": lambda x: IB.int8_qkv_proj_ln(x, *ln, *wqkv, f(3 * D)),
+        "K3": lambda x: IB.int8_out_residual(x, *wo, f(D), ls, x),
+        "K4": lambda x: IB.int8_mlp_ln(x, *ln, *w1, f(F), *w2, f(D), ls),
+        "K4a": lambda x: IB.int8_fc1_gelu_ln(x, *ln, *w1, f(F)),
+        "K4b": lambda x: IB.int8_out_residual_prequant(h8, sh, *w2, f(D), ls, x),
+        "K5": lambda x: IB.int8_qkv_proj(x, *wqkv, f(3 * D)),
+        "K8": lambda x: FA.flash_attention(*(x.view(B, N, H, D // H),) * 3, 0.125),
+        "K11": lambda x: FA.flash_attention_packed_out_res(x, x, x, *wo, f(D), ls, x, 0.125, H),
+        "K12": lambda x: IB.int8_attnout_mlp_ln(x, *wo, f(D), ls, x, *ln, *w1, f(F), *w2,
+                                                f(D), ls),
+        "K13": lambda x: IB.int8_proj(x, *wqkv, f(3 * D)),
+        "K14": lambda x: IB.int8_fc1_gelu(x, *w1, f(F)),
+        "K15": lambda x: IG.int8_gemm_fused(x[0], *wqkv, f(3 * D)),
+        "Q": lambda x: FA.quantize_rows(x, x),
+        "Qh": lambda x: FA.quantize_heads(x, H, x),
+    }, f(B, N, D).to(torch.bfloat16)
+
+
+def _train_batch(B, S, g):
+    """A device batch of the trainer's schema: normalised images, per-image
+    depths, the dataset's normalised EXIF."""
+    import torch
+
+    return {"images": torch.randn(B, S, S, 3, generator=g, device="cuda"),
+            "depths": torch.rand(B, S, S, generator=g, device="cuda"),
+            "exif": {"camera_idx": torch.zeros(B, dtype=torch.int32, device="cuda"),
+                     "focal_length": torch.full((B,), 0.25, device="cuda"),
+                     "aperture": torch.full((B,), 0.127, device="cuda"),
+                     "iso": torch.full((B,), 0.016, device="cuda")}}
+
+
+def _write_dataset(root, n_train, n_val, size, seed):
+    """PNGs of smooth random fields and their depth maps (.npy), listed in
+    train/val annotation files, from a numpy seed."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "depths"))
+    anns = {"train": [], "val": []}
+    for i in range(n_train + n_val):
+        coarse = (rng.rand(16, 16, 3) * 255).astype(np.uint8)
+        img = Image.fromarray(coarse).resize((size, size), Image.BILINEAR)
+        ip = os.path.join(root, "images", f"im{i:04d}.png")
+        dp = os.path.join(root, "depths", f"im{i:04d}_depth.npy")
+        img.save(ip)
+        np.save(dp, (rng.rand(size // 4, size // 4) * 9 + 1).astype(np.float32))
+        split = "train" if i < n_train else "val"
+        anns[split].append({"image_path": ip, "depth_path": dp, "image_id": i})
+    for split, a in anns.items():
+        with open(os.path.join(root, f"{split}_annotations.json"), "w") as f:
+            json.dump(a, f)
+
+
+def _grad_check(raw, arch, wrappers, B):
+    """Gradients of the trainer's loss on one batch (dropout off, noise 0)
+    through the kernels and through the plain versions, under the default
+    policy and in float32; the launches of one micro-step with and without
+    per-block recompute."""
+    import torch
+
+    from cognitive_aim_tpu_torch.core.precision import DEFAULT_POLICY, Policy
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    kern = CognitiveAimModel(arch, DEFAULT_POLICY, "pallas_packed").init(g)
+    with torch.no_grad():  # lora_B 0 (its init) would leave lora_A's gradient 0
+        for blk in kern.backbone.layers:
+            blk.lora_B.normal_(0.0, 0.02, generator=g)
+    batch = _train_batch(B, arch.image_size, g)
+    cfg = TrainConfig.from_raw(raw, steps_per_epoch=4)
+    out_dir = os.path.join(ROOT, "build", "smoke_training", "grad")
+    n_layers, n_iters = kern.vit_cfg.num_layers, arch.num_iterations
+    f32 = Policy(backbone_compute_dtype=torch.float32, fast_gelu=True)  # default's GELU
+    routes = (("kernels", DEFAULT_POLICY, "pallas_packed"), ("plain", DEFAULT_POLICY, "plain"),
+              ("f32_kernels", f32, "pallas_packed"), ("f32_plain", f32, "plain"))
+    losses, grads, counts = {}, {}, {}
+    for name, policy, impl in routes:
+        model = kern
+        if name != "kernels":
+            model = CognitiveAimModel(arch, policy, impl)
+            model.load_state_dict(kern.state_dict())
+        tr = Trainer(model, cfg, output_dir=out_dir)
+        for remat in (("1", "0") if name == "kernels" else ("1",)):
+            os.environ["CAIM_TRAIN_REMAT"] = remat
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            total, _ = tr.loss(model, batch, None, *tr.step_inputs())
+            got = torch.autograd.grad(total, [p for _, p in tr._trainable], allow_unused=True)
+            torch.cuda.synchronize()
+            counts[f"{name}_remat{remat}"] = {k: w.launches for k, w in wrappers.items()}
+            if remat == "1":
+                losses[name] = float(total.detach())
+                grads[name] = {n: (torch.zeros_like(p) if gr is None else gr).float()
+                               for (n, p), gr in zip(tr._trainable, got)}
+        os.environ.pop("CAIM_TRAIN_REMAT", None)
+        if model is not kern:
+            del model
+    kernel_route = {"K1": 2 * n_layers, "K6": n_iters}
+    want = {"kernels_remat1": kernel_route, "kernels_remat0": {"K1": n_layers, "K6": n_iters},
+            "plain_remat1": {}, "f32_kernels_remat1": kernel_route, "f32_plain_remat1": {}}
+    for run, c in counts.items():
+        expect = {k: want[run].get(k, 0) for k in wrappers}
+        log(f"  {run}: launches in one micro-step: K1 {c['K1']}, K6 {c['K6']} "
+            f"(want {expect['K1']}, {expect['K6']}; every other kernel 0)")
+        if c != expect:
+            raise AssertionError(f"training launches {run}: {c} != {expect}")
+
+    def norm(d, n):
+        return float(d[n].norm())
+
+    def diff(a, b, n):
+        return float((grads[a][n] - grads[b][n]).norm())
+
+    ref = grads["f32_plain"]
+    names = list(ref)
+    total_norm = float(np.sqrt(sum(norm(ref, n) ** 2 for n in names)))
+    live = [n for n in names if norm(ref, n) >= TRAIN_GRAD_FLOOR * total_norm]
+    # float32: the backward contract, to rounding
+    f32_rel = {n: diff("f32_kernels", "f32_plain", n) / norm(ref, n) for n in live}
+    f32_dead = max((diff("f32_kernels", "f32_plain", n) / total_norm
+                    for n in names if n not in live), default=0.0)
+    f32_loss = abs(losses["f32_kernels"] - losses["f32_plain"]) / abs(losses["f32_plain"])
+    worst32 = max(f32_rel, key=f32_rel.get)
+    log(f"  float32: loss rel {f32_loss:.2e}; {len(live)} gradients of >= "
+        f"{TRAIN_GRAD_FLOOR:.0e} of the global norm: worst rel L2 {f32_rel[worst32]:.2e} "
+        f"({worst32}; tol {TOL_TRAIN_GRAD_F32:.0e}); the {len(names) - len(live)} others "
+        f"(analytically zero): worst |difference| {f32_dead:.2e} of the global norm")
+    if (f32_rel[worst32] > TOL_TRAIN_GRAD_F32 or f32_dead > TRAIN_GRAD_FLOOR
+            or f32_loss > TOL_TRAIN_GRAD_F32):
+        raise AssertionError(f"float32 kernel-path gradients disagree with the plain path: "
+                             f"{worst32} {f32_rel[worst32]:.2e}, dead {f32_dead:.2e}")
+    # bf16: the trained policy
+    kp = {n: diff("kernels", "plain", n) / max(norm(grads["plain"], n), 1e-30) for n in live}
+    glob = float(np.sqrt(sum(diff("kernels", "plain", n) ** 2 for n in names)
+                         / sum(norm(grads["plain"], n) ** 2 for n in names)))
+    loss_rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
+    ek = {n: diff("kernels", "f32_plain", n) / norm(ref, n) for n in live}
+    ep = {n: diff("plain", "f32_plain", n) / norm(ref, n) for n in live}
+    excess = {n: ek[n] - (TRAIN_GRAD_RATIO * ep[n] + 1e-2) for n in live}
+    worst = max(excess, key=excess.get)
+    ratio = max(ek[n] / ep[n] for n in live)
+    over = sum(v > TOL_TRAIN_GRAD for v in kp.values())
+    log(f"  bf16: loss kernels {losses['kernels']:.6f} plain {losses['plain']:.6f} (rel "
+        f"{loss_rel:.2e}); gradients kernels vs plain: global rel L2 {glob:.2e} (tol "
+        f"{TOL_TRAIN_GRAD:.0e}), per parameter median {float(np.median(list(kp.values()))):.2e}"
+        f", worst {max(kp.values()):.2e} ({max(kp, key=kp.get)}), {over} of {len(live)} over "
+        f"{TOL_TRAIN_GRAD:.0e}; to the float32 gradient: kernels median "
+        f"{float(np.median(list(ek.values()))):.2e}, plain median "
+        f"{float(np.median(list(ep.values()))):.2e}, worst ratio {ratio:.2f} "
+        f"(kernels <= {TRAIN_GRAD_RATIO:.0f} x plain + 1e-2: worst {worst} "
+        f"{ek[worst]:.2e} vs {ep[worst]:.2e})")
+    if glob > TOL_TRAIN_GRAD or loss_rel > TOL_TRAIN_GRAD or excess[worst] > 0:
+        raise AssertionError(f"bf16 kernel-path gradients disagree with the plain path: "
+                             f"global {glob:.2e}, loss {loss_rel:.2e}, {worst} "
+                             f"{ek[worst]:.2e} vs {ep[worst]:.2e}")
+    del grads, ref
+    return kern, batch, {
+        "loss_rel_err": loss_rel, "grad_global_rel_l2": glob,
+        "grad_rel_l2_median": float(np.median(list(kp.values()))),
+        "grad_rel_l2_worst": max(kp.values()), "grad_rel_l2_worst_param": max(kp, key=kp.get),
+        "grad_params_over_2e-2": over, "n_params_checked": len(live),
+        "n_params_analytically_zero": len(names) - len(live),
+        "to_f32_kernels_median": float(np.median(list(ek.values()))),
+        "to_f32_plain_median": float(np.median(list(ep.values()))),
+        "to_f32_worst_ratio": ratio,
+        "f32_loss_rel_err": f32_loss, "f32_grad_rel_l2_worst": f32_rel[worst32],
+        "f32_grad_rel_l2_worst_param": worst32, "f32_dead_abs_worst": f32_dead,
+        "launches_per_micro_step": {run: {"K1": c["K1"], "K6": c["K6"]}
+                                    for run, c in counts.items()}}
+
+
+def _step_times(model, raw, batch, B):
+    """Micro-step time (median of the steps after the first, CUDA events),
+    images/s and peak memory, with per-block recompute on and off; one step
+    under torch.profiler: K1's and K6's forward kernels and the plain
+    recompute of the attention backward; SDPA forward + backward at K1's
+    shape as a yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cognitive_aim_tpu_torch.kernels import flash_attention as FA
+    from cognitive_aim_tpu_torch.kernels import focal_attention as FO
+    from cognitive_aim_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    out = {}
+    cfg = TrainConfig.from_raw(raw, steps_per_epoch=4)
+    tr = Trainer(model, cfg, output_dir=os.path.join(ROOT, "build", "smoke_training", "t"))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for remat in ("1", "0"):
+        os.environ["CAIM_TRAIN_REMAT"] = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(5):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            tr.train_step(batch, gen, fetch_logs=False)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = float(np.median(times[1:]))
+        out[f"remat_{'on' if remat == '1' else 'off'}"] = {
+            "micro_step_ms": ms, "micro_step_ms_all": times,
+            "images_per_s": B / ms * 1e3,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    os.environ["CAIM_TRAIN_REMAT"] = "1"
+    tr.train_step(batch, gen, fetch_logs=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.train_step(batch, gen, fetch_logs=False)
+        torch.cuda.synchronize()
+    os.environ.pop("CAIM_TRAIN_REMAT", None)
+    # kernels only: the recompute's record_function ranges sit on the device timeline too
+    dev = [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in prof.events()
+           if e.device_type == DeviceType.CUDA and not e.name.startswith("recompute_vjp")]
+    busy = sum(t for _, t in dev)
+    if busy <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    k1 = [t for n, t in dev if "flash_wgmma_kernel" in n]
+    k6 = [t for n, t in dev if "focal_wgmma_kernel" in n or "focal_colmean_kernel" in n]
+
+    def range_ms(label):
+        for e in prof.key_averages():
+            if e.key == label:
+                return (getattr(e, "device_time_total", 0) or
+                        getattr(e, "cuda_time_total", 0)) / 1e3
+        return None
+
+    out["profiled_micro_step"] = {
+        "device_busy_ms": busy, "K1_forward_ms": sum(k1), "K1_kernels": len(k1),
+        "K6_forward_ms": sum(k6), "K6_kernels": len(k6),
+        "K1_backward_plain_recompute_ms": range_ms(
+            "recompute_vjp flash_attention_packed_plain"),
+        "K6_backward_plain_recompute_ms": range_ms("recompute_vjp focal_attention_plain")}
+
+    # one K1 call at the training shape: kernel forward, forward + backward
+    # (the plain recompute), plain forward + backward, SDPA forward + backward
+    g = torch.Generator(device="cuda").manual_seed(13)
+    N, H, Dh = (model.arch.image_size // 14) ** 2 + 1, 12, 64
+    q, k, v, go = (torch.randn(B, N, H * Dh, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+
+    def fb(fn):
+        return lambda: torch.autograd.grad(fn(), (q, k, v), go)
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(*(t.view(B, N, H, Dh).transpose(1, 2)
+                                              for t in (q, k, v)))
+        return o.transpose(1, 2).reshape(B, N, H * Dh)
+
+    with torch.no_grad():
+        k1_fwd = cuda_ms(lambda: FA.flash_attention_packed(q, k, v, Dh ** -0.5, H))
+    k1_fb = cuda_ms(fb(lambda: FA.flash_attention_packed(q, k, v, Dh ** -0.5, H)))
+    plain_fb = cuda_ms(fb(lambda: FA.flash_attention_packed_plain(q, k, v, Dh ** -0.5, H)))
+    sdpa_fb = cuda_ms(fb(sdpa))
+    P, D = N - 1, model.feature_dim
+    fq, fk, fv = (torch.randn(B, P, D, generator=g, device="cuda", dtype=torch.bfloat16)
+                  .requires_grad_(True) for _ in range(3))
+    with torch.no_grad():
+        k6_fwd = cuda_ms(lambda: FO.focal_attention_fused(fq, fk, fv, (D // 8) ** 0.5))
+    k6_fb = cuda_ms(lambda: torch.autograd.grad(
+        FO.focal_attention_fused(fq, fk, fv, (D // 8) ** 0.5)[0], (fq, fk, fv), fq))
+    out["attention_at_training_shape"] = {
+        "K1_shape": [B, N, H * Dh], "K1_forward_ms": k1_fwd,
+        "K1_forward_backward_ms": k1_fb, "K1_backward_ms": k1_fb - k1_fwd,
+        "plain_forward_backward_ms": plain_fb, "sdpa_forward_backward_ms": sdpa_fb,
+        "K6_shape": [B, P, D], "K6_forward_ms": k6_fwd, "K6_forward_backward_ms": k6_fb,
+        "K6_backward_ms": k6_fb - k6_fwd}
+    return out
+
+
+def phase_training(smi):
+    """(g) training on the card: experiment_B.yaml (ViT-B/14 at 224, LoRA rank
+    16 on attn_out, everything trainable, 6 focal iterations, batch 128,
+    accumulation 4), the default policy, attn_impl="pallas_packed"."""
+    import tempfile
+
+    import torch
+    import yaml
+
+    from cognitive_aim_tpu_torch.api import CognitiveAimInference
+    from cognitive_aim_tpu_torch.io.dataset import DepthDataset, collate
+    from cognitive_aim_tpu_torch.models.config import resolve_model_config
+
+    with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
+        raw = yaml.safe_load(f)
+    arch = resolve_model_config(raw, lookup="nested")
+    B, accum = int(raw["training"]["batch_size"]), int(raw["training"]["accumulation_steps"])
+    wrappers = _wrappers()
+    t0 = time.perf_counter()
+    log(f"(g) training: {TRAIN_CONFIG}, ViT-B/14 {arch.image_size}x{arch.image_size}, "
+        f"LoRA rank {arch.lora_rank} on {','.join(arch.lora_targets)}, "
+        f"{arch.num_iterations} focal iterations, batch {B}, accumulation {accum}, "
+        f"default policy, pallas_packed")
+    kern, batch, grad = _grad_check(raw, arch, wrappers, B)
+
+    raised = []
+    calls, x = _gradless_calls()
+    for name, call in calls.items():
+        try:
+            call(x.clone().requires_grad_(True))
+        except RuntimeError as e:
+            if "no backward" in str(e):
+                raised.append(name)
+                continue
+            raise
+        raise AssertionError(f"{name} ran under grad: its output would be detached")
+    log(f"  every kernel without a backward raised under grad: {', '.join(raised)}")
+
+    numbers = _step_times(kern, raw, batch, B)
+    del kern, batch
+    torch.cuda.empty_cache()
+    for key in ("remat_on", "remat_off"):
+        r = numbers[key]
+        log(f"  micro-step ({key}): {r['micro_step_ms']:.1f} ms, {r['images_per_s']:.0f} "
+            f"images/s, peak {r['max_memory_allocated_gib']:.2f} GiB ({smi})")
+
+    # train_torch.py on a synthetic dataset: 512 train, 128 val, 256x256 PNGs
+    import train_torch
+    from cognitive_aim_tpu_torch.train import trainer as T
+
+    work = os.path.join(ROOT, "build", "smoke_training")
+    os.makedirs(work, exist_ok=True)
+    root = tempfile.mkdtemp(dir=work)
+    try:
+        _write_dataset(os.path.join(root, "data"), 512, 128, 256, seed=21)
+        snaps, initial = [], []
+        apply = T.Trainer._apply
+
+        def recording(self, grads):
+            if not initial:
+                initial.append(self.model.fusion.fc0.weight.detach().clone())
+            apply(self, grads)
+            p = self.model.fusion.fc0.weight
+            snaps.append((self._groups["train"].count, p.detach().clone()))
+
+        T.Trainer._apply = recording
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        out_dir = os.path.join(root, "out")
+        t_run = time.perf_counter()
+        try:
+            tr = train_torch.main(["--config", os.path.join(ROOT, TRAIN_CONFIG),
+                                   "--data_dir", os.path.join(root, "data"),
+                                   "--output_dir", out_dir, "--epochs", "2"])
+        finally:
+            T.Trainer._apply = apply
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches = {k: w.launches for k, w in wrappers.items()}
+        micro = len(snaps)
+        n_layers, n_iters = tr.model.vit_cfg.num_layers, arch.num_iterations
+        val_forwards = 2 * -(-128 // B)
+        want = {k: 0 for k in wrappers}
+        want.update(K1=micro * 2 * n_layers + val_forwards * n_layers,
+                    K6=(micro + val_forwards) * n_iters)
+        epoch_losses = [h["loss"] for h in tr.history]
+        val_losses = [h["val_loss"] for h in tr.history]
+        updates = [c for c, _ in snaps]
+        log(f"  train_torch.main: {micro} micro-steps, optimizer updates {updates}, epoch "
+            f"losses {[round(h['loss'], 5) for h in tr.history]}, val "
+            f"{[round(h['val_loss'], 5) for h in tr.history]}, {run_s:.1f} s")
+        log(f"  launches in the run: K1 {launches['K1']} (want {want['K1']}), K6 "
+            f"{launches['K6']} (want {want['K6']}), every other kernel 0")
+        if micro != 2 * 512 // B or updates[-1] != micro // accum:
+            raise AssertionError(f"{micro} micro-steps, {updates[-1]} updates")
+        if launches != want:
+            raise AssertionError(f"training launches {launches} != {want}")
+        if not all(np.isfinite(l) for l in epoch_losses + val_losses):
+            raise AssertionError(f"non-finite losses {epoch_losses} {val_losses}")
+        # not before the first update, and at each update
+        if bool((snaps[0][1] != initial[0]).any()):
+            raise AssertionError("the parameters moved before the first optimizer update")
+        moved = [bool((a != b).any()) for (_, a), (_, b) in zip(snaps, snaps[1:])]
+        # fusion.fc0 moves at the updates (micro-steps accum, 2 accum) only
+        want_moved = [(i + 2) % accum == 0 for i in range(micro - 1)]
+        if moved != want_moved:
+            raise AssertionError(f"parameter moves {moved} != {want_moved}")
+        del snaps, initial
+        files = ["checkpoint.npz", "model_best.npz", "checkpoint_epoch_0.npz",
+                 "checkpoint_epoch_1.npz", "training_summary.md"]
+        missing = [f for f in files if not os.path.exists(os.path.join(out_dir, f))]
+        if missing:
+            raise AssertionError(f"train_torch.py wrote no {missing}")
+
+        # the best checkpoint served by the port's engine against the trainer's
+        # own eval forward (noise 0 on both) on a val batch
+        tr.load_checkpoint(os.path.join(out_dir, "model_best.npz"))
+        tr.cfg.eval_noise_mode = "zeros"
+        val = DepthDataset(os.path.join(root, "data"), "val", arch.image_size, True, False)
+        vb = tr.device_batch(collate([val[i] for i in range(8)]))
+        want_out = tr.eval_forward(vb["images"], vb["exif"])
+        engine = CognitiveAimInference(os.path.join(ROOT, TRAIN_CONFIG),
+                                       os.path.join(out_dir, "model_best.npz"),
+                                       lookup="nested", policy="default",
+                                       attn_impl="pallas_packed", noise_mode="zeros",
+                                       save_images=False)
+        got = engine._forward(vb["images"], vb["exif"])
+        serve_err = max(max_err(got.depth, want_out.depth),
+                        max_err(got.confidence, want_out.confidence))
+        log(f"  model_best.npz served by CognitiveAimInference against the trainer's eval "
+            f"forward on 8 val images: max abs {serve_err:.2e} (tol {TOL_TRAIN_SERVE:.0e})")
+        if serve_err > TOL_TRAIN_SERVE:
+            raise AssertionError("the engine's forward of the trained checkpoint disagrees "
+                                 "with the trainer's")
+        del engine, tr
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
+    if foreign:
+        raise AssertionError(f"phase (g) imported JAX or the JAX package: {foreign}")
+    torch.cuda.empty_cache()
+    log(f"phase (g) took {time.perf_counter() - t0:.1f} s")
+    return {"config": TRAIN_CONFIG, "card": smi, "batch": B, "accumulation": accum,
+            "gradient_check": grad, "gradless_wrappers_raised": raised,
+            "run": {"micro_steps": micro, "optimizer_updates": micro // accum,
+                    "epoch_losses": epoch_losses, "val_losses": val_losses,
+                    "seconds": run_s, "launches": {"K1": launches["K1"],
+                                                   "K6": launches["K6"]},
+                    "serve_max_abs_err": serve_err},
+            **numbers}, launches
+
+
 KERNELS = {
     # id: (wrapper name, source, TPU kernel body it replaces)
     # K1, K7 and K8 launch one bf16 program, flash_wgmma.cu (their f32
@@ -2975,18 +3484,22 @@ def main() -> int:
         phase_kernel_times(smi)
         log(f"kernels only: no slice was driven, {time.perf_counter() - t_start:.1f} s")
         return 0
-    default, int8, launches, launches_default, reqs = phase_slices()
-    filtered, launches_filtered = phase_filtered_slices(reqs)
-    adapters, launches_adapters = phase_adapter_slices(reqs)
-    launches_fused, x0 = phase_fused_slices(int8, filtered["1"], reqs)
-    times = phase_kernel_times(smi)
-    phase_forward_times(default, int8, filtered, adapters)
-    phase_fused_times(int8, filtered["1"], x0)
-    del default, int8, filtered, adapters
-    t_serve = time.perf_counter()
-    serving = phase_serving(smi, packages)
+    with torch.no_grad():  # inference: no phase before (g) builds an autograd graph
+        default, int8, launches, launches_default, reqs = phase_slices()
+        filtered, launches_filtered = phase_filtered_slices(reqs)
+        adapters, launches_adapters = phase_adapter_slices(reqs)
+        launches_fused, x0 = phase_fused_slices(int8, filtered["1"], reqs)
+        times = phase_kernel_times(smi)
+        phase_forward_times(default, int8, filtered, adapters)
+        phase_fused_times(int8, filtered["1"], x0)
+        del default, int8, filtered, adapters
+        t_serve = time.perf_counter()
+        serving = phase_serving(smi, packages)
     log(f"serving {json.dumps(serving)}")
     log(f"phase (f) took {time.perf_counter() - t_serve:.1f} s")
+    torch.cuda.empty_cache()
+    training, launches_training = phase_training(smi)
+    log(f"training {json.dumps(training)}")
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
     if foreign:
@@ -3002,6 +3515,7 @@ def main() -> int:
          "launches_filtered_slices": {n: c[kid] for n, c in launches_filtered.items()},
          "launches_adapter_slices": {n: c[kid] for n, c in launches_adapters.items()},
          "launches_fused_slices": {n: c[kid] for n, c in launches_fused.items()},
+         "launches_training": launches_training[kid],
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -197,8 +197,8 @@ class CognitiveAimInference:
     # -------------------------------------------------------- checkpoint ----
     def load_checkpoint(self, path: str):
         """Tolerant loading: torch containers (model_state_dict / main_model /
-        raw) with shape filtering, or a native .npz flat interchange.
-        Continues on the weights it has if the file cannot be read; a
+        raw) with shape filtering, or a native .npz flat interchange, a
+        trainer's checkpoint included (``trainer_params``). Continues on the weights it has if the file cannot be read; a
         ``CheckpointRefused`` propagates."""
         try:
             fold, adapters = (0, 0), None
@@ -206,7 +206,7 @@ class CognitiveAimInference:
                 with np.load(path) as z:
                     meta = npz_meta(z)
                     self._check_filter_stamp(meta, path)
-                    incoming = unflatten_npz(z)
+                    incoming = trainer_params(unflatten_npz(z))
                 incoming, adapters, fold = self._maybe_merge_adapters(incoming, meta)
             else:
                 sd = ct.load_torch_file(path)
@@ -657,6 +657,17 @@ def npz_meta(npz) -> Dict[str, str]:
         if key.startswith("__meta__/"):
             meta[key[len("__meta__/"):]] = str(npz[key])
     return meta
+
+
+def trainer_params(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The parameters of a trainer checkpoint (``params/<name>`` beside
+    ``meta/epoch`` and ``meta/best_val_loss``, the layout both trainers
+    write) as the flat interchange; any other flat dict as it is. The JAX
+    engine reads the prefixed keys as a subtree it does not have and loads
+    nothing from such a file."""
+    if not any(k.startswith("params/") for k in flat):
+        return flat
+    return {k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")}
 
 
 def unflatten_npz(npz) -> Dict[str, np.ndarray]:

@@ -1,8 +1,10 @@
 """Noise modes (counterpart of cognitive_aim_tpu/core/rng.py).
 
 The model samples noise even at inference (VAE reparameterization, the
-local-curiosity perturbation, the focal uniformity fallback). Every draw
-takes an explicit ``torch.Generator``; ``NoiseMode.ZEROS`` makes every draw
+local-curiosity perturbation, the focal uniformity fallback), and dropout
+under training. Every draw takes an explicit ``torch.Generator``, and
+``fold_in`` derives one stream from another as ``jax.random.fold_in`` derives
+a key; ``NoiseMode.ZEROS`` makes every draw
 0, which is what the parity tests use, since torch cannot reproduce JAX's
 random streams.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 import enum
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -30,3 +33,13 @@ def normal_like(
     if mode == NoiseMode.ZEROS or generator is None:
         return torch.zeros(shape, dtype=dtype, device=device)
     return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+
+
+def fold_in(generator: Optional[torch.Generator], i: int) -> Optional[torch.Generator]:
+    """A new generator on ``generator``'s device, seeded from its initial
+    seed and ``i`` (host values: no device sync), so that one stream's draws
+    do not move another's; None stays None."""
+    if generator is None:
+        return None
+    seed = np.random.SeedSequence([generator.initial_seed(), i]).generate_state(1, np.uint64)[0]
+    return torch.Generator(generator.device).manual_seed(int(seed) >> 1)

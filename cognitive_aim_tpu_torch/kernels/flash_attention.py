@@ -49,6 +49,14 @@ tensor or on q and k together in one launch; contiguous bfloat16 rows up to
 Dispatch is on the tensor's device: CPU tensors take the plain version,
 CUDA tensors launch the kernel or raise. Each wrapper's ``.launches`` counts
 its kernel launches (never plain-version calls).
+
+Autograd (``_grad.py``, the JAX package's ``custom_vjp`` rules): K1 (K9 as
+``int8_dots``), K7, K10 and K10b are differentiable; their backward
+recomputes the float plain version of K1 or K7 from the saved inputs (for
+K10, K10b and K9 straight through the quantisation). A forward under
+per-block recompute runs, and counts, the kernel again. K8, K11,
+``quantize_rows`` and ``quantize_heads`` have no backward in either package
+and raise when grad is enabled and an input requires it.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ import ctypes
 import torch
 
 from cognitive_aim_tpu_torch.kernels import _build
+from cognitive_aim_tpu_torch.kernels._grad import forbid_grad, recompute_vjp
 from cognitive_aim_tpu_torch.kernels._launch import (
     DTYPE_CODES,
     check_cuda_inputs,
@@ -295,9 +304,15 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype (bfloat16 or float32). CPU -> plain version; CUDA -> the kernel.
     ``int8_dots=True`` is K9, ``flash_attention_packed_int8``, which counts
     its own launches. ``q_block`` is the JAX signature's query block of the
-    TPU grid; the CUDA kernels' tile is fixed and the value is not read."""
-    if int8_dots:
-        return flash_attention_packed_int8(q, k, v, scale, num_heads)
+    TPU grid; the CUDA kernels' tile is fixed and the value is not read.
+    Differentiable in q, k, v (``_grad.recompute_vjp``): the backward
+    recomputes the float plain version, with ``int8_dots`` too, straight
+    through the quantisation."""
+    fwd = _k9_forward if int8_dots else _k1_forward
+    return recompute_vjp(fwd, flash_attention_packed_plain, 3, q, k, v, scale, num_heads)
+
+
+def _k1_forward(q, k, v, scale, num_heads):
     require_device("flash_attention_packed", q)
     if q.device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, scale, num_heads)
@@ -311,7 +326,13 @@ def flash_attention_packed_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                                 num_heads: int) -> torch.Tensor:
     """K7. K1 with ``k_bias`` [B, N] (read as f32) added to the logits of
     every query row: proportional attention for the token filter, where a
-    fused context token gets +log(number of tokens it stands for)."""
+    fused context token gets +log(number of tokens it stands for).
+    Differentiable in q, k, v and k_bias, through the plain version."""
+    return recompute_vjp(_k7_forward, flash_attention_packed_bias_plain, 4,
+                         q, k, v, k_bias, scale, num_heads)
+
+
+def _k7_forward(q, k, v, k_bias, scale, num_heads):
     require_device("flash_attention_packed_bias", q)
     if q.device.type == "cpu":
         return flash_attention_packed_bias_plain(q, k, v, k_bias, scale, num_heads)
@@ -326,7 +347,14 @@ def flash_attention_packed_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     """K9. Packed attention whose q k^T runs in int8 on q and k quantised
     per (row, head); P V stays in v's dtype. CUDA: bfloat16 [B, N, H*64] in
     and out; q and k quantised once, in one launch (``quantize_heads``), then
-    the int8 attention program of K10 on (row, head) scales."""
+    the int8 attention program of K10 on (row, head) scales. Differentiable
+    as ``flash_attention_packed(..., int8_dots=True)``: through the float
+    plain version of K1."""
+    return recompute_vjp(_k9_forward, flash_attention_packed_plain, 3, q, k, v, scale,
+                         num_heads)
+
+
+def _k9_forward(q, k, v, scale, num_heads):
     name = "flash_attention_packed_int8"
     require_device(name, q)
     if q.device.type == "cpu":
@@ -376,6 +404,7 @@ def flash_attention_packed_out_res(q, k, v, wq, ws, b, ls, res, scale: float,
     as in ``flash_attention_packed``. ``return_quantised`` also returns the
     int8 context [B, N, HD] and its f32 row scales [B, N, 1], for checks."""
     name = "flash_attention_packed_out_res"
+    forbid_grad(name, q, k, v, wq, ws, b, ls, res)
     require_device(name, q)
     if q.device.type == "cpu":
         out = flash_attention_packed_out_res_plain(q, k, v, wq, ws, b, ls, res, scale,
@@ -426,7 +455,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K8. q, k, v: [B, N, H, 64], bfloat16 or float32, contiguous or strided
     views (a reshaped packed projection, a column slice of a fused one) ->
     a contiguous [B, N, H, 64] in q's dtype. CPU -> ``attention_reference``;
-    CUDA -> the kernel, which addresses the operands in place."""
+    CUDA -> the kernel, which addresses the operands in place. No backward,
+    as in the JAX package: raises under grad."""
+    forbid_grad("flash_attention", q, k, v)
     require_device("flash_attention", q)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
@@ -458,6 +489,7 @@ def quantize_rows(x: torch.Tensor, y: Optional[torch.Tensor] = None):
     shape of x) -> (x8, sx, y8, sy), both quantised in one launch, as K10
     does q and k. CPU -> plain version; CUDA -> the kernel (bfloat16, width a
     multiple of 8 up to 1024)."""
+    forbid_grad("quantize_rows", x, y)
     require_device("quantize_rows", x)
     if x.device.type == "cpu":
         return quantize_rows_plain(x, y)
@@ -491,6 +523,7 @@ def quantize_heads(x: torch.Tensor, num_heads: int, y: Optional[torch.Tensor] = 
     one launch, as K9 does q and k. CPU -> plain version; CUDA -> the kernel
     (bfloat16, width up to 1024)."""
     name = "quantize_heads"
+    forbid_grad(name, x, y)
     require_device(name, x)
     if x.device.type == "cpu":
         return quantize_heads_plain(x, num_heads, y)
@@ -519,7 +552,15 @@ def flash_attention_packed_i8qk(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                                 scale: float, num_heads: int) -> torch.Tensor:
     """K10. Packed attention with an int8 q k^T: float q, k, v in, v's dtype
     out. q and k are quantised here (``quantize_rows``); the kernel reads
-    int8 and dequantises its int32 scores with the row scales. CUDA: bf16."""
+    int8 and dequantises its int32 scores with the row scales. CUDA: bf16.
+    Differentiable in q, k, v through K1's FLOAT plain version, straight
+    through the quantisation (the int8 plain version's own autograd would
+    give zero gradients through ``round``)."""
+    return recompute_vjp(_k10_forward, flash_attention_packed_plain, 3, q, k, v, scale,
+                         num_heads)
+
+
+def _k10_forward(q, k, v, scale, num_heads):
     require_device("flash_attention_packed_i8qk", q)
     if q.device.type == "cpu":
         return flash_attention_packed_i8qk_plain(q, k, v, scale, num_heads)
@@ -531,7 +572,13 @@ def flash_attention_packed_i8qk(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 def flash_attention_packed_i8qk_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      k_bias: torch.Tensor, scale: float,
                                      num_heads: int) -> torch.Tensor:
-    """K10b. K10 with the bias row of K7 added to the dequantised scores."""
+    """K10b. K10 with the bias row of K7 added to the dequantised scores.
+    Differentiable in q, k, v and k_bias through K7's float plain version."""
+    return recompute_vjp(_k10b_forward, flash_attention_packed_bias_plain, 4,
+                         q, k, v, k_bias, scale, num_heads)
+
+
+def _k10b_forward(q, k, v, k_bias, scale, num_heads):
     require_device("flash_attention_packed_i8qk_bias", q)
     if q.device.type == "cpu":
         return flash_attention_packed_i8qk_bias_plain(q, k, v, k_bias, scale, num_heads)

@@ -8,6 +8,11 @@ the JAX package's ``focal_attention_reference``.
 Dispatch is on the tensor's device: CPU tensors take the plain version,
 CUDA tensors launch the kernel or raise. ``focal_attention_fused.launches``
 counts kernel launches (one per call; the call runs three CUDA kernels).
+
+Differentiable in q, k, v as the JAX package's ``custom_vjp``: the backward
+recomputes the plain version from the saved inputs and takes the gradients
+of all four outputs (``_grad.recompute_vjp``; an output whose gradient is
+None counts as zeros).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from cognitive_aim_tpu_torch.kernels import _build
+from cognitive_aim_tpu_torch.kernels._grad import recompute_vjp
 from cognitive_aim_tpu_torch.kernels._launch import (
     check_cuda_inputs,
     ptr,
@@ -41,6 +47,10 @@ def focal_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float):
     """Same outputs as ``focal_attention_plain``. CPU -> plain version;
     CUDA -> the K6 kernel. ``scale`` divides the scores."""
+    return recompute_vjp(_k6_forward, focal_attention_plain, 3, q, k, v, scale)
+
+
+def _k6_forward(q, k, v, scale):
     require_device("focal_attention_fused", q)
     if q.device.type == "cpu":
         return focal_attention_plain(q, k, v, scale)

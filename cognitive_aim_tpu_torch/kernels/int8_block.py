@@ -57,6 +57,10 @@ width divides: ``gemm_tile_cols``, ``fc1_cluster_shape``,
 ``attnout_mlp_shape``). Each wrapper's
 ``.launches`` counts its kernel launches and nothing else; ``int8_mlp_ln``
 also counts in K4a and K4b, which it launches.
+
+None of these kernels has a backward, in either package: each wrapper raises
+when grad is enabled and an input requires it (``_grad.forbid_grad``), so the
+int8 policy does not train.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ import math
 import torch
 
 from cognitive_aim_tpu_torch.kernels import _build
+from cognitive_aim_tpu_torch.kernels._grad import forbid_grad
 from cognitive_aim_tpu_torch.kernels._launch import ptr, require_device, stream_of
 from cognitive_aim_tpu_torch.kernels.int8_ops import int_matmul, quantize_activations
 
@@ -295,6 +300,7 @@ def _launch_qkv(name, x, g, be, wq, ws, b, eps):
 def int8_qkv_proj(x, wq, ws, b, out_dtype=torch.bfloat16):
     """K5. x [B, N, D] -> (q, k, v), each a contiguous [B, N, D]: one GEMM
     over the concatenated [3D, D] weight, split at columns D and 2D."""
+    forbid_grad("int8_qkv_proj", x, wq, ws, b)
     require_device("int8_qkv_proj", x)
     if x.device.type == "cpu":
         return int8_qkv_proj_plain(x, wq, ws, b, out_dtype)
@@ -308,6 +314,7 @@ def int8_qkv_proj(x, wq, ws, b, out_dtype=torch.bfloat16):
 def int8_qkv_proj_ln(x, g, be, wq, ws, b, eps=1e-6, out_dtype=torch.bfloat16):
     """K2. The pre-layernorm fused into the qkv GEMM: the normalised
     activation reaches device memory only as int8."""
+    forbid_grad("int8_qkv_proj_ln", x, g, be, wq, ws, b)
     require_device("int8_qkv_proj_ln", x)
     if x.device.type == "cpu":
         return int8_qkv_proj_ln_plain(x, g, be, wq, ws, b, eps, out_dtype)
@@ -350,6 +357,7 @@ def _launch_out_residual(name, a, sa, wq, ws, b, ls, res):
 
 def int8_out_residual(x, wq, ws, b, ls, res):
     """K3. x bf16 [B, N, K] -> res + ls * (dequant(quant(x) @ wq^T) + b)."""
+    forbid_grad("int8_out_residual", x, wq, ws, b, ls, res)
     require_device("int8_out_residual", x)
     if x.device.type == "cpu":
         return int8_out_residual_plain(x, wq, ws, b, ls, res)
@@ -361,6 +369,7 @@ def int8_out_residual(x, wq, ws, b, ls, res):
 def int8_out_residual_prequant(h8, sh, wq, ws, b, ls, res):
     """K4b. (h8 int8 [B, N, F], sh f32 [B, N, 1]) ->
     res + ls * (dequant(h8 @ wq^T) + b)."""
+    forbid_grad("int8_out_residual_prequant", h8, sh, wq, ws, b, ls, res)
     require_device("int8_out_residual_prequant", h8)
     if h8.device.type == "cpu":
         return int8_out_residual_prequant_plain(h8, sh, wq, ws, b, ls, res)
@@ -405,6 +414,7 @@ def int8_fc1_gelu_ln(x, g, be, wq, ws, b, eps=1e-6):
     hidden never reaches device memory in a float type: one GEMM pass, a
     thread-block cluster owning all F columns of a row tile and exchanging
     the rows' maxima on chip (``fc1_cluster_shape``)."""
+    forbid_grad("int8_fc1_gelu_ln", x, g, be, wq, ws, b)
     require_device("int8_fc1_gelu_ln", x)
     if x.device.type == "cpu":
         return int8_fc1_gelu_ln_plain(x, g, be, wq, ws, b, eps)
@@ -416,6 +426,7 @@ def int8_fc1_gelu_ln(x, g, be, wq, ws, b, eps=1e-6):
 def int8_fc1_gelu(x, wq, ws, b):
     """K14. K4a without the layernorm: x [B, N, K] -> quant -> GEMM ->
     tanh-GELU -> requant -> (h8 int8 [B, N, F], sh f32 [B, N, 1])."""
+    forbid_grad("int8_fc1_gelu", x, wq, ws, b)
     require_device("int8_fc1_gelu", x)
     if x.device.type == "cpu":
         return int8_fc1_gelu_plain(x, wq, ws, b)
@@ -448,6 +459,7 @@ def int8_proj(x, wq, ws, b, out_dtype=torch.bfloat16):
     ``acc * s_x * s_w + b``, no split. CUDA: bfloat16 in and out, K a
     multiple of 128 (rows of any such width: K 3072 at the fc2 shape), Nout
     a width ``gemm_tile_cols`` takes."""
+    forbid_grad("int8_proj", x, wq, ws, b)
     require_device("int8_proj", x)
     if x.device.type == "cpu":
         return int8_proj_plain(x, wq, ws, b, out_dtype)
@@ -467,6 +479,7 @@ def int8_mlp_ln(x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls, eps=1e-6):
 
     as K4a followed by K4b (the TPU kernel's arithmetic; its f32 hidden tile
     does not fit an SM's shared memory)."""
+    forbid_grad("int8_mlp_ln", x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls)
     require_device("int8_mlp_ln", x)
     if x.device.type == "cpu":
         return int8_mlp_ln_plain(x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls, eps)
@@ -488,6 +501,8 @@ def int8_attnout_mlp_ln(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q, w2s
     On the card: one launch, a thread-block cluster a 64-row tile that keeps
     x, the int8 activations and the int8 hidden on chip (the notes at the top
     of csrc/int8_fused_block.cu); (K, F) one of ``ATTNOUT_MLP_SHAPES``."""
+    forbid_grad("int8_attnout_mlp_ln", ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q,
+                w2s, b2, ls2)
     require_device("int8_attnout_mlp_ln", ctx)
     if ctx.device.type == "cpu":
         return int8_attnout_mlp_ln_plain(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1,

@@ -20,13 +20,15 @@ Dispatch is on the tensor's device: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise (bfloat16 rows, contiguous, K a multiple
 of 128, N a width ``int8_block.gemm_tile_cols`` takes).
 ``int8_gemm_fused.launches`` counts kernel launches and nothing else;
-``int8_linear_fused`` launches through it.
+``int8_linear_fused`` launches through it. No backward, as in the JAX
+package: it raises when grad is enabled and an input requires it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cognitive_aim_tpu_torch.kernels._grad import forbid_grad
 from cognitive_aim_tpu_torch.kernels._launch import require_device
 from cognitive_aim_tpu_torch.kernels.int8_block import int8_proj_plain, launch_int8_linear
 
@@ -42,6 +44,7 @@ def int8_linear_fused_plain(x, wq: dict, b, out_dtype=None):
 def int8_gemm_fused(x, wq, ws, b, out_dtype=torch.bfloat16):
     """K15. x [M, K] float -> [M, N] ``out_dtype``; wq int8 [N, K], ws f32
     [N] scales, b f32 [N] bias."""
+    forbid_grad("int8_gemm_fused", x, wq, ws, b)
     require_device("int8_gemm_fused", x)
     if x.device.type == "cpu":
         return int8_gemm_fused_plain(x, wq, ws, b, out_dtype)

@@ -1,5 +1,5 @@
 """CognitiveAimModel — the full pipeline as an ``nn.Module`` (counterpart of
-cognitive_aim_tpu/models/cognitive_aim.py), inference path.
+cognitive_aim_tpu/models/cognitive_aim.py).
 
 ``forward`` is the JAX package's ``apply``: the DINOv2 backbone in the
 policy's compute dtype, its output cast to float32; curiosity (without
@@ -34,12 +34,19 @@ region's tokens stay in the kept set.
 
 The model is built on the CUDA device unless the caller passes ``device``.
 
-Not ported yet: pipelining, training (dropout, entropy, the curiosity loss).
+``forward(train=True)`` is the training forward the trainer differentiates
+(train/trainer.py): dropout, the focal entropy, the curiosity KL weight of the
+beta schedule, per-block recompute. A trainer keeps the float32 parameters
+and never calls ``prepare_params``: the float backbone and focal stream cast
+their weights to the compute dtype at each call, as the JAX package does.
+
+Not ported yet: pipelining.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -48,7 +55,7 @@ from torch import nn
 
 from cognitive_aim_tpu_torch.core.device import resolve_device
 from cognitive_aim_tpu_torch.core.precision import DEFAULT_POLICY, Policy
-from cognitive_aim_tpu_torch.core.rng import NoiseMode
+from cognitive_aim_tpu_torch.core.rng import NoiseMode, fold_in
 from cognitive_aim_tpu_torch.models import curiosity as C
 from cognitive_aim_tpu_torch.models import guidance as G
 from cognitive_aim_tpu_torch.models import streams as S
@@ -184,31 +191,54 @@ class CognitiveAimModel(nn.Module):
         return self
 
     # ---------------------------------------------------------- forward ----
-    @torch.no_grad()
     def forward(self, images: torch.Tensor,
                 exif_data: Optional[Dict[str, torch.Tensor]] = None, *,
                 guidance=None, generator: Optional[torch.Generator] = None,
-                noise_mode: NoiseMode = NoiseMode.SAMPLE) -> ModelOutput:
-        """images: [B, H, W, 3] normalized NHWC. exif_data: dict of [B]
-        tensors ('camera_idx' int; 'focal_length', 'aperture', 'iso' float).
-        guidance: None (unguided) or an instruction index in
+                train: bool = False, noise_mode: NoiseMode = NoiseMode.SAMPLE,
+                curiosity_kl_weight=None,
+                precomputed_hs: Optional[torch.Tensor] = None) -> ModelOutput:
+        """The JAX ``apply``. images: [B, H, W, 3] normalized NHWC. exif_data:
+        dict of [B] tensors ('camera_idx' int; 'focal_length', 'aperture',
+        'iso' float). guidance: None (unguided) or an instruction index in
         ``guidance.INSTRUCTIONS`` order, an int or a [B] tensor. Noise is
-        drawn from ``generator`` (none: all draws 0). With the focal stream
-        on, ``aux["attention_entropy"]`` is a 0-d f32 tensor of value 0.0, as
-        the JAX ``apply`` sets it at inference; this forward is inference
-        only, and the entropy of a training step waits for the trainer."""
+        drawn from ``generator`` (none: all draws 0).
+
+        Differentiable: serving wraps it in ``torch.no_grad()``. ``train``
+        turns on dropout (with a ``generator``), the focal attention entropy
+        in ``aux["attention_entropy"]`` (0.0 at inference), per-block
+        recompute of the backbone unless ``CAIM_TRAIN_REMAT`` is other than
+        "1", and the token filter only where ``arch.token_filter_train``.
+        Under ``train`` the curiosity, focal and dropout draws come from
+        three streams folded out of ``generator``, as the JAX package folds
+        three keys out of one; at inference the curiosity and focal draws
+        share ``generator``. ``curiosity_kl_weight`` (a float or a 0-d
+        tensor) replaces the KL weight 0.1. ``precomputed_hs`` [B, 1+N, D]
+        replaces the backbone's output (``images`` still gives the guidance
+        grid)."""
         a = self.arch
-        hs = self.backbone(images, **self.backbone_kwargs(images, guidance)).float()
+        if precomputed_hs is not None:
+            hs = torch.as_tensor(precomputed_hs, dtype=torch.float32,
+                                 device=self.decision_head.fc0.weight.device)
+        else:
+            remat = train and os.environ.get("CAIM_TRAIN_REMAT", "1") == "1"
+            hs = self.backbone(images, remat=remat,
+                               **self.backbone_kwargs(images, guidance, train)).float()
         cls_token = hs[:, 0]
         patches = hs[:, 1:]
         B = patches.shape[0]
         aux: Dict[str, Any] = {}
+        if train:
+            g_cur, g_focal, g_drop = (fold_in(generator, i) for i in range(3))
+        else:
+            g_cur = g_focal = generator
+            g_drop = None
 
         if a.use_curiosity:
-            # exif is NOT passed: the geometric term sees it only in training
+            # exif is NOT passed: the geometric term sees it only in the loss
             reward, _, comps = C.curiosity_apply(
-                self.curiosity_module, cls_token, kl_weight=0.1,
-                generator=generator, noise_mode=noise_mode)
+                self.curiosity_module, cls_token,
+                kl_weight=0.1 if curiosity_kl_weight is None else curiosity_kl_weight,
+                generator=g_cur, train=train, noise_mode=noise_mode)
             aux["curiosity_components"] = comps
         else:
             reward = torch.full((B,), 0.5, dtype=torch.float32, device=hs.device)
@@ -216,14 +246,16 @@ class CognitiveAimModel(nn.Module):
         raw_feats = []
         attention = None
         if a.use_ambient:
-            raw_feats.append(S.ambient_apply(self.ambient_stream, cls_token))
+            raw_feats.append(S.ambient_apply(self.ambient_stream, cls_token,
+                                             generator=g_drop, train=train))
         if a.use_focal:
             focal_feats, attention, aux["attention_entropy"] = self._focal(
-                patches, reward, guidance, generator, noise_mode)
+                patches, reward, guidance, g_focal, noise_mode, train)
             raw_feats.append(focal_feats.float())
             attention = attention.float()
         if a.use_exif and exif_data is not None:
-            raw_feats.append(S.exif_prior_apply(self.exif_prior, exif_data))
+            raw_feats.append(S.exif_prior_apply(self.exif_prior, exif_data,
+                                                generator=g_drop, train=train))
         if not raw_feats:
             raise RuntimeError("Cognitive modules returned no features!")
         concat = torch.cat(raw_feats, dim=1)
@@ -231,21 +263,25 @@ class CognitiveAimModel(nn.Module):
             concat = F.pad(concat, (0, a.fusion_dim - concat.shape[1]))
 
         fused = L.mlp_apply(self.fusion, concat, final_act=F.relu)
+        if train and generator is not None:
+            fused = L.dropout(fused, 0.1, fold_in(generator, 99))
         depth = L.mlp_apply(self.decision_head, fused, final_act=F.softplus)
         confidence = L.mlp_apply(self.confidence_head, fused, final_act=torch.sigmoid)
         return ModelOutput(depth=depth, confidence=confidence, attention=attention,
                            curiosity=reward, fused_features=fused, aux=aux)
 
-    def backbone_kwargs(self, images: torch.Tensor, guidance=None) -> Dict[str, Any]:
+    def backbone_kwargs(self, images: torch.Tensor, guidance=None,
+                        train: bool = False) -> Dict[str, Any]:
         """Keyword arguments of the backbone call for this request: compute
-        dtype, attention route and, with the token filter active, its
-        settings and the guidance mask row as ``keep_weights`` (guided-region
-        tokens get keep priority, so the focal re-pool sees fresh features
-        where the instruction points)."""
+        dtype, attention route and, with the token filter active (in
+        training only where ``arch.token_filter_train``), its settings and
+        the guidance mask row as ``keep_weights`` (guided-region tokens get
+        keep priority, so the focal re-pool sees fresh features where the
+        instruction points)."""
         a = self.arch
         kw: Dict[str, Any] = dict(compute_dtype=self.policy.backbone_compute_dtype,
                                   attn_impl=self.attn_impl)
-        if not a.token_filter_active:
+        if not a.token_filter_active or (train and not a.token_filter_train):
             return kw
         kw.update(
             filter_layer=a.token_filter_layer,
@@ -271,11 +307,12 @@ class CognitiveAimModel(nn.Module):
             kw["keep_weights"] = gvec
         return kw
 
-    def _focal(self, patches, curiosity_score, guidance, generator, noise_mode):
+    def _focal(self, patches, curiosity_score, guidance, generator, noise_mode,
+               train=False):
         a = self.arch
         run = patches.to(self.policy.backbone_compute_dtype)
         kw = dict(curiosity_guided=a.curiosity_guided, generator=generator,
-                  noise_mode=noise_mode,
+                  train=train, noise_mode=noise_mode,
                   fused_attention=self.attn_impl.startswith("pallas"))
         if a.use_iterative:
             feats, attn, entropy = S.iterative_focal_apply(
@@ -299,8 +336,22 @@ class CognitiveAimModel(nn.Module):
         if a.use_iterative:
             gfeats = L.linear_apply(self.guided_projection, weighted)
         else:
-            gfeats = L.mlp_apply(self.focal_stream.projection, weighted)
+            gfeats = L.mlp_apply(self.focal_stream.projection, weighted, dropout_rate=0.1,
+                                 dropout_after=(0,), generator=generator, train=train)
         return gfeats, guided, entropy
+
+    # --------------------------------------------------------- training ----
+    def compute_curiosity_loss(self, features, exif_data=None, *, loss_type="robust",
+                               uncertainty_weight=0.1, kl_weight=0.1, generator=None,
+                               noise_mode=NoiseMode.SAMPLE):
+        """Curiosity over given features WITH exif (the geometric term
+        active); ``kl_weight`` takes the trainer's beta schedule. Returns
+        (reward [B], components)."""
+        reward, _, comps = C.curiosity_apply(
+            self.curiosity_module, features, exif_data, loss_type=loss_type,
+            uncertainty_weight=uncertainty_weight, kl_weight=kl_weight,
+            generator=generator, noise_mode=noise_mode)
+        return reward, comps
 
     def get_exploration_stats(self):
         return self.exploration_history.statistics()

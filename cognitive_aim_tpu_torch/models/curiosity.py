@@ -1,9 +1,13 @@
 """Variational curiosity module (counterpart of
-cognitive_aim_tpu/models/curiosity.py), inference path.
+cognitive_aim_tpu/models/curiosity.py).
 
 The VAE samples even at inference (reparameterization, the local-curiosity
 perturbation); every draw takes a ``torch.Generator`` through
-``core.rng.normal_like``, and ``NoiseMode.ZEROS`` makes them 0.
+``core.rng.normal_like``, and ``NoiseMode.ZEROS`` makes them 0. Under
+``train`` the encoders and the decoder drop 0.1 after their hidden layer,
+with masks from the same generator. The reconstruction target and the
+local term's sensitivity are detached, as the JAX function stops their
+gradients.
 ``ExplorationHistory`` is a copy of the JAX package's host-side tracker
 (that module imports jax at the top).
 """
@@ -53,21 +57,32 @@ class Curiosity(nn.Module):
 
 def curiosity_apply(mod: Curiosity, features: torch.Tensor,
                     exif_data: Optional[Dict[str, torch.Tensor]] = None, *,
-                    uncertainty_weight: float = 0.1, kl_weight: float = 0.1,
-                    generator=None, noise_mode: NoiseMode = NoiseMode.SAMPLE):
+                    loss_type: str = "robust", uncertainty_weight: float = 0.1,
+                    kl_weight=0.1, generator=None, train: bool = False,
+                    noise_mode: NoiseMode = NoiseMode.SAMPLE):
     """Returns (curiosity_reward [B], uncertainty_score [B], components).
-    The reconstruction error is the 'robust' one the forward uses; the
-    training-loss variants of the JAX package are not ported yet."""
-    mu = L.mlp_apply(mod.encoder_mean, features)
-    logvar = L.mlp_apply(mod.encoder_logvar, features)
+    ``loss_type`` is the reconstruction error: 'simple' (mean square),
+    'robust' (the bounded norm the forward uses) or 'huber' (delta 1).
+    ``kl_weight`` is a float or a 0-d tensor (the trainer's beta schedule)."""
+    drop = dict(dropout_rate=0.1, dropout_after=(0,), generator=generator, train=train)
+    mu = L.mlp_apply(mod.encoder_mean, features, **drop)
+    logvar = L.mlp_apply(mod.encoder_logvar, features, **drop)
     std = torch.exp(0.5 * logvar)
     eps = normal_like(generator, std.shape, std.dtype, std.device, noise_mode)
     z = mu + eps * std
-    recon = L.mlp_apply(mod.decoder, z)
+    recon = L.mlp_apply(mod.decoder, z, **drop)
 
-    diff = recon - features[:, :recon.shape[1]]
-    rec_err = torch.sqrt((diff ** 2).sum(dim=1) + 1e-8)
-    rec_err = rec_err / (1.0 + rec_err)
+    diff = recon - features[:, :recon.shape[1]].detach()
+    if loss_type == "simple":
+        rec_err = (diff ** 2).mean(dim=1)
+    elif loss_type == "robust":
+        rec_err = torch.sqrt((diff ** 2).sum(dim=1) + 1e-8)
+        rec_err = rec_err / (1.0 + rec_err)
+    elif loss_type == "huber":
+        ad = diff.abs()
+        rec_err = torch.where(ad <= 1.0, 0.5 * diff ** 2, ad - 0.5).mean(dim=1)
+    else:
+        raise ValueError(f"Unknown loss_type: {loss_type}")
 
     kl = -0.5 * (1.0 + logvar - mu ** 2 - torch.exp(logvar)).sum(dim=1)
     unc = L.mlp_apply(mod.uncertainty_head, features, final_act=F.softplus)[:, 0]
@@ -121,7 +136,7 @@ def _local(mod: Curiosity, features, generator, noise_mode: NoiseMode):
                         features.device, noise_mode) * 0.01
     noisy = L.mlp_apply(mod.local_curiosity, features + noise,
                         final_act=torch.sigmoid)[:, 0]
-    return (base + (base - noisy).abs() * 0.2).clamp(0.0, 1.0)
+    return (base + (base - noisy).abs().detach() * 0.2).clamp(0.0, 1.0)
 
 
 # ------------------------------------------------- exploration history ------

@@ -1,5 +1,5 @@
 """Cognitive streams: ambient, focal, iterative focal, EXIF prior
-(counterpart of cognitive_aim_tpu/models/streams.py), inference path.
+(counterpart of cognitive_aim_tpu/models/streams.py).
 
 The focal streams run in the compute dtype of their input, with their
 parameters rounded to it, as the JAX package casts the focal-stream tree to
@@ -12,6 +12,11 @@ Under the int8 policy a focal stream also carries ``qkv_i8``, its q, k and
 v projections as one int8 [3D, D] weight, and projects through K5
 ``int8_qkv_proj`` (its plain version when ``fused_attention`` is off; the
 JAX package's unfused path keeps the three float projections there).
+
+Under ``train`` the ambient MLP, each focal projection and the EXIF fusion
+drop 0.1 after their first hidden layer (masks from the ``generator``, none
+without one), and the focal stream returns its attention entropy, the
+training regulariser; at inference the entropy is 0.0, as in JAX.
 
 ``focal_pos_encoding_np`` and ``center_bias_np`` are numpy copies of the JAX
 package's cached tables (that module imports jax at the top).
@@ -119,8 +124,11 @@ class AmbientStream(nn.Module):
         return self
 
 
-def ambient_apply(mod: AmbientStream, cls_token: torch.Tensor) -> torch.Tensor:
-    return L.mlp_apply(mod.mlp, cls_token)
+def ambient_apply(mod: AmbientStream, cls_token: torch.Tensor, *, generator=None,
+                  train: bool = False) -> torch.Tensor:
+    # Sequential(Linear, ReLU, Dropout(0.1), Linear, ReLU, Linear)
+    return L.mlp_apply(mod.mlp, cls_token, dropout_rate=0.1, dropout_after=(0,),
+                       generator=generator, train=train)
 
 
 # ---------------------------------------------------------- FocalStream -----
@@ -180,11 +188,12 @@ def _xavier_heads(mlps, g: torch.Generator):
 def focal_apply(mod: FocalStream, patch_tokens: torch.Tensor,
                 curiosity_score: Optional[torch.Tensor] = None, *,
                 num_heads: int = 8, curiosity_guided: bool = True,
-                generator=None, noise_mode: NoiseMode = NoiseMode.SAMPLE,
+                generator=None, train: bool = False,
+                noise_mode: NoiseMode = NoiseMode.SAMPLE,
                 fused_attention: bool = False):
     """Returns (focal_features [B, 64] f32, attention [B, N] f32, entropy):
-    the entropy is a 0-d f32 tensor of value 0.0, what the JAX function
-    returns at inference; its training formula waits for the trainer.
+    a 0-d f32 tensor, the batch mean of the attention's entropy under
+    ``train``, 0.0 otherwise (the JAX function's values).
 
     Under the int8 policy the projections are one quantising GEMM on either
     route: ``fused_attention`` launches K5 ``int8_qkv_proj``, and the plain
@@ -232,9 +241,14 @@ def focal_apply(mod: FocalStream, patch_tokens: torch.Tensor,
     final = final.clamp(min=1e-8)
     final = final / (final.sum(-1, keepdim=True) + 1e-8)
 
+    entropy = torch.zeros((), dtype=final.dtype, device=dev)
+    if train:
+        entropy = (-(final * torch.log(final + 1e-8)).sum(-1)).mean()
+
     weighted = (attended.float() * final[..., None]).sum(dim=1)
-    feats = L.mlp_apply(mod.projection, weighted, param_dtype=dt)
-    return feats, final, torch.zeros((), dtype=torch.float32, device=dev)
+    feats = L.mlp_apply(mod.projection, weighted, param_dtype=dt, dropout_rate=0.1,
+                        dropout_after=(0,), generator=generator, train=train)
+    return feats, final, entropy
 
 
 # ------------------------------------------------- IterativeFocalStream -----
@@ -266,12 +280,12 @@ class IterativeFocalStream(nn.Module):
 def iterative_focal_apply(mod: IterativeFocalStream, patch_tokens: torch.Tensor,
                           curiosity_score: Optional[torch.Tensor] = None, *,
                           focus_strength: float = 0.1, curiosity_guided: bool = True,
-                          generator=None, noise_mode: NoiseMode = NoiseMode.SAMPLE,
+                          generator=None, train: bool = False,
+                          noise_mode: NoiseMode = NoiseMode.SAMPLE,
                           fused_attention: bool = False):
     """Returns (fused_features [B, 64] f32, last attention [B, N] f32,
-    entropy): a 0-d f32 tensor of value 0.0, what the JAX function returns at
-    inference (under ``train`` it is the members' mean entropy there; the
-    port has no training forward yet)."""
+    entropy): a 0-d f32 tensor, the members' mean entropy under ``train``,
+    0.0 otherwise."""
     dt = patch_tokens.dtype
     iter_w = None
     if curiosity_guided and curiosity_score is not None and hasattr(mod, "curiosity_amplifier"):
@@ -279,18 +293,20 @@ def iterative_focal_apply(mod: IterativeFocalStream, patch_tokens: torch.Tensor,
             L.mlp_apply(mod.curiosity_amplifier, curiosity_score[:, None], param_dtype=dt),
             dim=-1)
     n = len(mod.streams)
-    feats = []
+    feats, ents = [], []
     cur = patch_tokens
     attn = None
     for i, sp in enumerate(mod.streams):
         ic = curiosity_score if iter_w is None else curiosity_score * iter_w[:, i]
-        f, attn, entropy = focal_apply(sp, cur, ic, curiosity_guided=curiosity_guided,
-                              generator=generator, noise_mode=noise_mode,
-                              fused_attention=fused_attention)
+        f, attn, ent = focal_apply(sp, cur, ic, curiosity_guided=curiosity_guided,
+                                   generator=generator, train=train, noise_mode=noise_mode,
+                                   fused_attention=fused_attention)
         feats.append(f)
+        ents.append(ent)
         if i < n - 1:  # re-focus through f32 and back
             cur = (cur.float() * (1.0 + focus_strength * attn[..., None])).to(dt)
     fused = L.mlp_apply(mod.fusion, torch.cat(feats, dim=1), param_dtype=dt)
+    entropy = torch.stack(ents).mean() if train else ents[-1]
     return fused, attn, entropy
 
 
@@ -309,11 +325,13 @@ class ExifPrior(nn.Module):
         return self
 
 
-def exif_prior_apply(mod: ExifPrior, exif_data: Dict[str, torch.Tensor]) -> torch.Tensor:
+def exif_prior_apply(mod: ExifPrior, exif_data: Dict[str, torch.Tensor], *,
+                     generator=None, train: bool = False) -> torch.Tensor:
     """exif_data: 'camera_idx' int [B]; 'focal_length', 'aperture', 'iso'
     float [B], passed through as given."""
     cam = L.embedding_apply(mod.camera_embedding, exif_data["camera_idx"].long())
     cont = torch.stack([exif_data["focal_length"], exif_data["aperture"],
                         torch.log(exif_data["iso"] + 1.0)], dim=1).float()
     ef = L.mlp_apply(mod.exif_encoder, cont)
-    return L.mlp_apply(mod.fusion, torch.cat([cam, ef], dim=1))
+    return L.mlp_apply(mod.fusion, torch.cat([cam, ef], dim=1), dropout_rate=0.1,
+                       dropout_after=(0,), generator=generator, train=train)

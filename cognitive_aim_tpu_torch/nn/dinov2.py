@@ -65,6 +65,11 @@ representative's final value) and the delta correction
 update over the remaining blocks). Every shape is static per specification
 and nothing reads a device value on the host.
 
+The forward is differentiable: the float block's ops are autograd's, the
+packed attention kernels carry the JAX package's recompute backward
+(kernels/_grad.py), and the int8 kernels raise under grad. ``remat``
+recomputes each block in the backward (``torch.utils.checkpoint``).
+
 Pipelining is not ported yet.
 """
 
@@ -77,6 +82,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
@@ -785,22 +791,29 @@ class DinoV2(nn.Module):
         x = torch.cat([cls, x], dim=1)
         return x + self.interpolate_pos_embed(gh, gw).to(compute_dtype)
 
-    def _run(self, x, start: int, stop: int, attn_impl: str, k_bias=None):
+    def _run(self, x, start: int, stop: int, attn_impl: str, k_bias=None,
+             remat: bool = False):
         for blk in self.layers[start:stop]:
-            x = blk(x, attn_impl, k_bias)
+            if remat:
+                # the block's activations are recomputed in the backward
+                # (jax.checkpoint with nothing_saveable in the JAX package):
+                # memory O(one block), the forward's kernels launched twice
+                x = torch.utils.checkpoint.checkpoint(blk, x, attn_impl, k_bias,
+                                                      use_reentrant=False)
+            else:
+                x = blk(x, attn_impl, k_bias)
         return x
 
-    @torch.no_grad()
     def forward(self, images: torch.Tensor, **kw) -> torch.Tensor:
         """images [B, H, W, 3] normalized NHWC -> last_hidden_state
         [B, 1 + N, D] after the final layernorm, in ``compute_dtype``.
         Arguments as ``forward_with_kept``."""
         return self.forward_with_kept(images, **kw)[0]
 
-    @torch.no_grad()
     def forward_with_kept(
         self, images: torch.Tensor, *, compute_dtype=torch.float32,
-        attn_impl: str = "plain", filter_layer: int = 0, filter_keep: float = 1.0,
+        attn_impl: str = "plain", remat: bool = False,
+        filter_layer: int = 0, filter_keep: float = 1.0,
         filter_fuse: bool = True, filter_fuse_k: int = 1, filter_schedule=(),
         filter_rollout: float = 0.0, filter_merge: bool = False,
         filter_delta_correct: bool = False, filter_strat_stride: int = 0,
@@ -809,8 +822,11 @@ class DinoV2(nn.Module):
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The forward pass and the token filter's final kept set:
         (last_hidden_state [B, 1 + N, D], [B, k] ascending patch indices, or
-        None when no filter stage is active).
+        None when no filter stage is active). Differentiable; callers that
+        serve wrap it in ``torch.no_grad()``.
 
+        remat: recompute each block's activations in the backward
+          (``torch.utils.checkpoint``), the training memory option.
         filter_layer / filter_keep: after ``filter_layer`` full blocks keep
           CLS + that share of the patch tokens; off by default.
         filter_schedule: ((layer, keep), ...), layers strictly increasing,
@@ -848,7 +864,7 @@ class DinoV2(nn.Module):
                          if 0 < int(l) < n_layers and 0.0 < float(k) < 1.0)
         idx_global = None
         if not schedule:
-            x = self._run(x, 0, n_layers, attn_impl)
+            x = self._run(x, 0, n_layers, attn_impl, remat=remat)
             return L.layernorm_apply(self.final_norm, x), idx_global
 
         ls = [l for l, _ in schedule]
@@ -905,7 +921,7 @@ class DinoV2(nn.Module):
         r = float(filter_rollout)
         prev = 0
         for (boundary, _), k_i in zip(schedule, ks):
-            x = self._run(x, prev, boundary, attn_impl, k_bias)
+            x = self._run(x, prev, boundary, attn_impl, k_bias, remat)
             prev = boundary
             if filter_merge or filter_delta_correct:
                 imp, keys = _cls_importance(self.layers[boundary], x, return_keys=True)
@@ -952,7 +968,7 @@ class DinoV2(nn.Module):
                     k_bias = _prop_bias_merge(sizes)
                 elif filter_fuse and idx_global.shape[1] < P:
                     k_bias = _prop_bias_drop(idx_global, P, group_onehot)
-        x = self._run(x, prev, n_layers, attn_impl, k_bias)
+        x = self._run(x, prev, n_layers, attn_impl, k_bias, remat)
         k_last = idx_global.shape[1]
         if filter_merge:
             # unmerge: every patch position reads its representative's final

@@ -94,16 +94,34 @@ class MLP(nn.Module):
 
 def mlp_apply(mlp: MLP, x: torch.Tensor, *, act: Callable = F.relu,
               final_act: Optional[Callable] = None,
-              param_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+              param_dtype: Optional[torch.dtype] = None,
+              dropout_rate: float = 0.0, dropout_after: Sequence[int] = (),
+              generator: Optional[torch.Generator] = None,
+              train: bool = False) -> torch.Tensor:
     """Linears with ``act`` between them (not after the last unless
-    ``final_act``). Dropout is a training-time op; this package serves."""
+    ``final_act``). ``dropout_after`` lists the hidden layers (0-based) after
+    whose activation a Dropout sits, as in an ``nn.Sequential``; it drops
+    only under ``train`` with a ``generator``, as the JAX function needs both
+    ``train`` and a key."""
     for i in range(mlp.n):
         x = linear_apply(mlp.layer(i), x, param_dtype)
         if i < mlp.n - 1:
             x = act(x)
+            if train and dropout_rate > 0.0 and i in dropout_after and generator is not None:
+                x = dropout(x, dropout_rate, generator)
     if final_act is not None:
         x = final_act(x)
     return x
+
+
+# --------------------------------------------------------------- dropout ----
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``; the mask is drawn from ``generator`` (which
+    lives on x's device), never from the global generator."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 # ------------------------------------------------------------- layernorm ----

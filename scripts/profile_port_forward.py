@@ -73,6 +73,7 @@ def profile_policy(name: str, batch: int, iters: int, top: int, token_filter: st
     x = torch.randn((batch, 518, 518, 3), generator=g, device="cuda")
     gidx = torch.arange(batch, device="cuda") % 9
 
+    @torch.no_grad()  # inference: no autograd graph
     def fwd():
         return model(x, guidance=gidx, noise_mode=NoiseMode.ZEROS)
 

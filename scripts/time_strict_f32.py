@@ -159,7 +159,8 @@ def main() -> int:
                 "K8": FA.flash_attention, "K6": FO.focal_attention_fused}
     for w in wrappers.values():
         w.launches = 0
-    model(x, guidance=torch.tensor([0, 5], device="cuda"))
+    with torch.no_grad():  # inference: no autograd graph
+        model(x, guidance=torch.tensor([0, 5], device="cuda"))
     torch.cuda.synchronize()
     result["launches_per_strict_forward"] = {n: w.launches for n, w in wrappers.items()}
     print("launches in one strict forward at 224x224: " + ", ".join(

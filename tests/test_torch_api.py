@@ -54,6 +54,14 @@ CFG = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_grad():
+    """The model's forward is differentiable since the port trains; these
+    inference tests run under torch.no_grad(), as the engine serves."""
+    with torch.no_grad():
+        yield
+
+
 def _write_cfg(d, cfg=CFG, name="cfg.yaml"):
     path = str(d / name)
     with open(path, "w") as f:

@@ -45,6 +45,14 @@ from cognitive_aim_tpu_torch.kernels import int8_gemm as TIG
 from cognitive_aim_tpu_torch.kernels.int8_ops import quantize_weight
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_grad():
+    """The model's forward is differentiable since the port trains; these
+    inference tests run under torch.no_grad(), as the engine serves."""
+    with torch.no_grad():
+        yield
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -1485,3 +1493,75 @@ def test_fused_int8_model_counts_its_launches(cuda_device, monkeypatch):
     assert counts == [0] * 11  # the plain twin launches no kernel
     torch.testing.assert_close(fused.depth, ref.depth, atol=0, rtol=2e-2)
     torch.testing.assert_close(fused.confidence, ref.confidence, atol=0, rtol=2e-2)
+
+
+# ------------------------------------------------- backward (training) ----
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K1_int8_dots", "K7", "K10", "K10b", "K6"])
+def test_kernel_backward_is_the_plain_recompute(kernel, cuda_device):
+    """The forward launches the kernel (one counted launch); the gradient is
+    the float plain version's, recomputed from the saved inputs, so it is
+    bit for bit autograd's through that plain version on the same inputs
+    (K10, K10b and K9 straight through their quantisation)."""
+    B, N, H, D = 2, 257, 12, 64
+    q, k, v, w = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                  for a in _arrays((B, N, H * D), n=4, seed=3))
+    bias = torch.log(torch.arange(1, N + 1, device=cuda_device, dtype=torch.float32)
+                     ).expand(B, N).contiguous()
+    s = D ** -0.5
+    calls = {
+        "K1": (lambda a, b, c, d: TFA.flash_attention_packed(a, b, c, s, H),
+               lambda a, b, c, d: TFA.flash_attention_packed_plain(a, b, c, s, H),
+               TFA.flash_attention_packed),
+        "K1_int8_dots": (lambda a, b, c, d: TFA.flash_attention_packed(a, b, c, s, H,
+                                                                       int8_dots=True),
+                         lambda a, b, c, d: TFA.flash_attention_packed_plain(a, b, c, s, H),
+                         TFA.flash_attention_packed_int8),
+        "K7": (lambda a, b, c, d: TFA.flash_attention_packed_bias(a, b, c, d, s, H),
+               lambda a, b, c, d: TFA.flash_attention_packed_bias_plain(a, b, c, d, s, H),
+               TFA.flash_attention_packed_bias),
+        "K10": (lambda a, b, c, d: TFA.flash_attention_packed_i8qk(a, b, c, s, H),
+                lambda a, b, c, d: TFA.flash_attention_packed_plain(a, b, c, s, H),
+                TFA.flash_attention_packed_i8qk),
+        "K10b": (lambda a, b, c, d: TFA.flash_attention_packed_i8qk_bias(a, b, c, d, s, H),
+                 lambda a, b, c, d: TFA.flash_attention_packed_bias_plain(a, b, c, d, s, H),
+                 TFA.flash_attention_packed_i8qk_bias),
+        "K6": (lambda a, b, c, d: TFO.focal_attention_fused(
+                   *(t[:, 1:].contiguous() for t in (a, b, c)), 96 ** 0.5)[0],
+               lambda a, b, c, d: TFO.focal_attention_plain(
+                   *(t[:, 1:].contiguous() for t in (a, b, c)), 96 ** 0.5)[0],
+               TFO.focal_attention_fused),
+    }
+    kern, plain, wrapper = calls[kernel]
+    grads = []
+    with torch.enable_grad():
+        for fn in (kern, plain):
+            args = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+            n = wrapper.launches
+            out = fn(*args)
+            torch.cuda.synchronize()
+            assert wrapper.launches == n + (fn is kern)
+            wo = w[:, 1:] if kernel == "K6" else w
+            grads.append(torch.autograd.grad(out, args[:3] + args[3:] * (kernel in ("K7", "K10b")),
+                                             wo))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(a.float()).all()) and float(a.float().abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_gradless_kernels_raise_under_grad_on_the_card(cuda_device):
+    """The int8 kernels, K8, K11 and the quantisers have no backward: on a
+    CUDA input that requires grad they raise before any launch."""
+    x = torch.randn(1, 64, 128, device=cuda_device, dtype=torch.bfloat16)
+    wq = quantize_weight(torch.randn(384, 128, device=cuda_device))
+    calls = [lambda t: TIB.int8_qkv_proj(t, wq["q"], wq["s"], torch.zeros(384, device=cuda_device)),
+             lambda t: TFA.flash_attention(*(t.view(1, 64, 2, 64),) * 3, 0.125),
+             lambda t: TFA.quantize_rows(t, t),
+             lambda t: TFA.quantize_heads(t, 2, t),
+             lambda t: TIG.int8_gemm_fused(t[0], wq["q"], wq["s"],
+                                           torch.zeros(384, device=cuda_device))]
+    with torch.enable_grad():
+        for call in calls:
+            with pytest.raises(RuntimeError, match="no backward"):
+                call(x.clone().requires_grad_(True))

@@ -74,6 +74,14 @@ MIN_GAP = 1e-5  # priority gap at a keep boundary, strict-f32 tests
 
 
 @pytest.fixture(autouse=True, scope="module")
+def _no_grad():
+    """The model's forward is differentiable since the port trains; these
+    inference tests run under torch.no_grad(), as the engine serves."""
+    with torch.no_grad():
+        yield
+
+
+@pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """These tensors are tiny: PyTorch's intra-op thread pool, sharing the
     cores with XLA's, costs 100x what it saves."""

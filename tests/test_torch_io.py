@@ -52,6 +52,14 @@ TINY = dict(hidden_size=64, num_layers=2, num_heads=4, patch_size=14,
 
 
 # ---------------------------------------------------------------- images ----
+@pytest.fixture(autouse=True, scope="module")
+def _no_grad():
+    """The model's forward is differentiable since the port trains; these
+    inference tests run under torch.no_grad(), as the engine serves."""
+    with torch.no_grad():
+        yield
+
+
 @pytest.fixture(scope="module")
 def images(tmp_path_factory):
     """A JPEG and a PNG of seeded pixels, each with its decoded pixels."""

@@ -68,6 +68,14 @@ BF16_TOL = dict(atol=1e-2, rtol=0.0)
 
 
 @pytest.fixture(autouse=True, scope="module")
+def _no_grad():
+    """The model's forward is differentiable since the port trains; these
+    inference tests run under torch.no_grad(), as the engine serves."""
+    with torch.no_grad():
+        yield
+
+
+@pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """These tensors are tiny: PyTorch's intra-op thread pool, sharing the
     cores with XLA's, costs more than it saves."""

@@ -88,6 +88,14 @@ POLICIES = {
 INT8_BACKBONE_TOL = dict(atol=2e-2, rtol=5e-2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_grad():
+    """The model's forward is differentiable since the port trains; these
+    inference tests run under torch.no_grad(), as the engine serves."""
+    with torch.no_grad():
+        yield
+
+
 def _tarch(arch: ModelArchConfig) -> TCfg.ModelArchConfig:
     """The port's own config class with the same field values."""
     return TCfg.ModelArchConfig(**dataclasses.asdict(arch))
