@@ -57,7 +57,14 @@ kernels compile for sm_90a) and the CUDA toolkit:
       versions at F 256, 512, 3072 and 4096, M 10960, 8 x 481 and 17 rows (K4a
       on rows whose layernorm is exact), rows of zeros (the scale's floor) and
       a cluster probe (each CTA in turn holds every row's maximum), its
-      clusters resident at once and its launches per K4a call; K6's bf16
+      clusters resident at once and its launches per K4a call; the strict
+      policy's f32 programs: K1's register-tiled program (which K7 and K8
+      launch too) at N 1 to 1370 with ViT-B and ViT-L heads and under the
+      permutation probe in f32, K7 on bias rows of zeros (bit for bit K1),
+      an empty group and every key, K8 on the column slices of a fused
+      projection (bit for bit K1), K6's scores and attend passes at B8 N1369
+      D768, D 1024, N 1 to 1369 and widths 64 to 1024 on both block shapes,
+      run to run and with NaN past N; K6's bf16
       program at D 64 to 1024 and N 1 to 1369 around its 64-row and 64-key
       tiles (attended within 1e-2 of the plain version's largest value), its
       outputs bit-identical from run to run, and rows past N filled with NaN
@@ -78,7 +85,8 @@ kernels compile for sm_90a) and the CUDA toolkit:
       K1, K3, K4, K4a, K4b 12 and K5, K6 2 per forward); checks the outputs
       and the launch counts; then the same requests through the plain
       versions on the same weights, int8 against the default policy, and a
-      strict-f32 forward at 224x224 against its plain twin; then the
+      strict-f32 forward at 224x224 against its plain twin (K1 12 and K6 2
+      launches, on the f32 programs); then the
       token-filter fast path on the same seeded weights, a mixed batch of 8
       through four slices: int8 2:0.35 (K1 12), int8 2:0.35@p (K1 2, K7 10;
       also an unguided request), int8 2:0.35@p with pallas_packed_i8qk (K10
@@ -102,7 +110,8 @@ kernels compile for sm_90a) and the CUDA toolkit:
       steps assembled by hand (K2 -> K11 -> K4; K2 -> K9 -> K3 -> K4) against
       the same steps' plain versions and against K2 -> K1 -> K3 -> K4;
   (e) times with CUDA events: every kernel beside its plain version and
-      its bound, K1, K7 and K8 beside scaled_dot_product_attention (each
+      its bound (the f32 programs of K1, K7, K8 and K6 too, bound on the f32
+      FMA pipes), K1, K7 and K8 beside scaled_dot_product_attention (each
       ratio printed, timed in turns; K1 also at N 481, by CUDA graphs,
       whose device time the host's launch rate does not mask), K10 and K10b
       by CUDA graphs in turns with K1 and K7 (the attention kernel alone and
@@ -259,9 +268,13 @@ TOL_K11_CTX_SHARE = 1e-1  # measured 6.3e-2 .. 6.8e-2 at the four shapes
 # up to 4.9e-3
 TOL_K11_SCALE = 1e-2
 
-# the card's published dense peaks (NVIDIA H100 SXM data sheet)
+# the card's published dense peaks (NVIDIA H100 SXM data sheet; f32: the FMA
+# pipes, outside the tensor cores, as the strict policy keeps TF32 off)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# the attention programs' checks: lengths around their 64-row tiles and the
+# model's stream lengths (1370 unfiltered; 826, 481, 416 after a filter)
+FLASH_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 257, 416, 481, 826, 1370)
 
 
 def log(*a):
@@ -377,6 +390,11 @@ def phase_build():
             if k12:  # K12's: <CTAs of the cluster, columns a CTA, a sweep's, sweeps>
                 name = (f"attnout_mlp_kernel<cluster {k12.group(1)}, KC {k12.group(2)}, "
                         f"NWC {k12.group(3)}, sweeps {k12.group(4)}>")
+            f32 = re.search(r"(focal_f32_\w+_kernel)ILi(\d+)E", name)
+            if f32:  # K6's f32 passes by the side of their blocks
+                name = f"{f32.group(1)}<{f32.group(2)} x {f32.group(2)}>"
+            elif "flash_f32_kernel" in name:
+                name = f"flash_f32_kernel<{'bias' if 'ILb1E' in name else 'no bias'}>"
             flash = re.search(r"flash_wgmma_kernelILb(\d)ELb(\d)ELb(\d)E", name)
             if flash and flash.group(3) == "1":  # K11: its out_res instantiation
                 name = "flash_wgmma_kernel<out_res> (K11)"
@@ -480,7 +498,7 @@ def phase_flash_body():
     B, Dh = 2, 64
     for H in (12, 16):
         worst = 0.0
-        for N in (1, 63, 64, 65, 127, 128, 129, 257, 416, 481, 826, 1370):
+        for N in FLASH_LENGTHS:
             q, k, v = (_rand((B, N, H * Dh), g, torch.bfloat16) for _ in range(3))
             ref = FA.flash_attention_packed_plain(q.float(), k.float(), v.float(), Dh ** -0.5, H)
             got = FA.flash_attention_packed(q, k, v, Dh ** -0.5, H)
@@ -505,6 +523,135 @@ def phase_flash_body():
     log(f"  permutation probe (one-hot V, peaked scores) N {N}: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the bf16 attention program moves keys inside a tile")
+
+
+def phase_f32_programs():
+    """The strict policy's f32 programs against their plain versions:
+    K1's (csrc/flash_f32.cuh, which K7 and K8 launch too) at the bf16
+    program's lengths with ViT-B and ViT-L heads, under the permutation
+    probe in f32, K7 on bias rows of zeros (bit for bit K1), an empty group
+    and every key, K8 on the column slices of a fused projection (bit for
+    bit K1); K6's (csrc/focal_attention.cu: the scores pass and the attend
+    pass) at B8 N1369 D768, D 1024 and ragged N, on both of its block
+    shapes (128 x 128 where D allows and that gives each SM a scores block,
+    else 64 x 64),
+    bit-identical run to run, NaN past N kept out."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import flash_attention as FA
+    from cognitive_aim_tpu_torch.kernels import focal_attention as FO
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    worst = {"K1f32": 0.0, "K7f32": 0.0, "K8f32": 0.0, "K6f32": 0.0}
+    Dh = 64
+
+    def report(name, tag, err, tol, ok=True):
+        ok = ok and err <= tol
+        log(f"  {name} {tag}: max_abs_err {err:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at {tag}")
+        worst[name] = max(worst[name], err)
+
+    for H in (12, 16):
+        w = 0.0
+        for N in FLASH_LENGTHS:
+            q, k, v = (_rand((2, N, H * Dh), g, torch.float32) for _ in range(3))
+            got = FA.flash_attention_packed(q, k, v, Dh ** -0.5, H)
+            ref = FA.flash_attention_packed_plain(q, k, v, Dh ** -0.5, H)
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            if not (err <= TOL_F32_OUT and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"K1's f32 program disagrees with its plain version at "
+                                     f"N={N} H={H}: {err:.3e}")
+            w = max(w, err)
+        report("K1f32", f"flash_attention_packed float32, N 1..1370 (12 lengths), H {H}", w,
+               TOL_F32_OUT)
+    B, H, N = 2, 4, 257
+    onehot = torch.zeros(B, N, H, Dh, device="cuda")
+    j = torch.arange(N, device="cuda")
+    onehot[:, j, :, j % Dh] = 1.0
+    k = onehot.reshape(B, N, H * Dh)
+    got = FA.flash_attention_packed(40.0 * k, k, k, 1.0, H)
+    torch.cuda.synchronize()
+    ok = torch.equal(got.view(B, N, H, Dh).argmax(-1), (j % Dh)[None, :, None].expand(B, N, H))
+    log(f"  f32 permutation probe (one-hot V, peaked scores) N {N}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the f32 attention program moves keys inside a tile")
+
+    for B, H, N in ((2, 12, 257), (8, 12, 1370), (2, 16, 481)):
+        scale = Dh ** -0.5
+        q, k, v = (_rand((B, N, H * Dh), g, torch.float32) for _ in range(3))
+        rows = _bias_rows(B, N, g)
+        k1 = FA.flash_attention_packed(q, k, v, scale, H)
+        for kind in ("zeros", "empty_group", "every_key"):
+            got = FA.flash_attention_packed_bias(q, k, v, rows[kind], scale, H)
+            ref = FA.flash_attention_packed_bias_plain(q, k, v, rows[kind], scale, H)
+            torch.cuda.synchronize()
+            same = kind != "zeros" or torch.equal(got, k1)
+            report("K7f32", f"flash_attention_packed_bias B{B} N{N} H{H} float32 bias {kind}"
+                   + (" (and bit-equal to K1)" if kind == "zeros" else ""),
+                   max_err(got, ref), TOL_F32_OUT, same and bool(torch.isfinite(got).all()))
+    for B, H, N in ((2, 12, 257), (8, 12, 1370), (2, 16, 257)):
+        fused = _rand((B, N, 3 * H * Dh), g, torch.float32)
+        views = [t.view(B, N, H, Dh) for t in fused.split(H * Dh, dim=-1)]
+        got = FA.flash_attention(*views, Dh ** -0.5)
+        ref = FA.attention_reference(*views, Dh ** -0.5)
+        k1 = FA.flash_attention_packed(*(t.reshape(B, N, H * Dh).contiguous() for t in views),
+                                       Dh ** -0.5, H)
+        torch.cuda.synchronize()
+        report("K8f32", f"flash_attention B{B} N{N} H{H} float32 fused slices "
+               f"(token stride {3 * H * Dh}; bit-equal to K1)", max_err(got, ref), TOL_F32_OUT,
+               torch.equal(got.view(B, N, H * Dh), k1))
+
+    names = ("attended", "colmean", "diag", "rowmax")
+    shapes = [(8, 1369, 768), (2, 1369, 1024)] + [
+        (2, N, D) for D in (768, 1024) for N in (1, 63, 65, 256)] + [
+        (3, 77, 64), (2, 129, 128), (2, 300, 512), (128, 256, 768)]
+    for B, N, D in shapes:
+        q, k, v = (_rand((B, N, D), g, torch.float32, 0.5) for _ in range(3))
+        scale = (D // 8) ** 0.5
+        got = FO.focal_attention_fused(q, k, v, scale)
+        ref = FO.focal_attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        errs = [max_err(a, b) for a, b in zip(got, ref)]
+        tols = [TOL_F32_OUT, TOL_VIEWS, TOL_VIEWS, TOL_VIEWS]
+        ok = all(e <= t for e, t in zip(errs, tols)) and all(
+            bool(torch.isfinite(t).all()) for t in got)
+        blocks = 128 if D % 128 == 0 and (-(-N // 128)) ** 2 * B >= \
+            torch.cuda.get_device_properties(0).multi_processor_count else 64
+        log(f"  K6f32 focal_attention_fused B{B} N{N} D{D} float32 ({blocks}-row blocks): "
+            + ", ".join(f"{n} {e:.3e} (tol {t:.0e})" for n, e, t in zip(names, errs, tols))
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K6's f32 program disagrees with its plain version at "
+                                 f"B{B} N{N} D{D}")
+        worst["K6f32"] = max(worst["K6f32"], errs[0])
+    q, k, v = (_rand((8, 1369, 768), g, torch.float32, 0.5) for _ in range(3))
+    a = FO.focal_attention_fused(q, k, v, 96 ** 0.5)
+    b = FO.focal_attention_fused(q, k, v, 96 ** 0.5)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(x, y) for x, y in zip(a, b))
+    log(f"  K6f32 B8 N1369 D768, two runs: attended and colmean, diag, rowmax bit-identical "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K6's f32 program is not deterministic")
+    N, D = 481, 256
+    views = []
+    for _ in range(3):
+        buf = torch.full((1, N + 64, D), float("nan"), device="cuda")
+        buf[:, :N] = _rand((1, N, D), g, torch.float32, 0.5)
+        views.append(buf[:, :N])
+    got = FO.focal_attention_fused(*views, (D // 8) ** 0.5)
+    ref = FO.focal_attention_plain(*views, (D // 8) ** 0.5)
+    torch.cuda.synchronize()
+    ok = (all(bool(torch.isfinite(x).all()) for x in got)
+          and max_err(got[0], ref[0]) <= TOL_F32_OUT
+          and max(max_err(a, b) for a, b in zip(got[1:], ref[1:])) <= TOL_VIEWS)
+    log(f"  K6f32 B1 N{N} D{D} float32, rows past N filled with NaN: no NaN reaches the "
+        f"outputs {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K6's f32 program reads rows past N")
+    return worst
 
 
 def phase_i8qk_program():
@@ -538,7 +685,7 @@ def phase_i8qk_program():
     worst_qh = 0.0
     for H in (12, 16):
         worst = {"K10": 0.0, "K10b": 0.0, "K9": 0.0}
-        for N in (1, 63, 64, 65, 127, 128, 129, 257, 416, 481, 826, 1370):
+        for N in FLASH_LENGTHS:
             q, k, v = (_rand((B, N, H * Dh), g, torch.bfloat16) for _ in range(3))
             row = torch.randint(1, 891, (B, N), generator=g, device="cuda").float().log()
             before = [w.launches for w in counters]
@@ -1690,7 +1837,18 @@ def phase_slices():
     f32m.init(torch.Generator(device="cuda").manual_seed(3)).prepare_params()
     x = _rand((2, 224, 224, 3), torch.Generator(device="cuda").manual_seed(4),
               torch.float32)
+    wrappers = _wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
     a = f32m(x, guidance=torch.tensor([0, 5], device="cuda"))
+    torch.cuda.synchronize()
+    launches_strict = {kid: w.launches for kid, w in wrappers.items()}
+    want = {kid: {"K1": n_layers, "K6": n_iters}.get(kid, 0) for kid in wrappers}
+    log("  strict f32 224x224 launches in one forward (the f32 programs): " + ", ".join(
+        f"{kid} {launches_strict[kid]} (want {want[kid]})" for kid in ("K1", "K6", "K7", "K8")))
+    if launches_strict != want:
+        raise AssertionError(f"strict-f32 launch counts {launches_strict} != {want}")
     f32m.attn_impl = "plain"
     b = f32m(x, guidance=torch.tensor([0, 5], device="cuda"))
     rd = max(_rel(a.depth, b.depth), _rel(a.confidence, b.confidence))
@@ -1700,7 +1858,7 @@ def phase_slices():
     if rd > TOL_SLICE_F32 or ra > TOL_SLICE_F32:
         raise AssertionError("strict-f32 kernel path disagrees with the plain path")
     del f32m
-    return default, int8, launches, launches_default, reqs
+    return default, int8, launches, launches_default, launches_strict, reqs
 
 
 # ---------------------------------------------------- filtered slices (d) ----
@@ -2245,6 +2403,39 @@ def phase_kernel_times(smi):
            lambda: FO.focal_attention_fused(q6, k6, v6, scale),
            lambda: FO.focal_attention_plain(q6, k6, v6, scale),
            bound(4 * B * Nf * D * 2 + 3 * B * Nf * 4, 4 * B * Nf * Nf * D, "bf16"))
+
+    # the strict policy's f32 programs: the same operations on the f32 FMA pipes
+    # (TF32 off), q, k, v, out read and written once in f32; SDPA in f32 beside
+    qf, kf, vf = (_rand((B, N, D), g, torch.float32) for _ in range(3))
+    bias = _bias_rows(B, N, g)["every_key"]
+    f32_bytes = 4 * B * N * D * 4
+
+    def sdpa_f32(mask=None):
+        hf = [t.view(B, N, H, D // H).transpose(1, 2) for t in (qf, kf, vf)]
+        return F.scaled_dot_product_attention(*hf, attn_mask=mask, scale=0.125)
+
+    def k1f():
+        return FA.flash_attention_packed(qf, kf, vf, 0.125, H)
+
+    record("K1f32", f"B{B} N{N} H{H} f32", k1f,
+           lambda: FA.flash_attention_packed_plain(qf, kf, vf, 0.125, H),
+           bound(f32_bytes, 4 * B * N * N * D, "f32"), sdpa_f32)
+    ratio("K1f32", k1f, sdpa_f32)
+    mask = bias[:, None, None, :]
+    record("K7f32", f"B{B} N{N} H{H} f32, bias on every key",
+           lambda: FA.flash_attention_packed_bias(qf, kf, vf, bias, 0.125, H),
+           lambda: FA.flash_attention_packed_bias_plain(qf, kf, vf, bias, 0.125, H),
+           bound(f32_bytes + B * N * 4, 4 * B * N * N * D, "f32"), lambda: sdpa_f32(mask))
+    qf4, kf4, vf4 = (t.view(B, N, H, D // H) for t in (qf, kf, vf))
+    record("K8f32", f"B{B} N{N} H{H} f32", lambda: FA.flash_attention(qf4, kf4, vf4, 0.125),
+           lambda: FA.attention_reference(qf4, kf4, vf4, 0.125),
+           bound(f32_bytes, 4 * B * N * N * D, "f32"), sdpa_f32)
+    q6f, k6f, v6f = (_rand((B, Nf, D), g, torch.float32, 0.5) for _ in range(3))
+    record("K6f32", f"B{B} N{Nf} D{D} f32",
+           lambda: FO.focal_attention_fused(q6f, k6f, v6f, scale),
+           lambda: FO.focal_attention_plain(q6f, k6f, v6f, scale),
+           bound(4 * B * Nf * D * 4 + 3 * B * Nf * 4, 4 * B * Nf * Nf * D, "f32"))
+    del qf, kf, vf, qf4, kf4, vf4, q6f, k6f, v6f
 
     # int8 kernels: 2 M K N int8 operations; bytes: activations in and out
     # once (bf16 2 bytes, int8 1), the int8 weight, the f32 vectors
@@ -3442,6 +3633,15 @@ KERNELS = {
     "K11": ("flash_attention_packed_out_res", "flash_wgmma.cu", "flash_attention.py:645"),
     "K12": ("int8_attnout_mlp_ln", "int8_fused_block.cu", "int8_block.py:365"),
 }
+# the strict policy's f32 programs: (name, source, TPU kernel body, the
+# wrapper whose launches in the strict forward at 224x224 are theirs)
+F32_KERNELS = {
+    "K1f32": ("flash_f32_kernel", "flash_f32.cuh", "flash_attention.py:388", "K1"),
+    "K7f32": ("flash_f32_kernel<bias>", "flash_f32.cuh", "flash_attention.py:149", "K7"),
+    "K8f32": ("flash_bnhd_f32_kernel", "flash_f32.cuh", "flash_attention.py:44", "K8"),
+    "K6f32": ("focal_f32_scores_kernel + focal_f32_attend_kernel", "focal_attention.cu",
+              "focal_attention.py:52", "K6"),
+}
 # the path whose run gives a kernel's ``launches``: the unfiltered int8 slice,
 # or the first filtered or adapter slice that reaches the kernel
 LAUNCHES_FROM = {"K7": "2", "K10": "3", "K10b": "3", "Q": "3", "K8": "A2", "K15": "A3",
@@ -3471,6 +3671,7 @@ def main() -> int:
     log("(c) kernels vs plain versions")
     errs = phase_kernels()
     phase_flash_body()
+    errs.update(phase_f32_programs())
     errs.update(phase_i8qk_program())
     errs.update(phase_int8_kernels())
     phase_int8_gemm()
@@ -3485,7 +3686,7 @@ def main() -> int:
         log(f"kernels only: no slice was driven, {time.perf_counter() - t_start:.1f} s")
         return 0
     with torch.no_grad():  # inference: no phase before (g) builds an autograd graph
-        default, int8, launches, launches_default, reqs = phase_slices()
+        default, int8, launches, launches_default, launches_strict, reqs = phase_slices()
         filtered, launches_filtered = phase_filtered_slices(reqs)
         adapters, launches_adapters = phase_adapter_slices(reqs)
         launches_fused, x0 = phase_fused_slices(int8, filtered["1"], reqs)
@@ -3518,6 +3719,13 @@ def main() -> int:
          "launches_training": launches_training[kid],
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body) in KERNELS.items()]
+    kernels += [
+        {"id": kid, "name": name, "route": "cuda",
+         "source": f"cognitive_aim_tpu_torch/csrc/{src}",
+         "replaces": f"cognitive_aim_tpu/kernels/{body}",
+         "launches": launches_strict[wrapper], "launches_from": "strict f32 224x224",
+         "max_abs_err": errs[kid], **times[kid]}
+        for kid, (name, src, body, wrapper) in F32_KERNELS.items()]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

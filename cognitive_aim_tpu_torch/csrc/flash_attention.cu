@@ -23,26 +23,28 @@
 //     registers. K8 and K1 launch the same kernel, so on the same
 //     memory they give the same bits. A stride the tensor-map encoder
 //     refuses raises in the wrapper.
-//   * f32 (strict policy): flash_body.cuh's plain FMA loops on 64-row tiles.
-#include "flash_body.cuh"
+//   * f32 (strict policy): flash_f32.cuh's register-tiled program, K1's,
+//     on the operands' own row strides; cp.async reads 16-byte chunks, so
+//     every stride is a multiple of 4 elements.
+#include "flash_f32.cuh"
 #include "flash_wgmma.cuh"
 
 #include <climits>
 
 namespace caim {
 
-__global__ void __launch_bounds__(FA_THREADS)
+__global__ void __launch_bounds__(FA_THREADS, 2)
 flash_bnhd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out, HeadStrides sq,
                       HeadStrides sk, HeadStrides sv, int N, int H, float scale) {
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * FA_ROWS, h = blockIdx.y, b = blockIdx.z;
   const int HD = H * HEAD_DIM;
   flash_f32_body<false>(q + b * sq.b + h * sq.h, (int)sq.n, k + b * sk.b + h * sk.h,
                         (int)sk.n, v + b * sv.b + h * sv.h, (int)sv.n, nullptr,
                         out + (size_t)b * N * HD + (size_t)h * HEAD_DIM, HD, q0, b, N, scale);
 }
 
-// 16-byte rows for the f32 body's vector loads: every stride a multiple of
+// 16-byte rows for the f32 program's cp.async copies: every stride a multiple of
 // 4 elements, and the token stride within an int
 bool f32_strides_ok(const HeadStrides& s) {
   return s.b >= 0 && s.n > 0 && s.h >= 0 && s.n <= INT_MAX && s.b % 4 == 0 && s.n % 4 == 0 &&
@@ -74,7 +76,7 @@ extern "C" int caim_flash_attention(const void* q, const void* k, const void* v,
   static std::atomic<unsigned long long> smem_set{0};  // the allowance, once per process
   cudaError_t err = smem_allowance_once(smem_set, (const void*)flash_bnhd_f32_kernel, F32_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + TILE - 1) / TILE, H, B);
+  const dim3 grid((N + FA_ROWS - 1) / FA_ROWS, H, B);
   flash_bnhd_f32_kernel<<<grid, FA_THREADS, F32_SMEM, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), sq, sk, sv, N, H, scale);

@@ -42,22 +42,24 @@
 //     m16n8k16 fed by a cp.async double buffer) read the same 0.74 GB of K
 //     and V from L2 a call at N 1370 in twice the time: it was bound by
 //     issuing its products, 64 mma.sync for what one wgmma does.
-//   * f32 (strict policy): 64-row tiles with plain f32 FMAs through shared
-//     memory (flash_body.cuh); exact f32 products, not tuned.
+//   * f32 (strict policy): exact f32 products on the FMA pipes, register
+//     tiles fed by cp.async (flash_f32.cuh, which K8 shares); the bias
+//     row is read by plain loads.
 //   * The ragged tail (N = 257, 481, 1370 are not multiples of 64): TMA
 //     zero-fills the rows past N and drops them on the store, the softmax
-//     masks those keys to -inf; the f32 body zero-fills and masks likewise.
-#include "flash_body.cuh"
+//     masks those keys to -inf; the f32 program's copies zero-fill and it
+//     masks likewise.
+#include "flash_f32.cuh"
 #include "flash_wgmma.cuh"
 
 namespace caim {
 
 template <bool BIAS>
-__global__ void __launch_bounds__(FA_THREADS)
+__global__ void __launch_bounds__(FA_THREADS, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
                  float* __restrict__ out, int N, int H, float scale) {
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * FA_ROWS, h = blockIdx.y, b = blockIdx.z;
   const int HD = H * HEAD_DIM;
   const size_t base = (size_t)b * N * HD + (size_t)h * HEAD_DIM;
   flash_f32_body<BIAS>(q + base, HD, k + base, HD, v + base, HD, bias, out + base, HD, q0, b,
@@ -67,7 +69,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <bool BIAS>
 cudaError_t launch_flash_f32(const void* q, const void* k, const void* v, const void* bias,
                              void* out, int B, int N, int H, float scale, cudaStream_t stream) {
-  const dim3 grid((N + TILE - 1) / TILE, H, B);
+  const dim3 grid((N + FA_ROWS - 1) / FA_ROWS, H, B);
   static std::atomic<unsigned long long> smem_set{0};  // the allowance, once per process
   cudaError_t err = smem_allowance_once(smem_set, (const void*)flash_f32_kernel<BIAS>, F32_SMEM);
   if (err != cudaSuccess) return err;

@@ -58,11 +58,32 @@
 //     tiles in a fixed order: deterministic, no atomics.
 //   * The scale divides (streams.py uses sqrt(D/8) as a divisor): the kernel
 //     multiplies by inv_scale = 1/scale, as the TPU kernel does.
-//   * f32 (strict policy): 64-row tiles, plain f32 FMAs through shared
-//     memory, the output split over blocks of DC columns that each recompute
-//     the scores; exact, not tuned.
-// Kernels: stats (m, l, s_ii per key split), attend (attended, colsum
-// partials, diag, rowmax), colmean (fixed-order sum of the partials).
+//   * f32 (strict policy): exact f32 FMAs on register tiles (tile_common.cuh,
+//     RegTile), operands double-buffered by cp.async, TF32 off as the policy
+//     demands; bound by the FMA pipes (4 B N^2 D operations at 67 TFLOP/s).
+//     An attend block can hold only some columns of O in registers (the f32
+//     O of a row tile over all of D would not fit), and an earlier design
+//     recomputed the 768-deep scores for every column chunk: 1 + D / 128
+//     products where the function needs two. Here the scores pass computes
+//     each score once, over all of D, and writes it (in base 2, times
+//     log2 e / scale) to a scratch of B N N floats, 60 MB at B 8, N 1369,
+//     with each key block's row maximum and sum; the attend pass merges
+//     those into m and l, reads the scores back a row tile at a time (the
+//     column blocks of one row tile run side by side, so the rows come from
+//     L2), forms P = exp2(t - m) / l in shared memory and runs O += P V. A
+//     distributed-shared-memory reduction of partial scores over a cluster
+//     was the alternative; on this card a bulk copy moves ~16-22 GB/s out of
+//     an SM that way, remote stores about half that (K12's development
+//     builds), where the scratch crosses L2 at TB/s.
+//     Blocks: 128 query rows x 128 keys (scores) and 128 rows x 128 columns
+//     (attend), 8 x 8 values a thread, one block an SM at ~210-250 registers
+//     a thread; where 128 x 128 scores blocks would leave SMs idle (B 2, N
+//     256: 8 blocks) or D is no multiple of 128, 64 x 64 blocks of 4 x 8 a
+//     thread. Each score and each product of P V is the same chain
+//     of FMAs in the same order on either shape.
+// Kernels: stats or scores (m, l and s_ii per key split; f32: the scores and
+// m, l per key tile), attend (attended, colsum partials, diag, rowmax),
+// colmean (fixed-order sum of the partials).
 #include "tile_common.cuh"
 
 namespace caim {
@@ -424,156 +445,241 @@ focal_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 }
 
 // ------------------------------------------------------------------- f32 ----
-constexpr int STATS_THREADS = 128;
-constexpr int ATTEND_THREADS = 256;
+constexpr int F32_BK = 32;           // a step of the contraction: 32 of D, or 32 keys
+constexpr int F32_LDK = F32_BK + 4;  // padded row of a tile that holds one step
+constexpr int F32_STAGES = 3;        // the scores pass's cp.async ring
+// the side of the smaller blocks: D is a multiple of it, and the scratch of
+// row statistics and colsum partials is sized for it (the larger blocks use
+// the first half of it)
+constexpr int F32_SMALL = 64;
 
-constexpr size_t f32_stats_smem() {
-  return align128(2 * TILE * LDT * sizeof(float)) + align128(TILE * LDF * sizeof(float)) +
-         3 * TILE * sizeof(float);
-}
+// The blocks of both passes: BM query rows (128 or 64) and as many keys
+// (scores) or columns of attended (attend), BM / 16 rows and 8 keys or
+// columns a thread, 2 BM threads; a scores block's keys are one partial of
+// the row statistics
+template <int BM>
+struct F32Tile {
+  static constexpr int TM = BM / 16;
+  using T = RegTile<BM, BM, TM, 8>;
+  static constexpr int THREADS = T::THREADS;
+  static constexpr int STAGE = 2 * BM * F32_LDK;  // Q rows, then K rows of a scores step
+  static constexpr int PT = BM * F32_LDK, VT = F32_BK * BM;  // an attend step's P and V
+  static constexpr size_t SCORES_SMEM = F32_STAGES * STAGE * sizeof(float);
+  static constexpr size_t ATTEND_SMEM =
+      (2 * PT + 2 * VT + 2 * BM + 4 * 32) * sizeof(float);  // P[2], V[2], m, 1/l, colsum
+};
 
-size_t f32_attend_smem(int dc) {
-  return align128(3 * TILE * LDT * sizeof(float))  // Q, K, P tiles
-         + align128((size_t)TILE * (dc + 8) * sizeof(float))  // V chunk
-         + align128(TILE * LDF * sizeof(float))  // S / P in f32
-         + align128((size_t)TILE * (dc + 4) * sizeof(float))  // O chunk
-         + 2 * TILE * sizeof(float);  // m, l
-}
+// The row stride of the scores scratch: N rounded up to whole float4s
+inline int f32_score_stride(int N) { return (N + 3) / 4 * 4; }
 
-// S = Q_tile K_tile^T over the whole D, in 64-wide slices of D.
-__device__ __forceinline__ void f32_scores(float* Ss, float* Qs, float* Ks,
-                                           const float* qrow0, const float* krow0, int D,
-                                           int qvalid, int kvalid) {
-  for (int d0 = 0; d0 < D; d0 += TILE) {
-    __syncthreads();  // previous users of Qs/Ks/Ss are done
-    load_tile(Qs, LDT, qrow0 + d0, D, TILE, TILE, qvalid);
-    load_tile(Ks, LDT, krow0 + d0, D, TILE, TILE, kvalid);
-    __syncthreads();
-    mm_abt(Ss, Qs, Ks, d0 > 0);
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(STATS_THREADS)
-focal_f32_stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       float* __restrict__ m_out, float* __restrict__ l_out,
-                       float* __restrict__ diag, float* __restrict__ rowmax, int N, int D,
-                       float inv_scale) {
+// Scores pass: t = (Q K^T) log2(e) / scale over all of D for the block's BM
+// rows and BM keys (steps of 32 of D through a cp.async ring), written to
+// scores [B][N][NP]; and each row's maximum m and sum l of exp2(t - m) over
+// the block's keys < N, to mpart, lpart [B][key blocks][N].
+template <int BM>
+__global__ void __launch_bounds__(F32Tile<BM>::THREADS)
+focal_f32_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        float* __restrict__ scores, float* __restrict__ mpart,
+                        float* __restrict__ lpart, int N, int NP, int D, float sl2) {
+  using C = F32Tile<BM>;
+  using T = typename C::T;
+  constexpr int TM = C::TM, TH = C::THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + TILE * LDT;
-  float* Ss = reinterpret_cast<float*>(smem + align128(2 * TILE * LDT * sizeof(float)));
-  float* row_m = Ss + align128(TILE * LDF * sizeof(float)) / sizeof(float);
-  float* row_l = row_m + TILE;
-  float* row_sd = row_l + TILE;  // s_ii, the diagonal score
-
-  const int q0 = blockIdx.x * TILE, b = blockIdx.y;
-  const size_t base = (size_t)b * N * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rows_per_warp = TILE / (STATS_THREADS / 32);
-  if (threadIdx.x < TILE) {
-    row_m[threadIdx.x] = -INFINITY;
-    row_l[threadIdx.x] = 0.0f;
-    row_sd[threadIdx.x] = 0.0f;
+  float* ring = reinterpret_cast<float*>(smem);
+  const int kt = blockIdx.x, k0 = kt * BM, q0 = blockIdx.y * BM, b = blockIdx.z;
+  const float* qb = q + ((size_t)b * N + q0) * D;
+  const float* kb = k + ((size_t)b * N + k0) * D;
+  const int nd = D / F32_BK;
+  auto load = [&](int s) {  // step s of D into slot s % F32_STAGES
+    float* st = ring + (s % F32_STAGES) * C::STAGE;
+    load_rows_async<BM, F32_BK, F32_LDK, TH>(st, qb + s * F32_BK, D, N - q0);
+    load_rows_async<BM, F32_BK, F32_LDK, TH>(st + BM * F32_LDK, kb + s * F32_BK, D, N - k0);
+  };
+#pragma unroll
+  for (int s = 0; s < F32_STAGES - 1; ++s) {
+    if (s < nd) load(s);
+    cp_async_commit();
   }
+  const int tx = T::tx(), r0 = T::row0();
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  for (int s = 0; s < nd; ++s) {
+    cp_async_wait<F32_STAGES - 2>();  // step s landed for this thread
+    __syncthreads();                  // ... for all, and step s - 1's slot is free
+    if (s + F32_STAGES - 1 < nd) load(s + F32_STAGES - 1);
+    cp_async_commit();  // (empty near the end, so that one wait fits all)
+    const float* st = ring + (s % F32_STAGES) * C::STAGE;
+    mma_nt<TM, 8, F32_BK, F32_LDK, F32_LDK, T::Y, T::TX>(acc, st + r0 * F32_LDK,
+                                                         st + (BM + tx) * F32_LDK);
+  }
+  const int nkt = gridDim.x;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = q0 + r0 + T::Y * i;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = k0 + tx + T::TX * j;
+      acc[i][j] = key < N ? acc[i][j] * sl2 : -INFINITY;
+      mx = fmaxf(mx, acc[i][j]);
+      if (row < N && key < N) scores[((size_t)b * N + row) * NP + key] = acc[i][j];
+    }
+    // the row's BM keys are in the TX lanes that share lane / TX; the
+    // maximum is finite, as the block holds a key < N
+#pragma unroll
+    for (int o = 1; o < T::TX; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sum += exp2_ftz(acc[i][j] - mx);
+#pragma unroll
+    for (int o = 1; o < T::TX; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (tx == 0 && row < N) {
+      const size_t at = ((size_t)b * nkt + kt) * N + row;
+      mpart[at] = mx;
+      lpart[at] = sum;
+    }
+  }
+}
 
-  for (int k0 = 0; k0 < N; k0 += TILE) {
-    const int kvalid = min(TILE, N - k0);
-    f32_scores(Ss, Qs, Ks, q + base + (size_t)q0 * D, k + base + (size_t)k0 * D, D,
-               N - q0, kvalid);
-    for (int rr = 0; rr < rows_per_warp; ++rr) {
-      const int r = warp * rows_per_warp + rr;
-      const float s0 = lane < kvalid ? Ss[r * LDF + lane] * inv_scale : -INFINITY;
-      const float s1 = lane + 32 < kvalid ? Ss[r * LDF + lane + 32] * inv_scale : -INFINITY;
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float psum = warp_sum(expf(s0 - m_new) + expf(s1 - m_new));
-      const int dc = q0 + r - k0;  // this row's diagonal column in the tile
-      __syncwarp();
-      if (lane == 0) {
-        row_l[r] = row_l[r] * expf(m_old - m_new) + psum;
-        row_m[r] = m_new;
+// Attend pass: columns [c0, c0 + BM) of attended for the block's BM rows, O
+// = P V with P = exp2(t - m) / l over keys in steps of 32: a step's scores
+// are fetched into registers one step ahead and written as P into shared
+// memory, V's rows double-buffered by cp.async; m and l merged from the nkt
+// key blocks' partials. The blocks of column 0 also write the colsum
+// partial of their q tile (four warps each sum a quarter of the rows in
+// order, the quarters are added in order) and the views rowmax = 1 / l (the
+// largest entry is exp2(0) / l) and diag = exp2(t_ii - m) / l. partial:
+// [B][qrows][N].
+template <int BM>
+__global__ void __launch_bounds__(F32Tile<BM>::THREADS)
+focal_f32_attend_kernel(const float* __restrict__ scores, const float* __restrict__ mpart,
+                        const float* __restrict__ lpart, const float* __restrict__ v,
+                        float* __restrict__ att, float* __restrict__ diag,
+                        float* __restrict__ rowmax, float* __restrict__ partial, int N, int NP,
+                        int D, int nkt, int qrows) {
+  using C = F32Tile<BM>;
+  using T = typename C::T;
+  constexpr int TM = C::TM, TH = C::THREADS, CH = BM * (F32_BK / 4) / TH;  // float4s a step
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ps = reinterpret_cast<float*>(smem);  // two slots
+  float* Vs = Ps + 2 * C::PT;                  // two slots
+  float* row_m = Vs + 2 * C::VT;
+  float* row_il = row_m + BM;
+  float* red = row_il + BM;  // a step's column sums of each quarter of the rows [4][32]
+  const int c0 = blockIdx.x * BM, qt = blockIdx.y, q0 = qt * BM, b = blockIdx.z;
+  const bool views = blockIdx.x == 0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  for (int r = tid; r < BM; r += TH) {
+    const int row = q0 + r;
+    float mm = 0.0f, il = 1.0f;  // rows past N: unused
+    if (row < N) {
+      const float* mp = mpart + (size_t)b * nkt * N + row;
+      const float* lp = lpart + (size_t)b * nkt * N + row;
+      mm = -INFINITY;
+      for (int t = 0; t < nkt; ++t) mm = fmaxf(mm, mp[(size_t)t * N]);
+      float ll = 0.0f;
+      for (int t = 0; t < nkt; ++t) ll += lp[(size_t)t * N] * exp2_ftz(mp[(size_t)t * N] - mm);
+      il = 1.0f / ll;
+      if (views) {
+        rowmax[(size_t)b * N + row] = il;
+        diag[(size_t)b * N + row] =
+            exp2_ftz(scores[((size_t)b * N + row) * NP + row] - mm) * il;
       }
-      if (dc >= 0 && dc < kvalid && (dc & 31) == lane) row_sd[r] = dc < 32 ? s0 : s1;
     }
+    row_m[r] = mm;
+    row_il[r] = il;
   }
-  __syncthreads();
-  if (threadIdx.x < TILE && q0 + threadIdx.x < N) {
-    const int r = threadIdx.x;
-    const size_t i = (size_t)b * N + q0 + r;
-    const float l = row_l[r];
-    m_out[i] = row_m[r];
-    l_out[i] = l;
-    diag[i] = expf(row_sd[r] - row_m[r]) / l;
-    rowmax[i] = 1.0f / l;  // the largest entry of the row is exp(0) / l
-  }
-}
-
-__global__ void __launch_bounds__(ATTEND_THREADS)
-focal_f32_attend_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ m_in,
-                        const float* __restrict__ l_in, float* __restrict__ att,
-                        float* __restrict__ partial, int N, int D, int dc, float inv_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + TILE * LDT;
-  float* Ps = Ks + TILE * LDT;
-  unsigned char* p = smem + align128(3 * TILE * LDT * sizeof(float));
-  float* Vs = reinterpret_cast<float*>(p);
-  p += align128((size_t)TILE * (dc + 8) * sizeof(float));
-  float* Ss = reinterpret_cast<float*>(p);
-  p += align128(TILE * LDF * sizeof(float));
-  float* Os = reinterpret_cast<float*>(p);
-  p += align128((size_t)TILE * (dc + 4) * sizeof(float));
-  float* row_m = reinterpret_cast<float*>(p);
-  float* row_l = row_m + TILE;
-  const int ldv = dc + 8, ldo = dc + 4;
-
-  const int qt = blockIdx.x, q0 = qt * TILE, d_off = blockIdx.y * dc, b = blockIdx.z;
-  const size_t base = (size_t)b * N * D;
-  const int qvalid = min(TILE, N - q0);
-  if (threadIdx.x < TILE) {
-    const bool ok = threadIdx.x < qvalid;
-    row_m[threadIdx.x] = ok ? m_in[(size_t)b * N + q0 + threadIdx.x] : 0.0f;
-    row_l[threadIdx.x] = ok ? l_in[(size_t)b * N + q0 + threadIdx.x] : 1.0f;
-  }
-  for (int i = threadIdx.x; i < TILE * ldo; i += ATTEND_THREADS) Os[i] = 0.0f;
-
-  for (int k0 = 0; k0 < N; k0 += TILE) {
-    const int kvalid = min(TILE, N - k0);
-    f32_scores(Ss, Qs, Ks, q + base + (size_t)q0 * D, k + base + (size_t)k0 * D, D,
-               qvalid, kvalid);
-    for (int i = threadIdx.x; i < TILE * TILE; i += ATTEND_THREADS) {
-      const int r = i / TILE, c = i % TILE;
-      const float pr = c < kvalid ? expf(Ss[r * LDF + c] * inv_scale - row_m[r]) / row_l[r] : 0.0f;
-      Ss[r * LDF + c] = pr;
-      Ps[r * LDT + c] = pr;
+  const float* sb = scores + (size_t)b * N * NP;
+  const float* vb = v + (size_t)b * N * D + c0;
+  float4 f[CH];
+  auto fetch = [&](int kc) {  // the scores of keys [32 kc, 32 kc + 32), zeros past N
+#pragma unroll
+    for (int n = 0; n < CH; ++n) {
+      const int i = tid + n * TH, r = i / 8, key = kc * F32_BK + (i % 8) * 4;
+      f[n] = q0 + r < N && key < N
+                 ? *reinterpret_cast<const float4*>(sb + (size_t)(q0 + r) * NP + key)
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-    load_tile(Vs, ldv, v + base + (size_t)k0 * D + d_off, D, TILE, dc, kvalid);
-    __syncthreads();
-    if (blockIdx.y == 0 && threadIdx.x < kvalid) {
-      const int c = threadIdx.x;
+  };
+  auto stage = [&](int kc, float* P) {  // P of those keys, 0 past N (a select keeps NaN out)
+#pragma unroll
+    for (int n = 0; n < CH; ++n) {
+      const int i = tid + n * TH, r = i / 8, c = (i % 8) * 4, key = kc * F32_BK + c;
+      const bool ok = q0 + r < N;
+      const float m = row_m[r], il = row_il[r];
+      float4 p;
+      p.x = ok && key < N ? exp2_ftz(f[n].x - m) * il : 0.0f;
+      p.y = ok && key + 1 < N ? exp2_ftz(f[n].y - m) * il : 0.0f;
+      p.z = ok && key + 2 < N ? exp2_ftz(f[n].z - m) * il : 0.0f;
+      p.w = ok && key + 3 < N ? exp2_ftz(f[n].w - m) * il : 0.0f;
+      *reinterpret_cast<float4*>(P + r * F32_LDK + c) = p;
+    }
+  };
+  auto load_v = [&](int kc) {
+    load_rows_async<F32_BK, BM, BM, TH>(Vs + (kc & 1) * C::VT, vb + (size_t)kc * F32_BK * D, D,
+                                       N - kc * F32_BK);
+  };
+  const int nkc = (N + F32_BK - 1) / F32_BK;
+  __syncthreads();  // m and 1/l of every row
+  fetch(0);
+  load_v(0);
+  cp_async_commit();
+  stage(0, Ps);
+  const int tx = T::tx(), r0 = T::row0();
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  for (int kc = 0; kc < nkc; ++kc) {
+    if (kc + 1 < nkc) {  // their slots' last readers passed the barrier ending kc - 1
+      fetch(kc + 1);
+      load_v(kc + 1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // step kc's V and P in place
+    const float* P = Ps + (kc & 1) * C::PT;
+    if (views && warp < 4) {
       float cs = 0.0f;
-      for (int r = 0; r < TILE; ++r) cs += r < qvalid ? Ss[r * LDF + c] : 0.0f;
-      partial[((size_t)b * gridDim.x + qt) * N + k0 + c] = cs;
+      for (int r = warp * (BM / 4); r < (warp + 1) * (BM / 4); ++r) cs += P[r * F32_LDK + lane];
+      red[warp * 32 + lane] = cs;
     }
-    mm_ab_acc(Os, ldo, Ps, Vs, ldv, dc);
+    mma_nn<TM, 8, F32_BK, F32_LDK, BM, T::Y, T::TX>(acc, P + r0 * F32_LDK,
+                                                    Vs + (kc & 1) * C::VT + 4 * tx);
+    __syncthreads();  // step kc's P, V and column sums are complete
+    const int key = kc * F32_BK + tid;
+    if (views && tid < 32 && key < N)
+      partial[((size_t)b * qrows + qt) * N + key] =
+          ((red[tid] + red[32 + tid]) + red[64 + tid]) + red[96 + tid];
+    if (kc + 1 < nkc) stage(kc + 1, Ps + ((kc + 1) & 1) * C::PT);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < TILE * dc; i += ATTEND_THREADS) {
-    const int r = i / dc, c = i % dc;
-    if (r < qvalid) att[base + (size_t)(q0 + r) * D + d_off + c] = Os[r * ldo + c];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = q0 + r0 + T::Y * i;
+    if (row < N) {
+#pragma unroll
+      for (int g = 0; g < 2; ++g)
+        *reinterpret_cast<float4*>(att + ((size_t)b * N + row) * D + c0 + 4 * tx +
+                                   4 * T::TX * g) =
+            make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2], acc[i][4 * g + 3]);
+    }
   }
 }
 
 // ---------------------------------------------------------------- colmean ----
+// partial [B][qrows][N], of which the first n_qtiles rows of a batch hold
+// the q tiles' column sums
 __global__ void __launch_bounds__(COLMEAN_THREADS)
 focal_colmean_kernel(const float* __restrict__ partial, float* __restrict__ colmean, int N,
-                     int n_qtiles) {
+                     int n_qtiles, int qrows) {
   const int j = blockIdx.x * COLMEAN_THREADS + threadIdx.x, b = blockIdx.y;
   if (j >= N) return;
   float s = 0.0f;
-  for (int t = 0; t < n_qtiles; ++t) s += partial[((size_t)b * n_qtiles + t) * N + j];
+  for (int t = 0; t < n_qtiles; ++t) s += partial[((size_t)b * qrows + t) * N + j];
   colmean[(size_t)b * N + j] = s / (float)N;
 }
 
@@ -610,27 +716,41 @@ cudaError_t launch_focal_bf16(const bf16* q, const bf16* k, const bf16* v, bf16*
   return cudaGetLastError();
 }
 
+template <int BM>
 cudaError_t launch_focal_f32(const float* q, const float* k, const float* v, float* att,
-                             float* diag, float* rowmax, float* m, float* l,
-                             float* partial, int B, int N, int D, float inv_scale,
-                             cudaStream_t stream) {
-  const int dc = D % 128 == 0 ? 128 : 64;
-  const int nqt = (N + TILE - 1) / TILE;
-  constexpr size_t smem1 = f32_stats_smem();
-  const size_t smem2 = f32_attend_smem(dc);
-  // the allowances, once per process (the attend kernel's at its largest chunk)
-  static std::atomic<unsigned long long> stats_set{0}, attend_set{0};
-  cudaError_t err = smem_allowance_once(stats_set, (const void*)focal_f32_stats_kernel, smem1);
+                             float* diag, float* rowmax, float* scratch, float* partial, int B,
+                             int N, int D, float inv_scale, cudaStream_t stream) {
+  using C = F32Tile<BM>;
+  static std::atomic<unsigned long long> scores_set{0}, attend_set{0};  // once per process
+  cudaError_t err = smem_allowance_once(scores_set, (const void*)focal_f32_scores_kernel<BM>,
+                                        C::SCORES_SMEM);
   if (err == cudaSuccess)
-    err = smem_allowance_once(attend_set, (const void*)focal_f32_attend_kernel,
-                              f32_attend_smem(128));
+    err = smem_allowance_once(attend_set, (const void*)focal_f32_attend_kernel<BM>,
+                              C::ATTEND_SMEM);
   if (err != cudaSuccess) return err;
-  focal_f32_stats_kernel<<<dim3(nqt, B), STATS_THREADS, smem1, stream>>>(
-      q, k, m, l, diag, rowmax, N, D, inv_scale);
+  const int NP = f32_score_stride(N), nkt = (N + BM - 1) / BM;
+  const int nqt = (N + BM - 1) / BM, qrows = (N + F32_SMALL - 1) / F32_SMALL;
+  float* scores = scratch;
+  float* mpart = scores + (size_t)B * N * NP;
+  float* lpart = mpart + (size_t)B * nkt * N;
+  focal_f32_scores_kernel<BM><<<dim3(nkt, nqt, B), C::THREADS, C::SCORES_SMEM, stream>>>(
+      q, k, scores, mpart, lpart, N, NP, D, inv_scale * LOG2E);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  focal_f32_attend_kernel<<<dim3(nqt, D / dc, B), ATTEND_THREADS, smem2, stream>>>(
-      q, k, v, m, l, att, partial, N, D, dc, inv_scale);
+  // the column blocks of a row tile side by side: its scores are read from L2
+  focal_f32_attend_kernel<BM><<<dim3(D / BM, nqt, B), C::THREADS, C::ATTEND_SMEM, stream>>>(
+      scores, mpart, lpart, v, att, diag, rowmax, partial, N, NP, D, nkt, qrows);
   return cudaGetLastError();
+}
+
+// The side of the f32 program's blocks: 128 where D is a multiple of 128
+// and 128 x 128 scores blocks give each SM of the device one, else 64
+int f32_block_rows(int B, int N, int D) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms = 132;
+  const long long blocks = (long long)((N + 127) / 128) * ((N + 127) / 128) * B;
+  return D % 128 == 0 && blocks >= sms ? 128 : 64;
 }
 
 }  // namespace caim
@@ -641,9 +761,10 @@ cudaError_t launch_focal_f32(const float* q, const float* k, const float* v, flo
 
 // Query rows per tile of the kernel taking `dtype` at width D, or 0 where
 // no kernel takes that dtype and width: the colsum scratch has
-// ceil(N / q_tile) rows per batch.
+// ceil(N / q_tile) rows per batch (the f32 program's larger tiles use the
+// first of them).
 extern "C" int caim_focal_q_tile(int dtype, int D) {
-  if (dtype == caim::kF32) return D > 0 && D % caim::TILE == 0 ? caim::TILE : 0;
+  if (dtype == caim::kF32) return D > 0 && D % caim::F32_SMALL == 0 ? caim::F32_SMALL : 0;
   if (dtype != caim::kBF16) return 0;
   switch (D) {
 #define CAIM_CASE(W) \
@@ -654,30 +775,38 @@ extern "C" int caim_focal_q_tile(int dtype, int D) {
   }
 }
 
-// Rows of the ml scratch: the bf16 stats pass leaves m, l and the diagonal
-// score of each of its key splits (the f32 kernels use the first two).
-extern "C" int caim_focal_stats_rows() { return 3 * caim::KEY_SPLITS; }
+// Floats of the scratch a call at B, N needs: the bf16 stats pass leaves m,
+// l and the diagonal score of each of its key splits ([3 KEY_SPLITS][B][N]);
+// the f32 scores pass its scores ([B][N][N rounded up to 4]) and m, l of each
+// 64-key tile ([2][B][ceil(N / 64)][N]).
+extern "C" long long caim_focal_scratch_floats(int dtype, int B, int N) {
+  using namespace caim;
+  if (dtype == kF32)
+    return (long long)B * N * f32_score_stride(N) +
+           2LL * B * ((N + F32_SMALL - 1) / F32_SMALL) * N;
+  return 3LL * KEY_SPLITS * B * N;
+}
 
 // q, k, v, att: [B, N, D] contiguous, 16-byte aligned, D a width that
 // caim_focal_q_tile accepts. colmean, diag, rowmax: [B, N] f32.
-// ml: [caim_focal_stats_rows(), B, N] f32 scratch (the row statistics).
-// partial: [B, ceil(N / q_tile), N] f32
-// scratch, q_tile from caim_focal_q_tile. dtype: 0 float32, 1 bfloat16.
+// scratch: caim_focal_scratch_floats(dtype, B, N) f32 (row statistics and,
+// in f32, the scores). partial: [B, ceil(N / q_tile), N] f32 scratch, q_tile
+// from caim_focal_q_tile. dtype: 0 float32, 1 bfloat16.
 // Launches three kernels on `stream`, does not synchronize, returns the
 // first launch error (cudaGetLastError) or 0.
 extern "C" int caim_focal_attention(const void* q, const void* k, const void* v, void* att,
-                                    void* colmean, void* diag, void* rowmax, void* ml,
+                                    void* colmean, void* diag, void* rowmax, void* scratch,
                                     void* partial, int B, int N, int D, float inv_scale,
                                     int dtype, void* stream) {
   using namespace caim;
   const int q_tile = caim_focal_q_tile(dtype, D);
   if (B <= 0 || N <= 0 || q_tile == 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* m = static_cast<float*>(ml);
-  float* l = m + (size_t)B * N;
+  float* sc = static_cast<float*>(scratch);
   float* dg = static_cast<float*>(diag);
   float* rm = static_cast<float*>(rowmax);
   float* pp = static_cast<float*>(partial);
+  int rows = q_tile;  // query rows of this call's q tiles
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == kBF16) {
     const bf16* qb = static_cast<const bf16*>(q);
@@ -686,19 +815,25 @@ extern "C" int caim_focal_attention(const void* q, const void* k, const void* v,
     bf16* ab = static_cast<bf16*>(att);
     switch (D) {
 #define CAIM_CASE(W) \
-  case W: err = launch_focal_bf16<W>(qb, kb, vb, ab, dg, rm, m, pp, B, N, inv_scale, s); break;
+  case W: err = launch_focal_bf16<W>(qb, kb, vb, ab, dg, rm, sc, pp, B, N, inv_scale, s); break;
       CAIM_FOCAL_BF16_WIDTHS(CAIM_CASE)
 #undef CAIM_CASE
       default: return (int)cudaErrorInvalidValue;
     }
   } else if (dtype == kF32) {
-    err = launch_focal_f32(static_cast<const float*>(q), static_cast<const float*>(k),
-                           static_cast<const float*>(v), static_cast<float*>(att), dg, rm,
-                           m, l, pp, B, N, D, inv_scale, s);
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    float* af = static_cast<float*>(att);
+    rows = f32_block_rows(B, N, D);
+    err = rows == 128
+              ? launch_focal_f32<128>(qf, kf, vf, af, dg, rm, sc, pp, B, N, D, inv_scale, s)
+              : launch_focal_f32<64>(qf, kf, vf, af, dg, rm, sc, pp, B, N, D, inv_scale, s);
   }
   if (err != cudaSuccess) return (int)err;
-  const int nqt = (N + q_tile - 1) / q_tile;
   focal_colmean_kernel<<<dim3((N + COLMEAN_THREADS - 1) / COLMEAN_THREADS, B),
-                         COLMEAN_THREADS, 0, s>>>(pp, static_cast<float*>(colmean), N, nqt);
+                         COLMEAN_THREADS, 0, s>>>(pp, static_cast<float*>(colmean), N,
+                                                  (N + rows - 1) / rows,
+                                                  (N + q_tile - 1) / q_tile);
   return (int)cudaGetLastError();
 }

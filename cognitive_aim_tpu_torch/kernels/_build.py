@@ -118,8 +118,8 @@ def _declare(lib):
     lib.caim_focal_attention.restype = i
     lib.caim_focal_q_tile.argtypes = [i, i]
     lib.caim_focal_q_tile.restype = i
-    lib.caim_focal_stats_rows.argtypes = []
-    lib.caim_focal_stats_rows.restype = i
+    lib.caim_focal_scratch_floats.argtypes = [i, i, i]
+    lib.caim_focal_scratch_floats.restype = ctypes.c_longlong
     # x, gamma, beta, eps, wq, ws, bias, qkv, xq, sx, M, D, stream
     lib.caim_int8_qkv.argtypes = [p, p, p, f, p, p, p, p, p, p, i, i, p]
     lib.caim_int8_qkv.restype = i

@@ -66,12 +66,13 @@ def _k6_forward(q, k, v, scale):
     colmean = torch.empty(B, N, **f32)
     diag = torch.empty(B, N, **f32)
     rowmax = torch.empty(B, N, **f32)
-    ml = torch.empty(lib.caim_focal_stats_rows(), B, N, **f32)  # row statistics
+    # row statistics and, in float32, the scores the attend pass reads back
+    scratch = torch.empty(lib.caim_focal_scratch_floats(code, B, N), **f32)
     partial = torch.empty(B, -(-N // q_tile), N, **f32)  # colsum per q tile
     with torch.cuda.device(q.device):
         err = lib.caim_focal_attention(
             ptr(q), ptr(k), ptr(v), ptr(attended), ptr(colmean), ptr(diag),
-            ptr(rowmax), ptr(ml), ptr(partial), B, N, D, 1.0 / float(scale),
+            ptr(rowmax), ptr(scratch), ptr(partial), B, N, D, 1.0 / float(scale),
             code, stream_of(q))
     _build.check(err)
     focal_attention_fused.launches += 1

@@ -18,8 +18,9 @@ root on that machine:
 Inputs come from a numpy seed. The plain version runs in float32 on the
 same input values. Tolerances: bf16 outputs of magnitude up to ~2 are
 rounded to bf16 (spacing <= 2^-7) and the kernel rounds P to bf16 before
-the PV product: atol 2e-2. The float32 kernels differ from the plain
-version only in summation order: atol 1e-4. K6's bf16 attended: within
+the PV product: atol 2e-2. The float32 kernels (the strict policy's
+register-tiled programs) differ from the plain version only in summation
+order: atol 1e-4. K6's bf16 attended: within
 1e-2 of the plain version's largest value (``FOCAL_REL``); its row views are
 f32 over the unrounded P, values <= 1: atol 1e-5.
 
@@ -278,6 +279,142 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     y = torch.zeros(1, 10, 128, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         TFA.flash_attention_packed(y, y, y, 0.125, 2)
+
+
+# ---------------- the strict policy's f32 programs: K1, K7, K8 and K6 ----
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", BODY_LENGTHS)
+@pytest.mark.parametrize("H", [12, 16])
+def test_flash_f32_program_matches_plain_at_every_length(N, H, cuda_device):
+    """K1's f32 program (csrc/flash_f32.cuh: register tiles, K and V by
+    cp.async) at the bf16 program's lengths, ViT-B and ViT-L heads: atol
+    1e-4, summation order only."""
+    B, D = 2, 64
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _arrays((B, N, H * D), seed=N))
+    want = TFA.flash_attention_packed_plain(q, k, v, D ** -0.5, H)
+    got = TFA.flash_attention_packed(q, k, v, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [65, 257, 1370])
+def test_flash_f32_program_keeps_keys_in_place(N, cuda_device):
+    """The permutation probe of the bf16 program, in f32: a key moved inside
+    a tile costs an error of 1."""
+    B, H, D = 2, 4, 64
+    onehot = torch.zeros(B, N, H, D, device=cuda_device)
+    j = torch.arange(N, device=cuda_device)
+    onehot[:, j, :, j % D] = 1.0
+    k = onehot.reshape(B, N, H * D)
+    got = TFA.flash_attention_packed(40.0 * k, k, k, 1.0, H)
+    want = TFA.flash_attention_packed_plain(40.0 * k, k, k, 1.0, H)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(got.view(B, N, H, D).argmax(-1), (j % D)[None, :, None].expand(B, N, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 65, 129, 257, 481, 1370])
+@pytest.mark.parametrize("bias", ["zeros", "groups", "every_key"])
+def test_flash_f32_program_bias_rows(N, bias, cuda_device):
+    """K7's f32 kernel (the program's BIAS instantiation) on the token
+    filter's bias rows: atol 1e-4. A zero row gives K1's bits: the scores
+    take the same fused multiply-add with a zero addend."""
+    B, H, D = 2, 12, 64
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _arrays((B, N, H * D), seed=N))
+    row = _bias_row(B, N, bias, cuda_device)
+    want = TFA.flash_attention_packed_bias_plain(q, k, v, row, D ** -0.5, H)
+    got = TFA.flash_attention_packed_bias(q, k, v, row, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4
+    if bias == "zeros":
+        assert torch.equal(got, TFA.flash_attention_packed(q, k, v, D ** -0.5, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 129, 257, 1370])
+def test_flash_f32_program_is_deterministic_and_k8_is_k1(N, cuda_device):
+    """K8's f32 kernel on the column slices of one fused projection (token
+    stride 3 H 64): within 1e-4 of the plain version and K1's bits on the
+    same values; two launches give the same bits."""
+    B, H, D = 2, 12, 64
+    (a,) = _arrays((B, N, 3 * H * D), n=1, seed=N)
+    q, k, v = torch.from_numpy(a).to(cuda_device).split(H * D, dim=-1)
+    first = TFA.flash_attention_packed(*(t.contiguous() for t in (q, k, v)), D ** -0.5, H)
+    again = TFA.flash_attention_packed(*(t.contiguous() for t in (q, k, v)), D ** -0.5, H)
+    views = [t.view(B, N, H, D) for t in (q, k, v)]
+    k8 = TFA.flash_attention(*views, D ** -0.5)
+    want = TFA.attention_reference(*views, D ** -0.5)
+    torch.cuda.synchronize()
+    assert float((k8 - want).abs().max()) <= 1e-4
+    assert torch.equal(first, again)
+    assert torch.equal(k8.view(B, N, H * D), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 63, 65, 256, 1369])
+@pytest.mark.parametrize("D", [768, 1024])
+def test_k6_f32_matches_plain_at_ragged_lengths(N, D, cuda_device):
+    """K6's f32 program (the scores pass, the attend pass on the kept
+    scores) at the model's widths and lengths around its 64-row and 64-key
+    tiles; B 8 at N 1369 takes its 128-row blocks, B 2 its 64-row ones:
+    attended atol 1e-4, the views 1e-5."""
+    B = 8 if N == 1369 else 2
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _arrays((B, N, D), seed=N + D, scale=0.5))
+    scale = (D // 8) ** 0.5
+    got = TFO.focal_attention_fused(q, k, v, scale)
+    want = TFO.focal_attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    for g, w, tol in zip(got, want, (1e-4, 1e-5, 1e-5, 1e-5)):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(2, 256), (8, 1369)])
+def test_k6_f32_is_deterministic(B, N, cuda_device):
+    """No atomics on either block shape: two runs, the same bits."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _arrays((B, N, 768), seed=9, scale=0.5))
+    first = TFO.focal_attention_fused(q, k, v, 96 ** 0.5)
+    second = TFO.focal_attention_fused(q, k, v, 96 ** 0.5)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k6_f32_nan_padding_does_not_reach_the_outputs(cuda_device):
+    """Rows past N hold NaN: the copies stop at N, the scores past N are
+    never read and P past N is a select, not a product."""
+    N, D, pad = 481, 256, 64
+    views = []
+    for a in _arrays((1, N, D), seed=8, scale=0.5):
+        buf = torch.full((1, N + pad, D), float("nan"), device=cuda_device)
+        buf[:, :N] = torch.from_numpy(a).to(cuda_device)
+        views.append(buf[:, :N])
+    got = TFO.focal_attention_fused(*views, (D // 8) ** 0.5)
+    want = TFO.focal_attention_plain(*views, (D // 8) ** 0.5)
+    torch.cuda.synchronize()
+    for g, w, tol in zip(got, want, (1e-4, 1e-5, 1e-5, 1e-5)):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 96, 200, 1000])
+def test_k6_f32_raises_without_a_launch_where_no_kernel_takes_the_width(D, cuda_device):
+    """The f32 program takes every multiple of 64 (each pass steps through
+    D in 32s and owns 64 columns of attended a block); other widths raise
+    before a launch."""
+    n = TFO.focal_attention_fused.launches
+    x = torch.zeros(1, 10, D, device=cuda_device)
+    with pytest.raises(ValueError):
+        TFO.focal_attention_fused(x, x, x, 1.0)
+    assert TFO.focal_attention_fused.launches == n
 
 
 # ------------------------------------------------- K8, [B, N, H, 64] ----
