@@ -177,7 +177,31 @@ kernels compile for sm_90a) and the CUDA toolkit:
       model_best.npz served by the port's engine within 1e-5 of the
       trainer's own eval forward on a val batch. Phases (d) to (f) run
       under torch.no_grad(), as the engine serves; a ``training`` JSON line
-      holds (g)'s numbers beside the card's name and power limit.
+      holds (g)'s numbers beside the card's name and power limit;
+  (h) certification (cognitive_aim_tpu_torch/certify/), through the
+      functions its CLIs call, at ViT-B width with 6 focal iterations: the
+      procedural scenes (512 training scenes at 224x224 from seed 0, 32
+      held-out at 224 and 16 at 518 from seed 12345, timed); the guided
+      pretrain (certify.pretrain --guided, 224x224, batch 32, lr 1e-4,
+      CERT_STEPS steps, the default policy, pallas_packed, uint8 scenes
+      staged on the card): finite losses, the last 20 below the first 20,
+      the held-out AbsRel unguided and worst-instruction below the seeded
+      model's, K1 and K6 launched as phase (g)'s formula gives for those
+      steps and evals and every other kernel 0 times; policy_delta on those
+      weights at 518x518, batch 8: int8 and int8 + 2:0.35 against the strict
+      f32 path for the 9 instructions, int8 alone within the 1% budget;
+      delta_sweep --measure-only at 224 on the 32 held-out scenes for
+      2:0.25, 2:0.35 and 2:0.25@p, and 2:0.35 measured through the kernels
+      and through the plain versions on the same weights (depth within
+      2e-2, the strict f32 reference within 1e-4, kept sets overlapping by
+      at least 0.98); attention_stats, random init against the trained
+      weights on 16 scenes (finite, entropies in (0, 1]); the written npz
+      through CognitiveAimInference at 518 and through delta_sweep's loading
+      against the in-memory model (within 1e-5); every kernel's launches in
+      the phase (``launches_certification``; for the f32 programs, those of
+      forwards under a float32 policy); no module of JAX, of the JAX package
+      or of scripts/ imported. A ``certification`` JSON line holds its
+      numbers.
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -3594,6 +3618,282 @@ def phase_training(smi):
             **numbers}, launches
 
 
+# ------------------------------------------------------- certification (h) ----
+# the certification toolchain (cognitive_aim_tpu_torch/certify/) on the card, at
+# ViT-B width with 6 focal iterations, as its recipe trains. Pretrain steps at
+# 224x224, batch 32: sized so the pretrain stays near 90 s on the card
+CERT_STEPS = 600
+CERT_SPECS = ("2:0.25", "2:0.35", "2:0.25@p")
+CERT_PLAIN_SPEC = "2:0.35"  # measured through the kernels and the plain versions
+# kernels against plain versions on the same trained weights (section 2 of
+# PERF.md): relative depth 2e-2 for the int8 filtered variant, 1e-4 for the
+# strict f32 reference; kept sets overlap by MIN_KEPT_OVERLAP
+TOL_CERT_DEPTH = 2e-2
+TOL_CERT_F32 = 1e-4
+CERT_DIR = os.path.join(ROOT, "build", "smoke_certify")  # listed in .gitignore
+
+
+def _f32_launches(wrappers, counts):
+    """Patch CognitiveAimModel.forward so that the launches of forwards under
+    a float32 policy (K1's and K6's f32 programs) add to ``counts``; returns
+    the function that undoes the patch."""
+    import torch
+
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+
+    orig = CognitiveAimModel.forward
+
+    def counted(self, *a, **kw):
+        if self.policy.backbone_compute_dtype != torch.float32:
+            return orig(self, *a, **kw)
+        before = {k: w.launches for k, w in wrappers.items()}
+        out = orig(self, *a, **kw)
+        for k, w in wrappers.items():
+            counts[k] += w.launches - before[k]
+        return out
+
+    CognitiveAimModel.forward = counted
+    return lambda: setattr(CognitiveAimModel, "forward", orig)
+
+
+def phase_certification(smi):
+    """(h) certification on the card: procedural scenes, the guided pretrain,
+    policy_delta, delta_sweep's measure, attention_stats and the round trip of
+    the written checkpoint, each through the functions its CLI calls."""
+    import tempfile
+
+    import torch
+
+    from cognitive_aim_tpu_torch.api import CognitiveAimInference
+    from cognitive_aim_tpu_torch.certify import attention_stats as AS
+    from cognitive_aim_tpu_torch.certify import common as CC
+    from cognitive_aim_tpu_torch.certify import delta_sweep as DS
+    from cognitive_aim_tpu_torch.certify import policy_delta as PD
+    from cognitive_aim_tpu_torch.certify import pretrain as PT
+    from cognitive_aim_tpu_torch.certify import procedural as P
+    from cognitive_aim_tpu_torch.io.preprocess import normalize_np
+    from cognitive_aim_tpu_torch.models import guidance as G
+
+    wrappers = _wrappers()
+    total = {k: 0 for k in wrappers}
+    f32 = {k: 0 for k in wrappers}
+
+    def take():
+        """The launches since the last call, added to the phase's total."""
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in wrappers.items()}
+        for k, w in wrappers.items():
+            total[k] += got[k]
+            w.launches = 0
+        return got
+
+    t0 = time.perf_counter()
+    S, B, steps, n_train, n_eval, serve = 224, 32, CERT_STEPS, 512, 32, 518
+    log(f"(h) certification: ViT-B/14 (12 layers, D 768, 12 heads), 6 focal iterations, "
+        f"procg pretrain at {S}x{S}, batch {B}, {steps} steps")
+    shutil.rmtree(CERT_DIR, ignore_errors=True)
+    ckdir, datadir = os.path.join(CERT_DIR, "ckpts"), os.path.join(CERT_DIR, "data")
+    out = {"card": smi}
+    undo = _f32_launches(wrappers, f32)
+    try:
+        take()
+        # 1. scenes: the pretrain's training set (into its cache) and held-out sets
+        args = PT.parse_args(["--guided", "--seed", "0", "--steps", str(steps),
+                              "--n-images", str(n_train), "--batch", str(B),
+                              "--image-size", str(S), "--n-eval", str(n_eval),
+                              "--eval-every", str(steps), "--ckpt-dir", ckdir,
+                              "--data-cache", datadir])
+        secs = {}
+        ts = time.perf_counter()
+        P.cached(PT.cache_names(args)[0], P.gen_procedural_u8, n_train, S, 0)
+        secs[f"train_{n_train}_at_{S}"] = time.perf_counter() - ts
+        ts = time.perf_counter()
+        e224, gt224 = P.gen_procedural(n_eval, S, DS.EVAL_SEED)
+        secs[f"eval_{n_eval}_at_{S}"] = time.perf_counter() - ts
+        ts = time.perf_counter()
+        e518, _ = P.gen_procedural(16, serve, DS.EVAL_SEED)
+        secs[f"eval_16_at_{serve}"] = time.perf_counter() - ts
+        log("  scenes (numpy, one core): " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+        out["scene_seconds"] = secs
+
+        # 2. the guided pretrain
+        ts = time.perf_counter()
+        summ = PT.main(["--guided", "--seed", "0", "--steps", str(steps),
+                        "--n-images", str(n_train), "--batch", str(B), "--image-size", str(S),
+                        "--n-eval", str(n_eval), "--eval-every", str(steps),
+                        "--ckpt-dir", ckdir, "--data-cache", datadir])
+        pre_s = time.perf_counter() - ts
+        got = take()
+        model, ckpt, losses, evals = summ["model"], summ["checkpoint"], summ["losses"], summ["evals"]
+        n_layers, n_iters = model.vit_cfg.num_layers, model.arch.num_iterations
+        eval_forwards = len(evals) * -(-n_eval // 16) * (1 + len(G.INSTRUCTIONS))
+        want = {k: 0 for k in wrappers}
+        want.update(K1=steps * 2 * n_layers + eval_forwards * n_layers,
+                    K6=(steps + eval_forwards) * n_iters)
+        first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+        step_ms = summ["train_s"] / steps * 1e3
+        log(f"  pretrain: {pre_s:.1f} s ({summ['train_s']:.1f} s of {steps} steps, "
+            f"{step_ms:.1f} ms a step, {B / step_ms * 1e3:.0f} images/s; {smi}); loss mean "
+            f"of the first 20 {first:.4f}, of the last 20 {last:.4f}")
+        log(f"  held-out AbsRel (32 scenes, seed {PT.EVAL_DATA_SEED}): seeded model "
+            f"{evals[0]['absrel'] * 100:.2f}% unguided, {evals[0]['absrel_worst_instruction'] * 100:.2f}"
+            f"% worst instruction; trained {evals[-1]['absrel'] * 100:.2f}%, "
+            f"{evals[-1]['absrel_worst_instruction'] * 100:.2f}%")
+        log(f"  launches in the pretrain: K1 {got['K1']} (want {want['K1']}), K6 {got['K6']} "
+            f"(want {want['K6']}), every other kernel 0")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite pretrain losses: {losses}")
+        if not last < first:
+            raise AssertionError(f"the pretrain did not learn: {first} -> {last}")
+        for key in ("absrel", "absrel_worst_instruction"):
+            if not evals[-1][key] < evals[0][key]:
+                raise AssertionError(f"held-out {key} {evals[0][key]} -> {evals[-1][key]}")
+        if got != want:
+            raise AssertionError(f"pretrain launches {got} != {want}")
+        out["pretrain"] = {"seconds": pre_s, "train_s": summ["train_s"], "step_ms": step_ms,
+                           "loss_first20": first, "loss_last20": last, "evals": evals,
+                           "launches": {"K1": got["K1"], "K6": got["K6"]}}
+
+        # 3. policy_delta at the serving shape
+        ts = time.perf_counter()
+        pd = PD.main(["--checkpoint", ckpt, "--n", "16", "--image-size", str(serve),
+                      "--batch", "8", "--token-filter", "2:0.35"])
+        got = take()
+        for name, t in pd.items():
+            log(f"  policy_delta {name} vs f32 at {serve}x{serve} (16 scenes): " + ", ".join(
+                f"{g} {t['absrel'][g]:.2e}/{t['dconf'][g]:.1e}" for g in G.INSTRUCTIONS)
+                + f"; worst {t['worst']:.3e} (AbsRel/|dconf|)")
+        if not pd["int8"]["worst"] < PD.BUDGET:
+            raise AssertionError(f"int8 alone exceeds the 1% budget: {pd['int8']['worst']}")
+        out["policy_delta"] = {"seconds": time.perf_counter() - ts, "tables": pd,
+                               "launches": got}
+
+        # 4. delta_sweep's measure through its CLI, then one spec through the
+        # kernels and through the plain versions on the same weights
+        ts = time.perf_counter()
+        ds_json = os.path.join(CERT_DIR, "delta_sweep.json")
+        ds = DS.main(["--measure-only", "--seeds", "0", "--laws", "procg",
+                      "--steps", str(steps), "--image-size", str(S),
+                      "--n-eval", str(n_eval), "--ckpt-dir", ckdir,
+                      "--filters", ";".join(CERT_SPECS), "--out", ds_json])
+        run = ds["runs"][0]
+        for spec in CERT_SPECS:
+            gap = max(abs(run["absrel_gt"][spec][g] - run["absrel_gt"]["f32"][g])
+                      for g in G.INSTRUCTIONS)
+            log(f"  delta_sweep {spec}: prediction parity worst {max(run['table'][spec].values()):.3e}"
+                f", gt-gap worst {gap:.3e}; gt AbsRel f32 "
+                f"{max(run['absrel_gt']['f32'].values()):.3e} worst instruction")
+        flat = CC.load_flat(ckpt)[0]
+        batches = DS.eval_batches(normalize_np(e224), 16, "cuda")
+        routes = {}
+        for impl in ("pallas_packed", "plain"):
+            routes[impl] = DS.measure(flat, flat, [CERT_PLAIN_SPEC], batches, gt=gt224,
+                                      eval_size=S, attn_impl=impl, device="cuda")[2]
+        got = take()
+
+        def rel(a, b):
+            return max(float(np.max(np.abs(a[g] - b[g]) / np.abs(b[g]))) for g in b)
+
+        spec_err = rel(routes["pallas_packed"][CERT_PLAIN_SPEC], routes["plain"][CERT_PLAIN_SPEC])
+        f32_err = rel(routes["pallas_packed"]["f32"], routes["plain"]["f32"])
+        overlaps = []
+        for impl in ("pallas_packed", "plain"):
+            routes[impl + "_kept"] = []
+            m = DS.loaded(DS.variant_model(CERT_PLAIN_SPEC, S, attn_impl=impl, device="cuda"),
+                          flat)
+            gidx = torch.arange(16, device="cuda") % len(G.INSTRUCTIONS)
+            with torch.no_grad():
+                for xb in batches:
+                    routes[impl + "_kept"].append(_kept_sets(m, xb, gidx)[1])
+            del m
+        for a, b in zip(routes["pallas_packed_kept"], routes["plain_kept"]):
+            for ra, rb in zip(a.tolist(), b.tolist()):
+                overlaps.append(len(set(ra) & set(rb)) / len(rb))
+        take()
+        log(f"  {CERT_PLAIN_SPEC} int8 kernels vs plain versions on the trained weights: depth "
+            f"rel {spec_err:.2e} (tol {TOL_CERT_DEPTH:.0e}), kept sets overlap >= "
+            f"{min(overlaps):.4f} (tol {MIN_KEPT_OVERLAP}); the strict f32 reference "
+            f"{f32_err:.2e} (tol {TOL_CERT_F32:.0e})")
+        if spec_err > TOL_CERT_DEPTH or f32_err > TOL_CERT_F32 or min(overlaps) < MIN_KEPT_OVERLAP:
+            raise AssertionError("delta_sweep: kernels and plain versions disagree")
+        out["delta_sweep"] = {"seconds": time.perf_counter() - ts, "run": run,
+                              "kernels_vs_plain": {"spec": CERT_PLAIN_SPEC,
+                                                   "depth_rel": spec_err, "f32_depth_rel": f32_err,
+                                                   "kept_overlap_min": min(overlaps)}}
+
+        # 5. attention statistics: random init against the trained weights
+        ts = time.perf_counter()
+        before = {k: w.launches for k, w in wrappers.items()}
+        st = AS.main(["--checkpoint", ckpt, "--image-size", str(S), "--n", "16",
+                      "--out", os.path.join(CERT_DIR, "attn_stats.json")])
+        for k, w in wrappers.items():  # every block of these statistics runs in f32
+            f32[k] += w.launches - before[k]
+        take()
+        tables = {name: np.asarray(rows) for name, rows in st["per_layer"].items()}
+        if not all(np.isfinite(t).all() and (t[:, 0] > 0).all() and (t[:, 0] <= 1 + 1e-6).all()
+                   for t in tables.values()):
+            raise AssertionError(f"attention statistics out of range: {st['per_layer']}")
+        name = os.path.basename(ckpt)
+        log(f"  attention_stats (16 scenes at {S}): layer-mean entropy/lnP random "
+            f"{tables['random_init'][:, 0].mean():.3f}, trained {tables[name][:, 0].mean():.3f};"
+            f" top-1% mass random {tables['random_init'][:, 1].mean():.3f}, trained "
+            f"{tables[name][:, 1].mean():.3f} (layer 2: {tables['random_init'][2, 1]:.3f} -> "
+            f"{tables[name][2, 1]:.3f})")
+        out["attention_stats"] = {"seconds": time.perf_counter() - ts, **st}
+
+        # 6. the written npz against the in-memory model: through the engine at
+        # 518 (default policy) and through delta_sweep's f32 loading at 224
+        ts = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=CERT_DIR) as tmp:
+            cfg_path = os.path.join(tmp, "engine.json")
+            with open(cfg_path, "w") as f:
+                json.dump(PD.engine_config(serve), f)
+            engine = CognitiveAimInference(cfg_path, ckpt, device="cuda", policy="default",
+                                           attn_impl="pallas_packed", noise_mode="zeros",
+                                           save_images=False)
+        x518 = torch.from_numpy(normalize_np(e518)).cuda()
+        exif = CC.exif_batch(16, "cuda")
+        g16 = torch.arange(16, device="cuda") % len(G.INSTRUCTIONS)
+        engine_err = 0.0
+        for gv in (None, g16):
+            want_d = CC.depths(model, x518, gv)
+            got_d = engine._forward(x518, exif, gv).depth[:, 0]
+            engine_err = max(engine_err, max_err(got_d, want_d))
+        del engine
+        mem = DS.f32_model(S, device="cuda")
+        mem.load_state_dict(model.state_dict())  # the trained float32 masters
+        mem_d = DS.model_depths(mem.prepare_params(), batches, DS.instruction_names())
+        sweep_err = max(float(np.max(np.abs(mem_d[g] - routes["pallas_packed"]["f32"][g])))
+                        for g in mem_d)
+        del mem
+        take()
+        log(f"  round trip of {os.path.basename(ckpt)}: CognitiveAimInference at {serve} against the "
+            f"in-memory model, max abs {engine_err:.2e}; delta_sweep's f32 model from the npz "
+            f"against the in-memory weights, max abs {sweep_err:.2e} (tol {TOL_TRAIN_SERVE:.0e})")
+        if engine_err > TOL_TRAIN_SERVE or sweep_err > TOL_TRAIN_SERVE:
+            raise AssertionError("the written checkpoint does not reproduce the trained model")
+        out["round_trip"] = {"engine_max_abs": engine_err, "delta_sweep_max_abs": sweep_err,
+                             "seconds": time.perf_counter() - ts}
+        del model, summ
+    finally:
+        undo()
+        shutil.rmtree(CERT_DIR, ignore_errors=True)
+    foreign = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu", "scripts")
+               or m in ("procedural_scenes", "policy_delta", "train_synth_ckpt",
+                        "pretrain_procedural", "attention_stats", "delta_sweep",
+                        "certify_filter")]
+    if foreign:
+        raise AssertionError(f"phase (h) imported JAX, the JAX package or scripts/: {foreign}")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {k: v for k, v in total.items() if v}
+    out["launches_f32"] = {k: v for k, v in f32.items() if v}
+    log(f"phase (h) took {out['seconds']:.1f} s; launches {out['launches']} (of which under a "
+        f"float32 policy {out['launches_f32']})")
+    return out, total, f32
+
+
 KERNELS = {
     # id: (wrapper name, source, TPU kernel body it replaces)
     # K1, K7 and K8 launch one bf16 program, flash_wgmma.cu (their f32
@@ -3701,6 +4001,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     training, launches_training = phase_training(smi)
     log(f"training {json.dumps(training)}")
+    certification, launches_cert, launches_cert_f32 = phase_certification(smi)
+    log(f"certification {json.dumps(certification, default=float)}")
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
     if foreign:
@@ -3717,6 +4019,7 @@ def main() -> int:
          "launches_adapter_slices": {n: c[kid] for n, c in launches_adapters.items()},
          "launches_fused_slices": {n: c[kid] for n, c in launches_fused.items()},
          "launches_training": launches_training[kid],
+         "launches_certification": launches_cert[kid],
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body) in KERNELS.items()]
     kernels += [
@@ -3724,6 +4027,7 @@ def main() -> int:
          "source": f"cognitive_aim_tpu_torch/csrc/{src}",
          "replaces": f"cognitive_aim_tpu/kernels/{body}",
          "launches": launches_strict[wrapper], "launches_from": "strict f32 224x224",
+         "launches_certification": launches_cert_f32[wrapper],
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body, wrapper) in F32_KERNELS.items()]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -39,8 +39,10 @@ Noise and dropout: a step takes a ``torch.Generator`` on the model's device
 (dropout masks, VAE noise); with none, dropout is off and every noise draw
 is 0. ``guided_training`` draws one instruction per sample on the device.
 ``alt_model`` (a model of the same parameter names, for instance the token
-filter toggled off) runs every other step on the main model's parameters
-(``torch.func.functional_call``).
+filter toggled off) runs every other step on the main model's parameters:
+the trainer makes its parameters the main model's own Parameter objects, so
+that the backward's per-block recompute reads the trained weights too (a
+``functional_call`` swaps them back before the backward runs).
 
 Checkpoints are the JAX trainer's npz layout: ``params/<flat name>``
 (``convert.flat_params``), ``meta/epoch``, ``meta/best_val_loss`` and
@@ -268,9 +270,27 @@ class Trainer:
             return "train" if any(p in ("lora_A", "lora_B") for p in parts) else "freeze"
         return "train"
 
+    def _share_parameters(self):
+        """Make every parameter of ``alt_model`` the main model's Parameter
+        of the same name, so both variants read and train one set."""
+        mine = dict(self.model.named_parameters())
+        theirs = [n for n, _ in self.alt_model.named_parameters()]
+        if set(theirs) != set(mine):
+            raise ValueError(f"alt_model's parameters differ from the model's: "
+                             f"{sorted(set(theirs) ^ set(mine))[:6]}")
+        for name in theirs:
+            owner, _, leaf = name.rpartition(".")
+            mod = self.alt_model.get_submodule(owner) if owner else self.alt_model
+            if mod._parameters[leaf].shape != mine[name].shape:
+                raise ValueError(f"alt_model {name}: shape {tuple(mod._parameters[leaf].shape)}"
+                                 f" != {tuple(mine[name].shape)}")
+            mod._parameters[leaf] = mine[name]
+
     def _reset_optimizer(self):
         """Fresh optimizer state (groups, moments, counts, accumulator)."""
         c = self.cfg
+        if self.alt_model is not None:
+            self._share_parameters()
         named = list(self.model.named_parameters())
         self.labels = {n: self._label(n) for n, _ in named}
         for n, p in named:
@@ -352,17 +372,21 @@ class Trainer:
         return curiosity_on, kl_w
 
     def train_step(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
-                   fetch_logs: bool = True) -> Dict:
+                   fetch_logs: bool = True, alt: Optional[bool] = None) -> Dict:
         """One micro-step: gradients of the loss, and an optimizer update
         every ``accumulation_steps``-th call. ``fetch_logs=False`` keeps the
-        loss scalars on the device (no host sync)."""
+        loss scalars on the device (no host sync). ``alt`` picks the model of
+        this step: None runs ``alt_model`` on every odd step, True runs it,
+        False the main model (a loop with its own schedule, such as one
+        filtered step in N, passes it)."""
         batch = self.device_batch(batch)
         model = self.model
-        if self.alt_model is not None and self._global_step % 2 == 1:
-            params = dict(self.model.named_parameters())
-
-            def model(*a, **kw):
-                return torch.func.functional_call(self.alt_model, params, a, kw)
+        if alt is None:
+            alt = self.alt_model is not None and self._global_step % 2 == 1
+        if alt and self.alt_model is None:
+            raise ValueError("train_step(alt=True) needs an alt_model")
+        if alt:
+            model = self.alt_model
         total, logs = self.loss(model, batch, generator, *self.step_inputs())
         got = torch.autograd.grad(total, [p for _, p in self._trainable], allow_unused=True)
         self._apply([torch.zeros_like(p) if g is None else g

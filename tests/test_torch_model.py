@@ -608,8 +608,9 @@ def test_config_copy_matches_the_original():
 # ------------------------------------------------------------- imports ----
 def test_port_imports_no_jax():
     """The card's machine has no jax: after importing every module of the
-    port (the engine, the server, the host IO and the utilities among them),
-    neither jax nor any module of the JAX package is loaded; and PIL,
+    port (the engine, the server, the host IO, the utilities and the
+    certification toolchain among them), neither jax nor any module of the
+    JAX package or of its scripts is loaded; and PIL,
     matplotlib and yaml, which the functions that need them import, are not
     loaded by an import either."""
     code = (
@@ -618,13 +619,19 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 20, names\n"
         "need = ['api', 'serve', 'io.exif', 'io.checkpoint_torch', 'io.native_loader',\n"
-        "        'io.preprocess', 'utils.visualize', 'utils.logging']\n"
+        "        'io.preprocess', 'utils.visualize', 'utils.logging', 'certify.common',\n"
+        "        'certify.procedural', 'certify.policy_delta', 'certify.synth_train',\n"
+        "        'certify.pretrain', 'certify.attention_stats', 'certify.delta_sweep',\n"
+        "        'certify.certify_filter']\n"
         "missing = [n for n in need if pkg.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "scripts = {'procedural_scenes', 'policy_delta', 'train_synth_ckpt',\n"
+        "           'pretrain_procedural', 'attention_stats', 'delta_sweep', 'certify_filter'}\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'cognitive_aim_tpu' or m.startswith('cognitive_aim_tpu.')]\n"
+        "       or m == 'cognitive_aim_tpu' or m.startswith('cognitive_aim_tpu.')\n"
+        "       or m.split('.')[0] in scripts]\n"
         "assert not bad, bad\n"
         "lazy = [m for m in sys.modules if m.split('.')[0] in ('PIL', 'matplotlib', 'yaml')]\n"
         "assert not lazy, lazy\n"
