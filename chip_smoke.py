@@ -201,13 +201,29 @@ kernels compile for sm_90a) and the CUDA toolkit:
       the phase (``launches_certification``; for the f32 programs, those of
       forwards under a float32 policy); no module of JAX, of the JAX package
       or of scripts/ imported. A ``certification`` JSON line holds its
-      numbers.
+      numbers;
+  (i) parallel (core/mesh.py, parallel/) at world 1, the card's one rank,
+      NCCL started from a file rendezvous: the engine's data-parallel path
+      (predict_paths_batched(mesh=make_mesh())) at ViT-B 518 int8, exact and
+      2:0.35, on 32 seeded JPEGs with mixed instructions, bit for bit
+      mesh=None's list, with each forward's launches (K1, K2, K3, K4, K4a,
+      K4b 12; K5, K6 2); ViT-L 518 under the default policy, B 8, seeded
+      weights, sequential (K1 24, K6 2) and under the GPipe schedule
+      (make_pipeline_mesh(1), 4 microbatches: K1 24 x 4, K6 2), depth and
+      confidence within 2e-2 relative; configs/experiment_B.yaml's trainer
+      for 3 steps at batch 32 in float32 on make_mesh() with
+      tensor_parallel against the trainer without a mesh, from the same
+      weights and generator: losses and parameters within 1e-6 relative, and
+      both steps' CUDA-event times. The mesh=None runs come before the
+      process group starts. A ``parallel`` JSON line holds the numbers and
+      each kernel row its launches there (``launches_parallel``).
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero. Without a CUDA device it exits 2.
 ``--kernels-only`` checks and times the kernels alone, drives no slice and
-prints no result.
+prints no result; ``--parallel-only`` builds the kernels and runs phase (i)
+alone, and prints no result either.
 """
 
 from __future__ import annotations
@@ -520,7 +536,7 @@ def phase_flash_body():
 
     g = torch.Generator(device="cuda").manual_seed(11)
     B, Dh = 2, 64
-    for H in (12, 16):
+    for H in (6, 8, 12, 16):  # 6, 8: a rank's heads of ViT-B, ViT-L at tensor parallelism 2
         worst = 0.0
         for N in FLASH_LENGTHS:
             q, k, v = (_rand((B, N, H * Dh), g, torch.bfloat16) for _ in range(3))
@@ -3894,6 +3910,342 @@ def phase_certification(smi):
     return out, total, f32
 
 
+# ----------------------------------------------------------- parallel (i) ----
+# the parallel layer (core/mesh.py, parallel/, the trainer's and the engine's
+# meshes) on the card, at world 1: one card, and NCCL takes one rank a device
+PARALLEL_DIR = os.path.join(ROOT, "build", "smoke_parallel")  # listed in .gitignore
+PARALLEL_IMAGES = 32
+PARALLEL_BATCH = 8  # the engine's chunk
+PIPE_MICRO = 4
+TOL_PIPELINE = 2e-2  # relative depth and confidence, the bf16 paths' bound
+TOL_MESH_STEP = 1e-6  # relative loss and parameters, float32, mesh against none
+MESH_STEPS, MESH_BATCH = 3, 32
+
+
+def _launch_counts(wrappers):
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def _zero_launches(wrappers):
+    import torch
+
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def _vit_l_pipeline(wrappers, mesh=None):
+    """ViT-L 518 under the default policy, B 8, seeded weights: the
+    sequential forward (``mesh`` None) or the pipelined one over ``mesh``.
+    Returns (outputs, launches, ms)."""
+    import torch
+
+    from cognitive_aim_tpu_torch.core.precision import DEFAULT_POLICY
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig
+
+    S, B = 518, 8
+    model = CognitiveAimModel(ModelArchConfig(backbone_size="large", num_iterations=2,
+                                              image_size=S), DEFAULT_POLICY, "pallas_packed")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    model.init(g).prepare_params()
+    x = torch.randn(B, S, S, 3, generator=g, device="cuda")
+    exif = {"camera_idx": torch.zeros(B, dtype=torch.long, device="cuda"),
+            "focal_length": torch.full((B,), 50.0, device="cuda"),
+            "aperture": torch.full((B,), 2.8, device="cuda"),
+            "iso": torch.full((B,), 100.0, device="cuda")}
+    gidx = torch.arange(B, device="cuda") % 9
+    kw = {} if mesh is None else dict(pipeline_mesh=mesh, pipeline_n_micro=PIPE_MICRO)
+    with torch.no_grad():
+        fwd = lambda: model(x, exif, guidance=gidx, **kw)  # noqa: E731
+        fwd()  # first call: lazy kernel builds are done by phase (b)
+        _zero_launches(wrappers)
+        out = fwd()
+        launches = _launch_counts(wrappers)
+        ms = cuda_ms(fwd, iters=5, warmup=1)
+    del model
+    return {"depth": out.depth, "confidence": out.confidence}, launches, ms
+
+
+def _mesh_training(raw, arch, mesh, tp, steps=MESH_STEPS):
+    """``steps`` steps of experiment_B.yaml's trainer at batch MESH_BATCH in
+    float32 (K1 f32, K6 f32) from seeded weights and one generator: the loss
+    of each step, the whole parameters after, and the steps' CUDA-event
+    times."""
+    import torch
+
+    from cognitive_aim_tpu_torch.core.precision import STRICT_F32
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.parallel.sharding import unsharded
+    from cognitive_aim_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    model = CognitiveAimModel(arch, STRICT_F32, "pallas_packed").init(g)
+    with torch.no_grad():  # lora_B 0 (its init) would leave lora_A's gradient 0
+        for blk in model.backbone.layers:
+            blk.lora_B.normal_(0.0, 0.02, generator=g)
+    cfg = TrainConfig.from_raw(raw, steps_per_epoch=4)
+    cfg.batch_size, cfg.accumulation_steps, cfg.tensor_parallel = MESH_BATCH, 1, tp
+    tr = Trainer(model, cfg, output_dir=os.path.join(PARALLEL_DIR, "train"), mesh=mesh)
+    batch = _train_batch(MESH_BATCH, arch.image_size, torch.Generator(device="cuda")
+                         .manual_seed(43))
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    losses, times = [], []
+    for i in range(steps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        logs = tr.train_step(batch, gen, fetch_logs=False)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+        losses.append(float(logs["loss"]))
+    with unsharded(model):
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del tr, model
+    return losses, params, times
+
+
+def _tp2_rank(rank, rendezvous, result):
+    """One of the two ranks of a gloo world that share the card: one step of
+    experiment_B.yaml's trainer at tensor parallelism 2 (each rank 6 of the
+    12 heads, half of fc1's columns); rank 0 saves the loss, the whole
+    parameters and its launches to ``result``."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+    import yaml
+
+    from cognitive_aim_tpu_torch.core.mesh import initialize_distributed, make_mesh
+    from cognitive_aim_tpu_torch.models.config import resolve_model_config
+    from cognitive_aim_tpu_torch.nn import dinov2
+
+    initialize_distributed(device="cuda", backend="gloo", init_method=f"file://{rendezvous}",
+                           rank=rank, world_size=2)
+    heads, attend = set(), dinov2.attend
+
+    def spy(attn_impl, q, k, v, k_bias, scale, num_heads):  # the heads K1 runs on
+        heads.add(num_heads)
+        return attend(attn_impl, q, k, v, k_bias, scale, num_heads)
+
+    dinov2.attend = spy
+    try:
+        with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
+            raw = yaml.safe_load(f)
+        arch = resolve_model_config(raw, lookup="nested")
+        wrappers = _wrappers()
+        _zero_launches(wrappers)
+        losses, params, times = _mesh_training(
+            raw, arch, make_mesh(model_parallel=2, device="cuda"), True, steps=1)
+        launches = _launch_counts(wrappers)
+        if rank == 0:
+            torch.save({"losses": losses, "times": times, "launches": launches,
+                        "heads": sorted(heads),
+                        "params": {n: p.cpu() for n, p in params.items()}}, result)
+    finally:
+        dinov2.attend = attend
+        dist.destroy_process_group()
+
+
+def phase_parallel(smi, packages):
+    """(i) the parallel layer on the card at world 1, NCCL: the engine's
+    data-parallel path against mesh=None, the GPipe forward of ViT-L 518
+    against the sequential one, and experiment_B's trainer on a mesh with
+    tensor_parallel against the trainer without one. Every mesh=None run
+    comes before the process group starts: with one, mesh=None builds a
+    mesh whose collectives run."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import yaml
+
+    from cognitive_aim_tpu_torch.api import CognitiveAimInference, load_config
+    from cognitive_aim_tpu_torch.core.mesh import initialize_distributed, make_mesh
+    from cognitive_aim_tpu_torch.models.config import resolve_model_config
+    from cognitive_aim_tpu_torch.models.guidance import INSTRUCTIONS
+    from cognitive_aim_tpu_torch.parallel.pipeline import make_pipeline_mesh
+
+    t0 = time.perf_counter()
+    wrappers = _wrappers()
+    log(f"(i) parallel, world 1 on {smi}: the engine's data-parallel path ({SERVE_CONFIG}, "
+        f"int8, {PARALLEL_IMAGES} images), the GPipe forward of ViT-L 518 (B 8, "
+        f"{PIPE_MICRO} microbatches), {TRAIN_CONFIG}'s trainer on a mesh "
+        f"({MESH_STEPS} steps, batch {MESH_BATCH}, float32)")
+    if packages["yaml"] is None or packages["PIL"] is None:
+        raise RuntimeError("phase (i) needs PyYAML for the configs and PIL for the images")
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    os.makedirs(PARALLEL_DIR)
+    out = {"card": smi}
+    launches = {}
+    try:
+        # ---- mesh=None: the engine, the sequential ViT-L forward, the trainer
+        cfgs = _serving_configs(load_config(os.path.join(ROOT, SERVE_CONFIG)))
+        _, paths = _image_files(np.random.RandomState(17), PARALLEL_IMAGES)
+        instructions = [INSTRUCTIONS[i % len(INSTRUCTIONS)] for i in range(PARALLEL_IMAGES)]
+        kw = dict(policy="int8", attn_impl="pallas_packed", noise_mode="zeros",
+                  save_images=False)
+        engines, want, none_s = {}, {}, {}
+        for tag in ("exact", "fast"):
+            engines[tag] = CognitiveAimInference(cfgs[tag], None, seed=0, **kw)
+            engines[tag].predict_paths_batched(paths[:PARALLEL_BATCH], batch_size=PARALLEL_BATCH,
+                                               instructions=instructions[:PARALLEL_BATCH])
+            t = time.perf_counter()
+            want[tag] = engines[tag].predict_paths_batched(
+                paths, instructions=instructions, batch_size=PARALLEL_BATCH)
+            none_s[tag] = time.perf_counter() - t
+        seq, seq_launches, seq_ms = _vit_l_pipeline(wrappers)
+        log(f"  ViT-L 518 sequential forward (the first ViT-L forward on the card): "
+            f"{seq_ms:.2f} ms a forward of 8, launches K1 {seq_launches['K1']} "
+            f"(want 24), K6 {seq_launches['K6']} (want 2) ({smi})")
+        if {k: v for k, v in seq_launches.items() if v} != {"K1": 24, "K6": 2}:
+            raise AssertionError(f"ViT-L forward launches {seq_launches}")
+        torch.cuda.empty_cache()
+        with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
+            raw = yaml.safe_load(f)
+        arch = resolve_model_config(raw, lookup="nested")
+        none_loss, none_params, none_times = _mesh_training(raw, arch, None, False)
+        tp1_loss, tp1_params, _ = _mesh_training(raw, arch, None, False, steps=1)
+        torch.cuda.empty_cache()
+
+        # ---- the process group: NCCL, world 1
+        initialize_distributed(device="cuda", init_method=f"file://{PARALLEL_DIR}/rendezvous",
+                               rank=0, world_size=1)
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"the process group runs {dist.get_backend()}, not NCCL")
+            mesh = make_mesh()
+            log(f"  process group: {dist.get_backend()}, world {dist.get_world_size()}; "
+                f"make_mesh() {mesh.shape}")
+
+            # 1. the engine's data-parallel path
+            per_forward = dict(_CHAINED, K1=12)
+            dp = {}
+            for tag, engine in engines.items():
+                # warm: NCCL builds its communicator at the first collective
+                engine.predict_paths_batched(paths[:PARALLEL_BATCH], batch_size=PARALLEL_BATCH,
+                                             instructions=instructions[:PARALLEL_BATCH],
+                                             mesh=mesh)
+                _zero_launches(wrappers)
+                t = time.perf_counter()
+                got = engine.predict_paths_batched(paths, instructions=instructions,
+                                                   batch_size=PARALLEL_BATCH, mesh=mesh)
+                mesh_s = time.perf_counter() - t
+                counts = _launch_counts(wrappers)
+                forwards = -(-PARALLEL_IMAGES // PARALLEL_BATCH)
+                expect = {k: per_forward.get(k, 0) * forwards for k in wrappers}
+                same = got == want[tag]
+                log(f"  data-parallel engine ({tag}): {len(got)} results "
+                    f"{'bit-equal to' if same else 'DIFFER from'} mesh=None's; "
+                    f"{mesh_s * 1e3:.1f} ms (mesh=None {none_s[tag] * 1e3:.1f} ms) for "
+                    f"{PARALLEL_IMAGES} images with decode ({smi}); launches "
+                    + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+                    + f" in {forwards} forwards")
+                if not same:
+                    raise AssertionError(f"{tag}: the mesh path's results differ from "
+                                         f"mesh=None's")
+                if counts != expect:
+                    raise AssertionError(f"{tag}: launches {counts} != {expect}")
+                dp[tag] = {"bit_equal": same, "ms": mesh_s * 1e3,
+                           "mesh_none_ms": none_s[tag] * 1e3, "forwards": forwards}
+                launches[f"dp_{tag}"] = counts
+            out["dp_engine"] = dp
+            del engines
+            torch.cuda.empty_cache()
+
+            # 2. the GPipe forward of ViT-L 518
+            pmesh = make_pipeline_mesh(1)
+            got, pp_launches, pp_ms = _vit_l_pipeline(wrappers, pmesh)
+            rd = _rel(got["depth"], seq["depth"])
+            rc = _rel(got["confidence"], seq["confidence"])
+            want_k1 = 24 * PIPE_MICRO // pmesh.shape["pipe"]
+            log(f"  ViT-L 518 pipelined over {pmesh.shape}, {PIPE_MICRO} microbatches: "
+                f"depth rel {rd:.2e}, confidence rel {rc:.2e} (tol {TOL_PIPELINE:.0e}) of the "
+                f"sequential forward; {pp_ms:.2f} ms (sequential {seq_ms:.2f}) ({smi}); "
+                f"launches K1 {pp_launches['K1']} (want {want_k1}), K6 {pp_launches['K6']} "
+                f"(want 2)")
+            if rd > TOL_PIPELINE or rc > TOL_PIPELINE:
+                raise AssertionError("the pipelined ViT-L forward disagrees with the "
+                                     "sequential one")
+            if {k: v for k, v in pp_launches.items() if v} != {"K1": want_k1, "K6": 2}:
+                raise AssertionError(f"pipelined launches {pp_launches}")
+            out["pipeline"] = {"mesh": pmesh.shape, "n_micro": PIPE_MICRO,
+                               "depth_rel": rd, "confidence_rel": rc, "ms": pp_ms,
+                               "sequential_ms": seq_ms}
+            launches["pipeline"], launches["vit_l_sequential"] = pp_launches, seq_launches
+            del seq, got
+            torch.cuda.empty_cache()
+
+            # 3. experiment_B's trainer on the mesh, tensor_parallel
+            _zero_launches(wrappers)
+            mesh_loss, mesh_params, mesh_times = _mesh_training(raw, arch, make_mesh(), True)
+            launches["mesh_training"] = _launch_counts(wrappers)
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(mesh_loss, none_loss))
+            p_rel = max(float((mesh_params[n] - p).abs().max() / p.abs().max().clamp(min=1e-30))
+                        for n, p in none_params.items())
+            equal = sum(bool(torch.equal(mesh_params[n], p)) for n, p in none_params.items())
+            ms_mesh, ms_none = float(np.median(mesh_times[1:])), float(np.median(none_times[1:]))
+            log(f"  {TRAIN_CONFIG} on make_mesh() with tensor_parallel, {MESH_STEPS} steps at "
+                f"batch {MESH_BATCH}, float32: losses {mesh_loss} against {none_loss} without "
+                f"a mesh, rel {loss_rel:.2e}; parameters rel {p_rel:.2e} (tol "
+                f"{TOL_MESH_STEP:.0e}), {equal} of {len(none_params)} tensors bit-equal; "
+                f"step {ms_mesh:.2f} ms on the mesh, {ms_none:.2f} ms without "
+                f"(collective path {ms_mesh - ms_none:+.2f} ms) ({smi})")
+            if loss_rel > TOL_MESH_STEP or p_rel > TOL_MESH_STEP:
+                raise AssertionError("the trainer on a world-1 mesh disagrees with the "
+                                     "trainer without one")
+            out["mesh_training"] = {
+                "steps": MESH_STEPS, "batch": MESH_BATCH, "losses": mesh_loss,
+                "losses_mesh_none": none_loss, "loss_rel": loss_rel, "params_rel": p_rel,
+                "tensors_bit_equal": equal, "tensors": len(none_params),
+                "step_ms": ms_mesh, "step_ms_mesh_none": ms_none,
+                "step_ms_all": mesh_times, "step_ms_all_mesh_none": none_times}
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # 4. tensor parallelism 2 on the one card: two processes, gloo (NCCL takes
+        # one rank a device), against the step at world 1 above
+        import torch.multiprocessing as mp
+
+        result = os.path.join(PARALLEL_DIR, "tp2.pt")
+        t = time.perf_counter()
+        mp.spawn(_tp2_rank, args=(os.path.join(PARALLEL_DIR, "rendezvous_tp2"), result),
+                 nprocs=2, join=True)
+        tp2_s = time.perf_counter() - t
+        tp2 = torch.load(result)
+        loss_rel = abs(tp2["losses"][0] - tp1_loss[0]) / abs(tp1_loss[0])
+        excess = max(float(((tp2["params"][n] - p.cpu()).abs() - 2e-3 * p.cpu().abs()).max())
+                     for n, p in tp1_params.items())
+        log(f"  tensor parallelism 2 on the one card (2 processes, gloo): one step, loss "
+            f"{tp2['losses'][0]:.6f} against {tp1_loss[0]:.6f} at world 1, rel {loss_rel:.2e} "
+            f"(tol 1e-4); parameters within atol {max(excess, 0.0):.2e} beyond rtol 2e-3 "
+            f"(tol 1e-4); a rank's K1 ran on {tp2['heads']} of 12 heads; a rank's launches: K1 "
+            f"{tp2['launches']['K1']}, K6 {tp2['launches']['K6']}; the step "
+            f"{tp2['times'][0]:.1f} ms on rank 0, {tp2_s:.1f} s with the processes' start "
+            f"({smi})")
+        if loss_rel > 1e-4 or excess > 1e-4 or tp2["heads"] != [6]:
+            raise AssertionError("the TP 2 step on the card disagrees with world 1's")
+        out["tp2_on_one_card"] = {"backend": "gloo", "k1_heads": tp2["heads"],
+                                  "loss": tp2["losses"][0],
+                                  "loss_world1": tp1_loss[0], "loss_rel": loss_rel,
+                                  "param_excess_over_rtol": excess,
+                                  "step_ms": tp2["times"][0], "seconds": tp2_s}
+        launches["tp2_rank0"] = tp2["launches"]
+    finally:
+        shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
+    if foreign:
+        raise AssertionError(f"phase (i) imported JAX or the JAX package: {foreign}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase (i) took {out['seconds']:.1f} s")
+    return out, launches
+
+
 KERNELS = {
     # id: (wrapper name, source, TPU kernel body it replaces)
     # K1, K7 and K8 launch one bf16 program, flash_wgmma.cu (their f32
@@ -3968,6 +4320,12 @@ def main() -> int:
         f"{k} {v or 'missing'}" for k, v in packages.items() if k != "native loader error")
         + (f" ({packages['native loader error']})" if packages["native loader error"] else ""))
     phase_build()
+    if "--parallel-only" in sys.argv[1:]:
+        parallel, _ = phase_parallel(smi, packages)
+        log(f"parallel {json.dumps(parallel, default=float)}")
+        log(f"parallel only: phases (c)-(h) were not driven, "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     log("(c) kernels vs plain versions")
     errs = phase_kernels()
     phase_flash_body()
@@ -4003,6 +4361,9 @@ def main() -> int:
     log(f"training {json.dumps(training)}")
     certification, launches_cert, launches_cert_f32 = phase_certification(smi)
     log(f"certification {json.dumps(certification, default=float)}")
+    torch.cuda.empty_cache()
+    parallel, launches_parallel = phase_parallel(smi, packages)
+    log(f"parallel {json.dumps(parallel, default=float)}")
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
     if foreign:
@@ -4020,6 +4381,7 @@ def main() -> int:
          "launches_fused_slices": {n: c[kid] for n, c in launches_fused.items()},
          "launches_training": launches_training[kid],
          "launches_certification": launches_cert[kid],
+         "launches_parallel": {n: c[kid] for n, c in launches_parallel.items()},
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body) in KERNELS.items()]
     kernels += [

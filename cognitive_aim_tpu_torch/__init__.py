@@ -4,12 +4,14 @@ The JAX package beside this one is the reference; every module here keeps
 the name and place of its counterpart there so a reader finds each pair:
 
   core/      precision policy, noise modes (torch.Generator draws), the
-             default device
+             default device, the device mesh
   nn/        layers, initializers, resize matrices, the DINOv2 ViT
   kernels/   hand-written Hopper kernels (CUDA C++ in csrc/), each with a
              plain PyTorch version beside it and a launch counter
   models/    config, guidance masks, curiosity VAE, cognitive streams, full
              model
+  parallel/  differentiable collectives, the data- and tensor-parallel
+             sharding rules, the GPipe pipeline (torch.distributed)
   io/        uint8 -> normalized NHWC preprocessing
   convert.py the JAX flat-parameter interchange -> this package's modules
 

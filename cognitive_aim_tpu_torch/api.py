@@ -44,6 +44,7 @@ to the same model bit for bit.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import threading
@@ -508,13 +509,19 @@ class CognitiveAimInference:
         and defaults as ``predict``); ``use_exif=False`` uses the
         50mm/f2.8/ISO100 defaults. ``instructions`` gives one instruction
         per path, all in one guided forward a chunk; it excludes the scalar
-        ``instruction``. ``mesh`` must be None: the port has no data-parallel
-        path yet."""
+        ``instruction``.
+
+        ``mesh`` (core/mesh.py): the data-parallel path, in SPMD form. Every
+        rank calls with the same paths; each chunk is padded with its last
+        image to ``pad_batch_to_devices(batch_size, mesh)`` rows, each rank
+        decodes and runs its rows of it (the noise draws are the whole
+        chunk's, ``comm.batch_shard``), and the (depth, confidence, decoded)
+        rows are all-gathered over the batch axes, so every rank returns the
+        list that ``mesh=None`` returns (under sampled noise, where
+        ``batch_size`` divides over the batch axes: both then draw one
+        chunk's noise)."""
         from cognitive_aim_tpu_torch.io import native_loader as NL
 
-        if mesh is not None:
-            raise NotImplementedError("predict_paths_batched: mesh sharding is not "
-                                      "ported; pass mesh=None")
         if instructions is not None:
             if instruction is not None:
                 raise ValueError("pass either instruction or instructions, not both")
@@ -526,18 +533,32 @@ class CognitiveAimInference:
         gi = None if instruction is None else G.instruction_index(instruction)
         self.last_decoder = NL.decoder()
         pin = self.device.type == "cuda"
+        if mesh is not None:
+            from cognitive_aim_tpu_torch.core.mesh import (
+                batch_axes,
+                batch_rows,
+                pad_batch_to_devices,
+            )
+            from cognitive_aim_tpu_torch.parallel import comm
+
+            padded = pad_batch_to_devices(batch_size, mesh)
+            lo, hi = batch_rows(mesh, padded)
 
         def _dispatch(chunk, start):
-            """Host decode + asynchronous device dispatch of one chunk; the
-            outputs are fetched later, so the device computes this chunk
-            while the caller decodes the next."""
+            """Host decode + asynchronous device dispatch of one chunk (this
+            rank's rows of it on a mesh); the outputs are fetched later, so
+            the device computes this chunk while the caller decodes the
+            next."""
             S = self.image_size
-            if use_exif:
-                imgs, ok, payloads = NL.decode_resize_batch_u8_exif(chunk, S, S)
-            else:
-                imgs, ok = NL.decode_resize_batch_u8(chunk, S, S)
             n = len(chunk)
-            pad = batch_size - n if n < batch_size else 0
+            take = list(range(n)) if mesh is None else [min(i, n - 1) for i in range(lo, hi)]
+            rows = [chunk[i] for i in take]
+            if use_exif:
+                imgs, ok, payloads = NL.decode_resize_batch_u8_exif(rows, S, S)
+            else:
+                imgs, ok = NL.decode_resize_batch_u8(rows, S, S)
+            m = len(rows)
+            pad = batch_size - n if mesh is None and n < batch_size else 0
             if use_exif:
                 per_image = [
                     exif_io.exif_arrays_for_model(
@@ -547,10 +568,10 @@ class CognitiveAimInference:
                 exif = {k: np.concatenate([e[k] for e in per_image]) for k in per_image[0]}
             else:
                 exif = {
-                    "camera_idx": np.zeros(n, np.int32),
-                    "focal_length": np.full(n, 50.0, np.float32),
-                    "aperture": np.full(n, 2.8, np.float32),
-                    "iso": np.full(n, 100.0, np.float32),
+                    "camera_idx": np.zeros(m, np.int32),
+                    "focal_length": np.full(m, 50.0, np.float32),
+                    "aperture": np.full(m, 2.8, np.float32),
+                    "iso": np.full(m, 100.0, np.float32),
                 }
             if pad:
                 imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, 0)])
@@ -561,21 +582,34 @@ class CognitiveAimInference:
                 host = host.pin_memory()
             xb = normalize_u8(host.to(self.device, non_blocking=True))
             eb = self._to_device(exif)
-            if gi_all is not None:
-                gvec = gi_all[start: start + n]
-                if pad:
-                    gvec = np.concatenate([gvec, np.repeat(gvec[-1:], pad)])
-                out = self._forward(xb, eb, self._guidance(gvec))
-            elif gi is not None:
-                out = self._forward(xb, eb, self._guidance(np.full(n + pad, gi)))
+            shard = contextlib.nullcontext()
+            if mesh is not None and mesh.distributed:
+                shard = comm.batch_shard(mesh, lo, hi, padded, batch_axes(mesh))
+            with shard:
+                if gi_all is not None:
+                    gvec = gi_all[start + np.asarray(take, np.int64)]
+                    if pad:
+                        gvec = np.concatenate([gvec, np.repeat(gvec[-1:], pad)])
+                    out = self._forward(xb, eb, self._guidance(gvec))
+                elif gi is not None:
+                    out = self._forward(xb, eb, self._guidance(np.full(m + pad, gi)))
+                else:
+                    out = self._forward(xb, eb)
+            if mesh is not None:  # every rank gets every row: depth, confidence, decoded
+                got = torch.stack([out.depth[:, 0], out.confidence[:, 0],
+                                   torch.as_tensor(ok, dtype=out.depth.dtype, device=self.device)
+                                   ], dim=1)
+                got = comm.gather_batch(got, mesh, batch_axes(mesh))
+                out = (got[:, 0], got[:, 1])
+                ok = got[:, 2].cpu().numpy() > 0
             else:
-                out = self._forward(xb, eb)
+                out = (out.depth[:, 0], out.confidence[:, 0])
             return out, ok, n
 
         def _drain(pend):
             out, ok, n = pend
-            d = out.depth[:, 0].cpu().numpy()
-            c = out.confidence[:, 0].cpu().numpy()
+            d = out[0].cpu().numpy()
+            c = out[1].cpu().numpy()
             return [
                 (float(d[i]), float(c[i])) if ok[i] else (float("nan"), float("nan"))
                 for i in range(n)

@@ -17,6 +17,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from cognitive_aim_tpu_torch.parallel import comm
+
 
 class NoiseMode(str, enum.Enum):
     SAMPLE = "sample"  # draw from N(0, I) with the given generator
@@ -30,9 +32,14 @@ def normal_like(
     device: torch.device,
     mode: NoiseMode,
 ) -> torch.Tensor:
+    """N(0, I) of ``shape`` from ``generator``; zeros under ``ZEROS`` or
+    without a generator. Inside ``parallel.comm.batch_shard`` the draw is
+    the global batch's, cut to this rank's rows."""
     if mode == NoiseMode.ZEROS or generator is None:
         return torch.zeros(shape, dtype=dtype, device=device)
-    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    full, rows = comm.global_shape(shape)
+    draw = torch.randn(full, generator=generator, dtype=dtype, device=device)
+    return draw if rows is None else draw[rows]
 
 
 def fold_in(generator: Optional[torch.Generator], i: int) -> Optional[torch.Generator]:

@@ -40,7 +40,10 @@ beta schedule, per-block recompute. A trainer keeps the float32 parameters
 and never calls ``prepare_params``: the float backbone and focal stream cast
 their weights to the compute dtype at each call, as the JAX package does.
 
-Not ported yet: pipelining.
+``forward(pipeline_mesh=...)`` runs the backbone under the GPipe schedule
+over the mesh's ``pipe`` axis (``DinoV2.apply_pipelined``); the streams,
+fusion and heads run on every stage's copy of the output. It excludes the
+token filter and the int8 backbone, with the JAX package's errors.
 """
 
 from __future__ import annotations
@@ -195,7 +198,7 @@ class CognitiveAimModel(nn.Module):
                 exif_data: Optional[Dict[str, torch.Tensor]] = None, *,
                 guidance=None, generator: Optional[torch.Generator] = None,
                 train: bool = False, noise_mode: NoiseMode = NoiseMode.SAMPLE,
-                curiosity_kl_weight=None,
+                curiosity_kl_weight=None, pipeline_mesh=None, pipeline_n_micro: int = 4,
                 precomputed_hs: Optional[torch.Tensor] = None) -> ModelOutput:
         """The JAX ``apply``. images: [B, H, W, 3] normalized NHWC. exif_data:
         dict of [B] tensors ('camera_idx' int; 'focal_length', 'aperture',
@@ -214,11 +217,25 @@ class CognitiveAimModel(nn.Module):
         share ``generator``. ``curiosity_kl_weight`` (a float or a 0-d
         tensor) replaces the KL weight 0.1. ``precomputed_hs`` [B, 1+N, D]
         replaces the backbone's output (``images`` still gives the guidance
-        grid)."""
+        grid). ``pipeline_mesh``: run the backbone pipelined over that mesh's
+        ``pipe`` axis in ``pipeline_n_micro`` microbatches of these rows."""
         a = self.arch
         if precomputed_hs is not None:
             hs = torch.as_tensor(precomputed_hs, dtype=torch.float32,
                                  device=self.decision_head.fc0.weight.device)
+        elif pipeline_mesh is not None:
+            kw = self.backbone_kwargs(images, guidance, train)
+            if "filter_layer" in kw:
+                raise ValueError(
+                    "token filtering and pipeline parallelism are mutually "
+                    "exclusive (the filter re-shapes the stream mid-stack)")
+            if self.policy.quantize_backbone:
+                raise ValueError(
+                    "pipeline parallelism requires unquantized backbone "
+                    "params (use policy='default'/'f32')")
+            remat = train and os.environ.get("CAIM_TRAIN_REMAT", "1") == "1"
+            hs = self.backbone.apply_pipelined(images, pipeline_mesh, n_micro=pipeline_n_micro,
+                                               remat=remat, **kw).float()
         else:
             remat = train and os.environ.get("CAIM_TRAIN_REMAT", "1") == "1"
             hs = self.backbone(images, remat=remat,

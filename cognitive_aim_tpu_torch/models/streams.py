@@ -225,7 +225,7 @@ def focal_apply(mod: FocalStream, patch_tokens: torch.Tensor,
     pa = torch.where(L.torch_var(pa) < 1e-6, adiag + cb, pa)
     pa = torch.where(L.torch_var(pa) < 1e-6, armax + cb, pa)
     norms = torch.linalg.vector_norm(x.float(), dim=-1)
-    nstd = norms.std()  # unbiased, over all elements
+    nstd = L.torch_std(norms)  # unbiased, over all elements of the batch
     noise = normal_like(generator, norms.shape, norms.dtype, dev, noise_mode) * 0.1 * nstd
     pa = torch.where(L.torch_var(pa) < 1e-6, norms + noise, pa)
     pa = pa / (pa.sum(-1, keepdim=True) + 1e-8)

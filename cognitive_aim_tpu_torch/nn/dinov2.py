@@ -70,7 +70,19 @@ packed attention kernels carry the JAX package's recompute backward
 (kernels/_grad.py), and the int8 kernels raise under grad. ``remat``
 recomputes each block in the backward (``torch.utils.checkpoint``).
 
-Pipelining is not ported yet.
+Tensor parallelism (parallel/sharding.py): a block whose ``tp`` holds the
+mesh's ``model`` group holds its rank's heads of q, k and v (rows of each
+third of the fused qkv), its rank's columns of fc1 and the matching inputs of
+attn_out and fc2. It runs Megatron's pair of collectives (parallel/comm.py)
+around each half: the layernormed input enters through ``copy_to``, K1 runs
+on the rank's heads, and attn_out's and fc2's partial products are summed by
+``reduce_from`` before their biases. Adapters stay whole on every rank: the
+attn_out and fc2 adapters read the gathered context and hidden activations,
+the qkv and fc1 adapters' outputs are cut to the rank's columns.
+
+``DinoV2.apply_pipelined`` runs the block stack under the GPipe schedule
+(parallel/pipeline.py): embedding and final layernorm on every stage's rows,
+each stage's chunk of blocks on its rank.
 """
 
 from __future__ import annotations
@@ -94,6 +106,7 @@ from cognitive_aim_tpu_torch.kernels import int8_ops as I8
 from cognitive_aim_tpu_torch.nn import init as tinit
 from cognitive_aim_tpu_torch.nn import layers as L
 from cognitive_aim_tpu_torch.nn.torch_interp import resize_weights
+from cognitive_aim_tpu_torch.parallel import comm
 
 # routes on the packed [B, N, H*Dh] layout, and on [B, N, H, Dh]
 PACKED_IMPLS = ("pallas_packed", "pallas_packed_i8qk", "plain", "plain_i8qk")
@@ -202,6 +215,7 @@ class Block(nn.Module):
         self.fc1 = L.linear(D, cfg.mlp_dim, device)
         self.fc2 = L.linear(cfg.mlp_dim, D, device)
         self.ls2 = nn.Parameter(torch.empty(D, device=device))
+        self.tp = None  # the mesh's `model` group, set by parallel.sharding.shard_params
         if cfg.use_lora:
             for target in LORA_TARGETS:
                 if target in cfg.lora_targets:
@@ -283,12 +297,15 @@ class Block(nn.Module):
 
     def qkv_proj(self, x: torch.Tensor):
         """One [D, 3D] GEMM that writes q, k and v as three contiguous
-        [B, N, D] slices of one buffer, the layout K1 reads."""
+        [B, N, D] slices of one buffer, the layout K1 reads (a
+        tensor-parallel rank's heads: [B, N, D / tp] each)."""
         B, N, D = x.shape
-        w = self.qkv.weight.to(x.dtype).view(3, D, D).transpose(1, 2)
-        b = self.qkv.bias.to(x.dtype).view(3, 1, D)
+        w = self.qkv.weight.to(x.dtype)
+        Dq = w.shape[0] // 3
+        w = w.view(3, Dq, D).transpose(1, 2)
+        b = self.qkv.bias.to(x.dtype).view(3, 1, Dq)
         qkv = torch.baddbmm(b, x.reshape(1, B * N, D).expand(3, B * N, D), w)
-        return [t.view(B, N, D) for t in qkv.unbind(0)]
+        return [t.view(B, N, Dq) for t in qkv.unbind(0)]
 
     def _lin(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """A dense projection in x's dtype: the float matmul, or
@@ -299,12 +316,35 @@ class Block(nn.Module):
             return I8.int8_linear(x, {"q": lin.wq, "s": lin.ws}, lin.bias)
         return L.linear_apply(lin, x, x.dtype)
 
+    def _row_lin(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """attn_out or fc2: under tensor parallelism the rank's partial
+        product summed over ``model``, then the bias (in the GEMM where the
+        group holds one rank, so world 1 computes what the block without a
+        group does)."""
+        if self.tp is None:
+            return self._lin(name, x)
+        lin = getattr(self, name)
+        w, b = lin.weight.to(x.dtype), lin.bias.to(x.dtype)
+        if comm.group_size(self.tp) == 1:
+            return comm.reduce_from(F.linear(x, w, b), self.tp)
+        return comm.reduce_from(F.linear(x, w), self.tp) + b
+
+    def _lora_split(self, target: str, x: torch.Tensor, parts: int = 1):
+        """The adapter delta of a column-split target (qkv, fc1) on the
+        whole input, cut to this rank's columns of each of ``parts``."""
+        d = self._lora_delta(target, x)
+        if d is None or self.tp is None:
+            return d
+        *lead, n = d.shape
+        d = comm.split_to(d.reshape(*lead, parts, n // parts), self.tp, -1)
+        return d.reshape(*lead, -1)
+
     def mhsa(self, x: torch.Tensor, attn_impl: str, k_bias=None) -> torch.Tensor:
         cfg = self.cfg
         B, N, D = x.shape
-        H, hd = cfg.num_heads, cfg.head_dim
+        hd = cfg.head_dim
         packed = attn_impl in PACKED_IMPLS
-        dqkv = self._lora_delta("qkv", x)  # [B, N, 3D] or None
+        dqkv = self._lora_split("qkv", x, 3)  # [B, N, 3D] (3D / tp on a TP rank) or None
         if self.quantized:
             w = {"q": self.qkv.wq, "s": self.qkv.ws}
             if not packed:
@@ -320,17 +360,20 @@ class Block(nn.Module):
             else:  # K8 reads the column slices in place
                 q, k, v = qkv.split(D, dim=-1)
         else:
-            q, k, v = self.qkv_proj(x)
+            q, k, v = self.qkv_proj(x if self.tp is None else comm.copy_to(x, self.tp))
             if dqkv is not None:
                 q, k, v = ((t + d).contiguous()
-                           for t, d in zip((q, k, v), dqkv.split(D, dim=-1)))
+                           for t, d in zip((q, k, v), dqkv.split(q.shape[-1], dim=-1)))
+        H = q.shape[-1] // hd  # this rank's heads under tensor parallelism
         if packed:
             ctx = attend(attn_impl, q, k, v, k_bias, hd ** -0.5, H)
         else:
             q, k, v = (t.view(B, N, H, hd) for t in (q, k, v))
-            ctx = attend_heads(attn_impl, q, k, v, k_bias, hd ** -0.5).reshape(B, N, D)
-        out = self._lin("attn_out", ctx)
-        d_out = self._lora_delta("attn_out", ctx)  # applied to the attention context
+            ctx = attend_heads(attn_impl, q, k, v, k_bias, hd ** -0.5).reshape(B, N, H * hd)
+        out = self._row_lin("attn_out", ctx)
+        # applied to the attention context (all heads, gathered under tensor parallelism)
+        d_out = self._lora_delta(
+            "attn_out", ctx if self.tp is None else comm.gather_from(ctx, self.tp, -1))
         return out if d_out is None else out + d_out
 
     @property
@@ -391,13 +434,13 @@ class Block(nn.Module):
         h = L.layernorm_apply(self.norm1, x)
         x = x + self.ls1.to(dt) * self.mhsa(h, attn_impl, k_bias)
         h = L.layernorm_apply(self.norm2, x)
-        h1 = self._lin("fc1", h)
-        d1 = self._lora_delta("fc1", h)
+        h1 = self._lin("fc1", h if self.tp is None else comm.copy_to(h, self.tp))
+        d1 = self._lora_split("fc1", h)
         if d1 is not None:
             h1 = h1 + d1
         g = F.gelu(h1, approximate="tanh" if self.cfg.gelu_approx else "none")
-        h2 = self._lin("fc2", g)
-        d2 = self._lora_delta("fc2", g)
+        h2 = self._row_lin("fc2", g)
+        d2 = self._lora_delta("fc2", g if self.tp is None else comm.gather_from(g, self.tp, -1))
         if d2 is not None:
             h2 = h2 + d2
         return x + self.ls2.to(dt) * h2
@@ -804,6 +847,25 @@ class DinoV2(nn.Module):
                 x = blk(x, attn_impl, k_bias)
         return x
 
+    def apply_pipelined(self, images: torch.Tensor, mesh, *, n_micro: int = 4,
+                        compute_dtype=torch.float32, attn_impl: str = "plain",
+                        remat: bool = False) -> torch.Tensor:
+        """The forward with the block stack under the GPipe schedule over the
+        mesh's ``pipe`` axis (parallel/pipeline.py): embedding and final
+        layernorm on this rank's rows, each stage's chunk of blocks on its
+        rank, the output replicated to every stage. The sequential forward's
+        result up to the rounding of microbatch-sized matmuls.
+        Differentiable; ``remat`` recomputes each stage chunk in the
+        backward."""
+        from cognitive_aim_tpu_torch.parallel.pipeline import pipelined_scan
+
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+        x = self.embed(images, compute_dtype)
+        x = pipelined_scan(mesh, self.layers, x, lambda blk, c: blk(c, attn_impl), n_micro,
+                           remat=remat)
+        return L.layernorm_apply(self.final_norm, x)
+
     def forward(self, images: torch.Tensor, **kw) -> torch.Tensor:
         """images [B, H, W, 3] normalized NHWC -> last_hidden_state
         [B, 1 + N, D] after the final layernorm, in ``compute_dtype``.
@@ -867,6 +929,9 @@ class DinoV2(nn.Module):
             x = self._run(x, 0, n_layers, attn_impl, remat=remat)
             return L.layernorm_apply(self.final_norm, x), idx_global
 
+        if any(blk.tp is not None for blk in self.layers):
+            raise ValueError("the token filter reads whole q / k projections: it does not "
+                             "run on tensor-parallel blocks")
         ls = [l for l, _ in schedule]
         kf = [k for _, k in schedule]
         if ls != sorted(set(ls)):

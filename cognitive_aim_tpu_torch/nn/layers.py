@@ -25,6 +25,7 @@ from torch.nn.utils import skip_init
 from cognitive_aim_tpu_torch.core.device import resolve_device
 from cognitive_aim_tpu_torch.kernels.int8_ops import quantize_weight
 from cognitive_aim_tpu_torch.nn import init as tinit
+from cognitive_aim_tpu_torch.parallel import comm
 
 
 # ---------------------------------------------------------------- linear ----
@@ -120,7 +121,10 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.T
     scaled by ``1 / (1 - rate)``; the mask is drawn from ``generator`` (which
     lives on x's device), never from the global generator."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape, rows = comm.global_shape(x.shape)  # a data-parallel rank's rows
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if rows is not None:
+        mask = mask[rows]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -148,6 +152,20 @@ def embedding_apply(emb: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:
 def torch_var(x: torch.Tensor) -> torch.Tensor:
     """Unbiased sample variance over ALL elements, across the batch — what
     the reference's ``tensor.var()`` computes in the focal uniformity
-    fallbacks. Returns a 0-d tensor (no host sync)."""
-    n = x.numel()
-    return ((x - x.mean()) ** 2).sum() / max(n - 1, 1)
+    fallbacks. Returns a 0-d tensor (no host sync). Inside
+    ``parallel.comm.batch_shard`` the batch is the global one."""
+    shard = comm.current_shard()
+    if shard is None:
+        n = x.numel()
+        return ((x - x.mean()) ** 2).sum() / max(n - 1, 1)
+    n = x.numel() * shard.total // (shard.hi - shard.lo)
+    mean = comm.batch_sum(x.sum()) / n
+    return comm.batch_sum(((x - mean) ** 2).sum()) / max(n - 1, 1)
+
+
+def torch_std(x: torch.Tensor) -> torch.Tensor:
+    """``tensor.std()``: unbiased over ALL elements, across the batch (the
+    global one inside ``parallel.comm.batch_shard``)."""
+    if comm.current_shard() is None:
+        return x.std()
+    return torch.sqrt(torch_var(x))

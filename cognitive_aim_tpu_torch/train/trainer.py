@@ -52,13 +52,40 @@ trainer does not write and its loader skips; a ``.pth`` resumes
 the model's parameters through ``io/checkpoint_torch.py``. A checkpoint of
 either trainer loads in the other and in both engines.
 
-Not in this package: ``tensor_parallel``, ``pipeline_stages`` and the orbax
-checkpoints (sharding-aware; they belong with the parallel modules). The
-trainer raises ``NotImplementedError`` where they are asked for.
+On a mesh (``mesh=``, core/mesh.py; ``make_mesh()`` when None, the world-1
+mesh without a process group, which changes nothing) the step is one SPMD
+program, as the JAX trainer's jitted step over its mesh:
+
+  * data parallelism over ``data`` (and ``replica``): ``train_step`` takes
+    the global batch on every rank, each rank runs the forward on its rows
+    (``shard_batch``), and the predictions, curiosity scores and focal
+    entropies are gathered (``comm.gather_batch``), so every rank computes
+    the global batch's loss; the gradients are summed over the batch axes
+    once an update, after the micro-steps' mean. Random draws take the
+    global batch's values (``comm.batch_shard``), so world N trains what
+    world 1 does;
+  * ``tensor_parallel`` over ``model`` (parallel/sharding.py): the blocks
+    hold their ranks' pieces, the optimiser updates pieces, and the clip's
+    global norm sums the split parameters' squares over ``model`` and counts
+    each replicated one once;
+  * ``pipeline_stages`` > 1 with ``pipeline_n_micro`` (parallel/pipeline.py)
+    on a (data, pipe) mesh: the backbone runs the GPipe schedule. Every rank
+    keeps the whole model, so evaluation and checkpoints are unchanged; the
+    gradients of the blocks and the embedding are summed over ``pipe`` (each
+    is whole on the stage that ran it and 0 elsewhere), the heads' are the
+    same on every stage and are not.
+
+``save_checkpoint_orbax`` / ``load_checkpoint_orbax`` keep the JAX names; the
+format is ``torch.distributed.checkpoint`` (DCP), not orbax: every rank
+writes and reads only its own pieces (split parameters as DTensors, the fused
+qkv as [3, D, D] split on its middle dim), and a checkpoint saved on one
+mesh loads onto a mesh of another shape. The npz checkpoints are written by
+rank 0 from the whole parameters.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -69,9 +96,18 @@ import numpy as np
 import torch
 
 from cognitive_aim_tpu_torch.convert import flat_params, load_flat_params
+from cognitive_aim_tpu_torch.core.mesh import MODEL_AXIS, batch_axes, batch_rows, make_mesh
 from cognitive_aim_tpu_torch.core.rng import NoiseMode, fold_in
 from cognitive_aim_tpu_torch.models import guidance as G
 from cognitive_aim_tpu_torch.models.config import token_filter_spec
+from cognitive_aim_tpu_torch.parallel import comm
+from cognitive_aim_tpu_torch.parallel import pipeline as PL
+from cognitive_aim_tpu_torch.parallel.sharding import (
+    param_shardings,
+    shard_params,
+    spec_for,
+    unsharded,
+)
 from cognitive_aim_tpu_torch.train import losses as LS
 from cognitive_aim_tpu_torch.train.metrics import calculate_depth_metrics
 from cognitive_aim_tpu_torch.train.schedules import beta_schedule
@@ -101,7 +137,7 @@ class TrainConfig:
     save_interval: int = 1
     steps_per_epoch: int = 100  # for the learning-rate schedule
     freeze_backbone: bool = True
-    tensor_parallel: bool = False  # not in this package: raises
+    tensor_parallel: bool = False
     seed: int = 0
     # "sample" draws the VAE noise at validation, "zeros" makes it 0
     eval_noise_mode: str = "sample"
@@ -112,7 +148,7 @@ class TrainConfig:
     train_only_lora: bool = False
     sandwich_heads: bool = False
     heads_lr: float = 0.0
-    pipeline_stages: int = 0  # not in this package: > 1 raises
+    pipeline_stages: int = 0
     pipeline_n_micro: int = 4
     rich_logging: bool = False
     num_save_images: int = 12
@@ -200,12 +236,17 @@ def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
 
 class _AdamWGroup:
     """optax ``chain(clip_by_global_norm(clip), adamw(lr, wd))`` over one
-    group of parameters (updated in place)."""
+    group of parameters (updated in place). ``split`` marks the parameters
+    that a tensor-parallel rank holds a piece of: their squares are summed
+    over ``tp_group`` for the global norm."""
 
     def __init__(self, params: List[torch.nn.Parameter], lr: Callable[[int], float],
-                 weight_decay: float, clip: float):
+                 weight_decay: float, clip: float, split: Optional[List[bool]] = None,
+                 tp_group=None):
         self.params = params
         self.lr, self.wd, self.clip = lr, weight_decay, clip
+        self.split = [i for i, s in enumerate(split or []) if s]
+        self.tp_group = tp_group
         self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         self.count = 0
@@ -215,7 +256,12 @@ class _AdamWGroup:
         if not self.params:
             return
         b1, b2, eps = 0.9, 0.999, 1e-8
-        gn = torch.sqrt(torch.stack([(g.float() ** 2).sum() for g in grads]).sum())
+        sq = [(g.float() ** 2).sum() for g in grads]
+        if self.split and self.tp_group is not None:
+            part = comm.all_reduce_(torch.stack([sq[i] for i in self.split]), self.tp_group)
+            for j, i in enumerate(self.split):
+                sq[i] = part[j]
+        gn = torch.sqrt(torch.stack(sq).sum())
         keep = gn < self.clip  # a device scalar: no host sync
         grads = [torch.where(keep, g, (g / gn) * self.clip) for g in grads]
         torch._foreach_mul_(self.mu, b1)
@@ -235,26 +281,51 @@ class _AdamWGroup:
 
 class Trainer:
     def __init__(self, model, cfg: TrainConfig, output_dir: str = "./outputs",
-                 writer=None, alt_model=None):
+                 writer=None, alt_model=None, mesh=None):
         """``model``: a CognitiveAimModel with float32 parameters, trained in
         place. ``alt_model``: a second variant with the same parameter names
         (the token filter toggled off, say), run on the main model's
         parameters at every other step, so the weights stay native to both
-        paths."""
-        if cfg.tensor_parallel or cfg.pipeline_stages > 1:
-            raise NotImplementedError(
-                "tensor_parallel and pipeline_stages are not ported: they are "
-                "sharding-aware and belong with the parallel modules")
+        paths. ``mesh``: the core/mesh.py mesh of the step (``make_mesh()``
+        when None; a (data, pipe) mesh of ``pipeline_stages`` under
+        pipelining)."""
+        self.device = next(model.parameters()).device
+        if cfg.pipeline_stages > 1:
+            if cfg.tensor_parallel:
+                raise ValueError(
+                    "pipeline_stages and tensor_parallel are mutually "
+                    "exclusive (the pipe mesh has no `model` axis)")
+            if mesh is None:
+                mesh = PL.make_pipeline_mesh(cfg.pipeline_stages)
+            elif PL.PIPE_AXIS not in mesh.axis_names:
+                raise ValueError(
+                    f"pipeline_stages={cfg.pipeline_stages} needs a mesh "
+                    f"with a 'pipe' axis, got {mesh.axis_names}")
+        self.mesh = mesh if mesh is not None else make_mesh(device=self.device)
         self.model = model
         self.alt_model = alt_model
         self.cfg = cfg
-        self.device = next(model.parameters()).device
         self.output_dir = output_dir
         os.makedirs(output_dir, exist_ok=True)
         self.writer = writer
         self.epoch = 0
         self.best_val_loss = float("inf")
+        if alt_model is not None:
+            self._share_parameters()
+        self._place()
         self._reset_optimizer()
+
+    @property
+    def pipelined(self) -> bool:
+        return self.cfg.pipeline_stages > 1
+
+    def _place(self):
+        """Shard the parameters on the mesh (shard_params) and hand the
+        alternate model's blocks the same ``model`` group."""
+        shard_params(self.mesh, self.model, self.cfg.tensor_parallel)
+        if self.alt_model is not None:
+            for a, b in zip(self.alt_model.backbone.layers, self.model.backbone.layers):
+                a.tp = b.tp
 
     # ------------------------------------------------------- optimizer ----
     def _label(self, name: str) -> str:
@@ -300,22 +371,52 @@ class Trainer:
         heads_lr = sched
         if c.sandwich_heads and c.heads_lr > 0.0:
             heads_lr = lambda count: c.heads_lr  # noqa: E731
+        specs = param_shardings(self.mesh, self.model, c.tensor_parallel)
+        tp_group = comm.group_of(self.mesh, MODEL_AXIS) if c.tensor_parallel else None
         self._groups = {
             label: _AdamWGroup([p for n, p in self._trainable if self.labels[n] == label],
                                sched if label == "train" else heads_lr,
-                               c.weight_decay, c.grad_clip)
+                               c.weight_decay, c.grad_clip,
+                               [specs[n].dim is not None for n, _ in self._trainable
+                                if self.labels[n] == label], tp_group)
             for label in ("train", "train_heads")}
+        # under pipelining: the blocks' and the embedding's gradients, whole on
+        # the stage that ran them, are summed over `pipe`
+        self._pipe_summed = [self.pipelined and n.startswith("backbone.")
+                             and not n.startswith("backbone.final_norm")
+                             for n, _ in self._trainable]
         self._acc: Optional[List[torch.Tensor]] = None
         self._mini_step = 0
         self._global_step = 0
 
     def reset_params(self, flat: Optional[Dict[str, np.ndarray]] = None):
-        """Load the flat interchange ``flat`` (when given) and start the
-        optimizer afresh: sweep drivers train several checkpoints in one
-        process."""
+        """Load the flat interchange ``flat`` (when given; whole parameters,
+        sharded again on the mesh) and start the optimizer afresh: sweep
+        scripts train several checkpoints in one process."""
         if flat is not None:
-            load_flat_params(self.model, flat)
+            with unsharded(self.model):
+                load_flat_params(self.model, flat)
         self._reset_optimizer()
+
+    def _reduce(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Sum the gradients over the batch axes (and, under pipelining, the
+        blocks' and embedding's over ``pipe``), one flat buffer a group."""
+        m = self.mesh
+        if not m.distributed or not grads:
+            return grads
+        sizes = [g.numel() for g in grads]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        axes = batch_axes(m)
+        for axis in axes if isinstance(axes, tuple) else (axes,):
+            comm.all_reduce_(flat, m.group(axis))
+        out = [t.view_as(g) for t, g in zip(flat.split(sizes), grads)]
+        if any(self._pipe_summed):
+            idx = [i for i, s in enumerate(self._pipe_summed) if s]
+            pipe = comm.all_reduce_(torch.cat([out[i].reshape(-1) for i in idx]),
+                                    m.group(PL.PIPE_AXIS))
+            for i, t in zip(idx, pipe.split([sizes[i] for i in idx])):
+                out[i] = t.view_as(grads[i])
+        return out
 
     def _apply(self, grads: List[torch.Tensor]):
         """MultiSteps: average k micro-gradients, update on the k-th."""
@@ -330,6 +431,7 @@ class Trainer:
             if self._mini_step != 0:
                 return
             grads, self._acc = self._acc, None
+        grads = self._reduce(grads)
         for label, group in self._groups.items():
             group.update([g for (n, _), g in zip(self._trainable, grads)
                           if self.labels[n] == label])
@@ -338,28 +440,44 @@ class Trainer:
     def loss(self, model, batch: Dict[str, Any], generator: Optional[torch.Generator],
              curiosity_on: bool, kl_w: float):
         """(total loss, logs): the JAX trainer's loss on ``model``'s training
-        forward. batch holds device tensors (``device_batch``)."""
+        forward. batch holds device tensors (``device_batch``) of the global
+        batch; on a mesh the forward runs this rank's rows and the loss the
+        gathered global batch's."""
         cfg = self.cfg
         guidance = batch.get("guidance")
+        B = batch["images"].shape[0]
         if guidance is None and cfg.guided_training:
-            B = batch["images"].shape[0]
             g = fold_in(generator, 1 << 20) if generator is not None else \
                 torch.Generator(self.device).manual_seed(
                     int(np.random.SeedSequence([cfg.seed, self._global_step])
                         .generate_state(1, np.uint64)[0]) >> 1)
             guidance = torch.randint(0, len(G.INSTRUCTIONS), (B,), generator=g,
                                      device=self.device)
-        out = model(batch["images"], batch.get("exif"), guidance=guidance,
-                    generator=generator, train=True, curiosity_kl_weight=kl_w)
-        pred = out.depth[:, 0]
+        m, axes = self.mesh, batch_axes(self.mesh)
+        lo, hi = batch_rows(m, B)
+        exif = batch.get("exif")
+        if exif is not None:
+            exif = {k: v[lo:hi] for k, v in exif.items()}
+        pipe = dict(pipeline_mesh=m, pipeline_n_micro=cfg.pipeline_n_micro) \
+            if self.pipelined else {}
+        shard = comm.batch_shard(m, lo, hi, B, axes) if m.distributed else contextlib.nullcontext()
+        with shard:
+            out = model(batch["images"][lo:hi], exif,
+                        guidance=None if guidance is None else guidance[lo:hi],
+                        generator=generator, train=True, curiosity_kl_weight=kl_w, **pipe)
+        pred = comm.gather_batch(out.depth[:, 0], m, axes)
+        curiosity = comm.gather_batch(out.curiosity, m, axes)
         target = scalar_depth_target(batch["depths"])
         depth_loss = LS.scale_invariant_loss(pred, target, cfg.loss_lambda)
-        cur_loss = LS.curiosity_loss(out.curiosity, (pred - target).abs())
+        cur_loss = LS.curiosity_loss(curiosity, (pred - target).abs())
         if not curiosity_on:
             cur_loss = torch.zeros_like(cur_loss)
         total = depth_loss + cfg.curiosity_weight * cur_loss
         if cfg.attention_entropy_weight > 0 and "attention_entropy" in out.aux:
-            total = total + cfg.attention_entropy_weight * out.aux["attention_entropy"]
+            entropy = out.aux["attention_entropy"]
+            if m.distributed:  # the mean of the ranks' batch means
+                entropy = comm.gather_batch(entropy[None], m, axes).mean()
+            total = total + cfg.attention_entropy_weight * entropy
         return total, {"loss": total, "depth_loss": depth_loss, "curiosity_loss": cur_loss}
 
     def step_inputs(self):
@@ -387,8 +505,10 @@ class Trainer:
             raise ValueError("train_step(alt=True) needs an alt_model")
         if alt:
             model = self.alt_model
-        total, logs = self.loss(model, batch, generator, *self.step_inputs())
-        got = torch.autograd.grad(total, [p for _, p in self._trainable], allow_unused=True)
+        with PL.grad_anchors() as anchors:  # the pipelined backward's sends
+            total, logs = self.loss(model, batch, generator, *self.step_inputs())
+        params = [p for _, p in self._trainable]
+        got = torch.autograd.grad(total, params + anchors, allow_unused=True)[:len(params)]
         self._apply([torch.zeros_like(p) if g is None else g
                      for (_, p), g in zip(self._trainable, got)])
         self._global_step += 1
@@ -511,17 +631,64 @@ class Trainer:
         return history
 
     # ----------------------------------------------------- checkpoints ----
+    def _dcp_state(self) -> Dict[str, Any]:
+        """Parameter name -> this rank's piece as ``torch.distributed.checkpoint``
+        reads and writes it: a DTensor on the mesh's DeviceMesh (Shard on the
+        ``model`` axis for a split parameter, Replicate elsewhere) viewing the
+        parameter's storage, or the plain tensor on the mesh without a process
+        group. The fused qkv is stored as [3, D, ...] (split on its second dim
+        under tensor parallelism), with or without it, so the layout is the
+        same on every mesh."""
+        specs = param_shardings(self.mesh, self.model, self.cfg.tensor_parallel)
+        dm = self.mesh.device_mesh
+        state = {}
+        for name, p in self.model.named_parameters():
+            spec, t = specs[name], p.data
+            rule = spec_for(name, tensor_parallel=True)  # the layout, split or not
+            dim = rule.dim
+            if rule.parts > 1:
+                t = t.view(*t.shape[:dim], rule.parts, -1, *t.shape[dim + 1:])
+                dim += 1
+            if dm is not None:
+                from torch.distributed.tensor import DTensor, Replicate, Shard
+
+                place = [Shard(dim) if spec.dim is not None and a in spec.axes else Replicate()
+                         for a in self.mesh.axis_names]
+                t = DTensor.from_local(t, dm, place, run_check=False)
+            state[name] = t
+        return state
+
     def save_checkpoint_orbax(self, path: str):
-        raise NotImplementedError("orbax checkpoints are not ported (sharding-aware)")
+        """Sharding-aware checkpoint of the parameters, in the
+        ``torch.distributed.checkpoint`` (DCP) format, not orbax: every rank
+        writes only its own pieces, a replicated tensor once."""
+        import torch.distributed.checkpoint as dcp
+
+        dcp.save(self._dcp_state(), checkpoint_id=os.path.abspath(path),
+                 no_dist=not self.mesh.distributed)
 
     def load_checkpoint_orbax(self, path: str):
-        raise NotImplementedError("orbax checkpoints are not ported (sharding-aware)")
+        """Sharding-aware restore from ``save_checkpoint_orbax``'s DCP
+        directory, written on a mesh of any shape: every rank reads only the
+        pieces it holds, into the parameters in place. The optimizer
+        restarts."""
+        import torch.distributed.checkpoint as dcp
+
+        dcp.load(self._dcp_state(), checkpoint_id=os.path.abspath(path),
+                 no_dist=not self.mesh.distributed)
+        self._reset_optimizer()
 
     def save_checkpoint(self, is_best: bool, filename: str = "checkpoint.npz"):
-        """latest + best copy + per-epoch file, the JAX trainer's npz."""
+        """latest + best copy + per-epoch file, the JAX trainer's npz, of
+        the whole parameters (gathered on a tensor-parallel mesh), written by
+        rank 0."""
         path = os.path.join(self.output_dir, filename)
+        with unsharded(self.model):
+            flat = flat_params(self.model)
+        if self.mesh.rank != 0:
+            return
         state = {
-            **{f"params/{k}": v for k, v in flat_params(self.model).items()},
+            **{f"params/{k}": v for k, v in flat.items()},
             "meta/epoch": np.asarray(self.epoch),
             "meta/best_val_loss": np.asarray(self.best_val_loss),
         }
@@ -565,8 +732,10 @@ class Trainer:
             take("exif_prior/", lambda: ct.convert_exif_prior(sd))
             take("curiosity_module/", lambda: ct.convert_curiosity(sd))
             take("", lambda: ct.convert_heads(sd))
-            merged, loaded, skipped = ct.filter_and_merge(flat_params(self.model), incoming)
-            load_flat_params(self.model, merged)
+            with unsharded(self.model):  # sharded again on the mesh after the merge
+                merged, loaded, skipped = ct.filter_and_merge(flat_params(self.model),
+                                                              incoming)
+                load_flat_params(self.model, merged)
             self._reset_optimizer()
             print(f"Resumed model params from torch ckpt {path}: "
                   f"{loaded} tensors ({skipped} skipped); optimizer reset")
@@ -575,7 +744,8 @@ class Trainer:
             flat = {k[len("params/"):]: data[k] for k in data.files if k.startswith("params/")}
             epoch = int(data["meta/epoch"])
             best = float(data["meta/best_val_loss"])
-        load_flat_params(self.model, flat)
+        with unsharded(self.model):
+            load_flat_params(self.model, flat)
         self._reset_optimizer()
         self.epoch = epoch + 1
         self.best_val_loss = best

@@ -186,8 +186,12 @@ def test_predict_paths_batched_mixed_instructions(engine, image):
         eng.predict_paths_batched([image], "center", instructions=["left"])
     with pytest.raises(ValueError):
         eng.predict_paths_batched([image, image], instructions=["left"])
-    with pytest.raises(NotImplementedError):
-        eng.predict_paths_batched([image], "center", mesh=object())
+    # the data-parallel path on the world-1 mesh (no process group): the
+    # same list (tests/test_torch_parallel.py drives world 2)
+    from cognitive_aim_tpu_torch.core.mesh import make_mesh
+
+    assert eng.predict_paths_batched([image, image], batch_size=2, mesh=make_mesh(),
+                                     instructions=["center", "top-left"]) == mixed
 
 
 def test_all_instructions_batch_multi_image(engine, image):

@@ -1702,3 +1702,121 @@ def test_gradless_kernels_raise_under_grad_on_the_card(cuda_device):
         for call in calls:
             with pytest.raises(RuntimeError, match="no backward"):
                 call(x.clone().requires_grad_(True))
+
+
+# ------------------------------------------------------- the parallel layer ----
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [257, 1370])
+@pytest.mark.parametrize("H", [6, 8])
+def test_k1_at_tensor_parallel_head_counts(N, H, cuda_device):
+    """A rank of a tensor-parallel pair runs K1 on half the heads: 6 of
+    ViT-B's 12, 8 of ViT-L's 16 (atol 1e-2, as at every length above)."""
+    B, D = 2, 64
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _arrays((B, N, H * D), seed=N + H))
+    want = TFA.flash_attention_packed_plain(q.float(), k.float(), v.float(), D ** -0.5, H)
+    got = TFA.flash_attention_packed(q, k, v, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 1e-2
+
+
+class _nccl_world1:
+    """NCCL at world 1 from a file rendezvous, stopped on the way out. The
+    mesh=None references run before it: inside, mesh=None builds a mesh whose
+    collectives run."""
+
+    def __init__(self, tmp_path):
+        self.path = tmp_path / "rendezvous"
+
+    def __enter__(self):
+        from cognitive_aim_tpu_torch.core.mesh import initialize_distributed, make_mesh
+
+        initialize_distributed(device="cuda", init_method=f"file://{self.path}", rank=0,
+                               world_size=1)
+        return make_mesh()
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+SMALL_VIT = dict(hidden_size=128, num_layers=2, num_heads=2, patch_size=14,
+                 pretrain_image_size=56)
+
+
+@pytest.mark.cuda
+def test_data_parallel_engine_at_world_1_is_mesh_none(cuda_device, tmp_path):
+    """predict_paths_batched(mesh=make_mesh()) on NCCL at world 1, int8,
+    sampled noise, mixed instructions, a padded tail chunk: bit for bit the
+    list mesh=None returns."""
+    import json
+
+    from PIL import Image
+
+    from cognitive_aim_tpu_torch.api import CognitiveAimInference
+    from cognitive_aim_tpu_torch.nn.dinov2 import DinoV2Config
+
+    rng = np.random.RandomState(3)
+    paths = []
+    for i in range(7):
+        p = str(tmp_path / f"im{i}.png")
+        Image.fromarray(rng.randint(0, 256, (60 + 4 * i, 70, 3), dtype=np.uint8)).save(p)
+        paths.append(p)
+    cfg = str(tmp_path / "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"cognitive_modules": ["ambient_stream", "iterative_focal_stream",
+                                         "exif_prior_database"],
+                   "dataset": {"image_size": 56}, "focal_config": {"num_iterations": 2}}, f)
+    engine = CognitiveAimInference(cfg, None, policy="int8", noise_mode="sample", seed=5,
+                                   save_images=False, vit_cfg=DinoV2Config(**SMALL_VIT))
+    instructions = ["center", "left", "top", "right", "bottom", "top-left", "center"]
+    want = engine.predict_paths_batched(paths, instructions=instructions, batch_size=4)
+    engine._draws = 0  # the same noise streams again
+    with _nccl_world1(tmp_path) as mesh:
+        got = engine.predict_paths_batched(paths, instructions=instructions, batch_size=4,
+                                           mesh=mesh)
+    assert got == want and all(np.isfinite(want).ravel())
+
+
+@pytest.mark.cuda
+def test_trainer_on_a_world_1_mesh_is_the_meshless_trainer(cuda_device, tmp_path):
+    """Two float32 steps with tensor_parallel on make_mesh() (NCCL, world 1:
+    every collective of the data- and tensor-parallel path runs) against
+    the trainer without a mesh, same weights and generator: losses and
+    parameters within 1e-6 relative."""
+    from cognitive_aim_tpu_torch.core.precision import STRICT_F32
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig
+    from cognitive_aim_tpu_torch.nn.dinov2 import DinoV2Config
+    from cognitive_aim_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    arch = ModelArchConfig(num_iterations=2, image_size=56, use_lora=True,
+                           freeze_backbone=False)
+    vit = DinoV2Config(**SMALL_VIT, use_lora=True, lora_rank=4)
+    B = 8
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"images": torch.randn(B, 56, 56, 3, generator=g, device="cuda"),
+             "depths": torch.rand(B, generator=g, device="cuda") + 0.5}
+
+    def run(mesh):
+        model = CognitiveAimModel(arch, STRICT_F32, "pallas_packed", vit_cfg=vit)
+        model.init(torch.Generator(device="cuda").manual_seed(1))
+        with torch.no_grad():
+            for blk in model.backbone.layers:
+                blk.lora_B.normal_(0.0, 0.02, generator=torch.Generator(device="cuda")
+                                   .manual_seed(2))
+        tr = Trainer(model, TrainConfig(learning_rate=1e-3, epochs=1, steps_per_epoch=2,
+                                        freeze_backbone=False, tensor_parallel=True),
+                     output_dir=str(tmp_path / "t"), mesh=mesh)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        with torch.enable_grad():
+            losses = [tr.train_step(batch, gen)["loss"] for _ in range(2)]
+        return losses, {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    want_loss, want = run(None)
+    with _nccl_world1(tmp_path) as mesh:
+        got_loss, got = run(mesh)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-6)
+    for n, p in want.items():
+        assert float((got[n] - p).abs().max()) <= 1e-6 * float(p.abs().max()), n

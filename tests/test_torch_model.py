@@ -608,8 +608,9 @@ def test_config_copy_matches_the_original():
 # ------------------------------------------------------------- imports ----
 def test_port_imports_no_jax():
     """The card's machine has no jax: after importing every module of the
-    port (the engine, the server, the host IO, the utilities and the
-    certification toolchain among them), neither jax nor any module of the
+    port (the engine, the server, the host IO, the utilities, the
+    certification toolchain and the parallel layer among them, which start
+    no process group), neither jax nor any module of the
     JAX package or of its scripts is loaded; and PIL,
     matplotlib and yaml, which the functions that need them import, are not
     loaded by an import either."""
@@ -622,7 +623,8 @@ def test_port_imports_no_jax():
         "        'io.preprocess', 'utils.visualize', 'utils.logging', 'certify.common',\n"
         "        'certify.procedural', 'certify.policy_delta', 'certify.synth_train',\n"
         "        'certify.pretrain', 'certify.attention_stats', 'certify.delta_sweep',\n"
-        "        'certify.certify_filter']\n"
+        "        'certify.certify_filter', 'core.mesh', 'parallel.comm', 'parallel.sharding',\n"
+        "        'parallel.pipeline', 'utils.profiling']\n"
         "missing = [n for n in need if pkg.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "for n in names:\n"
@@ -635,6 +637,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "lazy = [m for m in sys.modules if m.split('.')[0] in ('PIL', 'matplotlib', 'yaml')]\n"
         "assert not lazy, lazy\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
     )
     root = __file__.rsplit("/tests/", 1)[0]
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)

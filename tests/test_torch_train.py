@@ -413,13 +413,35 @@ def test_rich_logging_surface(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """The parallel options are ported (tests/test_torch_parallel.py); what
+    still raises is what raises in the JAX trainer: pipelining with tensor
+    parallelism, and a pipeline whose stages do not divide the world. At
+    world 1 tensor_parallel trains what the trainer without it trains, and
+    the DCP pair (the orbax names) round-trips the parameters."""
     _, _, tm = tiny_pair()
-    for kw in (dict(tensor_parallel=True), dict(pipeline_stages=2)):
-        with pytest.raises(NotImplementedError):
-            Trainer(tm, TrainConfig(**kw), output_dir=str(tmp_path))
-    tr = Trainer(tm, TrainConfig(), output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        tr.save_checkpoint_orbax(str(tmp_path / "o"))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        Trainer(tm, TrainConfig(pipeline_stages=2, tensor_parallel=True),
+                output_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="does not divide"):
+        Trainer(tm, TrainConfig(pipeline_stages=2), output_dir=str(tmp_path))
+    batch = synth_batch()
+    steps = []
+    for tp in (False, True):
+        _, _, tm = tiny_pair()
+        tr = Trainer(tm, TrainConfig(**BASE, tensor_parallel=tp), output_dir=str(tmp_path))
+        steps.append((tr.train_step(batch, None)["loss"], flat_params(tm)))
+    assert steps[0][0] == steps[1][0]
+    for k, v in steps[0][1].items():
+        np.testing.assert_array_equal(steps[1][1][k], v)
+    tr.save_checkpoint_orbax(str(tmp_path / "o"))
+    _, _, fresh = tiny_pair()
+    with torch.no_grad():  # other weights than the saved ones
+        for p in fresh.parameters():
+            p.add_(1.0)
+    back = Trainer(fresh, TrainConfig(**BASE), output_dir=str(tmp_path))
+    back.load_checkpoint_orbax(str(tmp_path / "o"))
+    for k, v in flat_params(fresh).items():
+        np.testing.assert_array_equal(v, steps[1][1][k], err_msg=k)
 
 
 # ------------------------------------------------------------- cross-load ---

@@ -4,16 +4,28 @@
         [--output_dir DIR] [--resume CKPT] [--epochs N] [--batch_size N] \\
         [--policy default|f32] [--attn pallas_packed|plain|...] [--device cpu]
 
-The same flags as train.py (``--tensor-parallel`` raises: not ported), the
-same ``training_summary.md`` and the same auto-resume from
+The same flags as train.py, the same ``training_summary.md`` and the same
+auto-resume from
 ``output_dir/checkpoint.npz`` when the config's ``checkpoint.auto_resume`` is
 set. The config resolves with ``lookup="nested"`` by default, as train.py.
 The model trains on the CUDA device unless ``--device cpu`` is given; its
 attention and focal kernels (K1, K7, K6) run in the forward and their
 backward recomputes the plain versions. ``main`` returns the trainer.
+
+Data parallel under torchrun (``WORLD_SIZE`` > 1), one process a card:
+
+    torchrun --nproc_per_node 4 train_torch.py --config ... --data_dir ...
+
+Each process starts ``torch.distributed`` (NCCL; gloo with ``--device cpu``)
+and trains on ``make_mesh()``, the (data = world, model = 1) mesh: every rank
+loads the same global batches, runs its rows and sums the gradients.
+``--tensor-parallel`` puts the blocks' tensor-parallel rules on that mesh's
+``model`` axis, as train.py does on its own default mesh. Rank 0 writes the
+logs, the summary and the checkpoints.
 """
 
 import argparse
+import logging
 import os
 import random
 
@@ -64,13 +76,24 @@ def main(argv=None):
     )
 
     device = resolve_device(args.device)
-    setup_experiment_directory(args.output_dir, config)
-    logger = setup_logging(args.output_dir)
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from cognitive_aim_tpu_torch.core.mesh import initialize_distributed, make_mesh
+
+        initialize_distributed(device=device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh(device=device)
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        setup_experiment_directory(args.output_dir, config)
+    logger = setup_logging(args.output_dir) if lead else logging.getLogger("train_torch")
     writer = None
     try:
         from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(os.path.join(args.output_dir, "tensorboard"))
+        if lead:
+            writer = SummaryWriter(os.path.join(args.output_dir, "tensorboard"))
     except Exception:
         logger.warning("tensorboard unavailable; scalar logging disabled")
 
@@ -100,7 +123,9 @@ def main(argv=None):
                 f"(backbone {'frozen' if arch.freeze_backbone else 'trainable'}, "
                 f"lora={'on' if arch.use_lora else 'off'})")
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    with open(os.path.join(args.output_dir, "training_summary.md"), "w") as f:
+    n_ranks = 1 if mesh is None else mesh.size
+    with open(os.path.join(args.output_dir, "training_summary.md") if lead else os.devnull,
+              "w") as f:
         f.write(
             f"# Training Summary\n\n"
             f"- Backbone: dinov2-{arch.backbone_size} "
@@ -115,10 +140,11 @@ def main(argv=None):
             f"wd {tcfg.weight_decay}, scheduler {tcfg.scheduler}\n"
             f"- Image size: {arch.image_size}\n"
             f"- Device: {dev_name}, policy {args.policy}, attention {args.attn}\n"
+            f"- Mesh: {n_ranks} rank(s), tp={'on' if tcfg.tensor_parallel else 'off'}\n"
             f"- Seed: {seed}\n"
         )
 
-    trainer = Trainer(model, tcfg, output_dir=args.output_dir, writer=writer)
+    trainer = Trainer(model, tcfg, output_dir=args.output_dir, writer=writer, mesh=mesh)
     if args.resume:
         trainer.load_checkpoint(args.resume)
         logger.info(f"Resumed from epoch {trainer.epoch - 1}")
