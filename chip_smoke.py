@@ -216,14 +216,27 @@ kernels compile for sm_90a) and the CUDA toolkit:
       weights and generator: losses and parameters within 1e-6 relative, and
       both steps' CUDA-event times. The mesh=None runs come before the
       process group starts. A ``parallel`` JSON line holds the numbers and
-      each kernel row its launches there (``launches_parallel``).
+      each kernel row its launches there (``launches_parallel``);
+  (j) export (scripts/torch_export_model.py): phase (f)'s engine at ViT-B
+      518 int8, pallas_packed, seeded weights, its serving forward
+      (depth, confidence) exported with torch.export at B 16 exact and at
+      B 8 with the config's 2:0.35, saved, loaded and rebuilt from its npz
+      as a consumer does: one caim node per launch in the program (K2, K1,
+      K3, K4a, K4b 12; K5, K6 2), the trace itself launching nothing, one
+      forward of the loaded program within rtol 2e-5 / atol 1e-6 of the live
+      forward (bit-equal expected) with its launches (K2, K1, K3, K4a, K4b
+      12; K5, K6 2; K4's own count, outside any op, 0), which show that the
+      artifact runs the kernels; export, save and load seconds, artifact MB,
+      the loaded and live forwards by CUDA events (median of 3, range) and
+      their host enqueue. An ``export`` JSON line holds them and each kernel
+      row its launches there (``launches_export``).
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero. Without a CUDA device it exits 2.
 ``--kernels-only`` checks and times the kernels alone, drives no slice and
 prints no result; ``--parallel-only`` builds the kernels and runs phase (i)
-alone, and prints no result either.
+alone, ``--export-only`` phase (j) alone, and neither prints a result.
 """
 
 from __future__ import annotations
@@ -942,9 +955,9 @@ def _int8_calls(t, eps=1e-6):
     h8, sh = IB.int8_fc1_gelu_ln_plain(x, ga, be, *t["fc1"], eps)
     return {
         "K2": (lambda: IB.int8_qkv_proj_ln(x, ga, be, *t["qkv"], eps),
-               lambda: IB.int8_qkv_proj_ln_plain(x, ga, be, *t["qkv"], eps)),
+               lambda: IB.int8_qkv_proj_ln_plain(x, ga, be, *t["qkv"], eps).unbind(0)),
         "K5": (lambda: IB.int8_qkv_proj(x, *t["qkv"]),
-               lambda: IB.int8_qkv_proj_plain(x, *t["qkv"])),
+               lambda: IB.int8_qkv_proj_plain(x, *t["qkv"]).unbind(0)),
         "K3": (lambda: IB.int8_out_residual(ctx, *t["out"], ls, x),
                lambda: IB.int8_out_residual_plain(ctx, *t["out"], ls, x)),
         "K4a": (lambda: IB.int8_fc1_gelu_ln(x, ga, be, *t["fc1"], eps),
@@ -1048,9 +1061,10 @@ def phase_int8_gemm():
         h8, sh = IB.int8_fc1_gelu_ln_plain(x, ga, be, *t["fc1"])
         return {  # name: (kernel, plain, bit-equal?, [M, N, parts] of its GEMM)
             "K2": (lambda: IB.int8_qkv_proj_ln(x, ga, be, *t["qkv"]),
-                   lambda: IB.int8_qkv_proj_ln_plain(x, ga, be, *t["qkv"]), False, (3 * D, 3)),
+                   lambda: IB.int8_qkv_proj_ln_plain(x, ga, be, *t["qkv"]).unbind(0), False,
+                   (3 * D, 3)),
             "K5": (lambda: IB.int8_qkv_proj(x, *t["qkv"]),
-                   lambda: IB.int8_qkv_proj_plain(x, *t["qkv"]), True, (3 * D, 3)),
+                   lambda: IB.int8_qkv_proj_plain(x, *t["qkv"]).unbind(0), True, (3 * D, 3)),
             "K3": (lambda: IB.int8_out_residual(ctx, *t["out"], ls, x),
                    lambda: IB.int8_out_residual_plain(ctx, *t["out"], ls, x), True, (D, 1)),
             "K4b": (lambda: IB.int8_out_residual_prequant(h8, sh, *t["fc2"], ls, x),
@@ -4246,6 +4260,159 @@ def phase_parallel(smi, packages):
     return out, launches
 
 
+EXPORT_DIR = os.path.join(ROOT, "build", "smoke_export")  # listed in .gitignore
+# (point, config of phase (f), batch): scripts/export_model.py's B 16 exact, and
+# the config's fast point 2:0.35 at B 8
+EXPORT_POINTS = (("exact", "exact", 16), ("2:0.35", "fast", 8))
+# caim op -> its nodes in the program and its launches in one forward of the
+# loaded program, at both points (2:0.35 drops tokens after block 2: K1 still 12)
+EXPORT_OPS = {"int8_qkv_proj_ln": "K2", "flash_attention_packed": "K1",
+              "int8_out_residual": "K3", "int8_fc1_gelu_ln": "K4a",
+              "int8_out_residual_prequant": "K4b", "int8_qkv_proj": "K5",
+              "focal_attention_fused": "K6"}
+EXPORT_LAUNCHES = {"K2": 12, "K1": 12, "K3": 12, "K4a": 12, "K4b": 12, "K5": 2, "K6": 2}
+
+
+def _events_ms(fn, reps: int = 3):
+    """CUDA-event times of ``reps`` calls of fn, one at a time."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def phase_export(smi, packages):
+    """(j) scripts/torch_export_model.py on the card: the engine's serving
+    forward at ViT-B 518 int8 exported with torch.export (B 16 exact, B 8 at
+    2:0.35), saved, loaded and rebuilt from its npz as a consumer does; the
+    program's caim nodes, one forward of the loaded program against the live
+    one (rtol 2e-5 / atol 1e-6) and the launches it made, which show that the
+    artifact runs the kernels; export, load and forward times."""
+    import torch
+
+    from cognitive_aim_tpu_torch.api import CognitiveAimInference, load_config
+    from cognitive_aim_tpu_torch.kernels._library import op_counts
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_export_model as EXP
+
+    t0 = time.perf_counter()
+    wrappers = _wrappers()
+    log(f"(j) export on {smi}: {SERVE_CONFIG} (use_lora off), policy int8, pallas_packed, "
+        f"torch {torch.__version__}: " + ", ".join(f"{p} B {b}" for p, _, b in EXPORT_POINTS))
+    if packages["yaml"] is None:
+        raise RuntimeError("phase (j) needs PyYAML for the config")
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    out, launches = {}, {}
+    try:
+        cfgs = _serving_configs(load_config(os.path.join(ROOT, SERVE_CONFIG)))
+        for point, cfg, B in EXPORT_POINTS:
+            engine = CognitiveAimInference(cfgs[cfg], None, seed=0, policy="int8",
+                                           attn_impl="pallas_packed", noise_mode="zeros",
+                                           save_images=False)
+            S, dev = engine.image_size, engine.device
+            path = os.path.join(EXPORT_DIR, f"{cfg}.pt2")
+            _zero_launches(wrappers)
+            t = time.perf_counter()
+            program = EXP.export_engine(engine, B)  # one live forward, then the trace
+            torch.cuda.synchronize()
+            export_s = time.perf_counter() - t
+            traced = _launch_counts(wrappers)
+            t = time.perf_counter()
+            torch.export.save(program, path)
+            n_arrays = EXP.save_params(program, path + ".params.npz")
+            save_s = time.perf_counter() - t
+            mb = os.path.getsize(path) / 1e6
+            npz_mb = os.path.getsize(path + ".params.npz") / 1e6
+            nodes = dict(op_counts(program.graph))
+            want_nodes = {op: EXPORT_LAUNCHES[kid] for op, kid in EXPORT_OPS.items()}
+            log(f"  {point} B {B}: exported in {export_s:.1f} s (with one live forward, "
+                f"whose launches K2 {traced['K2']}, K4 {traced['K4']}: the trace launched "
+                f"and counted nothing), saved in {save_s:.1f} s: {mb:.1f} MB + params.npz "
+                f"{npz_mb:.1f} MB ({n_arrays} arrays); caim nodes {nodes}")
+            if nodes != want_nodes:
+                raise AssertionError(f"(j) {point}: caim nodes {nodes} != {want_nodes}")
+            want_live = {k: EXPORT_LAUNCHES.get(k, 0) for k in wrappers}
+            want_live["K4"] = 12
+            if traced != want_live:
+                raise AssertionError(f"(j) {point}: launches around the export {traced} != "
+                                     f"one live forward's {want_live}")
+            del program
+            t = time.perf_counter()
+            loaded = EXP.load_program(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            inputs = EXP.serving_inputs(B, S, dev, EXP.roundtrip_images(B, S, dev))
+            live = EXP.Serve(engine.model, engine.noise_mode)
+            d0, c0 = live(*inputs)
+            _zero_launches(wrappers)
+            d1, c1 = loaded(*inputs)
+            counts = _launch_counts(wrappers)
+            want = {k: EXPORT_LAUNCHES.get(k, 0) for k in wrappers}
+            bit_equal = bool(torch.equal(d0, d1) and torch.equal(c0, c1))
+            rel = max(_rel(d1, d0), _rel(c1, c0))
+            ok = all(np.allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                 rtol=EXP.RTOL, atol=EXP.ATOL) for a, b in ((d1, d0), (c1, c0)))
+            finite = bool(torch.isfinite(d1).all() and torch.isfinite(c1).all()
+                          and (d1 > 0).all() and ((c1 > 0) & (c1 < 1)).all())
+            log(f"  {point}: loaded in {load_s:.1f} s, rebuilt from the npz; one forward of "
+                f"the loaded program: depth {d1.min().item():.4f}..{d1.max().item():.4f}, "
+                f"against the live forward rel {rel:.2e} (rtol {EXP.RTOL:.0e}, atol "
+                f"{EXP.ATOL:.0e}) {'ok' if ok else 'FAIL'}, bit-equal {bit_equal}; launches "
+                + ", ".join(f"{k} {counts[k]}" for k in wrappers if counts[k] or want[k]))
+            if not ok or not finite:
+                raise AssertionError(f"(j) {point}: the loaded program disagrees with the "
+                                     f"live forward or gives invalid outputs")
+            if counts != want:
+                raise AssertionError(f"(j) {point}: launches of the loaded program {counts} "
+                                     f"!= {want}")
+            launches[point] = counts
+            # times: a warm-up of each, then three of each in turns
+            loaded(*inputs), live(*inputs)
+            t_loaded, t_live = [], []
+            for _ in range(3):
+                t_live += _events_ms(lambda: live(*inputs), 1)
+                t_loaded += _events_ms(lambda: loaded(*inputs), 1)
+            host_loaded = _host_enqueue_ms(lambda: loaded(*inputs))
+            host_live = _host_enqueue_ms(lambda: live(*inputs))
+            med = {n: float(np.median(v)) for n, v in (("loaded", t_loaded), ("live", t_live))}
+            log(f"  {point} forward by CUDA events, median of 3 (range): loaded program "
+                f"{med['loaded']:.3f} ms ({min(t_loaded):.3f}-{max(t_loaded):.3f}), live "
+                f"{med['live']:.3f} ms ({min(t_live):.3f}-{max(t_live):.3f}); host enqueue "
+                f"{host_loaded:.3f} / {host_live:.3f} ms ({smi})")
+            out[point] = {"batch": B, "export_s": export_s, "save_s": save_s,
+                          "load_s": load_s, "artifact_mb": mb, "params_npz_mb": npz_mb,
+                          "params_arrays": n_arrays, "caim_nodes": nodes,
+                          "bit_equal": bit_equal, "rel_err": rel,
+                          "forward_ms_loaded": med["loaded"], "forward_ms_live": med["live"],
+                          "forward_ms_loaded_all": t_loaded, "forward_ms_live_all": t_live,
+                          "host_enqueue_ms_loaded": host_loaded,
+                          "host_enqueue_ms_live": host_live}
+            del engine, live, loaded
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")
+               or m == "export_model"]
+    if foreign:
+        raise AssertionError(f"phase (j) imported JAX, the JAX package or its script: {foreign}")
+    out["torch"] = torch.__version__
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase (j) took {out['seconds']:.1f} s")
+    return out, launches
+
+
 KERNELS = {
     # id: (wrapper name, source, TPU kernel body it replaces)
     # K1, K7 and K8 launch one bf16 program, flash_wgmma.cu (their f32
@@ -4323,7 +4490,14 @@ def main() -> int:
     if "--parallel-only" in sys.argv[1:]:
         parallel, _ = phase_parallel(smi, packages)
         log(f"parallel {json.dumps(parallel, default=float)}")
-        log(f"parallel only: phases (c)-(h) were not driven, "
+        log(f"parallel only: phases (c)-(h) and (j) were not driven, "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if "--export-only" in sys.argv[1:]:
+        with torch.no_grad():
+            export, _ = phase_export(smi, packages)
+        log(f"export {json.dumps(export, default=float)}")
+        log(f"export only: phases (c)-(i) were not driven, "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
     log("(c) kernels vs plain versions")
@@ -4364,6 +4538,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel, launches_parallel = phase_parallel(smi, packages)
     log(f"parallel {json.dumps(parallel, default=float)}")
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        export, launches_export = phase_export(smi, packages)
+    log(f"export {json.dumps(export, default=float)}")
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
     if foreign:
@@ -4382,6 +4560,7 @@ def main() -> int:
          "launches_training": launches_training[kid],
          "launches_certification": launches_cert[kid],
          "launches_parallel": {n: c[kid] for n, c in launches_parallel.items()},
+         "launches_export": {n: c[kid] for n, c in launches_export.items()},
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body) in KERNELS.items()]
     kernels += [
@@ -4390,6 +4569,8 @@ def main() -> int:
          "replaces": f"cognitive_aim_tpu/kernels/{body}",
          "launches": launches_strict[wrapper], "launches_from": "strict f32 224x224",
          "launches_certification": launches_cert_f32[wrapper],
+         # the exported program runs the int8 policy: bf16 attention, no f32 program
+         "launches_export": {n: 0 for n in launches_export},
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body, wrapper) in F32_KERNELS.items()]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -9,7 +9,10 @@ rebuilds and an unchanged one is loaded as is. The directory is listed in
 ``.gitignore``.
 
 Nothing here runs at import: ``library()`` builds on its first call, which
-comes from a kernel wrapper given a CUDA tensor.
+comes from the CUDA implementation of a ``caim`` custom op (``_library``):
+each kernel reaches PyTorch as such an op, whose implementation checks the
+CUDA tensors and calls the library's C entry through ctypes. An op's fake
+(shapes only, for ``torch.export``'s tracing) never calls ``library()``.
 """
 
 from __future__ import annotations

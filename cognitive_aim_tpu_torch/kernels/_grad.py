@@ -8,16 +8,19 @@ K7 ``flash_attention_packed_bias``, K10 ``flash_attention_packed_i8qk``, K10b
 ``flash_attention_packed_i8qk_bias`` and K6 ``focal_attention_fused``; the
 int8-QK^T kernels differentiate the FLOAT reference, straight through the
 quantisation. Here ``recompute_vjp`` is that rule: an ``autograd.Function``
-whose forward calls the wrapper's own forward (the CUDA kernel for CUDA
-tensors, the plain version for CPU tensors), saves the inputs only, and
+whose forward calls the wrapper's op (the CUDA kernel for CUDA tensors, the
+plain version for CPU tensors), saves the inputs only, and
 whose backward recomputes the float plain reference under
 ``torch.enable_grad()`` and returns ``torch.autograd.grad`` of it.
 
-The kernel wrappers launch through ctypes on raw pointers, so autograd cannot
-see them: an output would come back with no ``grad_fn`` and every gradient
-behind it would be silently wrong. No other TPU kernel has a backward in the
-JAX package (``jax.grad`` through them raises), so every other wrapper calls
-``forbid_grad`` and raises when grad is enabled and an input requires it.
+Each kernel reaches PyTorch as a ``caim`` custom op (``_library``) whose CUDA
+implementation calls the library's C entry through ctypes on raw pointers;
+the ops register no autograd formula, so autograd must never reach one with
+grad enabled. The differentiable wrappers call theirs inside
+``_Recompute.forward``, where grad is off. No other TPU kernel has a backward
+in the JAX package (``jax.grad`` through them raises), so every other
+wrapper calls ``forbid_grad`` and raises, before its op is called, when grad
+is enabled and an input requires it.
 """
 
 from __future__ import annotations

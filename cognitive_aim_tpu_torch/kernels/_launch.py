@@ -1,4 +1,9 @@
-"""Argument checks and ctypes plumbing shared by the kernel wrappers."""
+"""Argument checks and ctypes plumbing shared by the kernels' CUDA paths.
+
+A kernel reaches PyTorch as a ``caim`` custom op (``_library``); its
+implementation, given CUDA tensors, runs these checks and passes the
+tensors' ``data_ptr()`` and the current stream to the library's C entry
+(``_build``). An op's fake calls nothing here."""
 
 from __future__ import annotations
 

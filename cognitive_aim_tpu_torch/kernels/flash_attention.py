@@ -46,9 +46,11 @@ tensor or on q and k together in one launch; contiguous bfloat16 rows up to
 ``quantize_heads`` is K9's: the same arithmetic on each head's 64 values
 (``quant_heads_pair_kernel``), scales [B, H, N].
 
-Dispatch is on the tensor's device: CPU tensors take the plain version,
-CUDA tensors launch the kernel or raise. Each wrapper's ``.launches`` counts
-its kernel launches (never plain-version calls).
+Each wrapper calls the op ``caim::<its name>`` (``_library``), whose
+implementation dispatches on the tensor's device: CPU tensors take the plain
+version, CUDA tensors launch the kernel or raise. Each wrapper's
+``.launches`` counts its kernel launches (never plain-version calls); the
+op's implementation adds to it, so a loaded ``torch.export`` program counts.
 
 Autograd (``_grad.py``, the JAX package's ``custom_vjp`` rules): K1 (K9 as
 ``int8_dots``), K7, K10 and K10b are differentiable; their backward
@@ -61,7 +63,7 @@ and raise when grad is enabled and an input requires it.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import ctypes
 
@@ -76,6 +78,7 @@ from cognitive_aim_tpu_torch.kernels._launch import (
     require_device,
     stream_of,
 )
+from cognitive_aim_tpu_torch.kernels._library import kernel_op
 from cognitive_aim_tpu_torch.kernels.int8_block import _check_vec as check_channel_vector
 from cognitive_aim_tpu_torch.kernels.int8_ops import int_matmul, quantize_activations
 
@@ -296,23 +299,16 @@ def _launch_i8qk_kernel(q8, sq, k8, sk, v, bias, scale, num_heads, head_scales=F
     return out
 
 
-# ---------------------------------------------------------------- wrappers ----
-def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           scale: float, num_heads: int, q_block: int = 0,
-                           int8_dots: bool = False) -> torch.Tensor:
-    """K1. q, k, v: [B, N, H*64] packed activations -> [B, N, H*64] in q's
-    dtype (bfloat16 or float32). CPU -> plain version; CUDA -> the kernel.
-    ``int8_dots=True`` is K9, ``flash_attention_packed_int8``, which counts
-    its own launches. ``q_block`` is the JAX signature's query block of the
-    TPU grid; the CUDA kernels' tile is fixed and the value is not read.
-    Differentiable in q, k, v (``_grad.recompute_vjp``): the backward
-    recomputes the float plain version, with ``int8_dots`` too, straight
-    through the quantisation."""
-    fwd = _k9_forward if int8_dots else _k1_forward
-    return recompute_vjp(fwd, flash_attention_packed_plain, 3, q, k, v, scale, num_heads)
+# ------------------------------------------------------------------- ops ----
+# Each op's implementation: CPU -> plain version; CUDA -> the kernel or raise,
+# counted on the wrapper. Fakes: shapes and dtypes, contiguous (``_library``).
+def _like_v(q, k, v, *rest):
+    return v.new_empty(v.shape)
 
 
-def _k1_forward(q, k, v, scale, num_heads):
+@kernel_op("flash_attention_packed", _like_v)
+def _k1_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+           num_heads: int) -> torch.Tensor:
     require_device("flash_attention_packed", q)
     if q.device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, scale, num_heads)
@@ -321,18 +317,9 @@ def _k1_forward(q, k, v, scale, num_heads):
     return out
 
 
-def flash_attention_packed_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                k_bias: torch.Tensor, scale: float,
-                                num_heads: int) -> torch.Tensor:
-    """K7. K1 with ``k_bias`` [B, N] (read as f32) added to the logits of
-    every query row: proportional attention for the token filter, where a
-    fused context token gets +log(number of tokens it stands for).
-    Differentiable in q, k, v and k_bias, through the plain version."""
-    return recompute_vjp(_k7_forward, flash_attention_packed_bias_plain, 4,
-                         q, k, v, k_bias, scale, num_heads)
-
-
-def _k7_forward(q, k, v, k_bias, scale, num_heads):
+@kernel_op("flash_attention_packed_bias", _like_v)
+def _k7_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_bias: torch.Tensor,
+           scale: float, num_heads: int) -> torch.Tensor:
     require_device("flash_attention_packed_bias", q)
     if q.device.type == "cpu":
         return flash_attention_packed_bias_plain(q, k, v, k_bias, scale, num_heads)
@@ -342,19 +329,9 @@ def _k7_forward(q, k, v, k_bias, scale, num_heads):
     return out
 
 
-def flash_attention_packed_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                scale: float, num_heads: int) -> torch.Tensor:
-    """K9. Packed attention whose q k^T runs in int8 on q and k quantised
-    per (row, head); P V stays in v's dtype. CUDA: bfloat16 [B, N, H*64] in
-    and out; q and k quantised once, in one launch (``quantize_heads``), then
-    the int8 attention program of K10 on (row, head) scales. Differentiable
-    as ``flash_attention_packed(..., int8_dots=True)``: through the float
-    plain version of K1."""
-    return recompute_vjp(_k9_forward, flash_attention_packed_plain, 3, q, k, v, scale,
-                         num_heads)
-
-
-def _k9_forward(q, k, v, scale, num_heads):
+@kernel_op("flash_attention_packed_int8", _like_v)
+def _k9_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+           num_heads: int) -> torch.Tensor:
     name = "flash_attention_packed_int8"
     require_device(name, q)
     if q.device.type == "cpu":
@@ -368,6 +345,217 @@ def _k9_forward(q, k, v, scale, num_heads):
     out = _launch_i8qk_kernel(q8, sq, k8, sk, v, None, scale, num_heads, head_scales=True)
     flash_attention_packed_int8.launches += 1
     return out
+
+
+@kernel_op("flash_attention_packed_i8qk", _like_v)
+def _k10_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+            num_heads: int) -> torch.Tensor:
+    require_device("flash_attention_packed_i8qk", q)
+    if q.device.type == "cpu":
+        return flash_attention_packed_i8qk_plain(q, k, v, scale, num_heads)
+    out = _launch_i8qk("flash_attention_packed_i8qk", q, k, v, None, scale, num_heads)
+    flash_attention_packed_i8qk.launches += 1
+    return out
+
+
+@kernel_op("flash_attention_packed_i8qk_bias", _like_v)
+def _k10b_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_bias: torch.Tensor,
+             scale: float, num_heads: int) -> torch.Tensor:
+    require_device("flash_attention_packed_i8qk_bias", q)
+    if q.device.type == "cpu":
+        return flash_attention_packed_i8qk_bias_plain(q, k, v, k_bias, scale, num_heads)
+    out = _launch_i8qk("flash_attention_packed_i8qk_bias", q, k, v, k_bias, scale,
+                       num_heads)
+    flash_attention_packed_i8qk_bias.launches += 1
+    return out
+
+
+def _k11_fake(q, k, v, wq, ws, b, ls, res, scale, num_heads, return_quantised):
+    out = [res.new_empty(res.shape)]
+    if return_quantised:
+        out += [q.new_empty(q.shape, dtype=torch.int8),
+                q.new_empty((*q.shape[:-1], 1), dtype=torch.float32)]
+    return out
+
+
+@kernel_op("flash_attention_packed_out_res", _k11_fake)
+def _k11_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, wq: torch.Tensor,
+            ws: torch.Tensor, b: torch.Tensor, ls: torch.Tensor, res: torch.Tensor,
+            scale: float, num_heads: int, return_quantised: bool) -> List[torch.Tensor]:
+    name = "flash_attention_packed_out_res"
+    require_device(name, q)
+    if q.device.type == "cpu":
+        out = flash_attention_packed_out_res_plain(q, k, v, wq, ws, b, ls, res, scale,
+                                                   num_heads)
+        if return_quantised:
+            return [out, *quantize_activations(
+                attention_context_f32(q, k, v, scale, num_heads))]
+        return [out]
+    B, N, HD = q.shape
+    _check_out_res(name, HD, num_heads, scale)
+    if q.dtype != torch.bfloat16 or res.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bfloat16 q, k, v, res, got "
+                        f"{q.dtype} and {res.dtype}")
+    check_cuda_inputs(name, (q, k, v, res), (B, N, HD))
+    if (wq.dtype != torch.int8 or tuple(wq.shape) != (HD, HD) or not wq.is_contiguous()
+            or wq.data_ptr() % 16 or wq.device != q.device):
+        raise ValueError(f"{name}: the attn_out weight must be contiguous int8 [{HD}, {HD}] "
+                         f"on {q.device}")
+    for vec in (ws, b, ls):
+        check_channel_vector(name, q, vec, HD)
+    out = torch.empty_like(res)
+    ctx8 = torch.empty(B, N, HD, dtype=torch.int8, device=q.device)
+    sc = torch.empty(B, N, 1, dtype=torch.float32, device=q.device) if return_quantised else None
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.caim_flash_attention_out_res(
+            ptr(q), ptr(k), ptr(v), ptr(wq), ptr(ws), ptr(b), ptr(ls), ptr(res), ptr(out),
+            ptr(ctx8), ptr(sc) if return_quantised else None, B, N, num_heads, HEAD_DIM,
+            float(scale), stream_of(q))
+    _build.check(err)
+    flash_attention_packed_out_res.launches += 1
+    return [out, ctx8, sc] if return_quantised else [out]
+
+
+def _k8_fake(q, k, v, scale):
+    return q.new_empty(q.shape)
+
+
+@kernel_op("flash_attention", _k8_fake)
+def _k8_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    require_device("flash_attention", q)
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, scale).contiguous()
+    name = "flash_attention"
+    if q.ndim != 4 or q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{name}: operands must be [B, N, H, {HEAD_DIM}], got "
+                         f"{tuple(q.shape)}")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported (float32 or bfloat16)")
+    for t in (q, k, v):
+        _check_head_operand(name, t, q)
+    B, N, H, _ = q.shape
+    out = torch.empty(B, N, H, HEAD_DIM, dtype=q.dtype, device=q.device)
+    strides = [(ctypes.c_longlong * 3)(*t.stride()[:3]) for t in (q, k, v)]
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.caim_flash_attention(
+            ptr(q), ptr(k), ptr(v), ptr(out), *strides, B, N, H, HEAD_DIM, float(scale),
+            DTYPE_CODES[q.dtype], stream_of(q))
+    _build.check(err)
+    flash_attention.launches += 1
+    return out
+
+
+def _q_fake(x, y):
+    out = []
+    for t in (x, y) if y is not None else (x,):
+        out += [t.new_empty(t.shape, dtype=torch.int8),
+                t.new_empty((*t.shape[:-1], 1), dtype=torch.float32)]
+    return out
+
+
+@kernel_op("quantize_rows", _q_fake)
+def _q_op(x: torch.Tensor, y: Optional[torch.Tensor]) -> List[torch.Tensor]:
+    require_device("quantize_rows", x)
+    if x.device.type == "cpu":
+        return list(quantize_rows_plain(x, y))
+    B, N, HD = x.shape
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"quantize_rows: the CUDA kernel takes bfloat16, got {x.dtype}")
+    if HD % 8 or HD > MAX_QUANT_WIDTH:
+        raise ValueError(f"quantize_rows: width {HD} is not a multiple of 8 up to "
+                         f"{MAX_QUANT_WIDTH}")
+    check_cuda_inputs("quantize_rows", (x,) if y is None else (x, y), (B, N, HD))
+    # separate tensors: a view of a stacked one costs the host more than an
+    # allocation
+    out = [torch.empty(B, N, HD, dtype=torch.int8, device=x.device),
+           torch.empty(B, N, 1, dtype=torch.float32, device=x.device)]
+    if y is not None:
+        out += [torch.empty_like(out[0]), torch.empty_like(out[1])]
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.caim_quantize_rows(ptr(x), ptr(y) if y is not None else None, ptr(out[0]),
+                                     ptr(out[-2]), ptr(out[1]), ptr(out[-1]), B * N, HD,
+                                     stream_of(x))
+    _build.check(err)
+    quantize_rows.launches += 1
+    return out
+
+
+def _qh_fake(x, num_heads, y):
+    out = []
+    for t in (x, y) if y is not None else (x,):
+        B, N, _ = t.shape
+        out += [t.new_empty(t.shape, dtype=torch.int8),
+                t.new_empty((B, num_heads, N), dtype=torch.float32)]
+    return out
+
+
+@kernel_op("quantize_heads", _qh_fake)
+def _qh_op(x: torch.Tensor, num_heads: int, y: Optional[torch.Tensor]) -> List[torch.Tensor]:
+    name = "quantize_heads"
+    require_device(name, x)
+    if x.device.type == "cpu":
+        return list(quantize_heads_plain(x, num_heads, y))
+    B, N, HD = x.shape
+    _check_width(name, HD, num_heads)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {x.dtype}")
+    if HD > MAX_QUANT_WIDTH:
+        raise ValueError(f"{name}: width {HD} is over {MAX_QUANT_WIDTH}")
+    check_cuda_inputs(name, (x,) if y is None else (x, y), (B, N, HD))
+    out = [torch.empty(B, N, HD, dtype=torch.int8, device=x.device),
+           torch.empty(B, num_heads, N, dtype=torch.float32, device=x.device)]
+    if y is not None:
+        out += [torch.empty_like(out[0]), torch.empty_like(out[1])]
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.caim_quantize_heads(ptr(x), ptr(y) if y is not None else None, ptr(out[0]),
+                                      ptr(out[-2]), ptr(out[1]), ptr(out[-1]), B, N, HD,
+                                      stream_of(x))
+    _build.check(err)
+    quantize_heads.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------- wrappers ----
+def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float, num_heads: int, q_block: int = 0,
+                           int8_dots: bool = False) -> torch.Tensor:
+    """K1. q, k, v: [B, N, H*64] packed activations -> [B, N, H*64] in q's
+    dtype (bfloat16 or float32). CPU -> plain version; CUDA -> the kernel.
+    ``int8_dots=True`` is K9, ``flash_attention_packed_int8``, which counts
+    its own launches. ``q_block`` is the JAX signature's query block of the
+    TPU grid; the CUDA kernels' tile is fixed and the value is not read.
+    Differentiable in q, k, v (``_grad.recompute_vjp``): the backward
+    recomputes the float plain version, with ``int8_dots`` too, straight
+    through the quantisation."""
+    fwd = _k9_op if int8_dots else _k1_op
+    return recompute_vjp(fwd, flash_attention_packed_plain, 3, q, k, v, scale, num_heads)
+
+
+def flash_attention_packed_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                k_bias: torch.Tensor, scale: float,
+                                num_heads: int) -> torch.Tensor:
+    """K7. K1 with ``k_bias`` [B, N] (read as f32) added to the logits of
+    every query row: proportional attention for the token filter, where a
+    fused context token gets +log(number of tokens it stands for).
+    Differentiable in q, k, v and k_bias, through the plain version."""
+    return recompute_vjp(_k7_op, flash_attention_packed_bias_plain, 4,
+                         q, k, v, k_bias, scale, num_heads)
+
+
+def flash_attention_packed_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                scale: float, num_heads: int) -> torch.Tensor:
+    """K9. Packed attention whose q k^T runs in int8 on q and k quantised
+    per (row, head); P V stays in v's dtype. CUDA: bfloat16 [B, N, H*64] in
+    and out; q and k quantised once, in one launch (``quantize_heads``), then
+    the int8 attention program of K10 on (row, head) scales. Differentiable
+    as ``flash_attention_packed(..., int8_dots=True)``: through the float
+    plain version of K1."""
+    return recompute_vjp(_k9_op, flash_attention_packed_plain, 3, q, k, v, scale,
+                         num_heads)
 
 
 OUT_RES_MAX_HEADS = 16  # K11: one CTA a head in a cluster; the card takes 16 at most
@@ -403,40 +591,9 @@ def flash_attention_packed_out_res(q, k, v, wq, ws, b, ls, res, scale: float,
     whose CTAs share the int8 context through a scratch ``ctx8``. ``q_block``
     as in ``flash_attention_packed``. ``return_quantised`` also returns the
     int8 context [B, N, HD] and its f32 row scales [B, N, 1], for checks."""
-    name = "flash_attention_packed_out_res"
-    forbid_grad(name, q, k, v, wq, ws, b, ls, res)
-    require_device(name, q)
-    if q.device.type == "cpu":
-        out = flash_attention_packed_out_res_plain(q, k, v, wq, ws, b, ls, res, scale,
-                                                   num_heads)
-        if return_quantised:
-            return (out, *quantize_activations(
-                attention_context_f32(q, k, v, scale, num_heads)))
-        return out
-    B, N, HD = q.shape
-    _check_out_res(name, HD, num_heads, scale)
-    if q.dtype != torch.bfloat16 or res.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bfloat16 q, k, v, res, got "
-                        f"{q.dtype} and {res.dtype}")
-    check_cuda_inputs(name, (q, k, v, res), (B, N, HD))
-    if (wq.dtype != torch.int8 or tuple(wq.shape) != (HD, HD) or not wq.is_contiguous()
-            or wq.data_ptr() % 16 or wq.device != q.device):
-        raise ValueError(f"{name}: the attn_out weight must be contiguous int8 [{HD}, {HD}] "
-                         f"on {q.device}")
-    for vec in (ws, b, ls):
-        check_channel_vector(name, q, vec, HD)
-    out = torch.empty_like(res)
-    ctx8 = torch.empty(B, N, HD, dtype=torch.int8, device=q.device)
-    sc = torch.empty(B, N, 1, dtype=torch.float32, device=q.device) if return_quantised else None
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        err = lib.caim_flash_attention_out_res(
-            ptr(q), ptr(k), ptr(v), ptr(wq), ptr(ws), ptr(b), ptr(ls), ptr(res), ptr(out),
-            ptr(ctx8), ptr(sc) if return_quantised else None, B, N, num_heads, HEAD_DIM,
-            float(scale), stream_of(q))
-    _build.check(err)
-    flash_attention_packed_out_res.launches += 1
-    return (out, ctx8, sc) if return_quantised else out
+    forbid_grad("flash_attention_packed_out_res", q, k, v, wq, ws, b, ls, res)
+    out = _k11_op(q, k, v, wq, ws, b, ls, res, scale, num_heads, return_quantised)
+    return tuple(out) if return_quantised else out[0]
 
 
 def _check_head_operand(name: str, t: torch.Tensor, like: torch.Tensor):
@@ -458,28 +615,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA -> the kernel, which addresses the operands in place. No backward,
     as in the JAX package: raises under grad."""
     forbid_grad("flash_attention", q, k, v)
-    require_device("flash_attention", q)
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, scale)
-    name = "flash_attention"
-    if q.ndim != 4 or q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{name}: operands must be [B, N, H, {HEAD_DIM}], got "
-                         f"{tuple(q.shape)}")
-    if q.dtype not in DTYPE_CODES:
-        raise TypeError(f"{name}: dtype {q.dtype} not supported (float32 or bfloat16)")
-    for t in (q, k, v):
-        _check_head_operand(name, t, q)
-    B, N, H, _ = q.shape
-    out = torch.empty(B, N, H, HEAD_DIM, dtype=q.dtype, device=q.device)
-    strides = [(ctypes.c_longlong * 3)(*t.stride()[:3]) for t in (q, k, v)]
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        err = lib.caim_flash_attention(
-            ptr(q), ptr(k), ptr(v), ptr(out), *strides, B, N, H, HEAD_DIM, float(scale),
-            DTYPE_CODES[q.dtype], stream_of(q))
-    _build.check(err)
-    flash_attention.launches += 1
-    return out
+    return _k8_op(q, k, v, scale)
 
 
 def quantize_rows(x: torch.Tensor, y: Optional[torch.Tensor] = None):
@@ -490,30 +626,7 @@ def quantize_rows(x: torch.Tensor, y: Optional[torch.Tensor] = None):
     does q and k. CPU -> plain version; CUDA -> the kernel (bfloat16, width a
     multiple of 8 up to 1024)."""
     forbid_grad("quantize_rows", x, y)
-    require_device("quantize_rows", x)
-    if x.device.type == "cpu":
-        return quantize_rows_plain(x, y)
-    B, N, HD = x.shape
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"quantize_rows: the CUDA kernel takes bfloat16, got {x.dtype}")
-    if HD % 8 or HD > MAX_QUANT_WIDTH:
-        raise ValueError(f"quantize_rows: width {HD} is not a multiple of 8 up to "
-                         f"{MAX_QUANT_WIDTH}")
-    check_cuda_inputs("quantize_rows", (x,) if y is None else (x, y), (B, N, HD))
-    # separate tensors: a view of a stacked one costs the host more than an
-    # allocation
-    out = [torch.empty(B, N, HD, dtype=torch.int8, device=x.device),
-           torch.empty(B, N, 1, dtype=torch.float32, device=x.device)]
-    if y is not None:
-        out += [torch.empty_like(out[0]), torch.empty_like(out[1])]
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        err = lib.caim_quantize_rows(ptr(x), ptr(y) if y is not None else None, ptr(out[0]),
-                                     ptr(out[-2]), ptr(out[1]), ptr(out[-1]), B * N, HD,
-                                     stream_of(x))
-    _build.check(err)
-    quantize_rows.launches += 1
-    return tuple(out)
+    return tuple(_q_op(x, y))
 
 
 def quantize_heads(x: torch.Tensor, num_heads: int, y: Optional[torch.Tensor] = None):
@@ -522,30 +635,8 @@ def quantize_heads(x: torch.Tensor, num_heads: int, y: Optional[torch.Tensor] = 
     arithmetic on each head's slice; with ``y`` (the shape of x) -> (x8, sx, y8, sy) in
     one launch, as K9 does q and k. CPU -> plain version; CUDA -> the kernel
     (bfloat16, width up to 1024)."""
-    name = "quantize_heads"
-    forbid_grad(name, x, y)
-    require_device(name, x)
-    if x.device.type == "cpu":
-        return quantize_heads_plain(x, num_heads, y)
-    B, N, HD = x.shape
-    _check_width(name, HD, num_heads)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {x.dtype}")
-    if HD > MAX_QUANT_WIDTH:
-        raise ValueError(f"{name}: width {HD} is over {MAX_QUANT_WIDTH}")
-    check_cuda_inputs(name, (x,) if y is None else (x, y), (B, N, HD))
-    out = [torch.empty(B, N, HD, dtype=torch.int8, device=x.device),
-           torch.empty(B, num_heads, N, dtype=torch.float32, device=x.device)]
-    if y is not None:
-        out += [torch.empty_like(out[0]), torch.empty_like(out[1])]
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        err = lib.caim_quantize_heads(ptr(x), ptr(y) if y is not None else None, ptr(out[0]),
-                                      ptr(out[-2]), ptr(out[1]), ptr(out[-1]), B, N, HD,
-                                      stream_of(x))
-    _build.check(err)
-    quantize_heads.launches += 1
-    return tuple(out)
+    forbid_grad("quantize_heads", x, y)
+    return tuple(_qh_op(x, num_heads, y))
 
 
 def flash_attention_packed_i8qk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -556,17 +647,8 @@ def flash_attention_packed_i8qk(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     Differentiable in q, k, v through K1's FLOAT plain version, straight
     through the quantisation (the int8 plain version's own autograd would
     give zero gradients through ``round``)."""
-    return recompute_vjp(_k10_forward, flash_attention_packed_plain, 3, q, k, v, scale,
+    return recompute_vjp(_k10_op, flash_attention_packed_plain, 3, q, k, v, scale,
                          num_heads)
-
-
-def _k10_forward(q, k, v, scale, num_heads):
-    require_device("flash_attention_packed_i8qk", q)
-    if q.device.type == "cpu":
-        return flash_attention_packed_i8qk_plain(q, k, v, scale, num_heads)
-    out = _launch_i8qk("flash_attention_packed_i8qk", q, k, v, None, scale, num_heads)
-    flash_attention_packed_i8qk.launches += 1
-    return out
 
 
 def flash_attention_packed_i8qk_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -574,18 +656,8 @@ def flash_attention_packed_i8qk_bias(q: torch.Tensor, k: torch.Tensor, v: torch.
                                      num_heads: int) -> torch.Tensor:
     """K10b. K10 with the bias row of K7 added to the dequantised scores.
     Differentiable in q, k, v and k_bias through K7's float plain version."""
-    return recompute_vjp(_k10b_forward, flash_attention_packed_bias_plain, 4,
+    return recompute_vjp(_k10b_op, flash_attention_packed_bias_plain, 4,
                          q, k, v, k_bias, scale, num_heads)
-
-
-def _k10b_forward(q, k, v, k_bias, scale, num_heads):
-    require_device("flash_attention_packed_i8qk_bias", q)
-    if q.device.type == "cpu":
-        return flash_attention_packed_i8qk_bias_plain(q, k, v, k_bias, scale, num_heads)
-    out = _launch_i8qk("flash_attention_packed_i8qk_bias", q, k, v, k_bias, scale,
-                       num_heads)
-    flash_attention_packed_i8qk_bias.launches += 1
-    return out
 
 
 WRAPPERS = (flash_attention_packed, flash_attention_packed_bias,

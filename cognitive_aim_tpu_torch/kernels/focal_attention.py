@@ -5,9 +5,11 @@ cognitive_aim_tpu/kernels/focal_attention.py. The kernel is CUDA C++ in
 ``csrc/focal_attention.cu``; the plain PyTorch version beside it mirrors
 the JAX package's ``focal_attention_reference``.
 
-Dispatch is on the tensor's device: CPU tensors take the plain version,
-CUDA tensors launch the kernel or raise. ``focal_attention_fused.launches``
-counts kernel launches (one per call; the call runs three CUDA kernels).
+The wrapper calls the op ``caim::focal_attention_fused`` (``_library``),
+whose implementation dispatches on the tensor's device: CPU tensors take the
+plain version, CUDA tensors launch the kernel or raise.
+``focal_attention_fused.launches`` counts kernel launches (one per call; the
+call runs three CUDA kernels).
 
 Differentiable in q, k, v as the JAX package's ``custom_vjp``: the backward
 recomputes the plain version from the saved inputs and takes the gradients
@@ -16,6 +18,8 @@ None counts as zeros).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -27,6 +31,7 @@ from cognitive_aim_tpu_torch.kernels._launch import (
     require_device,
     stream_of,
 )
+from cognitive_aim_tpu_torch.kernels._library import kernel_op
 
 
 def focal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,13 +52,21 @@ def focal_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float):
     """Same outputs as ``focal_attention_plain``. CPU -> plain version;
     CUDA -> the K6 kernel. ``scale`` divides the scores."""
-    return recompute_vjp(_k6_forward, focal_attention_plain, 3, q, k, v, scale)
+    return recompute_vjp(_k6_op, focal_attention_plain, 3, q, k, v, scale)
 
 
-def _k6_forward(q, k, v, scale):
+def _k6_fake(q, k, v, scale):
+    B, N, _ = q.shape
+    return (q.new_empty(q.shape), *(q.new_empty(B, N, dtype=torch.float32) for _ in range(3)))
+
+
+@kernel_op("focal_attention_fused", _k6_fake)
+def _k6_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     require_device("focal_attention_fused", q)
     if q.device.type == "cpu":
-        return focal_attention_plain(q, k, v, scale)
+        attended, colmean, diag, rowmax = focal_attention_plain(q, k, v, scale)
+        return attended, colmean, diag.contiguous(), rowmax  # diag: a view of the scores
     B, N, D = q.shape
     code = check_cuda_inputs("focal_attention_fused", (q, k, v), (B, N, D))
     lib = _build.library()

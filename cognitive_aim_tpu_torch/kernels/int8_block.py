@@ -50,13 +50,17 @@ one kernel of its own (``csrc/int8_fused_block.cu``): a thread-block cluster
 owns a 64-row tile across all of its columns, from the ctx rows to the
 output, at the widths of ``ATTNOUT_MLP_SHAPES``.
 
-Dispatch is on the tensor's device: CPU tensors take the plain version;
-CUDA tensors launch the kernel or raise (bf16 activations, contiguous,
-contraction depths that are multiples of 128, output widths that a tile
-width divides: ``gemm_tile_cols``, ``fc1_cluster_shape``,
-``attnout_mlp_shape``). Each wrapper's
-``.launches`` counts its kernel launches and nothing else; ``int8_mlp_ln``
-also counts in K4a and K4b, which it launches.
+Each wrapper but K4's calls the op ``caim::<its name>`` (``_library``), whose
+implementation dispatches on the tensor's device: CPU tensors take the plain
+version; CUDA tensors launch the kernel or raise (bf16 activations,
+contiguous, contraction depths that are multiples of 128, output widths that
+a tile width divides: ``gemm_tile_cols``, ``fc1_cluster_shape``,
+``attnout_mlp_shape``). K2's and K5's ops return q, k and v packed, one
+[3, B, N, D] tensor (a custom op's outputs may not be views of one buffer),
+and so do their plain versions; the wrappers unbind it. Each wrapper's
+``.launches`` counts its kernel launches and nothing else, from inside its
+op, so a loaded ``torch.export`` program counts too; ``int8_mlp_ln`` calls
+the ops of K4a and K4b and counts its CUDA calls itself.
 
 None of these kernels has a backward, in either package: each wrapper raises
 when grad is enabled and an input requires it (``_grad.forbid_grad``), so the
@@ -66,12 +70,15 @@ int8 policy does not train.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
+from torch import Tensor
 
 from cognitive_aim_tpu_torch.kernels import _build
 from cognitive_aim_tpu_torch.kernels._grad import forbid_grad
 from cognitive_aim_tpu_torch.kernels._launch import ptr, require_device, stream_of
+from cognitive_aim_tpu_torch.kernels._library import kernel_op
 from cognitive_aim_tpu_torch.kernels.int8_ops import int_matmul, quantize_activations
 
 TILE_K = 128  # contraction depth per pipeline stage (csrc/int8_block.cu: BK)
@@ -151,10 +158,11 @@ def _dequant(acc, sx, ws, b):
 
 # -------------------------------------------------------- plain versions ----
 def int8_qkv_proj_plain(x, wq, ws, b, out_dtype=torch.bfloat16):
+    """-> q, k, v packed as one contiguous [3, B, N, D], the kernel's layout
+    (the wrapper unbinds it)."""
     xq, sx = quantize_activations(x.float())
     y = _dequant(int_matmul(xq, wq), sx, ws, b)
-    D = x.shape[-1]
-    return tuple(y[..., i * D:(i + 1) * D].to(out_dtype).contiguous() for i in range(3))
+    return y.to(out_dtype).unflatten(-1, (3, x.shape[-1])).movedim(-2, 0).contiguous()
 
 
 def int8_qkv_proj_ln_plain(x, g, be, wq, ws, b, eps=1e-6, out_dtype=torch.bfloat16):
@@ -293,36 +301,7 @@ def _launch_qkv(name, x, g, be, wq, ws, b, eps):
             ptr(be) if g is not None else None, float(eps), ptr(wq), ptr(ws),
             ptr(b), ptr(qkv), ptr(xq), ptr(sx), M, D, stream_of(x))
     _build.check(err)
-    return qkv.unbind(0)
-
-
-# -------------------------------------------------------------- wrappers ----
-def int8_qkv_proj(x, wq, ws, b, out_dtype=torch.bfloat16):
-    """K5. x [B, N, D] -> (q, k, v), each a contiguous [B, N, D]: one GEMM
-    over the concatenated [3D, D] weight, split at columns D and 2D."""
-    forbid_grad("int8_qkv_proj", x, wq, ws, b)
-    require_device("int8_qkv_proj", x)
-    if x.device.type == "cpu":
-        return int8_qkv_proj_plain(x, wq, ws, b, out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise TypeError("int8_qkv_proj: the CUDA kernel writes bfloat16")
-    out = _launch_qkv("int8_qkv_proj", x, None, None, wq, ws, b, 0.0)
-    int8_qkv_proj.launches += 1
-    return out
-
-
-def int8_qkv_proj_ln(x, g, be, wq, ws, b, eps=1e-6, out_dtype=torch.bfloat16):
-    """K2. The pre-layernorm fused into the qkv GEMM: the normalised
-    activation reaches device memory only as int8."""
-    forbid_grad("int8_qkv_proj_ln", x, g, be, wq, ws, b)
-    require_device("int8_qkv_proj_ln", x)
-    if x.device.type == "cpu":
-        return int8_qkv_proj_ln_plain(x, g, be, wq, ws, b, eps, out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise TypeError("int8_qkv_proj_ln: the CUDA kernel writes bfloat16")
-    out = _launch_qkv("int8_qkv_proj_ln", x, g, be, wq, ws, b, eps)
-    int8_qkv_proj_ln.launches += 1
-    return out
+    return qkv
 
 
 def _launch_out_residual(name, a, sa, wq, ws, b, ls, res):
@@ -355,30 +334,6 @@ def _launch_out_residual(name, a, sa, wq, ws, b, ls, res):
     return out
 
 
-def int8_out_residual(x, wq, ws, b, ls, res):
-    """K3. x bf16 [B, N, K] -> res + ls * (dequant(quant(x) @ wq^T) + b)."""
-    forbid_grad("int8_out_residual", x, wq, ws, b, ls, res)
-    require_device("int8_out_residual", x)
-    if x.device.type == "cpu":
-        return int8_out_residual_plain(x, wq, ws, b, ls, res)
-    out = _launch_out_residual("int8_out_residual", x, None, wq, ws, b, ls, res)
-    int8_out_residual.launches += 1
-    return out
-
-
-def int8_out_residual_prequant(h8, sh, wq, ws, b, ls, res):
-    """K4b. (h8 int8 [B, N, F], sh f32 [B, N, 1]) ->
-    res + ls * (dequant(h8 @ wq^T) + b)."""
-    forbid_grad("int8_out_residual_prequant", h8, sh, wq, ws, b, ls, res)
-    require_device("int8_out_residual_prequant", h8)
-    if h8.device.type == "cpu":
-        return int8_out_residual_prequant_plain(h8, sh, wq, ws, b, ls, res)
-    out = _launch_out_residual("int8_out_residual_prequant", h8, sh, wq, ws, b,
-                               ls, res)
-    int8_out_residual_prequant.launches += 1
-    return out
-
-
 def _launch_fc1_gelu(name, x, g, be, wq, ws, b, eps):
     """g, be None: no layernorm (K14)."""
     B, N, K = x.shape
@@ -408,33 +363,6 @@ def _launch_fc1_gelu(name, x, g, be, wq, ws, b, eps):
     return h8, sh
 
 
-def int8_fc1_gelu_ln(x, g, be, wq, ws, b, eps=1e-6):
-    """K4a. x [B, N, K] -> (h8 int8 [B, N, F], sh f32 [B, N, 1]): LN, quant,
-    GEMM, tanh-GELU and the requantisation over the whole F-wide row. The
-    hidden never reaches device memory in a float type: one GEMM pass, a
-    thread-block cluster owning all F columns of a row tile and exchanging
-    the rows' maxima on chip (``fc1_cluster_shape``)."""
-    forbid_grad("int8_fc1_gelu_ln", x, g, be, wq, ws, b)
-    require_device("int8_fc1_gelu_ln", x)
-    if x.device.type == "cpu":
-        return int8_fc1_gelu_ln_plain(x, g, be, wq, ws, b, eps)
-    out = _launch_fc1_gelu("int8_fc1_gelu_ln", x, g, be, wq, ws, b, eps)
-    int8_fc1_gelu_ln.launches += 1
-    return out
-
-
-def int8_fc1_gelu(x, wq, ws, b):
-    """K14. K4a without the layernorm: x [B, N, K] -> quant -> GEMM ->
-    tanh-GELU -> requant -> (h8 int8 [B, N, F], sh f32 [B, N, 1])."""
-    forbid_grad("int8_fc1_gelu", x, wq, ws, b)
-    require_device("int8_fc1_gelu", x)
-    if x.device.type == "cpu":
-        return int8_fc1_gelu_plain(x, wq, ws, b)
-    out = _launch_fc1_gelu("int8_fc1_gelu", x, None, None, wq, ws, b, 0.0)
-    int8_fc1_gelu.launches += 1
-    return out
-
-
 def launch_int8_linear(name, entry, x2, wq, ws, b):
     """x2 bf16 [M, K] -> bf16 [M, Nout] through the C entry named ``entry``
     (K13's or K15's: one kernel, a quantising prologue and the GEMM with the
@@ -454,17 +382,107 @@ def launch_int8_linear(name, entry, x2, wq, ws, b):
     return out
 
 
-def int8_proj(x, wq, ws, b, out_dtype=torch.bfloat16):
-    """K13. x [B, N, K] -> [B, N, Nout]: row quant, int8 GEMM,
-    ``acc * s_x * s_w + b``, no split. CUDA: bfloat16 in and out, K a
-    multiple of 128 (rows of any such width: K 3072 at the fc2 shape), Nout
-    a width ``gemm_tile_cols`` takes."""
-    forbid_grad("int8_proj", x, wq, ws, b)
+def check_bf16_out(name, out_dtype):
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel writes bfloat16")
+
+
+# ------------------------------------------------------------------- ops ----
+# Each op's implementation: CPU -> plain version; CUDA -> the kernel or raise,
+# counted on the wrapper. Fakes: shapes and dtypes, contiguous (``_library``).
+def _qkv_fake(x, *rest):  # rest ends with out_dtype
+    return x.new_empty((3, *x.shape), dtype=rest[-1])
+
+
+@kernel_op("int8_qkv_proj", _qkv_fake)
+def _k5_op(x: Tensor, wq: Tensor, ws: Tensor, b: Tensor, out_dtype: torch.dtype) -> Tensor:
+    require_device("int8_qkv_proj", x)
+    if x.device.type == "cpu":
+        return int8_qkv_proj_plain(x, wq, ws, b, out_dtype)
+    check_bf16_out("int8_qkv_proj", out_dtype)
+    out = _launch_qkv("int8_qkv_proj", x, None, None, wq, ws, b, 0.0)
+    int8_qkv_proj.launches += 1
+    return out
+
+
+@kernel_op("int8_qkv_proj_ln", _qkv_fake)
+def _k2_op(x: Tensor, g: Tensor, be: Tensor, wq: Tensor, ws: Tensor, b: Tensor, eps: float,
+           out_dtype: torch.dtype) -> Tensor:
+    require_device("int8_qkv_proj_ln", x)
+    if x.device.type == "cpu":
+        return int8_qkv_proj_ln_plain(x, g, be, wq, ws, b, eps, out_dtype)
+    check_bf16_out("int8_qkv_proj_ln", out_dtype)
+    out = _launch_qkv("int8_qkv_proj_ln", x, g, be, wq, ws, b, eps)
+    int8_qkv_proj_ln.launches += 1
+    return out
+
+
+def _k3_fake(x, wq, ws, b, ls, res):
+    return res.new_empty(res.shape)
+
+
+@kernel_op("int8_out_residual", _k3_fake)
+def _k3_op(x: Tensor, wq: Tensor, ws: Tensor, b: Tensor, ls: Tensor, res: Tensor) -> Tensor:
+    require_device("int8_out_residual", x)
+    if x.device.type == "cpu":
+        return int8_out_residual_plain(x, wq, ws, b, ls, res)
+    out = _launch_out_residual("int8_out_residual", x, None, wq, ws, b, ls, res)
+    int8_out_residual.launches += 1
+    return out
+
+
+def _k4b_fake(h8, sh, wq, ws, b, ls, res):
+    return res.new_empty(res.shape)
+
+
+@kernel_op("int8_out_residual_prequant", _k4b_fake)
+def _k4b_op(h8: Tensor, sh: Tensor, wq: Tensor, ws: Tensor, b: Tensor, ls: Tensor,
+            res: Tensor) -> Tensor:
+    require_device("int8_out_residual_prequant", h8)
+    if h8.device.type == "cpu":
+        return int8_out_residual_prequant_plain(h8, sh, wq, ws, b, ls, res)
+    out = _launch_out_residual("int8_out_residual_prequant", h8, sh, wq, ws, b, ls, res)
+    int8_out_residual_prequant.launches += 1
+    return out
+
+
+def _hidden_fake(x, wq):
+    lead = x.shape[:-1]
+    return (x.new_empty((*lead, wq.shape[0]), dtype=torch.int8),
+            x.new_empty((*lead, 1), dtype=torch.float32))
+
+
+@kernel_op("int8_fc1_gelu_ln", lambda x, g, be, wq, ws, b, eps: _hidden_fake(x, wq))
+def _k4a_op(x: Tensor, g: Tensor, be: Tensor, wq: Tensor, ws: Tensor, b: Tensor,
+            eps: float) -> Tuple[Tensor, Tensor]:
+    require_device("int8_fc1_gelu_ln", x)
+    if x.device.type == "cpu":
+        return int8_fc1_gelu_ln_plain(x, g, be, wq, ws, b, eps)
+    out = _launch_fc1_gelu("int8_fc1_gelu_ln", x, g, be, wq, ws, b, eps)
+    int8_fc1_gelu_ln.launches += 1
+    return out
+
+
+@kernel_op("int8_fc1_gelu", lambda x, wq, ws, b: _hidden_fake(x, wq))
+def _k14_op(x: Tensor, wq: Tensor, ws: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+    require_device("int8_fc1_gelu", x)
+    if x.device.type == "cpu":
+        return int8_fc1_gelu_plain(x, wq, ws, b)
+    out = _launch_fc1_gelu("int8_fc1_gelu", x, None, None, wq, ws, b, 0.0)
+    int8_fc1_gelu.launches += 1
+    return out
+
+
+def _proj_fake(x, wq, ws, b, out_dtype):
+    return x.new_empty((*x.shape[:-1], wq.shape[0]), dtype=out_dtype)
+
+
+@kernel_op("int8_proj", _proj_fake)
+def _k13_op(x: Tensor, wq: Tensor, ws: Tensor, b: Tensor, out_dtype: torch.dtype) -> Tensor:
     require_device("int8_proj", x)
     if x.device.type == "cpu":
         return int8_proj_plain(x, wq, ws, b, out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise TypeError("int8_proj: the CUDA kernel writes bfloat16")
+    check_bf16_out("int8_proj", out_dtype)
     B, N, K = x.shape
     _check_act("int8_proj", x, (B, N, K))
     out = launch_int8_linear("int8_proj", "caim_int8_proj", x.view(B * N, K), wq, ws, b)
@@ -472,42 +490,19 @@ def int8_proj(x, wq, ws, b, out_dtype=torch.bfloat16):
     return out.view(B, N, -1)
 
 
-def int8_mlp_ln(x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls, eps=1e-6):
-    """K4. The whole transformer MLP:
-
-        x + ls * fc2(quant(gelu(fc1(quant(LN(x))))))
-
-    as K4a followed by K4b (the TPU kernel's arithmetic; its f32 hidden tile
-    does not fit an SM's shared memory)."""
-    forbid_grad("int8_mlp_ln", x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls)
-    require_device("int8_mlp_ln", x)
-    if x.device.type == "cpu":
-        return int8_mlp_ln_plain(x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls, eps)
-    h8, sh = int8_fc1_gelu_ln(x, g, be, w1q, w1s, b1, eps)
-    out = int8_out_residual_prequant(h8, sh, w2q, w2s, b2, ls, x)
-    int8_mlp_ln.launches += 1
-    return out
+def _k12_fake(ctx, wo, so, bo, ls1, res, *rest):
+    return res.new_empty(res.shape)
 
 
-def int8_attnout_mlp_ln(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q, w2s, b2, ls2,
-                        eps=1e-6):
-    """K12. The whole post-attention half of the chained int8 block:
-
-        x   = res + ls1 * attn_out(quant(ctx))
-        out = x + ls2 * fc2(quant(gelu(fc1(quant(LN2(x))))))
-
-    with x in f32 from the first residual add to the last (K3 followed by K4
-    rounds it to bf16 in between). ctx, res bf16 [B, N, K] -> bf16 [B, N, K].
-    On the card: one launch, a thread-block cluster a 64-row tile that keeps
-    x, the int8 activations and the int8 hidden on chip (the notes at the top
-    of csrc/int8_fused_block.cu); (K, F) one of ``ATTNOUT_MLP_SHAPES``."""
-    forbid_grad("int8_attnout_mlp_ln", ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q,
-                w2s, b2, ls2)
-    require_device("int8_attnout_mlp_ln", ctx)
+@kernel_op("int8_attnout_mlp_ln", _k12_fake)
+def _k12_op(ctx: Tensor, wo: Tensor, so: Tensor, bo: Tensor, ls1: Tensor, res: Tensor,
+            g: Tensor, be: Tensor, w1q: Tensor, w1s: Tensor, b1: Tensor, w2q: Tensor,
+            w2s: Tensor, b2: Tensor, ls2: Tensor, eps: float) -> Tensor:
+    name = "int8_attnout_mlp_ln"
+    require_device(name, ctx)
     if ctx.device.type == "cpu":
         return int8_attnout_mlp_ln_plain(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1,
                                          w2q, w2s, b2, ls2, eps)
-    name = "int8_attnout_mlp_ln"
     B, N, K = ctx.shape
     _check_act(name, ctx, (B, N, K))
     _check_act(name, res, (B, N, K))
@@ -530,6 +525,97 @@ def int8_attnout_mlp_ln(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q, w2s
     _build.check(err)
     int8_attnout_mlp_ln.launches += 1
     return out
+
+
+# -------------------------------------------------------------- wrappers ----
+def int8_qkv_proj(x, wq, ws, b, out_dtype=torch.bfloat16):
+    """K5. x [B, N, D] -> (q, k, v), each a contiguous [B, N, D]: one GEMM
+    over the concatenated [3D, D] weight, split at columns D and 2D (the op
+    returns them packed, [3, B, N, D])."""
+    forbid_grad("int8_qkv_proj", x, wq, ws, b)
+    return _k5_op(x, wq, ws, b, out_dtype).unbind(0)
+
+
+def int8_qkv_proj_ln(x, g, be, wq, ws, b, eps=1e-6, out_dtype=torch.bfloat16):
+    """K2. The pre-layernorm fused into the qkv GEMM: the normalised
+    activation reaches device memory only as int8."""
+    forbid_grad("int8_qkv_proj_ln", x, g, be, wq, ws, b)
+    return _k2_op(x, g, be, wq, ws, b, eps, out_dtype).unbind(0)
+
+
+def int8_out_residual(x, wq, ws, b, ls, res):
+    """K3. x bf16 [B, N, K] -> res + ls * (dequant(quant(x) @ wq^T) + b)."""
+    forbid_grad("int8_out_residual", x, wq, ws, b, ls, res)
+    return _k3_op(x, wq, ws, b, ls, res)
+
+
+def int8_out_residual_prequant(h8, sh, wq, ws, b, ls, res):
+    """K4b. (h8 int8 [B, N, F], sh f32 [B, N, 1]) ->
+    res + ls * (dequant(h8 @ wq^T) + b)."""
+    forbid_grad("int8_out_residual_prequant", h8, sh, wq, ws, b, ls, res)
+    return _k4b_op(h8, sh, wq, ws, b, ls, res)
+
+
+def int8_fc1_gelu_ln(x, g, be, wq, ws, b, eps=1e-6):
+    """K4a. x [B, N, K] -> (h8 int8 [B, N, F], sh f32 [B, N, 1]): LN, quant,
+    GEMM, tanh-GELU and the requantisation over the whole F-wide row. The
+    hidden never reaches device memory in a float type: one GEMM pass, a
+    thread-block cluster owning all F columns of a row tile and exchanging
+    the rows' maxima on chip (``fc1_cluster_shape``)."""
+    forbid_grad("int8_fc1_gelu_ln", x, g, be, wq, ws, b)
+    return _k4a_op(x, g, be, wq, ws, b, eps)
+
+
+def int8_fc1_gelu(x, wq, ws, b):
+    """K14. K4a without the layernorm: x [B, N, K] -> quant -> GEMM ->
+    tanh-GELU -> requant -> (h8 int8 [B, N, F], sh f32 [B, N, 1])."""
+    forbid_grad("int8_fc1_gelu", x, wq, ws, b)
+    return _k14_op(x, wq, ws, b)
+
+
+def int8_proj(x, wq, ws, b, out_dtype=torch.bfloat16):
+    """K13. x [B, N, K] -> [B, N, Nout]: row quant, int8 GEMM,
+    ``acc * s_x * s_w + b``, no split. CUDA: bfloat16 in and out, K a
+    multiple of 128 (rows of any such width: K 3072 at the fc2 shape), Nout
+    a width ``gemm_tile_cols`` takes."""
+    forbid_grad("int8_proj", x, wq, ws, b)
+    return _k13_op(x, wq, ws, b, out_dtype)
+
+
+def int8_mlp_ln(x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls, eps=1e-6):
+    """K4. The whole transformer MLP:
+
+        x + ls * fc2(quant(gelu(fc1(quant(LN(x))))))
+
+    as K4a followed by K4b (the TPU kernel's arithmetic; its f32 hidden tile
+    does not fit an SM's shared memory): two ops, ``caim::int8_fc1_gelu_ln``
+    and ``caim::int8_out_residual_prequant``, whatever the device. Its own
+    count, of CUDA calls, is kept here, outside any op: a loaded program
+    advances K4a's and K4b's."""
+    forbid_grad("int8_mlp_ln", x, g, be, w1q, w1s, b1, w2q, w2s, b2, ls)
+    require_device("int8_mlp_ln", x)
+    h8, sh = int8_fc1_gelu_ln(x, g, be, w1q, w1s, b1, eps)
+    out = int8_out_residual_prequant(h8, sh, w2q, w2s, b2, ls, x)
+    if x.device.type == "cuda" and not torch.compiler.is_compiling():  # not while tracing
+        int8_mlp_ln.launches += 1
+    return out
+
+
+def int8_attnout_mlp_ln(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q, w2s, b2, ls2,
+                        eps=1e-6):
+    """K12. The whole post-attention half of the chained int8 block:
+
+        x   = res + ls1 * attn_out(quant(ctx))
+        out = x + ls2 * fc2(quant(gelu(fc1(quant(LN2(x))))))
+
+    with x in f32 from the first residual add to the last (K3 followed by K4
+    rounds it to bf16 in between). ctx, res bf16 [B, N, K] -> bf16 [B, N, K].
+    On the card: one launch, a thread-block cluster a 64-row tile that keeps
+    x, the int8 activations and the int8 hidden on chip (the notes at the top
+    of csrc/int8_fused_block.cu); (K, F) one of ``ATTNOUT_MLP_SHAPES``."""
+    forbid_grad("int8_attnout_mlp_ln", ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q,
+                w2s, b2, ls2)
+    return _k12_op(ctx, wo, so, bo, ls1, res, g, be, w1q, w1s, b1, w2q, w2s, b2, ls2, eps)
 
 
 WRAPPERS = (int8_qkv_proj_ln, int8_qkv_proj, int8_out_residual,

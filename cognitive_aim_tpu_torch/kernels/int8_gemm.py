@@ -16,9 +16,10 @@ kernel body's arithmetic (``s = max(max|x| / 127, 1e-12)``,
 ``q = clip(round_half_even(x / s))``, an exact integer product, the
 dequantisation in f32).
 
-Dispatch is on the tensor's device: CPU tensors take the plain version, CUDA
-tensors launch the kernel or raise (bfloat16 rows, contiguous, K a multiple
-of 128, N a width ``int8_block.gemm_tile_cols`` takes).
+The wrapper calls the op ``caim::int8_gemm_fused`` (``_library``), whose
+implementation dispatches on the tensor's device: CPU tensors take the plain
+version, CUDA tensors launch the kernel or raise (bfloat16 rows, contiguous,
+K a multiple of 128, N a width ``int8_block.gemm_tile_cols`` takes).
 ``int8_gemm_fused.launches`` counts kernel launches and nothing else;
 ``int8_linear_fused`` launches through it. No backward, as in the JAX
 package: it raises when grad is enabled and an input requires it.
@@ -30,7 +31,12 @@ import torch
 
 from cognitive_aim_tpu_torch.kernels._grad import forbid_grad
 from cognitive_aim_tpu_torch.kernels._launch import require_device
-from cognitive_aim_tpu_torch.kernels.int8_block import int8_proj_plain, launch_int8_linear
+from cognitive_aim_tpu_torch.kernels._library import kernel_op
+from cognitive_aim_tpu_torch.kernels.int8_block import (
+    check_bf16_out,
+    int8_proj_plain,
+    launch_int8_linear,
+)
 
 
 int8_gemm_fused_plain = int8_proj_plain  # one function: K13's rows, flattened
@@ -45,11 +51,17 @@ def int8_gemm_fused(x, wq, ws, b, out_dtype=torch.bfloat16):
     """K15. x [M, K] float -> [M, N] ``out_dtype``; wq int8 [N, K], ws f32
     [N] scales, b f32 [N] bias."""
     forbid_grad("int8_gemm_fused", x, wq, ws, b)
+    return _k15_op(x, wq, ws, b, out_dtype)
+
+
+@kernel_op("int8_gemm_fused", lambda x, wq, ws, b, out_dtype: x.new_empty(
+    (x.shape[0], wq.shape[0]), dtype=out_dtype))
+def _k15_op(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, b: torch.Tensor,
+            out_dtype: torch.dtype) -> torch.Tensor:
     require_device("int8_gemm_fused", x)
     if x.device.type == "cpu":
         return int8_gemm_fused_plain(x, wq, ws, b, out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise TypeError("int8_gemm_fused: the CUDA kernel writes bfloat16")
+    check_bf16_out("int8_gemm_fused", out_dtype)
     out = launch_int8_linear("int8_gemm_fused", "caim_int8_gemm_fused", x, wq, ws, b)
     int8_gemm_fused.launches += 1
     return out

@@ -824,8 +824,11 @@ def test_int8_kernel_matches_plain(kernel, shape, cuda_device):
     x, ctx, g, be, ls = t["x"], t["ctx"], t["g"], t["be"], t["ls"]
     h8, sh = TIB.int8_fc1_gelu_ln_plain(x, g, be, *t["fc1"])
     wrapper, plain, args = {
-        "K2": (TIB.int8_qkv_proj_ln, TIB.int8_qkv_proj_ln_plain, (x, g, be, *t["qkv"])),
-        "K5": (TIB.int8_qkv_proj, TIB.int8_qkv_proj_plain, (x, *t["qkv"])),
+        # K2 and K5: the plain version's packed [3, B, N, D] as the wrapper's q, k, v
+        "K2": (TIB.int8_qkv_proj_ln, lambda *a: TIB.int8_qkv_proj_ln_plain(*a).unbind(0),
+               (x, g, be, *t["qkv"])),
+        "K5": (TIB.int8_qkv_proj, lambda *a: TIB.int8_qkv_proj_plain(*a).unbind(0),
+               (x, *t["qkv"])),
         "K3": (TIB.int8_out_residual, TIB.int8_out_residual_plain, (ctx, *t["out"], ls, x)),
         "K4b": (TIB.int8_out_residual_prequant, TIB.int8_out_residual_prequant_plain,
                 (h8, sh, *t["fc2"], ls, x)),
@@ -1122,9 +1125,9 @@ def _gemm_case(kernel, M, D, F, dev, seed):
     h8, sh = TIB.int8_fc1_gelu_ln_plain(x, g, be, *t["fc1"])
     return {
         "K2": (lambda: TIB.int8_qkv_proj_ln(x, g, be, *t["qkv"]),
-               lambda: TIB.int8_qkv_proj_ln_plain(x, g, be, *t["qkv"]), False),
+               lambda: TIB.int8_qkv_proj_ln_plain(x, g, be, *t["qkv"]).unbind(0), False),
         "K5": (lambda: TIB.int8_qkv_proj(x, *t["qkv"]),
-               lambda: TIB.int8_qkv_proj_plain(x, *t["qkv"]), True),
+               lambda: TIB.int8_qkv_proj_plain(x, *t["qkv"]).unbind(0), True),
         "K3": (lambda: TIB.int8_out_residual(ctx, *t["out"], ls, x),
                lambda: TIB.int8_out_residual_plain(ctx, *t["out"], ls, x), True),
         "K4b": (lambda: TIB.int8_out_residual_prequant(h8, sh, *t["fc2"], ls, x),
@@ -1820,3 +1823,113 @@ def test_trainer_on_a_world_1_mesh_is_the_meshless_trainer(cuda_device, tmp_path
     np.testing.assert_allclose(got_loss, want_loss, rtol=1e-6)
     for n, p in want.items():
         assert float((got[n] - p).abs().max()) <= 1e-6 * float(p.abs().max()), n
+
+
+# ---------------------------------------------------- caim ops, torch.export ----
+def _op_cases(dev):
+    """caim op -> its arguments on the card at ViT-B widths (D 768, H 12,
+    F 3072), N 257: shapes each kernel takes."""
+    B, N, H, D, F = 2, 257, 12, 768, 3072
+    t = _int8_inputs(B, N, D, F, dev, seed=7)
+    x, ctx, g, be, ls = t["x"], t["ctx"], t["g"], t["be"], t["ls"]
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in _arrays((B, N, D), seed=8))
+    bias = torch.from_numpy(_arrays((B, N), n=1, seed=9)[0]).to(dev)
+    h8, sh = TIB.int8_fc1_gelu_ln_plain(x, g, be, *t["fc1"])
+    fused = torch.from_numpy(_arrays((B, N, 3, H, 64), n=1, seed=10)[0]).to(dev, torch.bfloat16)
+    bf = torch.bfloat16
+    return {
+        "flash_attention_packed": (q, k, v, 0.125, H),
+        "flash_attention_packed_bias": (q, k, v, bias, 0.125, H),
+        "flash_attention_packed_int8": (q, k, v, 0.125, H),
+        "flash_attention_packed_i8qk": (q, k, v, 0.125, H),
+        "flash_attention_packed_i8qk_bias": (q, k, v, bias, 0.125, H),
+        "flash_attention_packed_out_res": (q, k, v, *t["out"], ls, ctx, 0.125, H, True),
+        "flash_attention": (*fused.unbind(2), 0.125),
+        "quantize_rows": (q, k),
+        "quantize_heads": (q, H, k),
+        "focal_attention_fused": (q, k, v, 27.7),
+        "int8_qkv_proj_ln": (x, g, be, *t["qkv"], 1e-6, bf),
+        "int8_qkv_proj": (x, *t["qkv"], bf),
+        "int8_out_residual": (ctx, *t["out"], ls, x),
+        "int8_out_residual_prequant": (h8, sh, *t["fc2"], ls, x),
+        "int8_fc1_gelu_ln": (x, g, be, *t["fc1"], 1e-6),
+        "int8_fc1_gelu": (x, *t["fc1"]),
+        "int8_proj": (x, *t["fc1"], bf),
+        "int8_attnout_mlp_ln": (ctx, *t["out"], ls, x, g, be, *t["fc1"], *t["fc2"], ls, 1e-6),
+        "int8_gemm_fused": (x.view(B * N, D), *t["qkv"], bf),
+    }
+
+
+CAIM_OPS = ["flash_attention", "flash_attention_packed", "flash_attention_packed_bias",
+            "flash_attention_packed_i8qk", "flash_attention_packed_i8qk_bias",
+            "flash_attention_packed_int8", "flash_attention_packed_out_res",
+            "focal_attention_fused", "int8_attnout_mlp_ln", "int8_fc1_gelu",
+            "int8_fc1_gelu_ln", "int8_gemm_fused", "int8_out_residual",
+            "int8_out_residual_prequant", "int8_proj", "int8_qkv_proj", "int8_qkv_proj_ln",
+            "quantize_heads", "quantize_rows"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CAIM_OPS)
+def test_opcheck_every_caim_op_on_the_card(name, cuda_device):
+    """torch.library.opcheck on CUDA inputs: the kernel's outputs against the
+    fake's shapes, dtypes and strides, no aliasing, the op under aot_autograd
+    with dynamic shapes; the kernel launched and counted."""
+    from cognitive_aim_tpu_torch.kernels import _library
+
+    wrappers = {w.__name__: w for w in TFA.WRAPPERS + TIB.WRAPPERS + TIG.WRAPPERS
+                + (TFO.focal_attention_fused,)}
+    cases = _op_cases(cuda_device)
+    assert sorted(cases) == sorted(_library.OPS) == CAIM_OPS
+    n = wrappers[name].launches
+    torch.library.opcheck(_library.OPS[name], cases[name])
+    torch.cuda.synchronize()
+    assert wrappers[name].launches > n
+
+
+@pytest.mark.cuda
+def test_two_layer_vit_b_width_model_exports_and_reloads_on_the_card(cuda_device, tmp_path):
+    """A 2-layer D 768 int8 model at 224x224 through scripts/torch_export_model.py's
+    path on the card: one caim node a launch, saved, loaded and rebuilt from
+    the npz; one forward of the loaded program launches the kernels (K4's
+    own count, outside any op, stays 0) and equals the live forward."""
+    import os
+    import sys
+
+    from cognitive_aim_tpu_torch.core.rng import NoiseMode
+    from cognitive_aim_tpu_torch.core.precision import INT8_BACKBONE
+    from cognitive_aim_tpu_torch.kernels._library import op_counts
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig
+    from cognitive_aim_tpu_torch.nn.dinov2 import DinoV2Config
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
+    import torch_export_model as EXP
+
+    vit = DinoV2Config(hidden_size=768, num_layers=2, num_heads=12, patch_size=14,
+                       pretrain_image_size=518, gelu_approx=True)
+    model = CognitiveAimModel(ModelArchConfig(num_iterations=2, image_size=224),
+                              INT8_BACKBONE, "pallas_packed", vit_cfg=vit)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    serve = EXP.Serve(model.prepare_params(), NoiseMode.ZEROS).requires_grad_(False)
+    args = EXP.serving_inputs(4, 224, cuda_device, EXP.roundtrip_images(4, 224, cuda_device))
+    serve(*args)
+    program = torch.export.export(serve, args)
+    want = {"int8_qkv_proj_ln": 2, "flash_attention_packed": 2, "int8_out_residual": 2,
+            "int8_fc1_gelu_ln": 2, "int8_out_residual_prequant": 2, "int8_qkv_proj": 2,
+            "focal_attention_fused": 2}
+    assert dict(op_counts(program.graph)) == want
+    path = str(tmp_path / "vitb2.pt2")
+    torch.export.save(program, path)
+    EXP.save_params(program, path + ".params.npz")
+    loaded = EXP.load_program(path)
+    d0, c0 = serve(*args)
+    counters = {w.__name__: w for w in TFA.WRAPPERS + TIB.WRAPPERS + TIG.WRAPPERS
+                + (TFO.focal_attention_fused,)}
+    for w in counters.values():
+        w.launches = 0
+    d1, c1 = loaded(*args)
+    torch.cuda.synchronize()
+    assert {n: w.launches for n, w in counters.items() if w.launches} == want
+    torch.testing.assert_close(d1, d0, rtol=EXP.RTOL, atol=EXP.ATOL)
+    torch.testing.assert_close(c1, c0, rtol=EXP.RTOL, atol=EXP.ATOL)

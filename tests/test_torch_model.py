@@ -610,7 +610,8 @@ def test_port_imports_no_jax():
     """The card's machine has no jax: after importing every module of the
     port (the engine, the server, the host IO, the utilities, the
     certification toolchain and the parallel layer among them, which start
-    no process group), neither jax nor any module of the
+    no process group) and scripts/torch_export_model.py, neither jax nor any
+    module of the
     JAX package or of its scripts is loaded; and PIL,
     matplotlib and yaml, which the functions that need them import, are not
     loaded by an import either."""
@@ -624,13 +625,16 @@ def test_port_imports_no_jax():
         "        'certify.procedural', 'certify.policy_delta', 'certify.synth_train',\n"
         "        'certify.pretrain', 'certify.attention_stats', 'certify.delta_sweep',\n"
         "        'certify.certify_filter', 'core.mesh', 'parallel.comm', 'parallel.sharding',\n"
-        "        'parallel.pipeline', 'utils.profiling']\n"
+        "        'parallel.pipeline', 'utils.profiling', 'kernels._library']\n"
         "missing = [n for n in need if pkg.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "importlib.import_module('torch_export_model')\n"
         "scripts = {'procedural_scenes', 'policy_delta', 'train_synth_ckpt',\n"
-        "           'pretrain_procedural', 'attention_stats', 'delta_sweep', 'certify_filter'}\n"
+        "           'pretrain_procedural', 'attention_stats', 'delta_sweep', 'certify_filter',\n"
+        "           'export_model'}\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cognitive_aim_tpu' or m.startswith('cognitive_aim_tpu.')\n"
         "       or m.split('.')[0] in scripts]\n"

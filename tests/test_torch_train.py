@@ -234,7 +234,7 @@ def test_remat_launches_each_attention_twice_and_keeps_gradients(monkeypatch, tm
     block a step, one without it); K6 is outside the recompute. The
     gradients do not change."""
     calls = {"k1": 0, "k6": 0}
-    k1, k6 = TFA._k1_forward, TFO._k6_forward
+    k1, k6 = TFA._k1_op, TFO._k6_op
 
     def count(name, fn):
         def wrapped(*a):
@@ -242,8 +242,8 @@ def test_remat_launches_each_attention_twice_and_keeps_gradients(monkeypatch, tm
             return fn(*a)
         return wrapped
 
-    monkeypatch.setattr(TFA, "_k1_forward", count("k1", k1))
-    monkeypatch.setattr(TFO, "_k6_forward", count("k6", k6))
+    monkeypatch.setattr(TFA, "_k1_op", count("k1", k1))
+    monkeypatch.setattr(TFO, "_k6_op", count("k6", k6))
     grads = {}
     for remat in ("1", "0"):
         monkeypatch.setenv("CAIM_TRAIN_REMAT", remat)
