@@ -144,12 +144,18 @@ kernels compile for sm_90a) and the CUDA toolkit:
       2e-2 of the engine's own batched forward of the same pixels), one
       /predict_batch of 10 server-local JPEGs (the tail chunk padded; equal
       to predict_paths_batched on the same files, with the host decoder
-      named), a bad request (400), the launches of one served forward (K1,
-      K2, K3, K4, K4a, K4b 12, K5, K6 2; K1 at N 1370, under 2:0.35 at 481
-      after block 2), and a timed load (96 requests from 16 threads):
+      named), a bad request (400), the launches of one served forward (one
+      replay of the max_batch graph the server's warm-up captured, read from
+      a profiler trace as (k) reads them: K1, K2, K3, K4, K4a, K4b 12, K5, K6 2;
+      K1 at N 1370 in the captured forward, under 2:0.35 at 481 after block
+      2), and a timed load (96 requests from 16 threads):
       requests/s, p50 and p99 latency beside the card's name and power
-      limit, and the time per stage (host decode and resize, dispatch, the
-      forward on the stream by CUDA events, drain). Phase (a) prints what
+      limit, and the time per stage (host decode and resize, dispatch: the
+      copies into the graph's inputs and its replay, the forward on the
+      stream by CUDA events, drain). Every engine forward from here on is a
+      replay of a CUDA graph captured at its signature's first forward
+      (core/compiled.py); a replay runs no wrapper, so its launches are read
+      from the device, as (k) says. Phase (a) prints what
       the host offers that path (PIL, PyYAML, matplotlib, g++, the native
       loader's build); a step a missing package stops is printed as not
       driven;
@@ -206,16 +212,20 @@ kernels compile for sm_90a) and the CUDA toolkit:
       NCCL started from a file rendezvous: the engine's data-parallel path
       (predict_paths_batched(mesh=make_mesh())) at ViT-B 518 int8, exact and
       2:0.35, on 32 seeded JPEGs with mixed instructions, bit for bit
-      mesh=None's list, with each forward's launches (K1, K2, K3, K4, K4a,
-      K4b 12; K5, K6 2); ViT-L 518 under the default policy, B 8, seeded
+      mesh=None's list, with the launches of its replays read from their
+      trace as (k) reads them (K1, K2, K3, K4, K4a, K4b 12; K5, K6 2 a
+      forward); ViT-L 518 under the default policy, B 8, seeded
       weights, sequential (K1 24, K6 2) and under the GPipe schedule
       (make_pipeline_mesh(1), 4 microbatches: K1 24 x 4, K6 2), depth and
       confidence within 2e-2 relative; configs/experiment_B.yaml's trainer
       for 3 steps at batch 32 in float32 on make_mesh() with
       tensor_parallel against the trainer without a mesh, from the same
       weights and generator: losses and parameters within 1e-6 relative, and
-      both steps' CUDA-event times. The mesh=None runs come before the
-      process group starts. A ``parallel`` JSON line holds the numbers and
+      both steps' CUDA-event times; experiment_B's trainer at TP 2 as two
+      gloo processes sharing the card, one step against world 1's, and one
+      more under the token filter 2:0.35 (filtered in training: each rank
+      ranks by the CLS rows of its 6 heads, summed over model). The mesh=None
+      runs come before the process group starts. A ``parallel`` JSON line holds the numbers and
       each kernel row its launches there (``launches_parallel``);
   (j) export (scripts/torch_export_model.py): phase (f)'s engine at ViT-B
       518 int8, pallas_packed, seeded weights, its serving forward
@@ -228,15 +238,39 @@ kernels compile for sm_90a) and the CUDA toolkit:
       12; K5, K6 2; K4's own count, outside any op, 0), which show that the
       artifact runs the kernels; export, save and load seconds, artifact MB,
       the loaded and live forwards by CUDA events (median of 3, range) and
-      their host enqueue. An ``export`` JSON line holds them and each kernel
-      row its launches there (``launches_export``).
+      their host enqueue; the loaded program also captured and replayed
+      by the engine's graph helper (core/compiled.py): bit for bit its eager
+      run, the same launches (read from the replay's trace as (k) reads
+      them), its time beside the two. An ``export`` JSON
+      line holds them and each kernel row its launches there
+      (``launches_export``);
+  (k) compiled forward (core/compiled.py): phase (f)'s engine (ViT-B 518
+      int8, pallas_packed, seeded weights, sampled noise) guided on float
+      images at B 8 and 16, exact and 2:0.35, at B 8 exact also unguided and
+      on uint8 images (captured by predict_paths_batched), and the default
+      policy at B 8: each signature's capture seconds and the bytes it added
+      to the pool, one replay against the eager ``engine.model(...)`` with
+      the replay's seed (rtol 2e-5 / atol 1e-6, bit-equal expected), the
+      launches of a replay (int8: K1, K2, K3, K4, K4a, K4b 12; K5, K6 2;
+      default: K1 12, K6 2), host time a replay beside the eager
+      enqueue, both by CUDA events (median of 3, range), the graphs held
+      and the pool. A ``compiled`` JSON line holds them beside the card's
+      name and power limit, each kernel row its launches a replay
+      (``launches_compiled``). A replay runs no Python, so no wrapper counts
+      it: the eager forward and the replay each run once under
+      torch.profiler, and the replay must run no wrapper and the caim
+      kernels the eager forward's wrappers launched, in the same order; each
+      wrapper's launches a replay are then its count of the eager forward
+      (each trace counts the kernels between two marker kernels, and is
+      taken again when the profiler dropped a marker).
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero. Without a CUDA device it exits 2.
 ``--kernels-only`` checks and times the kernels alone, drives no slice and
 prints no result; ``--parallel-only`` builds the kernels and runs phase (i)
-alone, ``--export-only`` phase (j) alone, and neither prints a result.
+alone, ``--export-only`` phase (j) alone, ``--compiled-only`` phase (k)
+alone, and none prints a result.
 """
 
 from __future__ import annotations
@@ -2942,10 +2976,15 @@ def _serve_engine(tag, engine, smi, rng, image_root, image_paths):
     from cognitive_aim_tpu_torch.serve import _decode_request_image, serve
 
     wrappers = _wrappers()
+    engine.compiled.graphs.clear()  # the server's warm-up captures its graph anew
     t0 = time.perf_counter()
-    httpd, batcher = serve(engine, port=0, max_batch=SERVE_MAX_BATCH, max_delay_ms=5.0,
-                           data_root=image_root)
+    # the warm-up captures the one max_batch graph: the spy sees its warm-up
+    # forward and the captured one (a replay runs no Python)
+    with _attention_lengths() as k1n:
+        httpd, batcher = serve(engine, port=0, max_batch=SERVE_MAX_BATCH, max_delay_ms=5.0,
+                               data_root=image_root)
     warm_s = time.perf_counter() - t0
+    held = engine.compiled.describe()
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
@@ -2953,20 +2992,23 @@ def _serve_engine(tag, engine, smi, rng, image_root, image_paths):
         code, health, _ = _http(base + "/healthz")
         if code != 200 or health["max_batch"] != SERVE_MAX_BATCH:
             raise AssertionError(f"{tag}: /healthz answered {code} {health}")
-        # the launches of one served forward, one request driving
         first = {"image_b64": _png_b64(rng, 480, 640), "instruction": "top-left"}
-        torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
-        with _attention_lengths() as k1n:
-            code, body, first_s = _http(base + "/predict", first)
-        torch.cuda.synchronize()
-        launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+        code, body, first_s = _http(base + "/predict", first)
         if code != 200:
             raise AssertionError(f"{tag}: first /predict answered {code} {body}")
         # the same request alone once more: what the first paid beyond it is
         # one-time work the warmup left
         _, _, second_s = _http(base + "/predict", first)
+        # the launches of one served forward, one request driving: read from
+        # the trace of its replay against the captured forward run eagerly
+        (entry,) = engine.compiled.graphs.values()
+        gen = None if entry.generator is None else torch.Generator(engine.device).manual_seed(0)
+        (code, body, _), counts, n_kernels = _replay_launches(
+            f"{tag}: a served forward", lambda: engine._compiled_fn(entry.inputs, gen),
+            lambda: _http(base + "/predict", first), wrappers)
+        launches = {k: n for k, n in counts.items() if n}
+        if code != 200:
+            raise AssertionError(f"{tag}: the third /predict answered {code} {body}")
         layers = engine.model.vit_cfg.num_layers
         iters = engine.arch.num_iterations
         want = {**{k: layers for k in ("K1", "K2", "K3", "K4", "K4a", "K4b")},
@@ -2978,15 +3020,20 @@ def _serve_engine(tag, engine, smi, rng, image_root, image_paths):
         kept = 1 + max(1, round(a.token_filter_keep * P)) + \
             (a.token_filter_fuse_k if a.token_filter_fuse else 0)
         lengths = [1 + P] * filt + [kept] * (layers - filt)
-        log(f"  {tag}: warmup {warm_s:.2f} s before the server took traffic; first "
-            f"/predict {first_s * 1e3:.1f} ms, the same request alone again "
-            f"{second_s * 1e3:.1f} ms; launches of the first's forward: "
+        captured = k1n.seen[-layers:]
+        log(f"  {tag}: warmup {warm_s:.2f} s before the server took traffic (the max_batch "
+            f"graph captured in {held['each'][0]['capture_s']:.2f} s, "
+            f"{held['pool_bytes'] / 2 ** 20:.1f} MiB of pool); first /predict "
+            f"{first_s * 1e3:.1f} ms, the same request alone again {second_s * 1e3:.1f} ms; "
+            f"launches of a served forward (one replay; read from its trace, {n_kernels} "
+            f"caim kernels, the captured forward's in its order): "
             + ", ".join(f"{k} {n}" for k, n in launches.items())
-            + f"; K1's token count by block {k1n.seen}")
+            + f"; K1's token count by block in the captured forward {captured}")
         if launches != want:
             raise AssertionError(f"{tag}: launches {launches} != {want}")
-        if k1n.seen != lengths:
-            raise AssertionError(f"{tag}: K1 token counts {k1n.seen} != {lengths}")
+        if held["graphs"] != 1 or len(k1n.seen) != 2 * layers or captured != lengths:
+            raise AssertionError(f"{tag}: {held['graphs']} graphs after the warm-up; K1 "
+                                 f"token counts {k1n.seen} != {lengths} twice")
 
         # 24 concurrent /predict, mixed instructions, each against the
         # engine's own batched forward of the same pixels
@@ -3042,16 +3089,18 @@ def _serve_engine(tag, engine, smi, rng, image_root, image_paths):
             "requests_per_s": len(load) / wall, "p50_ms": float(np.percentile(lat, 50)),
             "p99_ms": float(np.percentile(lat, 99)), "first_ms": first_s * 1e3,
             "second_alone_ms": second_s * 1e3,
-            "warmup_s": warm_s, "decode_ms": float(np.mean(batcher.decode_ms)),
+            "warmup_s": warm_s, "capture_s": held["each"][0]["capture_s"],
+            "pool_mib": held["pool_bytes"] / 2 ** 20,
+            "decode_ms": float(np.mean(batcher.decode_ms)),
             "batches": len(bt), "mean_batch": float(np.mean([b["n"] for b in bt])), **stage}
         log(f"  {tag}: {len(load)} requests from 16 threads in {wall:.2f} s: "
             f"{numbers['requests_per_s']:.1f} requests/s, latency p50 "
             f"{numbers['p50_ms']:.1f} ms, p99 {numbers['p99_ms']:.1f} ms ({smi})")
         log(f"  {tag}: per stage: host decode + resize {numbers['decode_ms']:.1f} ms a "
             f"request (handler threads); {len(bt)} batches of {numbers['mean_batch']:.2f} on "
-            f"average: dispatch {stage['dispatch_ms']:.2f} ms (stack, pad, copy, enqueue), "
-            f"the forward on the stream {stage['device_ms']:.2f} ms (CUDA events from its "
-            f"first launch to its last: gaps while the host enqueues count), drain "
+            f"average: dispatch {stage['dispatch_ms']:.2f} ms (stack, pad, the copies into "
+            f"the graph's inputs, its replay), the forward on the stream "
+            f"{stage['device_ms']:.2f} ms (CUDA events around the replay), drain "
             f"{stage['drain_ms']:.2f} ms (wait for the outputs)")
         return numbers
     finally:
@@ -3928,6 +3977,7 @@ def phase_certification(smi):
 # the parallel layer (core/mesh.py, parallel/, the trainer's and the engine's
 # meshes) on the card, at world 1: one card, and NCCL takes one rank a device
 PARALLEL_DIR = os.path.join(ROOT, "build", "smoke_parallel")  # listed in .gitignore
+TP2_FILTER = "2:0.35"  # the token filter of the TP 2 pair's second step
 PARALLEL_IMAGES = 32
 PARALLEL_BATCH = 8  # the engine's chunk
 PIPE_MICRO = 4
@@ -3949,6 +3999,49 @@ def _zero_launches(wrappers):
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
+
+
+def _replay_launches(tag, eager, replay, wrappers, replays=1):
+    """The launches of ``replays`` CUDA graph replays, read from the device,
+    with replay()'s result. A replay runs no wrapper, so no Python count
+    sees it: eager() and replay() run in one torch.profiler window
+    (utils.profiling.traced_kernels). The replay must run no wrapper and the
+    caim kernels the eager run's wrappers launched, in the same order,
+    ``replays`` times over: each wrapper then launched in the replays what
+    it launched in the eager run (its own count of that run) times
+    ``replays``. Returns (replay()'s result, {kernel id: launches in the
+    replays}, the caim kernels they ran)."""
+    import difflib
+
+    from cognitive_aim_tpu_torch.utils.profiling import traced_kernels
+
+    _zero_launches(wrappers)
+    eager()  # one run counted (a trace may run it again)
+    live = _launch_counts(wrappers)
+    ran = {}
+
+    def counted_replay():
+        _zero_launches(wrappers)
+        result = replay()
+        ran.update(_launch_counts(wrappers))
+        return result
+
+    (_, eager_names), (got, names) = traced_kernels(eager, counted_replay)
+    if not eager_names or any(ran.values()):
+        raise AssertionError(f"{tag}: the eager run's trace holds {len(eager_names)} caim "
+                             f"kernels; the replay ran wrappers {ran}: not graph replays")
+    want = eager_names * replays
+    if names != want:
+        short, wshort = ([n.split("(")[0].replace("void caim::", "") for n in ns]
+                         for ns in (names, want))
+        ops = difflib.SequenceMatcher(None, short, wshort, autojunk=False)
+        raise AssertionError(
+            f"{tag}: the replay ran {len(names)} caim kernels, the eager run {len(want)} "
+            f"({len(eager_names)} a run x {replays}); where they differ (replay / eager "
+            f"positions): " + "; ".join(
+                f"{op} {short[i1:i2][:3]} / {wshort[j1:j2][:3]} at {i1}-{i2} / {j1}-{j2}"
+                for op, i1, i2, j1, j2 in ops.get_opcodes() if op != "equal"))
+    return got, {k: n * replays for k, n in live.items()}, len(names)
 
 
 def _vit_l_pipeline(wrappers, mesh=None):
@@ -4022,11 +4115,22 @@ def _mesh_training(raw, arch, mesh, tp, steps=MESH_STEPS):
     return losses, params, times
 
 
+def _filtered_arch(arch, spec=TP2_FILTER):
+    """``arch`` with the token filter ``spec`` on in training too."""
+    import dataclasses
+
+    from cognitive_aim_tpu_torch.models.config import parse_token_filter
+
+    return dataclasses.replace(arch, **parse_token_filter(spec), token_filter_train=True)
+
+
 def _tp2_rank(rank, rendezvous, result):
     """One of the two ranks of a gloo world that share the card: one step of
     experiment_B.yaml's trainer at tensor parallelism 2 (each rank 6 of the
-    12 heads, half of fc1's columns); rank 0 saves the loss, the whole
-    parameters and its launches to ``result``."""
+    12 heads, half of fc1's columns), then one under the token filter
+    ``TP2_FILTER`` (each rank the CLS rows of its heads, summed over
+    ``model``); rank 0 saves the losses, the whole parameters and its
+    launches to ``result``."""
     sys.path.insert(0, ROOT)
     import torch
     import torch.distributed as dist
@@ -4044,7 +4148,13 @@ def _tp2_rank(rank, rendezvous, result):
         heads.add(num_heads)
         return attend(attn_impl, q, k, v, k_bias, scale, num_heads)
 
-    dinov2.attend = spy
+    kept, keep_indices = [], dinov2._keep_indices
+
+    def keep_spy(importance, keep_weights, k_keep, ctx_frac=0.0):
+        kept.append(k_keep)
+        return keep_indices(importance, keep_weights, k_keep, ctx_frac)
+
+    dinov2.attend, dinov2._keep_indices = spy, keep_spy
     try:
         with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
             raw = yaml.safe_load(f)
@@ -4054,12 +4164,18 @@ def _tp2_rank(rank, rendezvous, result):
         losses, params, times = _mesh_training(
             raw, arch, make_mesh(model_parallel=2, device="cuda"), True, steps=1)
         launches = _launch_counts(wrappers)
+        f_losses, f_params, f_times = _mesh_training(
+            raw, _filtered_arch(arch), make_mesh(model_parallel=2, device="cuda"), True,
+            steps=1)
         if rank == 0:
             torch.save({"losses": losses, "times": times, "launches": launches,
                         "heads": sorted(heads),
-                        "params": {n: p.cpu() for n, p in params.items()}}, result)
+                        "params": {n: p.cpu() for n, p in params.items()},
+                        "filtered": {"losses": f_losses, "times": f_times, "kept": kept,
+                                     "params": {n: p.cpu() for n, p in f_params.items()}}},
+                       result)
     finally:
-        dinov2.attend = attend
+        dinov2.attend, dinov2._keep_indices = attend, keep_indices
         dist.destroy_process_group()
 
 
@@ -4123,6 +4239,8 @@ def phase_parallel(smi, packages):
         arch = resolve_model_config(raw, lookup="nested")
         none_loss, none_params, none_times = _mesh_training(raw, arch, None, False)
         tp1_loss, tp1_params, _ = _mesh_training(raw, arch, None, False, steps=1)
+        tp1f_loss, tp1f_params, _ = _mesh_training(raw, _filtered_arch(arch), None, False,
+                                                   steps=1)
         torch.cuda.empty_cache()
 
         # ---- the process group: NCCL, world 1
@@ -4143,13 +4261,20 @@ def phase_parallel(smi, packages):
                 engine.predict_paths_batched(paths[:PARALLEL_BATCH], batch_size=PARALLEL_BATCH,
                                              instructions=instructions[:PARALLEL_BATCH],
                                              mesh=mesh)
-                _zero_launches(wrappers)
                 t = time.perf_counter()
                 got = engine.predict_paths_batched(paths, instructions=instructions,
                                                    batch_size=PARALLEL_BATCH, mesh=mesh)
                 mesh_s = time.perf_counter() - t
-                counts = _launch_counts(wrappers)
                 forwards = -(-PARALLEL_IMAGES // PARALLEL_BATCH)
+                # the launches of the mesh path's replays, read from their trace
+                # against mesh=None's captured forward run eagerly
+                (entry,) = [e for (k, _), e in engine.compiled.graphs.items() if k.shard is None]
+                _, counts, n_kernels = _replay_launches(
+                    f"data-parallel engine ({tag})",
+                    lambda: engine._compiled_fn(entry.inputs, None),
+                    lambda: engine.predict_paths_batched(
+                        paths, instructions=instructions, batch_size=PARALLEL_BATCH, mesh=mesh),
+                    wrappers, replays=forwards)
                 expect = {k: per_forward.get(k, 0) * forwards for k in wrappers}
                 same = got == want[tag]
                 log(f"  data-parallel engine ({tag}): {len(got)} results "
@@ -4157,7 +4282,8 @@ def phase_parallel(smi, packages):
                     f"{mesh_s * 1e3:.1f} ms (mesh=None {none_s[tag] * 1e3:.1f} ms) for "
                     f"{PARALLEL_IMAGES} images with decode ({smi}); launches "
                     + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
-                    + f" in {forwards} forwards")
+                    + f" in {forwards} replays (read from their trace, {n_kernels} caim "
+                    f"kernels)")
                 if not same:
                     raise AssertionError(f"{tag}: the mesh path's results differ from "
                                          f"mesh=None's")
@@ -4243,11 +4369,28 @@ def phase_parallel(smi, packages):
             f"({smi})")
         if loss_rel > 1e-4 or excess > 1e-4 or tp2["heads"] != [6]:
             raise AssertionError("the TP 2 step on the card disagrees with world 1's")
+        tf = tp2["filtered"]
+        f_rel = abs(tf["losses"][0] - tp1f_loss[0]) / abs(tp1f_loss[0])
+        f_excess = max(float(((tf["params"][n] - p.cpu()).abs() - 2e-3 * p.cpu().abs()).max())
+                       for n, p in tp1f_params.items())
+        log(f"  tensor parallelism 2 under the token filter {TP2_FILTER} (filtered in "
+            f"training; each rank the CLS rows of its heads, summed over model): one step, "
+            f"loss {tf['losses'][0]:.6f} against {tp1f_loss[0]:.6f} at world 1, rel "
+            f"{f_rel:.2e} (tol 1e-4); parameters within atol {max(f_excess, 0.0):.2e} beyond "
+            f"rtol 2e-3 (tol 1e-4); kept per stage {sorted(set(tf['kept']))} of "
+            f"{(arch.image_size // 14) ** 2}; the step {tf['times'][0]:.1f} ms on rank 0 "
+            f"({smi})")
+        if f_rel > 1e-4 or f_excess > 1e-4 or not tf["kept"]:
+            raise AssertionError("the filtered TP 2 step on the card disagrees with world 1's")
         out["tp2_on_one_card"] = {"backend": "gloo", "k1_heads": tp2["heads"],
                                   "loss": tp2["losses"][0],
                                   "loss_world1": tp1_loss[0], "loss_rel": loss_rel,
                                   "param_excess_over_rtol": excess,
-                                  "step_ms": tp2["times"][0], "seconds": tp2_s}
+                                  "step_ms": tp2["times"][0], "seconds": tp2_s,
+                                  "filtered": {"spec": TP2_FILTER, "loss": tf["losses"][0],
+                                               "loss_world1": tp1f_loss[0], "loss_rel": f_rel,
+                                               "param_excess_over_rtol": f_excess,
+                                               "step_ms": tf["times"][0]}}
         launches["tp2_rank0"] = tp2["launches"]
     finally:
         shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
@@ -4299,6 +4442,7 @@ def phase_export(smi, packages):
     import torch
 
     from cognitive_aim_tpu_torch.api import CognitiveAimInference, load_config
+    from cognitive_aim_tpu_torch.core.compiled import CompiledForward
     from cognitive_aim_tpu_torch.kernels._library import op_counts
 
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -4377,19 +4521,46 @@ def phase_export(smi, packages):
                 raise AssertionError(f"(j) {point}: launches of the loaded program {counts} "
                                      f"!= {want}")
             launches[point] = counts
+            # the loaded program captured and replayed by the engine's helper
+            graphs = CompiledForward(
+                lambda inp, gen: loaded(inp["images"], {k[5:]: v for k, v in inp.items()
+                                                        if k.startswith("exif/")}, inp["gidx"]),
+                dev)
+            flat_in = {"images": inputs[0], "gidx": inputs[2],
+                       **{f"exif/{k}": v for k, v in inputs[1].items()}}
+            graphs("loaded", flat_in)
+            (capture_s,) = [e.capture_s for e in graphs.graphs.values()]
+            (d2, c2), replay_counts, n_kernels = _replay_launches(
+                f"(j) {point}", lambda: loaded(*inputs), lambda: graphs("loaded", flat_in),
+                wrappers)
+            replay_equal = bool(torch.equal(d2, d1) and torch.equal(c2, c1))
+            log(f"  {point}: the loaded program captured in {capture_s:.2f} s "
+                f"({graphs.pool_bytes() / 2 ** 20:.1f} MiB of pool); one replay against its "
+                f"eager run: bit-equal {replay_equal}; launches a replay, read from its "
+                f"trace ({n_kernels} caim kernels, the eager run's in its order) "
+                + ", ".join(f"{k} {v}" for k, v in replay_counts.items() if v))
+            if not replay_equal or replay_counts != want:
+                raise AssertionError(f"(j) {point}: the loaded program's replay disagrees with "
+                                     f"its eager run ({replay_counts} launches)")
+            replay = lambda: graphs("loaded", flat_in)  # noqa: E731
             # times: a warm-up of each, then three of each in turns
-            loaded(*inputs), live(*inputs)
-            t_loaded, t_live = [], []
+            loaded(*inputs), live(*inputs), replay()
+            t_loaded, t_live, t_replay = [], [], []
             for _ in range(3):
                 t_live += _events_ms(lambda: live(*inputs), 1)
                 t_loaded += _events_ms(lambda: loaded(*inputs), 1)
+                t_replay += _events_ms(replay, 1)
             host_loaded = _host_enqueue_ms(lambda: loaded(*inputs))
             host_live = _host_enqueue_ms(lambda: live(*inputs))
-            med = {n: float(np.median(v)) for n, v in (("loaded", t_loaded), ("live", t_live))}
+            host_replay = _host_enqueue_ms(replay)
+            med = {n: float(np.median(v)) for n, v in (("loaded", t_loaded), ("live", t_live),
+                                                       ("replay", t_replay))}
             log(f"  {point} forward by CUDA events, median of 3 (range): loaded program "
                 f"{med['loaded']:.3f} ms ({min(t_loaded):.3f}-{max(t_loaded):.3f}), live "
-                f"{med['live']:.3f} ms ({min(t_live):.3f}-{max(t_live):.3f}); host enqueue "
-                f"{host_loaded:.3f} / {host_live:.3f} ms ({smi})")
+                f"{med['live']:.3f} ms ({min(t_live):.3f}-{max(t_live):.3f}), the loaded "
+                f"program's graph {med['replay']:.3f} ms ({min(t_replay):.3f}-"
+                f"{max(t_replay):.3f}); host enqueue {host_loaded:.3f} / {host_live:.3f} / "
+                f"{host_replay:.3f} ms ({smi})")
             out[point] = {"batch": B, "export_s": export_s, "save_s": save_s,
                           "load_s": load_s, "artifact_mb": mb, "params_npz_mb": npz_mb,
                           "params_arrays": n_arrays, "caim_nodes": nodes,
@@ -4397,8 +4568,11 @@ def phase_export(smi, packages):
                           "forward_ms_loaded": med["loaded"], "forward_ms_live": med["live"],
                           "forward_ms_loaded_all": t_loaded, "forward_ms_live_all": t_live,
                           "host_enqueue_ms_loaded": host_loaded,
-                          "host_enqueue_ms_live": host_live}
-            del engine, live, loaded
+                          "host_enqueue_ms_live": host_live,
+                          "graph_capture_s": capture_s, "graph_bit_equal": replay_equal,
+                          "forward_ms_graph": med["replay"], "forward_ms_graph_all": t_replay,
+                          "host_enqueue_ms_graph": host_replay}
+            del engine, live, loaded, graphs
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(EXPORT_DIR, ignore_errors=True)
@@ -4410,6 +4584,153 @@ def phase_export(smi, packages):
     out["torch"] = torch.__version__
     out["seconds"] = time.perf_counter() - t0
     log(f"phase (j) took {out['seconds']:.1f} s")
+    return out, launches
+
+
+# (point, config of phase (f), policy, batch, guided, uint8 images): phase (f)'s
+# engine, guided on float images at B 8 and 16, exact and 2:0.35; at B 8 exact
+# also unguided and on uint8 images (predict_paths_batched); the default policy
+COMPILED_POINTS = (
+    ("exact B8", "exact", "int8", 8, True, False),
+    ("exact B16", "exact", "int8", 16, True, False),
+    ("2:0.35 B8", "fast", "int8", 8, True, False),
+    ("2:0.35 B16", "fast", "int8", 16, True, False),
+    ("exact B8 unguided", "exact", "int8", 8, False, False),
+    ("exact B8 uint8", "exact", "int8", 8, True, True),
+    ("default B8", "exact", "default", 8, True, False),
+)
+COMPILED_RTOL, COMPILED_ATOL = 2e-5, 1e-6  # bit-equal expected
+
+
+def _compiled_inputs(B, S, dev, uint8, guided, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if uint8:
+        x = torch.randint(0, 256, (B, S, S, 3), generator=g, device=dev, dtype=torch.uint8)
+    else:
+        x = torch.randn((B, S, S, 3), generator=g, device=dev) * 0.5
+    exif = {"camera_idx": torch.zeros(B, dtype=torch.int32, device=dev),
+            "focal_length": torch.full((B,), 35.0, device=dev),
+            "aperture": torch.full((B,), 2.8, device=dev),
+            "iso": torch.full((B,), 200.0, device=dev)}
+    gidx = (torch.arange(B, device=dev) % 9) if guided else None
+    return x, exif, gidx
+
+
+def phase_compiled(smi, packages):
+    """(k) the engine's compiled forward (core/compiled.py): phase (f)'s
+    engine, ViT-B 518 int8 pallas_packed with seeded weights and sampled
+    noise, and the default policy; for each point the capture's seconds, one
+    replay against the eager ``engine.model(...)`` with the replay's seed
+    (rtol 2e-5 / atol 1e-6, bit-equal expected), the launches of a replay
+    against the eager forward's, host time a replay beside the eager
+    enqueue, both forwards by CUDA events (median of 3, range), the graphs
+    held and the pool's bytes."""
+    import torch
+
+    from cognitive_aim_tpu_torch.api import CognitiveAimInference, load_config
+    from cognitive_aim_tpu_torch.io.preprocess import normalize_u8
+    from cognitive_aim_tpu_torch.models.guidance import INSTRUCTIONS
+
+    t0 = time.perf_counter()
+    wrappers = _wrappers()
+    log(f"(k) compiled forward on {smi}: {SERVE_CONFIG} (use_lora off), sampled noise; "
+        + ", ".join(f"{p[0]} ({p[2]})" for p in COMPILED_POINTS))
+    if packages["yaml"] is None or packages["PIL"] is None:
+        raise RuntimeError("phase (k) needs PyYAML for the config and PIL for the images")
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    out, launches, engines = {"card": smi}, {}, {}
+    try:
+        cfgs = _serving_configs(load_config(os.path.join(ROOT, SERVE_CONFIG)))
+        _, paths = _image_files(np.random.RandomState(23), 8)
+        for tag, cfg, policy, B, guided, uint8 in COMPILED_POINTS:
+            if (cfg, policy) not in engines:
+                engines[cfg, policy] = CognitiveAimInference(
+                    cfgs[cfg], None, seed=0, policy=policy, attn_impl="pallas_packed",
+                    noise_mode="sample", save_images=False)
+            eng = engines[cfg, policy]
+            S, dev = eng.image_size, eng.device
+            n_before = len(eng.compiled.graphs)
+            if uint8:  # the entry point that captures it: predict_paths_batched
+                res = eng.predict_paths_batched(
+                    paths, instructions=[INSTRUCTIONS[i % 9] for i in range(8)], batch_size=B)
+                if not np.isfinite(np.asarray(res)).all():
+                    raise AssertionError(f"(k) {tag}: predict_paths_batched gave {res}")
+            x, exif, g = _compiled_inputs(B, S, dev, uint8, guided, seed=B + 7 * uint8)
+            eng._forward(x, exif, g)  # captures where predict_paths_batched did not
+            torch.cuda.synchronize()
+            entry = list(eng.compiled.graphs.values())[n_before]
+            x, exif, g = _compiled_inputs(B, S, dev, uint8, guided, seed=B + 100)
+            seed = 0
+
+            def eager():
+                return eng.model(normalize_u8(x) if uint8 else x, exif, guidance=g,
+                                 generator=torch.Generator(dev).manual_seed(seed),
+                                 noise_mode=eng.noise_mode)
+
+            got, replay, n_kernels = _replay_launches(
+                f"(k) {tag}", eager, lambda: eng._forward(x, exif, g), wrappers)
+            seed = eng._seed_of(eng._draws - 1)  # the last replay's
+            want = eager()
+            diff = max(float((getattr(got, f) - getattr(want, f)).abs().max())
+                       for f in ("depth", "confidence", "attention"))
+            bit_equal = all(torch.equal(getattr(got, f), getattr(want, f))
+                            for f in ("depth", "confidence", "attention", "curiosity",
+                                      "fused_features"))
+            ok = all(np.allclose(getattr(got, f).cpu().numpy(), getattr(want, f).cpu().numpy(),
+                                 rtol=COMPILED_RTOL, atol=COMPILED_ATOL)
+                     for f in ("depth", "confidence", "attention"))
+            finite = bool(torch.isfinite(got.depth).all() and (got.depth > 0).all())
+            layers, iters = eng.model.vit_cfg.num_layers, eng.arch.num_iterations
+            want_launches = ({"K1": layers, "K6": iters} if policy == "default" else
+                             {**{k: layers for k in ("K1", "K2", "K3", "K4", "K4a", "K4b")},
+                              "K5": iters, "K6": iters})
+            replay_fn = lambda: eng._forward(x, exif, g)  # noqa: E731
+            eager(), replay_fn()
+            host_replay = _host_enqueue_ms(replay_fn) * 1e3
+            host_eager = _host_enqueue_ms(eager) * 1e3
+            t_replay, t_eager = [], []
+            for _ in range(3):
+                t_eager += _events_ms(eager, 1)
+                t_replay += _events_ms(replay_fn, 1)
+            med = {n: float(np.median(v)) for n, v in (("replay", t_replay), ("eager", t_eager))}
+            held = eng.compiled.describe()
+            log(f"  {tag}: captured in {entry.capture_s:.2f} s ({entry.pool_bytes / 2 ** 20:.1f} "
+                f"MiB added to the pool); a replay against the eager forward with its seed: "
+                f"max |diff| {diff:.2e} (rtol {COMPILED_RTOL:.0e}, atol {COMPILED_ATOL:.0e}) "
+                f"{'ok' if ok else 'FAIL'}, bit-equal {bit_equal}; launches a replay, read "
+                f"from its trace ({n_kernels} caim kernels, the eager forward's in its "
+                f"order): " + ", ".join(f"{k} {v}" for k, v in replay.items() if v)
+                + f" (want {want_launches}); host "
+                f"{host_replay:.0f} us a replay, eager enqueue {host_eager:.0f} us; device by "
+                f"CUDA events, median of 3 (range): replay {med['replay']:.3f} ms "
+                f"({min(t_replay):.3f}-{max(t_replay):.3f}), eager {med['eager']:.3f} ms "
+                f"({min(t_eager):.3f}-{max(t_eager):.3f}); the engine holds {held['graphs']} "
+                f"graphs, {held['pool_bytes'] / 2 ** 20:.1f} MiB of pool ({smi})")
+            if not ok or not finite:
+                raise AssertionError(f"(k) {tag}: the replay disagrees with the eager forward")
+            if {k: v for k, v in replay.items() if v} != want_launches:
+                raise AssertionError(f"(k) {tag}: launches a replay {replay} != "
+                                     f"{want_launches}")
+            launches[tag] = replay
+            out[tag] = {"batch": B, "guided": guided, "uint8": uint8, "policy": policy,
+                        "capture_s": entry.capture_s, "pool_mib": entry.pool_bytes / 2 ** 20,
+                        "max_abs_diff": diff, "bit_equal": bit_equal,
+                        "caim_kernels_replay": n_kernels, "host_us_replay": host_replay,
+                        "host_us_eager": host_eager,
+                        "ms_replay": med["replay"], "ms_eager": med["eager"],
+                        "ms_replay_all": t_replay, "ms_eager_all": t_eager,
+                        "graphs_held": held["graphs"], "pool_mib_held": held["pool_bytes"] / 2 ** 20}
+    finally:
+        engines.clear()
+        torch.cuda.empty_cache()
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
+    if foreign:
+        raise AssertionError(f"phase (k) imported JAX or the JAX package: {foreign}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase (k) took {out['seconds']:.1f} s")
     return out, launches
 
 
@@ -4493,6 +4814,13 @@ def main() -> int:
         log(f"parallel only: phases (c)-(h) and (j) were not driven, "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
+    if "--compiled-only" in sys.argv[1:]:
+        with torch.no_grad():
+            compiled, _ = phase_compiled(smi, packages)
+        log(f"compiled {json.dumps(compiled, default=float)}")
+        log(f"compiled only: phases (c)-(j) were not driven, "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if "--export-only" in sys.argv[1:]:
         with torch.no_grad():
             export, _ = phase_export(smi, packages)
@@ -4542,6 +4870,10 @@ def main() -> int:
     with torch.no_grad():
         export, launches_export = phase_export(smi, packages)
     log(f"export {json.dumps(export, default=float)}")
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        compiled, launches_compiled = phase_compiled(smi, packages)
+    log(f"compiled {json.dumps(compiled, default=float)}")
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
     if foreign:
@@ -4561,6 +4893,7 @@ def main() -> int:
          "launches_certification": launches_cert[kid],
          "launches_parallel": {n: c[kid] for n, c in launches_parallel.items()},
          "launches_export": {n: c[kid] for n, c in launches_export.items()},
+         "launches_compiled": {n: c[kid] for n, c in launches_compiled.items()},
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body) in KERNELS.items()]
     kernels += [
@@ -4569,11 +4902,15 @@ def main() -> int:
          "replaces": f"cognitive_aim_tpu/kernels/{body}",
          "launches": launches_strict[wrapper], "launches_from": "strict f32 224x224",
          "launches_certification": launches_cert_f32[wrapper],
-         # the exported program runs the int8 policy: bf16 attention, no f32 program
+         # the exported program and the compiled engine run bf16 attention, no f32 program
          "launches_export": {n: 0 for n in launches_export},
+         "launches_compiled": {n: 0 for n in launches_compiled},
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body, wrapper) in F32_KERNELS.items()]
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    from cognitive_aim_tpu_torch.utils import profiling
+
+    log(f"total {time.perf_counter() - t_start:.1f} s (the last replay trace waited "
+        f"{profiling._SETTLE} s around its call)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

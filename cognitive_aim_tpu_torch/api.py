@@ -39,6 +39,19 @@ to the same model bit for bit.
 
 ``noise_mode="sample"`` draws from a fresh ``torch.Generator`` per call
 (``_next_key``); it cannot equal JAX's streams, so parity uses ``"zeros"``.
+
+On the card every forward the engine runs (``predict``, ``predict_batch``,
+``predict_all_instructions(_batch)``, ``predict_paths_batched`` with or without
+``mesh``, the server's) is one replay of a CUDA graph captured at the first
+forward of its ``Signature`` (``core/compiled.py``): guided or unguided, float
+or uint8 images (``normalize_u8`` inside the graph), batch and image size, and
+the batch shard of a mesh. That is the JAX engine's one jitted forward per
+signature. The graph's generator is seeded with ``_next_key``'s seed before
+each replay, so a replay draws what the eager forward would. A capture that
+breaks raises; the eager forward stays reachable as ``engine.model(...)``,
+and an engine built with ``device="cpu"`` runs it. What the forward reads
+from Python, ``CAIM_FUSE_AOMLP`` among it, is read while capturing, as the
+JAX engine reads it while tracing.
 """
 
 from __future__ import annotations
@@ -48,12 +61,14 @@ import contextlib
 import json
 import os
 import threading
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from cognitive_aim_tpu_torch.convert import flat_params, load_flat_params
+from cognitive_aim_tpu_torch.core.compiled import CompiledForward, Signature
 from cognitive_aim_tpu_torch.core.device import resolve_device
 from cognitive_aim_tpu_torch.core.precision import policy_from_name
 from cognitive_aim_tpu_torch.core.rng import NoiseMode
@@ -73,6 +88,7 @@ from cognitive_aim_tpu_torch.models.config import (
     resolve_model_config,
     token_filter_spec,
 )
+from cognitive_aim_tpu_torch.parallel import comm
 
 _LORA = "backbone/layers/lora"
 _FILTERPATH = "filterpath/"
@@ -157,6 +173,7 @@ class CognitiveAimInference:
         self._params = flat_params(
             self._new_model().init(torch.Generator(self.device).manual_seed(seed)))
         self.model: Optional[CognitiveAimModel] = None
+        self.compiled: Optional[CompiledForward] = None  # the card's graphs
         if checkpoint_path:
             self.load_checkpoint(checkpoint_path)
         if self.model is None:
@@ -194,6 +211,13 @@ class CognitiveAimInference:
         if self.model is not None:  # the exploration record outlives a reload
             model.exploration_history = self.model.exploration_history
         self._params, self.model = params, model
+        # the graphs captured the old model's buffers: a new model, new graphs;
+        # the cache reaches the engine by a weak reference, so that an engine
+        # let go is freed with its graphs at once
+        run = weakref.WeakMethod(self._compiled_fn)
+        self.compiled = None if self.device.type != "cuda" else CompiledForward(
+            lambda inputs, generator: run()(inputs, generator), self.device,
+            sample_noise=self.noise_mode == NoiseMode.SAMPLE)
 
     # -------------------------------------------------------- checkpoint ----
     def load_checkpoint(self, path: str):
@@ -322,25 +346,61 @@ class CognitiveAimInference:
         np.savez(path, **self._params)
 
     # ---------------------------------------------------------- predict ----
-    def _next_key(self) -> torch.Generator:
-        """A fresh generator on the model's device for one forward, seeded
-        from ``seed`` and a counter. The lock: the HTTP server calls this
-        from its dispatcher thread and from request handler threads, and
-        two callers must never share one noise state."""
+    def _seed_of(self, draw: int) -> int:
+        """The noise seed of the engine's ``draw``-th forward."""
+        state = np.random.SeedSequence([self.seed, draw]).generate_state(1, np.uint64)[0]
+        return int(state) >> 1
+
+    def _next_seed(self) -> int:
+        """The next forward's noise seed, from ``seed`` and a counter. The
+        lock: the HTTP server calls this from its dispatcher thread and from
+        request handler threads, and two callers must never share one noise
+        state."""
         with self._rng_lock:
             draw = self._draws
             self._draws += 1
-        state = np.random.SeedSequence([self.seed, draw]).generate_state(1, np.uint64)[0]
-        return torch.Generator(self.device).manual_seed(int(state) >> 1)
+        return self._seed_of(draw)
 
-    def _forward(self, images: torch.Tensor, exif: Dict[str, torch.Tensor],
-                 guidance=None):
-        """One forward of normalized NHWC images on the device."""
-        with self._rng_lock:  # handler and dispatcher threads both count
-            self.batch_sizes[int(images.shape[0])] += 1
+    def _next_key(self) -> torch.Generator:
+        """A fresh generator on the model's device for one forward, seeded
+        with ``_next_seed()``."""
+        return torch.Generator(self.device).manual_seed(self._next_seed())
+
+    def _eager(self, images: torch.Tensor, exif, guidance, generator):
+        """The model's forward of NHWC images on the device: float32
+        normalized, or uint8, normalized here (``normalize_u8``)."""
+        if images.dtype == torch.uint8:
+            images = normalize_u8(images)
         with torch.no_grad():
-            return self.model(images, exif, guidance=guidance,
-                              generator=self._next_key(), noise_mode=self.noise_mode)
+            return self.model(images, exif, guidance=guidance, generator=generator,
+                              noise_mode=self.noise_mode)
+
+    def _compiled_fn(self, inputs: Dict[str, torch.Tensor], generator):
+        exif = {k[len("exif/"):]: v for k, v in inputs.items() if k.startswith("exif/")}
+        return self._eager(inputs["images"], exif or None, inputs.get("guidance"), generator)
+
+    def _forward(self, images: torch.Tensor, exif: Optional[Dict[str, torch.Tensor]],
+                 guidance=None):
+        """One forward of NHWC images, float32 normalized or uint8, on the
+        host or the device; ``guidance`` an instruction index or a [B]
+        vector of them. On the card: one replay of the graph of this
+        forward's ``Signature``, captured at its first call (the inputs are
+        copied into its static inputs, host ones straight from the host);
+        on the CPU: the eager forward."""
+        B = int(images.shape[0])
+        with self._rng_lock:  # handler and dispatcher threads both count
+            self.batch_sizes[B] += 1
+        if self.compiled is None:
+            exif = None if exif is None else {k: v.to(self.device) for k, v in exif.items()}
+            return self._eager(images.to(self.device), exif, guidance, self._next_key())
+        inputs = {"images": images,
+                  **{f"exif/{k}": v for k, v in (exif or {}).items()}}
+        if guidance is not None:
+            g = torch.as_tensor(guidance, dtype=torch.long)
+            inputs["guidance"] = g.expand(B) if g.ndim == 0 else g
+        key = Signature(guidance is not None, images.dtype == torch.uint8, B,
+                        int(images.shape[1]), int(images.shape[2]), comm.current_shard())
+        return self.compiled(key, inputs, self._next_seed())
 
     def _to_device(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -361,7 +421,7 @@ class CognitiveAimInference:
         images, original_size = self._prep_image(image_path)
         exif_raw = exif_io.extract_exif(image_path)
         exif = self._to_device(exif_io.exif_arrays_for_model(exif_raw, self.camera_to_id))
-        x = torch.from_numpy(images).to(self.device)
+        x = torch.from_numpy(images)
         if instruction is not None:
             out = self._forward(x, exif, self._guidance(G.instruction_index(instruction)))
         else:
@@ -431,7 +491,7 @@ class CognitiveAimInference:
         """All 9 instructions for each image, in ONE forward of batch 9 M
         with a tiled guidance-index vector."""
         n = len(G.INSTRUCTIONS)
-        batch = torch.from_numpy(np.repeat(images, n, axis=0)).to(self.device)
+        batch = torch.from_numpy(np.repeat(images, n, axis=0))
         exif = self._to_device({k: np.concatenate([np.repeat(e[k], n, axis=0)
                                                    for e in exifs]) for k in exifs[0]})
         gi = self._guidance(np.tile(np.arange(n), len(exifs)))
@@ -503,7 +563,8 @@ class CognitiveAimInference:
         normalization on the device -> the forward. Returns [(depth,
         confidence)] per path ((nan, nan) for failed decodes); writes no
         PNGs. Each chunk is padded to ``batch_size`` with its last image, so
-        every forward has one shape.
+        every forward has one shape (on the card: one graph, with the
+        normalisation inside it).
 
         Per-image EXIF comes from the loader's APP1 payloads (same ranges
         and defaults as ``predict``); ``use_exif=False`` uses the
@@ -577,10 +638,11 @@ class CognitiveAimInference:
                 imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, 0)])
                 exif = {k: np.concatenate([v, np.repeat(v[-1:], pad, 0)])
                         for k, v in exif.items()}
-            host = torch.from_numpy(imgs)
+            # uint8 from pinned memory without blocking, straight into the
+            # graph's static input; normalize_u8 runs inside the forward
+            xb = torch.from_numpy(imgs)
             if pin:
-                host = host.pin_memory()
-            xb = normalize_u8(host.to(self.device, non_blocking=True))
+                xb = xb.pin_memory()
             eb = self._to_device(exif)
             shard = contextlib.nullcontext()
             if mesh is not None and mesh.distributed:

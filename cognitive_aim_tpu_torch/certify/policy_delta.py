@@ -102,8 +102,10 @@ def predict(engines, norm, batch):
             for s in range(0, norm.shape[0], batch):
                 xb = torch.from_numpy(norm[s:s + batch]).to(eng.device)
                 B = xb.shape[0]
-                out = eng._forward(xb, exif_batch(B, eng.device),
-                                   torch.full((B,), gi, dtype=torch.long, device=eng.device))
+                # the eager forward: the strict-policy runs capture no graph
+                out = eng._eager(xb, exif_batch(B, eng.device),
+                                 torch.full((B,), gi, dtype=torch.long, device=eng.device),
+                                 eng._next_key())
                 d.append(out.depth[:, 0])
                 c.append(out.confidence[:, 0])
             preds[name][gname] = torch.cat(d).double().cpu().numpy()

@@ -17,6 +17,8 @@ functions that need it.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -47,10 +49,17 @@ def normalize_u8(images_u8: torch.Tensor) -> torch.Tensor:
     return _imagenet(images_u8.float() / 255.0)
 
 
+@functools.lru_cache(maxsize=8)
+def _imagenet_on(device: torch.device):
+    """(mean, std) float32 [3] on ``device``, made once per device (a copy
+    from the host per call would break a captured forward); read-only."""
+    return (torch.tensor(IMAGENET_MEAN, device=device),
+            torch.tensor(IMAGENET_STD, device=device))
+
+
 def _imagenet(x: torch.Tensor) -> torch.Tensor:
     """float32 NHWC in [0, 1] -> ImageNet-normalized, on x's device."""
-    mean = torch.tensor(IMAGENET_MEAN, device=x.device)
-    std = torch.tensor(IMAGENET_STD, device=x.device)
+    mean, std = _imagenet_on(x.device)
     return (x - mean) / std
 
 

@@ -418,7 +418,8 @@ class Block(nn.Module):
         out = (self.attn_out.wq, self.attn_out.ws, self.attn_out.bias, self.ls1)
         mlp = (n2.weight, n2.bias, self.fc1.wq, self.fc1.ws, self.fc1.bias,
                self.fc2.wq, self.fc2.ws, self.fc2.bias, self.ls2, eps)
-        if os.environ.get("CAIM_FUSE_AOMLP", "0") == "1":  # read at call time, as in JAX
+        # read at call time (the engine's graphs: while capturing), as JAX reads it tracing
+        if os.environ.get("CAIM_FUSE_AOMLP", "0") == "1":
             aomlp = IB.int8_attnout_mlp_ln if fused else IB.int8_attnout_mlp_ln_plain
             return aomlp(ctx, *out, x, *mlp)
         out_res = IB.int8_out_residual if fused else IB.int8_out_residual_plain
@@ -464,8 +465,9 @@ def _layer_qk_weights(blk: Block, dtype: torch.dtype):
     """Float32 (Wq, bq, Wk, bk) of a block's query and key projections, with
     the values the block itself computes with: the int8 weight times its
     per-row scales, or the float weight rounded to the compute dtype. The
-    weights are [out, in], so q and k are row slices of the fused [3D, D]."""
-    D = blk.cfg.hidden_size
+    weights are [out, in], so q and k are row slices of the fused [3D, D]
+    (on a tensor-parallel rank [3D / tp, D]: its heads of each)."""
+    D = blk.qkv.bias.shape[0] // 3
     if blk.quantized:
         w = blk.qkv.wq[:2 * D].float() * blk.qkv.ws[:2 * D, None]
         b = blk.qkv.bias[:2 * D]
@@ -481,19 +483,34 @@ def _cls_importance(blk: Block, x: torch.Tensor, return_keys: bool = False):
     [B, N, D] x [D, D] key projection and one score row. With
     ``return_keys`` also the key projection [B, N, D] (f32, heads
     flattened), which merge mode and the delta correction use as the token
-    similarity embedding."""
+    similarity embedding.
+
+    On a tensor-parallel block each rank holds its heads of q and k: it sums
+    the CLS rows of its heads, the sum is all-reduced over ``model`` and
+    divided by the head count, so every rank keeps the same set; the keys
+    are all-gathered (only merge mode and the delta correction read them)."""
     cfg = blk.cfg
     H, hd = cfg.num_heads, cfg.head_dim
     n1 = blk.norm1
     h = F.layer_norm(x.float(), n1.normalized_shape, L.round_through(n1.weight, x.dtype),
                      L.round_through(n1.bias, x.dtype), n1.eps)
+    tp = blk.tp
+    if tp is not None:
+        h = comm.copy_to(h, tp)
     wq, bq, wk, bk = _layer_qk_weights(blk, x.dtype)
     q_cls = F.linear(h[:, 0], wq, bq)
     k = F.linear(h, wk, bk)
-    B, N, _ = k.shape
-    scores = torch.einsum("bhd,bnhd->bhn", q_cls.reshape(B, H, hd),
-                          k.reshape(B, N, H, hd)) * (hd ** -0.5)
-    imp = torch.softmax(scores, dim=-1).mean(dim=1)[:, 1:]  # patch columns
+    B, N, Dk = k.shape
+    Hk = Dk // hd  # this rank's heads under tensor parallelism
+    scores = torch.einsum("bhd,bnhd->bhn", q_cls.reshape(B, Hk, hd),
+                          k.reshape(B, N, Hk, hd)) * (hd ** -0.5)
+    probs = torch.softmax(scores, dim=-1)
+    if tp is None:
+        imp = probs.mean(dim=1)[:, 1:]  # patch columns
+    else:
+        imp = comm.reduce_from(probs.sum(dim=1), tp)[:, 1:] / H
+        if return_keys:
+            k = comm.gather_from(k, tp, -1)
     return (imp, k) if return_keys else imp
 
 
@@ -520,7 +537,7 @@ def _group_fused(x_tokens, w, groups, n_groups: int, w_fallback=None):
     tokens kept) takes ``w_fallback``, its importance-weighted mean over all
     its tokens, instead of a zero vector."""
     dt = x_tokens.dtype
-    eps = torch.tensor(1e-9, dtype=dt, device=x_tokens.device)
+    eps = torch.full((), 1e-9, dtype=dt, device=x_tokens.device)
     # all groups in one pass: [B, T, G] one-hot weights, one reduction over T
     gmask = (groups[..., None] == torch.arange(n_groups, device=groups.device)).to(dt)
     wg = w[..., None] * gmask
@@ -569,8 +586,8 @@ def _filter_tokens(x, importance, keep_weights, k_keep: int, fuse: bool = False,
             parts.append(_group_fused(x[:, 1:], w, fuse_groups[None].expand(B, P),
                                       fuse_n_groups, w_fallback=importance.to(x.dtype)))
         else:
-            denom = w.sum(dim=1, keepdim=True) + torch.tensor(1e-9, dtype=x.dtype,
-                                                              device=x.device)
+            denom = w.sum(dim=1, keepdim=True) + torch.full((), 1e-9, dtype=x.dtype,
+                                                            device=x.device)
             parts.append((x[:, 1:] * w[..., None]).sum(dim=1, keepdim=True)
                          / denom[..., None])
     return torch.cat(parts, dim=1), idx
@@ -616,7 +633,7 @@ def _refilter_tokens(x, imp_all, k_prev: int, keep_w_gathered, k_keep: int,
                 w_f = imp_all[:, k_prev:k_prev + 1].to(x.dtype)
                 num = num + x[:, 1 + k_prev:2 + k_prev] * w_f[..., None]
                 den = den + w_f
-            eps = torch.tensor(1e-9, dtype=x.dtype, device=x.device)
+            eps = torch.full((), 1e-9, dtype=x.dtype, device=x.device)
             parts.append(num / (den[..., None] + eps))
     return torch.cat(parts, dim=1), idx
 
@@ -657,6 +674,13 @@ def _slot_map(idx, idx_drop, assign, n_total: int) -> torch.Tensor:
     return rep.scatter_(1, idx, slots).scatter_(1, idx_drop, assign)
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n).float()`` as a comparison with ``arange(n)``: the
+    same values, without the range checks that read the indices on the
+    host (a captured forward may not)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
 def _filter_tokens_merge(x, importance, keys, keep_weights, k_keep: int,
                          ctx_frac: float = 0.0):
     """Merge mode (ToMe-style): the same kept set as ``_filter_tokens``, but
@@ -677,7 +701,7 @@ def _filter_tokens_merge(x, importance, keys, keep_weights, k_keep: int,
                 torch.ones(B, k_keep, dtype=torch.float32, device=x.device))
     idx_drop = _complement_indices(idx, P, n_drop)
     assign = _nearest_kept(keys[:, 1:], idx, idx_drop)
-    onehot = F.one_hot(assign, k_keep).float()  # [B, P-k, k]
+    onehot = _one_hot(assign, k_keep)  # [B, P-k, k]
     absorbed = torch.einsum("bjk,bjd->bkd", onehot, _take(patches, idx_drop).float())
     sizes = 1.0 + onehot.sum(dim=1)
     merged = ((kept.float() + absorbed) / sizes[..., None]).to(x.dtype)
@@ -708,7 +732,7 @@ def _refilter_tokens_merge(x, imp_all, keys, k_prev: int, keep_w_gathered, k_kee
     slots = x[:, 1:1 + k_prev]
     drop_local = _complement_indices(idx_local, k_prev, k_prev - k_keep)
     assign = _nearest_kept(keys[:, 1:1 + k_prev], idx_local, drop_local)
-    onehot = F.one_hot(assign, k_keep).float()
+    onehot = _one_hot(assign, k_keep)
     s_kept, s_drop = sizes.gather(1, idx_local), sizes.gather(1, drop_local)
     absorbed = torch.einsum("bjk,bjd->bkd", onehot,
                             _take(slots, drop_local).float() * s_drop[..., None])
@@ -929,9 +953,6 @@ class DinoV2(nn.Module):
             x = self._run(x, 0, n_layers, attn_impl, remat=remat)
             return L.layernorm_apply(self.final_norm, x), idx_global
 
-        if any(blk.tp is not None for blk in self.layers):
-            raise ValueError("the token filter reads whole q / k projections: it does not "
-                             "run on tensor-parallel blocks")
         ls = [l for l, _ in schedule]
         kf = [k for _, k in schedule]
         if ls != sorted(set(ls)):

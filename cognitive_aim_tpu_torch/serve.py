@@ -12,15 +12,18 @@ cognitive_aim_tpu/serve.py). Standard library only (http.server + threads):
 ``max_batch`` (one forward shape for every load) and runs ONE guided forward
 for the mixed instruction set (the guidance index is a per-image vector).
 Before the server accepts traffic, ``BatchingServer`` runs one padded
-``max_batch`` forward: on the card that builds and loads the kernel library
-and sets each launcher's attributes, work that would otherwise land on the
-first request's clock. ``/predict_batch`` runs ``predict_paths_batched`` at
-the server's ``max_batch``; a client ``batch_size`` is ignored.
+``max_batch`` forward: on the card that captures the engine's one guided
+``max_batch`` graph (core/compiled.py: one eager forward builds and loads the
+kernel library and sets each launcher's attributes, then the capture), as the
+JAX server compiles its one graph, so every batch after is one graph replay.
+``/predict_batch`` runs ``predict_paths_batched`` at the server's
+``max_batch`` (its uint8 graph, captured at its first request); a client
+``batch_size`` is ignored.
 
 Each batch's times are kept in ``BatchingServer.batches`` (dispatch: stack,
-pad, copy and enqueue on the host; device: CUDA events around the forward,
-which count the gaps while the host enqueues; drain: the wait for the
-outputs), each request's host decode in ``decode_ms``.
+pad, copy and enqueue on the host, on the card the copies into the graph's
+inputs and its replay; device: CUDA events around the forward; drain: the
+wait for the outputs), each request's host decode in ``decode_ms``.
 
 Run: python -m cognitive_aim_tpu_torch.serve --config configs/experiment_B.yaml \\
          [--checkpoint ckpt.pth] [--port 8321] [--policy int8]
@@ -71,7 +74,7 @@ class BatchingServer:
         self.warmed_up = False
         if warmup:
             # the dispatcher's exact shape and dtypes, so nothing one-time is
-            # left for the first real batch
+            # left for the first real batch (on the card: its graph's capture)
             size = engine.image_size
             self._forward(
                 np.zeros((max_batch, size, size, 3), np.float32),
@@ -103,9 +106,10 @@ class BatchingServer:
         eng = self.engine
         cuda = eng.device.type == "cuda"
         t0 = time.perf_counter()
-        x = torch.from_numpy(imgs).to(eng.device)
-        e = eng._to_device(exif)
-        g = eng._guidance(gidx)
+        # host tensors: the engine copies them into its graph's inputs
+        x = torch.from_numpy(imgs)
+        e = {k: torch.from_numpy(v) for k, v in exif.items()}
+        g = torch.from_numpy(gidx)
         if cuda:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()

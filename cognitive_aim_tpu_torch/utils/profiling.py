@@ -4,6 +4,10 @@
   through asynchronous launches when the body synchronises or fetches.
 - ``trace``: context manager over ``torch.profiler`` that writes a trace
   TensorBoard's profile plugin reads.
+- ``traced_kernels``: the port's own kernels that the device ran under each
+  of some calls, in order, read from one ``torch.profiler`` trace between
+  marker kernels: how what a CUDA graph's replay ran, which no Python
+  counter sees, is read.
 - ``chain_throughput``: the chain-slope method of the JAX package's bench as
   a measurement primitive: k chained calls of a step, one scalar fetched at
   the end, at two lengths; the fixed launch and fetch costs cancel in the
@@ -16,7 +20,7 @@ import contextlib
 import os
 import tempfile
 import time
-from typing import Callable, Dict, List
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +69,75 @@ def trace(logdir: str = ""):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
         yield logdir
+
+
+MARKER = "spin_kernel"  # the kernel of torch.cuda._sleep, which bounds a traced call
+# the waits before and after the traced call that the last trace needed
+_SETTLE = {"before": 0.0, "after": 0.0}
+
+
+def traced_kernels(*fns: Callable[[], Any], namespace: str = "caim", settle_s: float = 0.05,
+                   tries: int = 8) -> List[Tuple[Any, List[str]]]:
+    """Each of ``fns`` called in turn under one ``torch.profiler`` window
+    (host and card): for each, its result and the names of the kernels of
+    ``namespace`` (the port's hand-written kernels) that the device ran
+    under it, in the order they started; launched by a wrapper or replayed
+    by a CUDA graph alike.
+
+    The profiler drops device records that it places before its window
+    opens, and on an H100 it placed kernels further too early the longer
+    the process had run (seconds, late in a long process; up to half of an
+    eager forward's kernels were gone when the call followed the step at
+    once). So the active step waits, runs a marker kernel
+    (``torch.cuda._sleep``) before, between and after the calls and waits
+    again; a call's kernels are those between its two markers. A trace that
+    lacks a marker is taken again (the calls run again) with twice the wait
+    on the lost marker's side, up to ``tries`` times (the first is lost when
+    no marker is found or ``namespace`` kernels precede the first found).
+    Each wait starts at the larger of ``settle_s`` and what the process's
+    last trace needed, so one window for several calls pays it once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    prefix = namespace + "::"
+    wait = {side: max(settle_s, s) for side, s in _SETTLE.items()}
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            torch.zeros(1, device="cuda").add_(1)  # the warm-up step, not kept
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(wait["before"])
+            results = []
+            for fn in fns:
+                torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+                results.append(fn())
+                torch.cuda.synchronize()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            time.sleep(wait["after"])
+            prof.step()
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(kernels) if MARKER in e.name]
+        if len(marks) == len(fns) + 1:
+            _SETTLE.update(wait)
+            return [(r, [e.name for e in kernels[a + 1:b] if prefix in e.name])
+                    for r, a, b in zip(results, marks, marks[1:])]
+        ours = [i for i, e in enumerate(kernels) if prefix in e.name]
+        if not marks or (ours and ours[0] < marks[0]):
+            lost = ("before",)
+        elif ours and ours[-1] > marks[-1]:
+            lost = ("after",)
+        else:
+            lost = ("before", "after")
+        for side in lost:
+            wait[side] *= 2
+    raise RuntimeError(f"none of {tries} traces held the {len(fns) + 1} markers around the "
+                       f"traced calls (the last waited {wait} s and held {len(marks)} markers "
+                       f"among {len(kernels)} device records)")
 
 
 def _leaves(carry):

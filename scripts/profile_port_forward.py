@@ -21,7 +21,11 @@ process, so that the two share a card and its clocks):
     to enqueue it (no synchronise), averaged over --iters forwards;
   * from a ``torch.profiler`` trace of one forward: device time summed by
     kernel name, the device's busy time, the span from the first kernel's
-    start to the last one's end, and the idle share of that span.
+    start to the last one's end, and the idle share of that span;
+
+first for the eager forward, then for the same forward as one replay of its
+CUDA graph, captured by the engine's helper (core/compiled.py; its inputs
+copied in and its outputs copied out, as the engine serves).
 
 Needs an NVIDIA GPU; exits 2 without one. Prints the card's name and power
 limit first; every number is that card's.
@@ -43,9 +47,8 @@ def profile_policy(name: str, batch: int, iters: int, top: int, token_filter: st
                    attn_impl: str = "pallas_packed", lora_rank: int = 0,
                    lora_targets=("attn_out",), fold: bool = False):
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
+    from cognitive_aim_tpu_torch.core.compiled import CompiledForward
     from cognitive_aim_tpu_torch.core.precision import policy_from_name
     from cognitive_aim_tpu_torch.core.rng import NoiseMode
     from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
@@ -74,8 +77,23 @@ def profile_policy(name: str, batch: int, iters: int, top: int, token_filter: st
     gidx = torch.arange(batch, device="cuda") % 9
 
     @torch.no_grad()  # inference: no autograd graph
-    def fwd():
+    def eager():
         return model(x, guidance=gidx, noise_mode=NoiseMode.ZEROS)
+
+    graphs = CompiledForward(
+        lambda inp, gen: model(inp["images"], guidance=inp["guidance"],
+                               noise_mode=NoiseMode.ZEROS), "cuda")
+    measure(name + " eager", eager, batch, iters, top)
+    measure(name + " graph", lambda: graphs("forward", {"images": x, "guidance": gidx}),
+            batch, iters, top)
+    print(f"[{name} graph] captured in {next(iter(graphs.graphs.values())).capture_s:.2f} s, "
+          f"{graphs.pool_bytes() / 2 ** 20:.1f} MiB of pool")
+
+
+def measure(name, fwd, batch, iters, top):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fwd()

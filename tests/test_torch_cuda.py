@@ -34,6 +34,8 @@ elements; row scales to rtol 2e-4 in all but 1e-3 of the rows (a row fed by
 such an int8 step moves by ~1e-3 of its maximum), none beyond 5e-3.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -1933,3 +1935,158 @@ def test_two_layer_vit_b_width_model_exports_and_reloads_on_the_card(cuda_device
     assert {n: w.launches for n, w in counters.items() if w.launches} == want
     torch.testing.assert_close(d1, d0, rtol=EXP.RTOL, atol=EXP.ATOL)
     torch.testing.assert_close(c1, c0, rtol=EXP.RTOL, atol=EXP.ATOL)
+
+
+# ------------------------------------------------------- compiled forward ----
+COMPILED_VIT = dict(hidden_size=128, num_layers=4, num_heads=2, patch_size=14,
+                    pretrain_image_size=56)
+# name: (policy, attn_impl, token filter, fold adapters), tests/test_torch_compiled.py's
+COMPILED_CONFIGS = {
+    "default": ("default", "pallas_packed", "", False),
+    "int8_exact": ("int8", "pallas_packed", "", False),
+    "int8_2:0.35": ("int8", "pallas_packed", "2:0.35", False),
+    "int8_2:0.35@p_i8qk": ("int8", "pallas_packed_i8qk", "2:0.35@p", False),
+    "int8_2:0.35@m@p": ("int8", "pallas_packed", "2:0.35@m@p", False),
+    "int8_2:0.35@d": ("int8", "pallas_packed", "2:0.35@d", False),
+    "int8_folded_2:0.35": ("int8", "pallas_packed", "2:0.35", True),
+}
+
+
+def _compiled_engine(tmp_path, name, noise="sample", seed=0):
+    import json
+
+    from cognitive_aim_tpu_torch.api import CognitiveAimInference
+    from cognitive_aim_tpu_torch.nn.dinov2 import DinoV2Config
+
+    cfg = str(tmp_path / "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"cognitive_modules": ["ambient_stream", "iterative_focal_stream",
+                                         "exif_prior_database"],
+                   "dataset": {"image_size": 56}, "exif_config": {"num_cameras": 5},
+                   "focal_config": {"num_iterations": 2}}, f)
+    policy, impl, spec, fold = COMPILED_CONFIGS[name]
+    eng = CognitiveAimInference(cfg, None, policy=policy, attn_impl=impl, token_filter=spec,
+                                noise_mode=noise, seed=seed, save_images=False,
+                                vit_cfg=DinoV2Config(**COMPILED_VIT))
+    if fold:
+        rng = np.random.RandomState(3)
+        L, D, r = COMPILED_VIT["num_layers"], COMPILED_VIT["hidden_size"], 4
+        eng._materialize(None, {"backbone/layers/lora_A": rng.randn(L, r, D).astype(np.float32)
+                                * 0.1,
+                                "backbone/layers/lora_B": rng.randn(L, D, r).astype(np.float32)
+                                * 0.1}, (r, r))
+    return eng
+
+
+def _compiled_inputs(seed, B, uint8, guided, dev):
+    rng = np.random.RandomState(seed)
+    if uint8:
+        x = torch.from_numpy(rng.randint(0, 256, (B, 56, 56, 3)).astype(np.uint8)).to(dev)
+    else:
+        x = torch.from_numpy(rng.randn(B, 56, 56, 3).astype(np.float32)).to(dev)
+    exif = {"camera_idx": torch.from_numpy(rng.randint(0, 5, B).astype(np.int32)).to(dev),
+            "focal_length": torch.full((B,), 35.0, device=dev),
+            "aperture": torch.full((B,), 2.8, device=dev),
+            "iso": torch.full((B,), 200.0, device=dev)}
+    g = torch.from_numpy(rng.randint(0, 9, B)).to(dev) if guided else None
+    return x, exif, g
+
+
+def _launches():
+    from cognitive_aim_tpu_torch.kernels import counters
+
+    torch.cuda.synchronize()
+    return {c.__name__: c.launches for c in counters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uint8", [False, True], ids=["float", "uint8"])
+@pytest.mark.parametrize("guided", [True, False], ids=["guided", "unguided"])
+@pytest.mark.parametrize("name", list(COMPILED_CONFIGS))
+def test_compiled_replay_is_the_eager_forward(name, guided, uint8, cuda_device, tmp_path):
+    """Each serving configuration, sampled noise: a replay of the engine's
+    graph equals ``engine.model(...)`` with a generator seeded as the
+    replay's, bit for bit, in every output. A replay runs no wrapper, so
+    what it launched is read from the device: under ``torch.profiler`` it
+    runs the caim kernels that the eager forward's wrappers launch, in the
+    same order."""
+    from cognitive_aim_tpu_torch.io.preprocess import normalize_u8
+    from cognitive_aim_tpu_torch.utils.profiling import traced_kernels
+
+    eng = _compiled_engine(tmp_path, name)
+
+    def eager(x, exif, g, s):
+        return eng.model(normalize_u8(x) if uint8 else x, exif, guidance=g,
+                         generator=torch.Generator(cuda_device).manual_seed(s),
+                         noise_mode=eng.noise_mode)
+
+    for seed in (1, 2):  # the first call captures, the second replays only
+        x, exif, g = _compiled_inputs(seed, 3, uint8, guided, cuda_device)
+        got = eng._forward(x, exif, g)
+        want = eager(x, exif, g, eng._seed_of(eng._draws - 1))
+        for f in ("depth", "confidence", "attention", "curiosity", "fused_features"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    counts = {}
+
+    def counted(tag, fn):
+        before = _launches()
+        fn()
+        counts[tag] = {k: v - before[k] for k, v in _launches().items()}
+
+    (_, eager_kernels), (_, replayed) = traced_kernels(
+        lambda: counted("eager", lambda: eager(x, exif, g, 0)),
+        lambda: counted("replay", lambda: eng._forward(x, exif, g)))
+    assert not any(counts["replay"].values())  # no wrapper ran
+    assert replayed == eager_kernels and sum(counts["eager"].values()) > 0
+    assert len(eng.compiled.graphs) == 1 and eng.compiled.pool_bytes() > 0
+
+
+@pytest.mark.cuda
+def test_compiled_forward_serves_two_threads_at_once(cuda_device, tmp_path):
+    """predict (its B 1 graphs captured while the server replays its own)
+    and the server's dispatcher from two threads at once: each answer is
+    the one it gets alone."""
+    from PIL import Image
+
+    from cognitive_aim_tpu_torch.serve import BatchingServer
+
+    eng = _compiled_engine(tmp_path, "int8_2:0.35", noise="zeros")
+    rng = np.random.RandomState(8)
+    paths = []
+    for i in range(3):
+        p = str(tmp_path / f"im{i}.png")
+        Image.fromarray(rng.randint(0, 256, (50 + 5 * i, 60, 3), dtype=np.uint8)).save(p)
+        paths.append(p)
+    server = BatchingServer(eng, max_batch=4, max_delay_ms=1.0)
+    try:
+        img = rng.randn(56, 56, 3).astype(np.float32)
+        exif = {"camera_idx": 0, "focal_length": 50.0, "aperture": 2.8, "iso": 100.0}
+        alone_server = server.submit(img, exif, "right")
+        n_graphs = len(eng.compiled.graphs)
+        errors = []
+
+        def predicts():
+            for _ in range(6):
+                for p, instr in zip(paths, ("left", None, "top")):
+                    got = eng.predict(p, instr)[:2]
+                    if got != alone[(p, instr)]:
+                        errors.append(("predict", p, instr, got, alone[(p, instr)]))
+
+        def submits():
+            for _ in range(12):
+                got = server.submit(img, exif, "right")
+                if got != alone_server:
+                    errors.append(("server", got, alone_server))
+
+        alone = {(p, i): eng.predict(p, i)[:2] for p, i in zip(paths, ("left", None, "top"))}
+        eng.compiled.graphs = {k: v for k, v in list(eng.compiled.graphs.items())[:n_graphs]}
+        threads = [threading.Thread(target=predicts), threading.Thread(target=submits)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors, errors[:3]
+        assert len(eng.compiled.graphs) == n_graphs + 2  # B 1 guided and unguided again
+    finally:
+        server.stop()

@@ -609,8 +609,9 @@ def test_config_copy_matches_the_original():
 def test_port_imports_no_jax():
     """The card's machine has no jax: after importing every module of the
     port (the engine, the server, the host IO, the utilities, the
-    certification toolchain and the parallel layer among them, which start
-    no process group) and scripts/torch_export_model.py, neither jax nor any
+    certification toolchain, the parallel layer and the compiled forward
+    among them, which start no process group) and scripts/torch_export_model.py
+    and the serving benchmarks, neither jax nor any
     module of the
     JAX package or of its scripts is loaded; and PIL,
     matplotlib and yaml, which the functions that need them import, are not
@@ -625,13 +626,14 @@ def test_port_imports_no_jax():
         "        'certify.procedural', 'certify.policy_delta', 'certify.synth_train',\n"
         "        'certify.pretrain', 'certify.attention_stats', 'certify.delta_sweep',\n"
         "        'certify.certify_filter', 'core.mesh', 'parallel.comm', 'parallel.sharding',\n"
-        "        'parallel.pipeline', 'utils.profiling', 'kernels._library']\n"
+        "        'parallel.pipeline', 'utils.profiling', 'kernels._library', 'core.compiled']\n"
         "missing = [n for n in need if pkg.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "sys.path.insert(0, 'scripts')\n"
-        "importlib.import_module('torch_export_model')\n"
+        "for script in ('torch_export_model', 'torch_bench_serving', 'torch_bench_serving_http'):\n"
+        "    importlib.import_module(script)\n"
         "scripts = {'procedural_scenes', 'policy_delta', 'train_synth_ckpt',\n"
         "           'pretrain_procedural', 'attention_stats', 'delta_sweep', 'certify_filter',\n"
         "           'export_model'}\n"

@@ -4,10 +4,11 @@ restating tests/test_utils_and_mesh.py and ``__graft_entry__.dryrun_multichip``.
 
 Multi-rank cases run in spawned gloo ranks on the CPU (tests/
 torch_parallel_ranks.py), one spawn per world shape: world 4 for the meshes,
-the TP 2 x DP 2 step and the pipeline, world 2 for the engine and the DCP
-checkpoints. Each spawn writes its findings to a job directory, and the
-tests here hold them against the port's world-1 run (no process group) and
-against the JAX package on the 8 virtual devices of tests/conftest.py.
+the TP 2 x DP 2 step and the pipeline, world 2 for the engine, the DCP
+checkpoints and the token filter at TP 2. Each spawn writes its findings to
+a job directory, and the tests here hold them against the port's world-1 run
+(no process group) and against the JAX package on the 8 virtual devices of
+tests/conftest.py.
 
 Weights come from the JAX init, carried across with
 ``convert.load_flat_params``; batches from a numpy seed; no generator on
@@ -27,7 +28,15 @@ sides run float32 (``STRICT_F32``). Tolerances, with their reasons:
   * the data-parallel engine: a rank runs 2 of 4 rows, and a matmul of
     another height may round otherwise: within 1e-5 relative of
     ``mesh=None``;
-  * DCP: bit for bit.
+  * DCP: bit for bit;
+  * the token filter on tensor-parallel blocks (TP 2, world 2, ``2:0.35`` and
+    ``2:0.35@p``): identical kept indices on both ranks and against world 1,
+    outputs within 1e-5 of world 1's, the whole gradients of a probe of the
+    output within 1e-5 of each parameter's largest (float32 sums in another
+    order, at the scale of gradients up to ~20); world 1 against the JAX
+    backbone in strict float32 as tests/test_torch_filter.py holds it
+    (identical indices, every keep boundary wider than 1e-5, outputs atol
+    2e-5 / rtol 1e-4).
 """
 
 import json
@@ -73,6 +82,11 @@ PP_TRAIN = dict(arch=dict(num_iterations=2, image_size=56, freeze_backbone=False
                           use_lora=False),
                 vit=PP["vit"],
                 train=dict(epochs=1, batch_size=8, steps_per_epoch=2, freeze_backbone=False))
+# the token filter on tensor-parallel blocks: 4 heads of 64 (2 a rank at TP 2),
+# a 112x112 image (64 patches, 2:0.35 keeps 22); guided keep weights
+TP_FILTER = dict(vit=dict(hidden_size=256, num_layers=4, num_heads=4, patch_size=14,
+                          pretrain_image_size=56, gelu_approx=False),
+                 specs=["2:0.35", "2:0.35@p"], image=112, seed=15)
 STEP_TOL = dict(atol=1e-4, rtol=2e-3)
 GRAD_TOL = dict(atol=1e-5, rtol=0.0)
 FILTER = "1:0.6,2:0.3@f4"  # dryrun_multichip's serving filter
@@ -453,8 +467,22 @@ def world2(tmp_path_factory):
                  output_dir=os.path.join(job, "out"))
     tr.save_checkpoint_orbax(os.path.join(job, "dcp_world1"))
     np.savez(os.path.join(job, "dcp_inputs.npz"), **{f"mine/{k}": v for k, v in mine.items()})
+    # the token filter at TP 2: the JAX backbone's weights, images, guided
+    # keep weights and a probe of the output for the gradients
+    tpf = TP_FILTER
+    jvit = jdinov2.DinoV2Config(**tpf["vit"])
+    jbb = jdinov2.init(jax.random.PRNGKey(1), jvit)
+    rng = np.random.RandomState(tpf["seed"])
+    img = rng.randn(2, tpf["image"], tpf["image"], 3).astype(np.float32)
+    P = (tpf["image"] // 14) ** 2
+    kw = np.ones((2, P), np.float32)
+    kw[:, 18:22], kw[:, 26:30], kw[1, 40:44] = 5.0, 2.0, 3.0
+    probe = rng.randn(2, 1 + P, tpf["vit"]["hidden_size"]).astype(np.float32)
+    tpf_flat = {k: np.asarray(v) for k, v in flatten_tree(jbb).items()}
+    np.savez(os.path.join(job, "tpf_inputs.npz"), **{f"p/{k}": v for k, v in tpf_flat.items()},
+             images=img, keep_weights=kw, probe=probe)
     with open(os.path.join(job, "spec.json"), "w") as f:
-        json.dump({"engine": eng, "tp": TP}, f)
+        json.dump({"engine": eng, "tp": TP, "tp_filter": tpf}, f)
     R.spawn("world2", 2, job)
     out, arrays = _read(job, 2)
     with np.load(os.path.join(job, "rank1.npz")) as z:
@@ -463,9 +491,12 @@ def world2(tmp_path_factory):
     back = Trainer(R.tiny_model(w1, TP["arch"], TP["vit"]), TrainConfig(**TP["train"]),
                    output_dir=os.path.join(job, "out"))
     back.load_checkpoint_orbax(os.path.join(job, "dcp_tp2"))
+    with np.load(os.path.join(job, "rank1.npz")) as z:
+        tpf_rank1 = {k: z[k] for k in z.files if k.startswith("tpf/")}
     return out, arrays, {"engine": np.asarray(want, np.float64),
                          "engine_rank1": engine_rank1, "w1": w1, "mine": mine,
-                         "back": flat_params(back.model)}
+                         "back": flat_params(back.model), "tpf_rank1": tpf_rank1,
+                         "tpf": (jvit, jbb, tpf_flat, img, kw, probe)}
 
 
 def test_dp_engine_returns_mesh_none_list_on_every_rank(world2):
@@ -543,3 +574,71 @@ def test_chain_throughput_measures_something():
     per_step = chain_throughput(lambda c: torch.tanh(c @ w), torch.ones(256, 256),
                                 k_short=2, k_long=12, repeats=3)
     assert np.isfinite(per_step) and per_step > 0
+
+
+def _jax_filtered(jvit, jbb, images, kw, spec, monkeypatch):
+    """The JAX backbone in strict float32 under ``spec``, jitted: (output,
+    [(priority, kept indices, k) of each stage])."""
+    from cognitive_aim_tpu.models.config import parse_token_filter as jparse
+
+    calls = []
+    orig = jdinov2._keep_indices
+
+    def wrapped(importance, keep_weights, k_keep, ctx_frac=0.0):
+        idx = orig(importance, keep_weights, k_keep, ctx_frac)
+        prio = importance + 10.0 * (keep_weights - 1.0)
+        jax.debug.callback(lambda p, i: calls.append((np.asarray(p), np.asarray(i), k_keep)),
+                           prio, idx, ordered=True)
+        return idx
+
+    monkeypatch.setattr(jdinov2, "_keep_indices", wrapped)
+    fkw = {k.replace("token_filter_", "filter_"): v for k, v in jparse(spec).items()}
+    fn = jax.jit(lambda p, im, w: jdinov2.apply(p, im, jvit, attn_impl="xla", keep_weights=w,
+                                                **fkw))
+    out = np.asarray(fn(jbb, jnp.asarray(images), jnp.asarray(kw)))
+    jax.effects_barrier()
+    return out, calls
+
+
+@pytest.mark.parametrize("spec", TP_FILTER["specs"])
+def test_token_filter_on_tensor_parallel_blocks(world2, spec, monkeypatch):
+    """TP 2 (each rank 2 of the 4 heads of q and k: the CLS rows of its heads
+    summed, all-reduced over ``model``) keeps world 1's indices on both ranks,
+    with outputs within 1e-5 and the whole gradients of a probe of them
+    within 1e-5 of each parameter's largest (at least 1);
+    world 1 keeps the JAX model's indices in strict float32, every keep
+    boundary wider than 1e-5, with outputs within its backbone tolerance."""
+    from cognitive_aim_tpu_torch.nn import dinov2 as TD
+
+    out, arrays, ref = world2
+    jvit, jbb, flat, images, kw, probe = ref["tpf"]
+    assert out[0]["tpf_local_qkv_rows"] == 3 * TP_FILTER["vit"]["hidden_size"] // 2
+    want_j, jcalls = _jax_filtered(jvit, jbb, images, kw, spec, monkeypatch)
+    tprio = []
+    orig = TD._keep_indices
+
+    def spy(importance, keep_weights, k_keep, ctx_frac=0.0):
+        tprio.append((importance + 10.0 * (keep_weights - 1.0)).detach().numpy())
+        return orig(importance, keep_weights, k_keep, ctx_frac)
+
+    monkeypatch.setattr(TD, "_keep_indices", spy)
+    w1, idx, grads = R.filter_forward(R.filtered_backbone(flat, TP_FILTER["vit"]), spec,
+                                      torch.from_numpy(images), torch.from_numpy(kw),
+                                      torch.from_numpy(probe))
+    assert len(jcalls) == len(tprio) == 1
+    jprio, jidx, k = jcalls[0]
+    gap = -np.sort(-tprio[0], axis=1)
+    assert float((gap[:, k - 1] - gap[:, k]).min()) > 1e-5, "pick another seed"
+    np.testing.assert_allclose(tprio[0], jprio, atol=2e-6)
+    np.testing.assert_array_equal(idx.numpy(), jidx)
+    np.testing.assert_allclose(w1.numpy(), want_j, atol=2e-5, rtol=1e-4)
+    for got in (arrays, ref["tpf_rank1"]):  # both ranks
+        np.testing.assert_array_equal(got[f"tpf/{spec}/idx"], idx.numpy())
+        np.testing.assert_allclose(got[f"tpf/{spec}/out"], w1.numpy(), atol=1e-5, rtol=0)
+    tp_grads = {k[len(f"tpf/{spec}/grad/"):]: v for k, v in arrays.items()
+                if k.startswith(f"tpf/{spec}/grad/")}
+    assert set(tp_grads) == set(grads)
+    assert np.abs(grads["backbone.layers.1.qkv.weight"]).max() > 1e-3
+    for name, g in grads.items():  # float32 sums in another order, at the gradient's scale
+        np.testing.assert_allclose(tp_grads[name], g, atol=1e-5 * max(1.0, np.abs(g).max()),
+                                   rtol=0, err_msg=name)

@@ -134,6 +134,47 @@ def digest(flat) -> str:
     return h.hexdigest()
 
 
+def filtered_backbone(flat, vit_kw):
+    """The port's float32 DinoV2 on the CPU with the JAX flat backbone
+    interchange ``flat`` (keys without the ``backbone/`` prefix), inside a
+    module whose ``backbone`` it is (the layout ``shard_params`` reads)."""
+    import torch
+
+    from cognitive_aim_tpu_torch.convert import load_flat_params
+    from cognitive_aim_tpu_torch.nn.dinov2 import DinoV2, DinoV2Config
+
+    class Wrap(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.backbone = DinoV2(DinoV2Config(**vit_kw), device="cpu")
+
+    return load_flat_params(Wrap(), {f"backbone/{k}": v for k, v in flat.items()})
+
+
+def filter_forward(wrap, spec, images, keep_weights, probe, mesh=None):
+    """The filtered backbone forward of ``spec`` with ``keep_weights``, and
+    the gradients of ``(out * probe).sum()`` by parameter (the whole ones
+    under tensor parallelism): (out, kept indices, {name: gradient})."""
+    import torch
+
+    from cognitive_aim_tpu_torch.models.config import parse_token_filter
+    from cognitive_aim_tpu_torch.parallel.sharding import param_shardings, whole
+
+    fkw = {k.replace("token_filter_", "filter_"): v
+           for k, v in parse_token_filter(spec).items()}
+    names, params = zip(*wrap.named_parameters())
+    with torch.enable_grad():
+        out, idx = wrap.backbone.forward_with_kept(
+            images, compute_dtype=torch.float32, attn_impl="pallas_packed",
+            keep_weights=keep_weights, **fkw)
+        grads = torch.autograd.grad((out * probe).sum(), params, allow_unused=True)
+    specs = param_shardings(mesh, wrap, mesh is not None)
+    grads = {n: (torch.zeros_like(p) if g is None else g) for n, p, g in zip(names, params, grads)}
+    if mesh is not None:
+        grads = {n: whole(mesh, g, specs[n]) for n, g in grads.items()}
+    return out.detach(), idx, {n: g.numpy() for n, g in grads.items()}
+
+
 # ---------------------------------------------------------- world 4 ----
 def world4(rank, world, job, out, arrays):
     """Mesh shapes; the TP 2 x DP 2 step; the pipelined backbone, model,
@@ -325,3 +366,20 @@ def world2(rank, world, job, out, arrays):
         loaded = flat_params(tr.model)
     if rank == 0:
         arrays.update({f"loaded/{k}": v for k, v in loaded.items()})
+
+    # the token filter on tensor-parallel blocks: TP 2, each rank half the heads
+    from cognitive_aim_tpu_torch.parallel.sharding import shard_params
+
+    tpf = spec["tp_filter"]
+    z = load_inputs(job, "tpf_inputs.npz")
+    flat = {k[len("p/"):]: v for k, v in z.items() if k.startswith("p/")}
+    for name in tpf["specs"]:
+        wrap = shard_params(mesh, filtered_backbone(flat, tpf["vit"]), tensor_parallel=True)
+        out["tpf_local_qkv_rows"] = wrap.backbone.layers[0].qkv.weight.shape[0]
+        got, idx, grads = filter_forward(wrap, name, torch.from_numpy(z["images"]),
+                                         torch.from_numpy(z["keep_weights"]),
+                                         torch.from_numpy(z["probe"]), mesh)
+        arrays[f"tpf/{name}/out"] = got.numpy()
+        arrays[f"tpf/{name}/idx"] = idx.numpy()
+        if rank == 0:
+            arrays.update({f"tpf/{name}/grad/{k}": v for k, v in grads.items()})
