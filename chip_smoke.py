@@ -170,16 +170,19 @@ kernels compile for sm_90a) and the CUDA toolkit:
       further from the float32 gradient than twice the plain versions plus
       1e-2); the launches of one micro-step (K1 24 and K6 6 with
       per-block recompute, K1 12 without, every other kernel 0); every
-      kernel without a backward raising under grad; the micro-step's time
-      (CUDA events, median of the steps after the first), images/s and peak
-      memory with recompute on and off; one profiled micro-step (K1's and
+      kernel without a backward raising under grad; the eager micro-step's
+      time (``train_step(eager=True)``; CUDA events, median of the steps
+      after the first), images/s and peak memory with recompute on and
+      off; one profiled eager micro-step (K1's and
       K6's forward kernels, the plain recompute of their backward) and K1
       forward + backward at the training shape beside the plain version and
       scaled_dot_product_attention; then train_torch.main on a synthetic
       dataset (512 train and 128 val PNGs of 256x256 with depth maps, from a
       numpy seed) for 2 epochs: 8 micro-steps, 2 optimizer updates, finite
       losses, the parameters unmoved before the first update and moved at
-      each, the checkpoints written, the launches of the run, and
+      each, the checkpoints written, the run's graphs (two micro-step kinds,
+      one eval batch shape, each counted by the wrappers at its eager first
+      run and its capture, 8 replays) and launches, and
       model_best.npz served by the port's engine within 1e-5 of the
       trainer's own eval forward on a val batch. Phases (d) to (f) run
       under torch.no_grad(), as the engine serves; a ``training`` JSON line
@@ -192,8 +195,9 @@ kernels compile for sm_90a) and the CUDA toolkit:
       CERT_STEPS steps, the default policy, pallas_packed, uint8 scenes
       staged on the card): finite losses, the last 20 below the first 20,
       the held-out AbsRel unguided and worst-instruction below the seeded
-      model's, K1 and K6 launched as phase (g)'s formula gives for those
-      steps and evals and every other kernel 0 times; policy_delta on those
+      model's, K1 and K6 launched as phase (g)'s formula gives for the
+      steps' graphs (each kind's eager first run and capture) and the eager
+      evals, every other kernel 0 times; policy_delta on those
       weights at 518x518, batch 8: int8 and int8 + 2:0.35 against the strict
       f32 path for the 9 instructions, int8 alone within the 1% budget;
       delta_sweep --measure-only at 224 on the 32 held-out scenes for
@@ -262,7 +266,23 @@ kernels compile for sm_90a) and the CUDA toolkit:
       kernels the eager forward's wrappers launched, in the same order; each
       wrapper's launches a replay are then its count of the eager forward
       (each trace counts the kernels between two marker kernels, and is
-      taken again when the profiler dropped a marker).
+      taken again when the profiler dropped a marker);
+  (l) compiled training (train/trainer.py, core/compiled.py's GraphCache):
+      phase (g)'s configuration from seeded weights, 8 micro-steps (two
+      updates) from two device batches in turns and a generator a step,
+      eagerly twice (``train_step(eager=True)``: eager's own spread) and
+      through the trainer's graphs twice (the first run captures each
+      micro-step kind at its first call, the second only replays), per-block
+      recompute on: each replayed run's losses and parameters bit for bit
+      the eager run's where eager repeats its bits, else within twice its
+      spread; the launches of a replay read from its trace (K1 24, K6 6, the
+      eager step's kernels in order); the micro-step by CUDA events (median
+      of the steps after the first, range), host time a call, peak memory,
+      each graph's capture seconds and pool MiB; then the alt_model pair
+      (2:0.35 in training, alternating with the model without it) at 4
+      blocks, batch 32, the same way. A ``training_compiled`` JSON line holds
+      them, each kernel row its launches a replay
+      (``launches_training_compiled``).
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -270,7 +290,8 @@ Any failure raises and exits non-zero. Without a CUDA device it exits 2.
 ``--kernels-only`` checks and times the kernels alone, drives no slice and
 prints no result; ``--parallel-only`` builds the kernels and runs phase (i)
 alone, ``--export-only`` phase (j) alone, ``--compiled-only`` phase (k)
-alone, and none prints a result.
+alone, ``--training-compiled-only`` phase (l) alone, and none prints a
+result.
 """
 
 from __future__ import annotations
@@ -3440,9 +3461,19 @@ def _grad_check(raw, arch, wrappers, B):
                                     for run, c in counts.items()}}
 
 
+def _graph_kinds(tr):
+    """(micro-step graphs, eval forward graphs) a trainer holds."""
+    from cognitive_aim_tpu_torch.train.trainer import StepKey
+
+    keys = [k for k, _ in tr.graphs.graphs]
+    steps = sum(isinstance(k, StepKey) for k in keys)
+    return steps, len(keys) - steps
+
+
 def _step_times(model, raw, batch, B):
-    """Micro-step time (median of the steps after the first, CUDA events),
-    images/s and peak memory, with per-block recompute on and off; one step
+    """The eager micro-step's time (median of the steps after the first,
+    CUDA events), images/s and peak memory, with per-block recompute on and
+    off (phase (l) times the captured step); one eager step
     under torch.profiler: K1's and K6's forward kernels and the plain
     recompute of the attention backward; SDPA forward + backward at K1's
     shape as a yardstick."""
@@ -3467,7 +3498,7 @@ def _step_times(model, raw, batch, B):
         for i in range(5):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            tr.train_step(batch, gen, fetch_logs=False)
+            tr.train_step(batch, gen, fetch_logs=False, eager=True)
             b.record()
             torch.cuda.synchronize()
             times.append(a.elapsed_time(b))
@@ -3477,10 +3508,10 @@ def _step_times(model, raw, batch, B):
             "images_per_s": B / ms * 1e3,
             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     os.environ["CAIM_TRAIN_REMAT"] = "1"
-    tr.train_step(batch, gen, fetch_logs=False)
+    tr.train_step(batch, gen, fetch_logs=False, eager=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tr.train_step(batch, gen, fetch_logs=False)
+        tr.train_step(batch, gen, fetch_logs=False, eager=True)
         torch.cuda.synchronize()
     os.environ.pop("CAIM_TRAIN_REMAT", None)
     # kernels only: the recompute's record_function ranges sit on the device timeline too
@@ -3600,16 +3631,17 @@ def phase_training(smi):
     try:
         _write_dataset(os.path.join(root, "data"), 512, 128, 256, seed=21)
         snaps, initial = [], []
-        apply = T.Trainer._apply
+        step = T.Trainer.train_step
 
-        def recording(self, grads):
+        def recording(self, *a, **kw):  # after each micro-step: the update count, fc0
             if not initial:
                 initial.append(self.model.fusion.fc0.weight.detach().clone())
-            apply(self, grads)
+            logs = step(self, *a, **kw)
             p = self.model.fusion.fc0.weight
-            snaps.append((self._groups["train"].count, p.detach().clone()))
+            snaps.append((self._groups["train"].updates, p.detach().clone()))
+            return logs
 
-        T.Trainer._apply = recording
+        T.Trainer.train_step = recording
         torch.cuda.synchronize()
         for w in wrappers.values():
             w.launches = 0
@@ -3620,24 +3652,33 @@ def phase_training(smi):
                                    "--data_dir", os.path.join(root, "data"),
                                    "--output_dir", out_dir, "--epochs", "2"])
         finally:
-            T.Trainer._apply = apply
+            T.Trainer.train_step = step
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t_run
         launches = {k: w.launches for k, w in wrappers.items()}
         micro = len(snaps)
         n_layers, n_iters = tr.model.vit_cfg.num_layers, arch.num_iterations
+        # each micro-step kind and each eval batch shape is one graph: the
+        # wrappers count its eager first run and its capture, no replay
+        kinds, evals = _graph_kinds(tr)
         val_forwards = 2 * -(-128 // B)
         want = {k: 0 for k in wrappers}
-        want.update(K1=micro * 2 * n_layers + val_forwards * n_layers,
-                    K6=(micro + val_forwards) * n_iters)
+        want.update(K1=2 * (kinds * 2 * n_layers + evals * n_layers),
+                    K6=2 * (kinds + evals) * n_iters)
+        replays = sum(e.replays for e in tr.graphs.graphs.values())
+        if (kinds, evals, replays) != (2, 1, micro - 2 + val_forwards):
+            raise AssertionError(f"train_torch.main's graphs: {kinds} step kinds, {evals} "
+                                 f"eval shapes, {replays} replays")
         epoch_losses = [h["loss"] for h in tr.history]
         val_losses = [h["val_loss"] for h in tr.history]
         updates = [c for c, _ in snaps]
         log(f"  train_torch.main: {micro} micro-steps, optimizer updates {updates}, epoch "
             f"losses {[round(h['loss'], 5) for h in tr.history]}, val "
             f"{[round(h['val_loss'], 5) for h in tr.history]}, {run_s:.1f} s")
-        log(f"  launches in the run: K1 {launches['K1']} (want {want['K1']}), K6 "
-            f"{launches['K6']} (want {want['K6']}), every other kernel 0")
+        log(f"  launches counted in the run (the first run and the capture of {kinds} "
+            f"micro-step graphs and {evals} eval graph; {replays} replays, which no wrapper "
+            f"counts): K1 {launches['K1']} (want {want['K1']}), K6 {launches['K6']} (want "
+            f"{want['K6']}), every other kernel 0")
         if micro != 2 * 512 // B or updates[-1] != micro // accum:
             raise AssertionError(f"{micro} micro-steps, {updates[-1]} updates")
         if launches != want:
@@ -3693,6 +3734,7 @@ def phase_training(smi):
                     "epoch_losses": epoch_losses, "val_losses": val_losses,
                     "seconds": run_s, "launches": {"K1": launches["K1"],
                                                    "K6": launches["K6"]},
+                    "graph_kinds": kinds, "eval_graphs": evals, "replays": replays,
                     "serve_max_abs_err": serve_err},
             **numbers}, launches
 
@@ -3806,9 +3848,12 @@ def phase_certification(smi):
         model, ckpt, losses, evals = summ["model"], summ["checkpoint"], summ["losses"], summ["evals"]
         n_layers, n_iters = model.vit_cfg.num_layers, model.arch.num_iterations
         eval_forwards = len(evals) * -(-n_eval // 16) * (1 + len(G.INSTRUCTIONS))
+        # the steps replay graphs: the wrappers count each kind's eager first
+        # run and its capture; the evals run eagerly
+        kinds, _ = _graph_kinds(summ["trainer"])
         want = {k: 0 for k in wrappers}
-        want.update(K1=steps * 2 * n_layers + eval_forwards * n_layers,
-                    K6=(steps + eval_forwards) * n_iters)
+        want.update(K1=kinds * 2 * 2 * n_layers + eval_forwards * n_layers,
+                    K6=(kinds * 2 + eval_forwards) * n_iters)
         first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
         step_ms = summ["train_s"] / steps * 1e3
         log(f"  pretrain: {pre_s:.1f} s ({summ['train_s']:.1f} s of {steps} steps, "
@@ -3818,8 +3863,9 @@ def phase_certification(smi):
             f"{evals[0]['absrel'] * 100:.2f}% unguided, {evals[0]['absrel_worst_instruction'] * 100:.2f}"
             f"% worst instruction; trained {evals[-1]['absrel'] * 100:.2f}%, "
             f"{evals[-1]['absrel_worst_instruction'] * 100:.2f}%")
-        log(f"  launches in the pretrain: K1 {got['K1']} (want {want['K1']}), K6 {got['K6']} "
-            f"(want {want['K6']}), every other kernel 0")
+        log(f"  launches counted in the pretrain ({kinds} micro-step graphs, each counted at "
+            f"its first run and its capture; {steps - kinds} replays): K1 {got['K1']} (want "
+            f"{want['K1']}), K6 {got['K6']} (want {want['K6']}), every other kernel 0")
         if not all(np.isfinite(losses)):
             raise AssertionError(f"non-finite pretrain losses: {losses}")
         if not last < first:
@@ -4734,6 +4780,212 @@ def phase_compiled(smi, packages):
     return out, launches
 
 
+# ------------------------------------------------- compiled training (l) ----
+# phase (g)'s experiment_B trainer, eager and through its captured micro-steps
+# from the same weights and generator seeds: 8 micro-steps (two updates at
+# accumulation 4), two batches in turns; the alt_model pair (the token filter
+# TP2_FILTER in training, alternating with the model without it) at
+# ALT_LAYERS blocks, batch ALT_BATCH
+COMPILED_TRAIN_STEPS = 8
+ALT_LAYERS, ALT_BATCH = 4, 32
+
+
+def _training_runs(tr, batches, eager, seed0, alt=None):
+    """``COMPILED_TRAIN_STEPS`` micro-steps of ``tr`` from its current
+    weights and a fresh optimizer: per step the loss, the device time by
+    CUDA events and the host time of the call; the parameters after."""
+    import torch
+
+    losses, events, host = [], [], []
+    for i in range(COMPILED_TRAIN_STEPS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        t = time.perf_counter()
+        logs = tr.train_step(batches[i % len(batches)],
+                             torch.Generator(device="cuda").manual_seed(seed0 + i),
+                             fetch_logs=False, eager=eager, alt=alt)
+        host.append((time.perf_counter() - t) * 1e6)
+        b.record()
+        losses.append(logs["loss"])
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return {"losses": [float(x) for x in losses],
+            "ms": [a.elapsed_time(b) for a, b in events], "host_us": host,
+            "params": {n: p.detach().clone() for n, p in tr.model.named_parameters()}}
+
+
+def _runs_apart(a, b):
+    """(largest loss difference, largest parameter difference) of two runs."""
+    loss = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    par = max(float((a["params"][n] - b["params"][n]).abs().max()) for n in a["params"])
+    return loss, par
+
+
+def _compiled_pair(tag, tr, batches, seed0, start, wrappers, alt_launch=False):
+    """Eager twice and replayed twice from ``start`` (the first replayed run
+    captures each micro-step kind at its first call): the runs against
+    eager, eager's own spread, the launches of a replay read from a trace
+    (``alt_launch``: of the alternate model's step), the times, the graphs
+    and peak memory."""
+    import torch
+
+    def reset():
+        with torch.no_grad():
+            for n, p in tr.model.named_parameters():
+                p.copy_(start[n])
+        tr.reset_params()
+
+    runs = {}
+    for name, eager in (("eager", True), ("eager_again", True), ("captured", False),
+                        ("replayed", False)):
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs[name] = _training_runs(tr, batches, eager, seed0)
+        runs[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[name]["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2 ** 30
+    spread = _runs_apart(runs["eager"], runs["eager_again"])
+    apart = {n: _runs_apart(runs[n], runs["eager"]) for n in ("captured", "replayed")}
+    eager_bits = spread == (0.0, 0.0)
+    ok = all(d == (0.0, 0.0) if eager_bits else
+             (d[0] <= 2 * spread[0] and d[1] <= 2 * spread[1]) for d in apart.values())
+    # one eager micro-step and one replay of a kind the runs captured (the
+    # same model: ``alt_launch``), in one trace
+    gen = torch.Generator(device="cuda").manual_seed(seed0)
+    eager_fn = lambda: tr.train_step(batches[0], gen, fetch_logs=False, eager=True,  # noqa: E731
+                                     alt=alt_launch)
+    replay_fn = lambda: tr.train_step(batches[0], gen, fetch_logs=False,  # noqa: E731
+                                      alt=alt_launch)
+    _, replay, n_kernels = _replay_launches(f"(l) {tag}", eager_fn, replay_fn, wrappers)
+    host_drained = {"eager": _host_enqueue_ms(eager_fn, 3) * 1e3,
+                    "replay": _host_enqueue_ms(replay_fn, 3) * 1e3}
+    held = tr.graphs.describe()
+
+    def med(v):
+        return float(np.median(v[1:])), float(min(v[1:])), float(max(v[1:]))
+
+    out = {"bit_equal_eager_to_eager": eager_bits, "eager_spread_loss": spread[0],
+           "eager_spread_params": spread[1],
+           **{f"{n}_vs_eager_loss": d[0] for n, d in apart.items()},
+           **{f"{n}_vs_eager_params": d[1] for n, d in apart.items()},
+           "bit_equal_replayed": apart["replayed"] == (0.0, 0.0),
+           "ms_eager": med(runs["eager"]["ms"]), "ms_replayed": med(runs["replayed"]["ms"]),
+           "host_us_eager_in_run": med(runs["eager"]["host_us"]),
+           "host_us_replay_in_run": med(runs["replayed"]["host_us"]),
+           "host_us_eager": host_drained["eager"], "host_us_replay": host_drained["replay"],
+           "peak_gib_eager": runs["eager"]["peak_gib"],
+           "peak_gib_captured": runs["captured"]["peak_gib"],
+           "peak_gib_replayed": runs["replayed"]["peak_gib"],
+           "peak_reserved_gib_replayed": runs["replayed"]["peak_reserved_gib"],
+           "losses_eager": runs["eager"]["losses"], "losses_replayed": runs["replayed"]["losses"],
+           "graphs": [{"key": e["key"], "capture_s": e["capture_s"],
+                       "pool_mib": e["pool_bytes"] / 2 ** 20, "replays": e["replays"]}
+                      for e in held["each"]],
+           "pool_mib": held["pool_bytes"] / 2 ** 20,
+           "launches_replay": {k: v for k, v in replay.items() if v},
+           "caim_kernels_replay": n_kernels}
+    return out, ok, replay
+
+
+def phase_training_compiled(smi):
+    """(l) the trainer's compiled step: experiment_B's micro-steps eager and
+    replayed from the same weights and seeds, and the alt_model pair."""
+    import dataclasses
+
+    import torch
+    import yaml
+
+    from cognitive_aim_tpu_torch.core.precision import DEFAULT_POLICY
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import resolve_model_config
+    from cognitive_aim_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
+        raw = yaml.safe_load(f)
+    arch = resolve_model_config(raw, lookup="nested")
+    B, accum = int(raw["training"]["batch_size"]), int(raw["training"]["accumulation_steps"])
+    S = arch.image_size
+    wrappers = _wrappers()
+    log(f"(l) compiled training: {TRAIN_CONFIG} (ViT-B/14 {S}x{S}, LoRA rank {arch.lora_rank}, "
+        f"{arch.num_iterations} focal iterations, batch {B}, accumulation {accum}, default "
+        f"policy, pallas_packed), {COMPILED_TRAIN_STEPS} micro-steps eager and replayed, "
+        f"per-block recompute on; the alt_model pair ({TP2_FILTER} in training and off) at "
+        f"{ALT_LAYERS} blocks, batch {ALT_BATCH} ({smi})")
+    os.environ["CAIM_TRAIN_REMAT"] = "1"  # read at each kind's capture
+    out, launches = {"card": smi, "config": TRAIN_CONFIG, "batch": B, "accumulation": accum}, {}
+    try:
+        for tag in ("experiment_B", "alt_model_pair"):
+            g = torch.Generator(device="cuda").manual_seed(5)
+            if tag == "experiment_B":
+                model = CognitiveAimModel(arch, DEFAULT_POLICY, "pallas_packed").init(g)
+                alt_model, batch_size = None, B
+            else:
+                vit = dataclasses.replace(model.vit_cfg, num_layers=ALT_LAYERS)
+                del tr, model
+                torch.cuda.empty_cache()
+                model = CognitiveAimModel(_filtered_arch(arch), DEFAULT_POLICY, "pallas_packed",
+                                          vit_cfg=vit).init(g)
+                alt_model = CognitiveAimModel(arch, DEFAULT_POLICY, "pallas_packed",
+                                              vit_cfg=vit)
+                batch_size = ALT_BATCH
+            with torch.no_grad():  # lora_B 0 (its init) would leave lora_A's gradient 0
+                for blk in model.backbone.layers:
+                    blk.lora_B.normal_(0.0, 0.02, generator=g)
+            cfg = TrainConfig.from_raw(raw, steps_per_epoch=4)
+            tr = Trainer(model, cfg, output_dir=os.path.join(ROOT, "build", "smoke_training",
+                                                             "compiled"), alt_model=alt_model)
+            start = {n: p.detach().clone() for n, p in model.named_parameters()}
+            batches = [_train_batch(batch_size, S, torch.Generator(device="cuda")
+                                    .manual_seed(60 + i)) for i in range(2)]
+            got, ok, replay = _compiled_pair(tag, tr, batches, 70, start, wrappers,
+                                             alt_launch=alt_model is not None)
+            launches[tag] = replay
+            out[tag] = got
+            e, r = got["ms_eager"], got["ms_replayed"]
+            log(f"  {tag}: {COMPILED_TRAIN_STEPS} micro-steps; eager against eager: "
+                f"{'bit-equal' if got['bit_equal_eager_to_eager'] else 'apart'} (loss "
+                f"{got['eager_spread_loss']:.2e}, parameters {got['eager_spread_params']:.2e}); "
+                f"replayed against eager: loss {got['replayed_vs_eager_loss']:.2e}, parameters "
+                f"{got['replayed_vs_eager_params']:.2e} (the capturing run: "
+                f"{got['captured_vs_eager_loss']:.2e}, {got['captured_vs_eager_params']:.2e}; "
+                f"bit-equal, or within 2x eager's spread) {'ok' if ok else 'FAIL'}")
+            log(f"    micro-step by CUDA events, median of the steps after the first (range): "
+                f"eager {e[0]:.1f} ms ({e[1]:.1f}-{e[2]:.1f}), replayed {r[0]:.1f} ms "
+                f"({r[1]:.1f}-{r[2]:.1f}); host a call, the device drained first (mean of 3): "
+                f"eager {got['host_us_eager']:.0f} us, replay {got['host_us_replay']:.0f} us "
+                f"(in the runs, median: {got['host_us_eager_in_run'][0]:.0f}, "
+                f"{got['host_us_replay_in_run'][0]:.0f} us); peak allocated eager "
+                f"{got['peak_gib_eager']:.2f} GiB, replayed {got['peak_gib_replayed']:.2f} GiB "
+                f"(reserved {got['peak_reserved_gib_replayed']:.2f}); launches a replay, read "
+                f"from its trace ({got['caim_kernels_replay']} caim kernels, the eager step's "
+                f"in its order): " + ", ".join(f"{k} {v}" for k, v in
+                                                got["launches_replay"].items()) + f" ({smi})")
+            for gr in got["graphs"]:
+                log(f"    graph {gr['key']}: captured in {gr['capture_s']:.2f} s, "
+                    f"{gr['pool_mib']:.1f} MiB added to the pool, {gr['replays']} replays")
+            want = {"K1": 2 * model.vit_cfg.num_layers, "K6": arch.num_iterations}
+            if tag == "experiment_B" and got["launches_replay"] != want:
+                raise AssertionError(f"(l) {tag}: launches a replay {got['launches_replay']} "
+                                     f"!= {want}")
+            if not ok:
+                raise AssertionError(f"(l) {tag}: the replayed micro-steps disagree with the "
+                                     f"eager ones beyond eager's own spread")
+            if not all(np.isfinite(got["losses_replayed"])):
+                raise AssertionError(f"(l) {tag}: non-finite losses {got['losses_replayed']}")
+        del tr, model, alt_model, start, batches
+    finally:
+        os.environ.pop("CAIM_TRAIN_REMAT", None)
+        shutil.rmtree(os.path.join(ROOT, "build", "smoke_training"), ignore_errors=True)
+        torch.cuda.empty_cache()
+    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
+    if foreign:
+        raise AssertionError(f"phase (l) imported JAX or the JAX package: {foreign}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase (l) took {out['seconds']:.1f} s")
+    return out, launches
+
+
 KERNELS = {
     # id: (wrapper name, source, TPU kernel body it replaces)
     # K1, K7 and K8 launch one bf16 program, flash_wgmma.cu (their f32
@@ -4821,6 +5073,12 @@ def main() -> int:
         log(f"compiled only: phases (c)-(j) were not driven, "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
+    if "--training-compiled-only" in sys.argv[1:]:
+        compiled_training, _ = phase_training_compiled(smi)
+        log(f"training_compiled {json.dumps(compiled_training, default=float)}")
+        log(f"compiled training only: phases (c)-(k) were not driven, "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if "--export-only" in sys.argv[1:]:
         with torch.no_grad():
             export, _ = phase_export(smi, packages)
@@ -4874,6 +5132,9 @@ def main() -> int:
     with torch.no_grad():
         compiled, launches_compiled = phase_compiled(smi, packages)
     log(f"compiled {json.dumps(compiled, default=float)}")
+    torch.cuda.empty_cache()
+    compiled_training, launches_training_compiled = phase_training_compiled(smi)
+    log(f"training_compiled {json.dumps(compiled_training, default=float)}")
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
     if foreign:
@@ -4894,6 +5155,8 @@ def main() -> int:
          "launches_parallel": {n: c[kid] for n, c in launches_parallel.items()},
          "launches_export": {n: c[kid] for n, c in launches_export.items()},
          "launches_compiled": {n: c[kid] for n, c in launches_compiled.items()},
+         "launches_training_compiled": {n: c[kid]
+                                        for n, c in launches_training_compiled.items()},
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body) in KERNELS.items()]
     kernels += [
@@ -4905,6 +5168,7 @@ def main() -> int:
          # the exported program and the compiled engine run bf16 attention, no f32 program
          "launches_export": {n: 0 for n in launches_export},
          "launches_compiled": {n: 0 for n in launches_compiled},
+         "launches_training_compiled": {n: 0 for n in launches_training_compiled},
          "max_abs_err": errs[kid], **times[kid]}
         for kid, (name, src, body, wrapper) in F32_KERNELS.items()]
     from cognitive_aim_tpu_torch.utils import profiling

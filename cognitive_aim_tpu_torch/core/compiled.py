@@ -1,7 +1,17 @@
-"""The engine's compiled forward: one captured CUDA graph per forward
+"""Captured CUDA graphs: the engine's compiled forward, one graph per forward
 signature (the port's counterpart of the JAX engine's ``jax.jit`` cache,
 cognitive_aim_tpu/api.py, which keeps one jitted forward per batch shape and
-guided / unguided, with uint8 normalisation inside the uint8 ones).
+guided / unguided, with uint8 normalisation inside the uint8 ones), and,
+through the same ``GraphCache``, the trainer's compiled micro-steps and eval
+forward (train/trainer.py).
+
+``GraphCache.run`` is the general form: a key, the call's inputs, the
+function captured at the key's first call, one seed a noise stream (one
+generator each, registered with the graph), and whether the function is
+stateful. A stateful function (a training step, which updates the
+parameters and the optimizer in place) runs eagerly at its first call, as
+the warm-up, and is captured then without running; every later call
+replays it. Nothing below differs for it otherwise.
 
 ``CompiledForward`` maps a key (the engine's ``Signature``: guided or not,
 float or uint8 input, batch, image size, and the batch shard the forward
@@ -208,16 +218,21 @@ class CudaGraphs:
 
 @dataclasses.dataclass
 class Captured:
-    """One captured forward: its graph, static inputs and outputs, the
-    generator registered with it (None without noise), and what the capture
-    cost."""
+    """One captured function: its graph, static inputs and outputs, the
+    generators registered with it (stream -> generator; none without
+    noise), and what the capture cost."""
     graph: Any
     inputs: Dict[str, torch.Tensor]
     outputs: Any
-    generator: Optional[torch.Generator]
+    generators: Dict[Hashable, torch.Generator]
     capture_s: float
     pool_bytes: int
     replays: int = 0
+
+    @property
+    def generator(self) -> Optional[torch.Generator]:
+        """The one generator of a forward that samples noise, else None."""
+        return next(iter(self.generators.values()), None)
 
 
 def _clone(obj):
@@ -240,73 +255,91 @@ def _layout(inputs: Dict[str, torch.Tensor]) -> tuple:
     return tuple((n, tuple(t.shape), t.dtype) for n, t in sorted(inputs.items()))
 
 
-class CompiledForward:
-    """A cache of captured forwards for one engine (see the module
-    docstring). ``fn(inputs, generator)`` is the eager forward on a dict of
-    device tensors; ``sample_noise``: it draws from ``generator`` (else it
-    gets None); ``backend``: ``CudaGraphs`` on the card. ``graphs`` maps
-    (key, the inputs' layout) to its ``Captured``."""
+class GraphCache:
+    """Captured functions on one device, in one memory pool, replayed under
+    one lock (see the module docstring). ``graphs`` maps (key, the inputs'
+    layout) to its ``Captured``; ``backend``: ``CudaGraphs`` on the card.
 
-    def __init__(self, fn: Callable, device, *, sample_noise: bool = False, backend=None):
-        self.fn = fn
+    ``run`` takes the function of a key, ``fn(inputs, generators)`` on a
+    dict of device tensors and a dict stream -> generator. A function is
+    pure (a forward: its warm-up is thrown away and every call, the first
+    too, replays the graph) or ``stateful`` (a training step, which updates
+    tensors in place: the first call of a key runs it eagerly, as the
+    warm-up, then captures it; every later call replays it)."""
+
+    def __init__(self, device, *, backend=None):
         self.device = torch.device(device)
-        self.sample_noise = sample_noise
         self.backend = backend or CudaGraphs()
         self.graphs: Dict[Hashable, Captured] = {}
         self.lock = threading.Lock()
         self._pool = None
         self._done = None  # the last call's event, after its copies out
 
-    def __call__(self, key: Hashable, inputs: Dict[str, torch.Tensor],
-                 seed: Optional[int] = None):
-        """The forward of ``inputs`` (name -> tensor, on any device) through
-        the graph of ``key`` and the inputs' names, shapes and dtypes,
-        captured at its first call; ``seed`` seeds the noise. Returns the
-        outputs, copied."""
+    def run(self, key: Hashable, inputs: Dict[str, torch.Tensor], fn: Callable,
+            seeds: Optional[Dict[Hashable, int]] = None, *, stateful: bool = False,
+            grad: bool = False, what: str = "the function"):
+        """``fn`` of ``inputs`` (name -> tensor, on any device) through the
+        graph of ``key`` and the inputs' names, shapes and dtypes. ``seeds``
+        (stream -> seed; the key decides which streams there are): each
+        stream's generator is seeded so before the call, and draws what a
+        fresh generator seeded so draws. ``fn`` is read only when the graph
+        is captured. ``grad``: autograd on (a step's backward). ``what``
+        names the function in a ``CaptureError``. Returns the outputs,
+        copied."""
         be, dev = self.backend, self.device
+        seeds = dict(seeds or {})
         full = (key, _layout(inputs))
-        with self.lock, torch.no_grad():
+        with self.lock, torch.enable_grad() if grad else torch.no_grad():
             if self._done is not None:
                 be.wait(self._done, dev)
             entry = self.graphs.get(full)
             if entry is None:
-                entry = self.graphs[full] = self._capture(full, inputs)
+                entry, warm = self._capture(full, inputs, fn, seeds, stateful, what)
+                self.graphs[full] = entry
+                if stateful:  # the warm-up was this call
+                    self._done = be.fence(dev)
+                    return warm
             for name, t in inputs.items():
                 entry.inputs[name].copy_(t, non_blocking=True)
-            if entry.generator is not None:
-                entry.generator.manual_seed(int(seed or 0))
+            for stream, gen in entry.generators.items():
+                gen.manual_seed(int(seeds[stream]))
             entry.graph.replay()
             entry.replays += 1
             out = _clone(entry.outputs)
             self._done = be.fence(dev)
             return out
 
-    def _capture(self, key, inputs) -> Captured:
+    def _capture(self, key, inputs, fn, seeds, stateful, what):
+        """(the ``Captured`` of ``key``, the warm-up's outputs)."""
         be, dev = self.backend, self.device
         t0 = time.perf_counter()
         static = {n: torch.empty(t.shape, dtype=t.dtype, device=dev) for n, t in inputs.items()}
         for n, t in inputs.items():
             static[n].copy_(t)
-        with be.side_stream(dev):  # one eager forward: what capture cannot do
-            self.fn(static, be.generator(dev).manual_seed(0) if self.sample_noise else None)
+        # one eager run: what capture cannot do (kernel builds, lazy tables);
+        # a stateful function's is the call itself, with the call's seeds
+        warm_gens = {s: be.generator(dev).manual_seed(int(seeds[s]) if stateful else 0)
+                     for s in seeds}
+        with be.side_stream(dev):
+            warm = fn(static, warm_gens)
         if not self.graphs:  # a pool whose graphs are all gone is released: a new one
             self._pool = be.pool(dev)
-        gen = be.generator(dev) if self.sample_noise else None
+        gens = {s: be.generator(dev) for s in seeds}
         graph = be.graph()
-        if gen is not None:
+        for gen in gens.values():
             graph.register_generator_state(gen)
         reserved = be.reserved(dev)
 
         def run():
             with HostSyncGuard():
-                return self.fn(static, gen)
+                return fn(static, gens)
 
         try:
             outputs = be.capture(graph, self._pool, run)
         except CaptureError as e:
-            raise CaptureError(f"capturing the forward of {key[0]} broke at {e}") from None
-        return Captured(graph, static, outputs, gen, time.perf_counter() - t0,
-                        be.reserved(dev) - reserved)
+            raise CaptureError(f"capturing {what} of {key[0]} broke at {e}") from None
+        return Captured(graph, static, outputs, gens, time.perf_counter() - t0,
+                        be.reserved(dev) - reserved), warm
 
     def pool_bytes(self) -> int:
         """The bytes the captures added to the pool, all graphs together."""
@@ -318,4 +351,29 @@ class CompiledForward:
         return {"graphs": len(self.graphs), "pool_bytes": self.pool_bytes(),
                 "each": [{"key": str(k), "inputs": [n for n, _, _ in layout],
                           "capture_s": e.capture_s, "pool_bytes": e.pool_bytes,
-                          "replays": e.replays} for (k, layout), e in self.graphs.items()]}
+                          "replays": e.replays}
+                         for (k, layout), e in self.graphs.items()]}
+
+
+class CompiledForward(GraphCache):
+    """The engine's cache of captured forwards (see the module docstring).
+    ``fn(inputs, generator)`` is the eager forward on a dict of device
+    tensors; ``sample_noise``: it draws from ``generator`` (else it gets
+    None); ``backend``: ``CudaGraphs`` on the card."""
+
+    def __init__(self, fn: Callable, device, *, sample_noise: bool = False, backend=None):
+        super().__init__(device, backend=backend)
+        self.fn = fn
+        self.sample_noise = sample_noise
+
+    def __call__(self, key: Hashable, inputs: Dict[str, torch.Tensor],
+                 seed: Optional[int] = None):
+        """The forward of ``inputs`` (name -> tensor, on any device) through
+        the graph of ``key`` and the inputs' names, shapes and dtypes,
+        captured at its first call; ``seed`` seeds the noise. Returns the
+        outputs, copied."""
+        seeds = {"noise": int(seed or 0)} if self.sample_noise else None
+        return self.run(key, inputs, self._forward, seeds, what="the forward")
+
+    def _forward(self, inputs, generators):
+        return self.fn(inputs, generators.get("noise"))

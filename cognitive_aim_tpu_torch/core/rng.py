@@ -12,7 +12,7 @@ random streams.
 from __future__ import annotations
 
 import enum
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,11 +42,34 @@ def normal_like(
     return draw if rows is None else draw[rows]
 
 
-def fold_in(generator: Optional[torch.Generator], i: int) -> Optional[torch.Generator]:
+def fold_seed(seed: int, i: int) -> int:
+    """The seed of stream ``i`` folded out of ``seed`` (host values)."""
+    return int(np.random.SeedSequence([seed, i]).generate_state(1, np.uint64)[0]) >> 1
+
+
+class Streams:
+    """A generator's folded streams made ahead: ``fold_in(streams, i)`` is
+    ``generators[i]``, where ``fold_in(g, i)`` would make a new generator.
+    A captured training step draws from generators registered with its
+    graph, which the host seeds before each replay with ``fold_seed`` of
+    the step's generator: the replay draws what the eager ``fold_in`` chain
+    draws."""
+
+    def __init__(self, generators: Dict[int, torch.Generator]):
+        self.generators = generators
+
+    def fold(self, i: int) -> torch.Generator:
+        if i not in self.generators:
+            raise KeyError(f"stream {i} was not made ahead (streams {sorted(self.generators)})")
+        return self.generators[i]
+
+
+def fold_in(generator, i: int) -> Optional[torch.Generator]:
     """A new generator on ``generator``'s device, seeded from its initial
     seed and ``i`` (host values: no device sync), so that one stream's draws
-    do not move another's; None stays None."""
+    do not move another's; None stays None; of ``Streams``, stream ``i``."""
     if generator is None:
         return None
-    seed = np.random.SeedSequence([generator.initial_seed(), i]).generate_state(1, np.uint64)[0]
-    return torch.Generator(generator.device).manual_seed(int(seed) >> 1)
+    if isinstance(generator, Streams):
+        return generator.fold(i)
+    return torch.Generator(generator.device).manual_seed(fold_seed(generator.initial_seed(), i))

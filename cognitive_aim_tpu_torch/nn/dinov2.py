@@ -864,9 +864,12 @@ class DinoV2(nn.Module):
             if remat:
                 # the block's activations are recomputed in the backward
                 # (jax.checkpoint with nothing_saveable in the JAX package):
-                # memory O(one block), the forward's kernels launched twice
+                # memory O(one block), the forward's kernels launched twice.
+                # A block draws nothing, so no RNG state is stashed (reading
+                # the device's would break a captured training step)
                 x = torch.utils.checkpoint.checkpoint(blk, x, attn_impl, k_bias,
-                                                      use_reentrant=False)
+                                                      use_reentrant=False,
+                                                      preserve_rng_state=False)
             else:
                 x = blk(x, attn_impl, k_bias)
         return x

@@ -44,6 +44,30 @@ the trainer makes its parameters the main model's own Parameter objects, so
 that the backward's per-block recompute reads the trained weights too (a
 ``functional_call`` swaps them back before the backward runs).
 
+The compiled step (the JAX trainer's jitted ``_build_step``, which jits loss,
+gradients, the optax chain and the update as one program): on the card each
+kind of micro-step (``StepKey``: main or alternate model, accumulating or
+updating, with or without noise streams and a guided draw; the batch's
+layout) is one CUDA graph in ``graphs`` (core/compiled.py's ``GraphCache``,
+one memory pool): the batch's copy into static inputs, the loss, the
+gradients through K1 / K6 and their recompute backward, the MultiSteps
+mean, every group's clipped AdamW and, on an NCCL mesh, the gathers and
+all-reduces. The first call of a kind runs the step eagerly and captures
+it; every later call replays it. The eager step and the graph are one
+function (``_step_body``), whose every value the host changes from step to
+step is a device tensor: the optimizer's state and counts, and one vector
+of scalars the host fills before the call (curiosity on, the KL weight, the
+MultiSteps divisor, each group's learning rate and bias corrections, from
+the host's copy of the update count). Draws come from one generator a
+stream (``NOISE_STREAMS``, ``GUIDE_STREAM``), registered with the graph and
+seeded before each replay as the eager ``fold_in`` chain seeds them.
+``reset_params`` and the checkpoint loaders write the parameters in place
+and reset the state in place, so the graphs stay valid. What the step reads
+from Python (``CAIM_TRAIN_REMAT``, the config's weights) is read at capture,
+as JAX reads it while tracing. The eval forward is one graph a batch shape.
+The pipelined (GPipe) step and a gloo mesh on the card run eagerly and say
+so at construction; on the CPU every step runs eagerly.
+
 Checkpoints are the JAX trainer's npz layout: ``params/<flat name>``
 (``convert.flat_params``), ``meta/epoch``, ``meta/best_val_loss`` and
 ``__meta__/train_filter`` when the token filter trains, plus the adapters'
@@ -87,17 +111,20 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import logging
 import math
 import os
 import shutil
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from cognitive_aim_tpu_torch.convert import flat_params, load_flat_params
+from cognitive_aim_tpu_torch.core.compiled import GraphCache
 from cognitive_aim_tpu_torch.core.mesh import MODEL_AXIS, batch_axes, batch_rows, make_mesh
-from cognitive_aim_tpu_torch.core.rng import NoiseMode, fold_in
+from cognitive_aim_tpu_torch.core.rng import NoiseMode, Streams, fold_in, fold_seed
 from cognitive_aim_tpu_torch.models import guidance as G
 from cognitive_aim_tpu_torch.models.config import token_filter_spec
 from cognitive_aim_tpu_torch.parallel import comm
@@ -111,6 +138,28 @@ from cognitive_aim_tpu_torch.parallel.sharding import (
 from cognitive_aim_tpu_torch.train import losses as LS
 from cognitive_aim_tpu_torch.train.metrics import calculate_depth_metrics
 from cognitive_aim_tpu_torch.train.schedules import beta_schedule
+
+logger = logging.getLogger(__name__)
+
+# a step's device scalars, one f32 vector the host fills before each call:
+# curiosity on (1 or 0), the KL weight, the MultiSteps divisor (mini-step +
+# 1), then each group's learning rate and bias corrections
+_CUR, _KL, _ACC_DIV, _GROUP0 = 0, 1, 2, 3
+# the streams the model folds out of a step's generator (curiosity, focal,
+# dropout; 99 the fused features' dropout: models/cognitive_aim.py), and
+# the guided-training draw's
+NOISE_STREAMS = (0, 1, 2, 99)
+GUIDE_STREAM = 1 << 20
+
+
+class StepKey(NamedTuple):
+    """What a captured micro-step is specialised on, besides the batch's
+    layout: the alternate model or the main one, an update or an
+    accumulation only, noise streams (a generator given), a guided draw."""
+    alt: bool
+    update: bool
+    noise: bool
+    guided_draw: bool
 
 
 @dataclasses.dataclass
@@ -202,6 +251,31 @@ def scalar_depth_target(depths: torch.Tensor) -> torch.Tensor:
     return depths.reshape(depths.shape[0], -1).mean(dim=1)
 
 
+def _batch_tensors(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A batch's tensors, flat (``exif/<name>``) and where they are (host
+    arrays as host tensors): float32 images and depths, int64 guidance."""
+    def t(v, dtype=None):
+        return torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v, dtype=dtype)
+
+    out = {"images": t(batch["images"], torch.float32),
+           "depths": t(batch["depths"], torch.float32)}
+    if "guidance" in batch:
+        out["guidance"] = t(batch["guidance"], torch.long)
+    for k, v in batch.get("exif", {}).items():
+        out[f"exif/{k}"] = t(v)
+    return out
+
+
+def _nest(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``_batch_tensors``' layout back to the trainer's batch (``exif`` a
+    dict, where there is one)."""
+    batch = {k: v for k, v in flat.items() if not k.startswith("exif/")}
+    exif = {k[len("exif/"):]: v for k, v in flat.items() if k.startswith("exif/")}
+    if exif:
+        batch["exif"] = exif
+    return batch
+
+
 def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     """The learning rate at optimizer update ``count`` (0 for the first):
     the JAX trainer's optax schedules."""
@@ -238,7 +312,13 @@ class _AdamWGroup:
     """optax ``chain(clip_by_global_norm(clip), adamw(lr, wd))`` over one
     group of parameters (updated in place). ``split`` marks the parameters
     that a tensor-parallel rank holds a piece of: their squares are summed
-    over ``tp_group`` for the global norm."""
+    over ``tp_group`` for the global norm.
+
+    The state lives on the device, as optax's: the moments and the update
+    count. The update reads its learning rate and bias corrections from
+    device scalars the host fills before the step (``scalars``, from the
+    host's copy of the count, ``updates``), so that one captured update
+    serves every count."""
 
     def __init__(self, params: List[torch.nn.Parameter], lr: Callable[[int], float],
                  weight_decay: float, clip: float, split: Optional[List[bool]] = None,
@@ -249,10 +329,30 @@ class _AdamWGroup:
         self.tp_group = tp_group
         self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.int64,
+                                 device=params[0].device if params else None)
+        self.updates = 0  # the host's copy of ``count``
+
+    def reset(self):
+        """Fresh state, in place: the captured steps keep reading these
+        buffers."""
+        if self.params:
+            torch._foreach_zero_(self.mu)
+            torch._foreach_zero_(self.nu)
+        self.count.zero_()
+        self.updates = 0
+
+    def scalars(self) -> List[float]:
+        """The next update's learning rate and bias corrections (host
+        values, for the step's device scalars)."""
+        c = self.updates
+        return [self.lr(c), 1 - 0.9 ** (c + 1), 1 - 0.999 ** (c + 1)]
 
     @torch.no_grad()
-    def update(self, grads: List[torch.Tensor]):
+    def update(self, grads: List[torch.Tensor], lr: torch.Tensor, bc1: torch.Tensor,
+               bc2: torch.Tensor):
+        """One update from ``grads``; ``lr``, ``bc1``, ``bc2``: 0-d device
+        tensors (``scalars``)."""
         if not self.params:
             return
         b1, b2, eps = 0.9, 0.999, 1e-8
@@ -269,14 +369,12 @@ class _AdamWGroup:
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(grads, grads),
                                                         1 - b2))
-        lr = self.lr(self.count)
-        self.count += 1
-        bc1, bc2 = 1 - b1 ** self.count, 1 - b2 ** self.count
+        self.count.add_(1)
         den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(self.nu, bc2)), eps)
         upd = torch._foreach_div(torch._foreach_div(self.mu, bc1), den)
         if self.wd:
             torch._foreach_add_(upd, torch._foreach_mul(self.params, self.wd))
-        torch._foreach_add_(self.params, torch._foreach_mul(upd, -lr))
+        torch._foreach_add_(self.params, torch._foreach_mul(upd, lr.neg()))
 
 
 class Trainer:
@@ -310,6 +408,20 @@ class Trainer:
         self.writer = writer
         self.epoch = 0
         self.best_val_loss = float("inf")
+        # the card's captured steps and eval forwards (one pool, one lock);
+        # None on the CPU, for the pipelined step and under gloo, which run
+        # eagerly and say so
+        self.graphs: Optional[GraphCache] = None
+        gloo = self.mesh.distributed and torch.distributed.get_backend() != "nccl"
+        if self.device.type == "cuda" and not (self.pipelined or gloo):
+            self.graphs = GraphCache(self.device)
+        elif self.device.type == "cuda":
+            logger.warning("the training step runs eagerly: %s",
+                           f"pipeline_stages={cfg.pipeline_stages} (the GPipe step's capture "
+                           "is not ported)" if self.pipelined else
+                           "gloo's collectives pass through the host, which a CUDA graph "
+                           "cannot capture")
+        self._opt_key = None
         if alt_model is not None:
             self._share_parameters()
         self._place()
@@ -358,19 +470,35 @@ class Trainer:
             mod._parameters[leaf] = mine[name]
 
     def _reset_optimizer(self):
-        """Fresh optimizer state (groups, moments, counts, accumulator)."""
+        """Fresh optimizer state (moments, counts, accumulator). Where the
+        trained parameters, their groups and the optimizer's settings are
+        those of the state held, it is reset in place and every captured
+        step is kept; else it is made anew and the graphs are dropped."""
         c = self.cfg
         if self.alt_model is not None:
             self._share_parameters()
         named = list(self.model.named_parameters())
-        self.labels = {n: self._label(n) for n, _ in named}
+        labels = {n: self._label(n) for n, _ in named}
         for n, p in named:
-            p.requires_grad_(self.labels[n] != "freeze")
-        self._trainable = [(n, p) for n, p in named if self.labels[n] != "freeze"]
+            p.requires_grad_(labels[n] != "freeze")
+        trainable = [(n, p) for n, p in named if labels[n] != "freeze"]
+        key = (tuple((n, id(p), tuple(p.shape), labels[n]) for n, p in trainable),
+               c.weight_decay, c.grad_clip, c.heads_lr > 0.0 and c.sandwich_heads,
+               c.accumulation_steps, c.tensor_parallel)
         sched = lr_schedule(c)
         heads_lr = sched
         if c.sandwich_heads and c.heads_lr > 0.0:
             heads_lr = lambda count: c.heads_lr  # noqa: E731
+        self._mini_step = 0
+        self._global_step = 0
+        if key == self._opt_key:
+            self._groups["train"].lr, self._groups["train_heads"].lr = sched, heads_lr
+            for group in self._groups.values():
+                group.reset()
+            if self._acc is not None:
+                torch._foreach_zero_(self._acc)
+            return
+        self._opt_key, self.labels, self._trainable = key, labels, trainable
         specs = param_shardings(self.mesh, self.model, c.tensor_parallel)
         tp_group = comm.group_of(self.mesh, MODEL_AXIS) if c.tensor_parallel else None
         self._groups = {
@@ -385,16 +513,33 @@ class Trainer:
         self._pipe_summed = [self.pipelined and n.startswith("backbone.")
                              and not n.startswith("backbone.final_norm")
                              for n, _ in self._trainable]
-        self._acc: Optional[List[torch.Tensor]] = None
-        self._mini_step = 0
-        self._global_step = 0
+        # MultiSteps' running mean of the micro-gradients
+        self._acc: Optional[List[torch.Tensor]] = (
+            [torch.zeros_like(p) for _, p in self._trainable]
+            if max(1, c.accumulation_steps) > 1 else None)
+        if self.graphs is not None:
+            self.graphs.graphs.clear()
+
+    @contextlib.contextmanager
+    def _same_storage(self):
+        """Parameters whose storage the body replaced (``unsharded``
+        shards into new tensors) get their values copied back into the old
+        storage, which the captured steps read."""
+        held = [(p, p.data) for p in self.model.parameters()]
+        yield
+        with torch.no_grad():
+            for p, data in held:
+                if p.data.data_ptr() != data.data_ptr():
+                    data.copy_(p.data)
+                    p.data = data
 
     def reset_params(self, flat: Optional[Dict[str, np.ndarray]] = None):
         """Load the flat interchange ``flat`` (when given; whole parameters,
-        sharded again on the mesh) and start the optimizer afresh: sweep
+        sharded again on the mesh) and start the optimizer afresh, keeping
+        every captured step (the parameters are loaded in place): sweep
         scripts train several checkpoints in one process."""
         if flat is not None:
-            with unsharded(self.model):
+            with self._same_storage(), unsharded(self.model):
                 load_flat_params(self.model, flat)
         self._reset_optimizer()
 
@@ -418,39 +563,45 @@ class Trainer:
                 out[i] = t.view_as(grads[i])
         return out
 
-    def _apply(self, grads: List[torch.Tensor]):
-        """MultiSteps: average k micro-gradients, update on the k-th."""
-        k = max(1, self.cfg.accumulation_steps)
-        if k > 1:
-            if self._acc is None:
-                self._acc = [torch.zeros_like(g) for g in grads]
-            n = self._mini_step
+    def _apply(self, grads: List[torch.Tensor], scalars: torch.Tensor, update: bool):
+        """MultiSteps: the running mean of k micro-gradients, divided by the
+        device scalar ``scalars[_ACC_DIV]`` (mini-step + 1); on the k-th
+        (``update``) the groups' updates from it, and the mean back to 0.
+        With k = 1 every micro-step updates."""
+        if self._acc is not None:
             torch._foreach_add_(self._acc, torch._foreach_div(
-                torch._foreach_sub(grads, self._acc), n + 1))
-            self._mini_step = (n + 1) % k
-            if self._mini_step != 0:
+                torch._foreach_sub(grads, self._acc), scalars[_ACC_DIV]))
+            if not update:
                 return
-            grads, self._acc = self._acc, None
-        grads = self._reduce(grads)
-        for label, group in self._groups.items():
-            group.update([g for (n, _), g in zip(self._trainable, grads)
-                          if self.labels[n] == label])
+            grads = self._acc
+        reduced = self._reduce(grads)
+        for j, (label, group) in enumerate(self._groups.items()):
+            lr, bc1, bc2 = scalars[_GROUP0 + 3 * j:_GROUP0 + 3 * j + 3]
+            group.update([g for (n, _), g in zip(self._trainable, reduced)
+                          if self.labels[n] == label], lr, bc1, bc2)
+        if self._acc is not None:
+            torch._foreach_zero_(self._acc)
 
     # ------------------------------------------------------------ step ----
-    def loss(self, model, batch: Dict[str, Any], generator: Optional[torch.Generator],
-             curiosity_on: bool, kl_w: float):
+    def loss(self, model, batch: Dict[str, Any], generator, curiosity_on, kl_w,
+             guide: Optional[torch.Generator] = None):
         """(total loss, logs): the JAX trainer's loss on ``model``'s training
         forward. batch holds device tensors (``device_batch``) of the global
         batch; on a mesh the forward runs this rank's rows and the loss the
-        gathered global batch's."""
+        gathered global batch's. ``generator``: a torch.Generator or the
+        ``Streams`` folded out of one (None: no dropout, noise 0);
+        ``curiosity_on``: a bool or a 0-d bool tensor; ``kl_w``: a float or
+        a 0-d tensor; ``guide``: the guided-training draw's generator (by
+        default folded out of ``generator``, or seeded from the config's
+        seed and the step)."""
         cfg = self.cfg
         guidance = batch.get("guidance")
         B = batch["images"].shape[0]
         if guidance is None and cfg.guided_training:
-            g = fold_in(generator, 1 << 20) if generator is not None else \
-                torch.Generator(self.device).manual_seed(
-                    int(np.random.SeedSequence([cfg.seed, self._global_step])
-                        .generate_state(1, np.uint64)[0]) >> 1)
+            g = guide
+            if g is None:
+                g = fold_in(generator, GUIDE_STREAM) if generator is not None else \
+                    torch.Generator(self.device).manual_seed(self._guide_seed())
             guidance = torch.randint(0, len(G.INSTRUCTIONS), (B,), generator=g,
                                      device=self.device)
         m, axes = self.mesh, batch_axes(self.mesh)
@@ -470,8 +621,9 @@ class Trainer:
         target = scalar_depth_target(batch["depths"])
         depth_loss = LS.scale_invariant_loss(pred, target, cfg.loss_lambda)
         cur_loss = LS.curiosity_loss(curiosity, (pred - target).abs())
-        if not curiosity_on:
-            cur_loss = torch.zeros_like(cur_loss)
+        if not torch.is_tensor(curiosity_on):
+            curiosity_on = torch.full((), bool(curiosity_on), device=cur_loss.device)
+        cur_loss = torch.where(curiosity_on, cur_loss, torch.zeros_like(cur_loss))
         total = depth_loss + cfg.curiosity_weight * cur_loss
         if cfg.attention_entropy_weight > 0 and "attention_entropy" in out.aux:
             entropy = out.aux["attention_entropy"]
@@ -479,6 +631,10 @@ class Trainer:
                 entropy = comm.gather_batch(entropy[None], m, axes).mean()
             total = total + cfg.attention_entropy_weight * entropy
         return total, {"loss": total, "depth_loss": depth_loss, "curiosity_loss": cur_loss}
+
+    def _guide_seed(self) -> int:
+        """The guided-training draw's seed in a step without a generator."""
+        return fold_seed(self.cfg.seed, self._global_step)
 
     def step_inputs(self):
         """(curiosity_on, KL weight) of the current epoch."""
@@ -489,15 +645,70 @@ class Trainer:
                                               c.epochs)(self.epoch)))
         return curiosity_on, kl_w
 
+    def _step_body(self, model, inputs: Dict[str, torch.Tensor],
+                   generators: Dict[int, torch.Generator], update: bool) -> Dict:
+        """One micro-step on device tensors, the function both the eager
+        step and the captured one run: the loss, its gradients, the
+        MultiSteps mean and (``update``) the groups' updates, all in place.
+        ``inputs``: the flat batch (``_step_inputs``) and the device scalars;
+        ``generators``: stream -> generator (``NOISE_STREAMS``,
+        ``GUIDE_STREAM``). Returns the loss logs, 0-d device tensors."""
+        batch = _nest({k: v for k, v in inputs.items() if k != "scalars"})
+        scalars = inputs["scalars"]
+        noise = Streams({i: generators[i] for i in NOISE_STREAMS}) \
+            if NOISE_STREAMS[0] in generators else None
+        with PL.grad_anchors() as anchors:  # the pipelined backward's sends
+            total, logs = self.loss(model, batch, noise, scalars[_CUR] > 0.5, scalars[_KL],
+                                    guide=generators.get(GUIDE_STREAM))
+        params = [p for _, p in self._trainable]
+        got = torch.autograd.grad(total, params + anchors, allow_unused=True)[:len(params)]
+        self._apply([torch.zeros_like(p) if g is None else g
+                     for (_, p), g in zip(self._trainable, got)], scalars, update)
+        return {k: v.detach() for k, v in logs.items()}
+
+    def _step_inputs(self, batch: Dict[str, Any], update: bool) -> Dict[str, torch.Tensor]:
+        """The batch as flat tensors where they are (host arrays as host
+        tensors; ``exif/<name>``) and this step's scalars as one host f32
+        vector (pinned for the card): curiosity on, the KL weight, the
+        MultiSteps divisor, each group's learning rate and bias
+        corrections."""
+        out = _batch_tensors(batch)
+        curiosity_on, kl_w = self.step_inputs()
+        vals = [float(curiosity_on), kl_w, self._mini_step + 1]
+        for group in self._groups.values():
+            vals += group.scalars() if update else [0.0, 1.0, 1.0]
+        out["scalars"] = torch.tensor(vals, dtype=torch.float32)
+        if self.device.type == "cuda":  # copied without blocking the host
+            out["scalars"] = out["scalars"].pin_memory()
+        return out
+
+    def _streams(self, batch, generator: Optional[torch.Generator]) -> Dict[int, int]:
+        """Stream -> seed of this step: the model's noise streams folded out
+        of ``generator`` (none without one) and the guided-training draw's."""
+        seeds = {}
+        if generator is not None:
+            seeds = {i: fold_seed(generator.initial_seed(), i) for i in NOISE_STREAMS}
+        if "guidance" not in batch and self.cfg.guided_training:
+            seeds[GUIDE_STREAM] = fold_seed(generator.initial_seed(), GUIDE_STREAM) \
+                if generator is not None else self._guide_seed()
+        return seeds
+
     def train_step(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
-                   fetch_logs: bool = True, alt: Optional[bool] = None) -> Dict:
+                   fetch_logs: bool = True, alt: Optional[bool] = None,
+                   eager: bool = False) -> Dict:
         """One micro-step: gradients of the loss, and an optimizer update
         every ``accumulation_steps``-th call. ``fetch_logs=False`` keeps the
         loss scalars on the device (no host sync). ``alt`` picks the model of
         this step: None runs ``alt_model`` on every odd step, True runs it,
         False the main model (a loop with its own schedule, such as one
-        filtered step in N, passes it)."""
-        batch = self.device_batch(batch)
+        filtered step in N, passes it).
+
+        On the card each kind of micro-step (main or alternate model,
+        accumulating or updating, with or without noise and a guided draw)
+        is one CUDA graph, run eagerly and captured at its first call and
+        replayed after (``graphs``); ``eager=True`` runs the same step
+        eagerly (the reference the graphs are held to). On the CPU and
+        under pipelining the step runs eagerly."""
         model = self.model
         if alt is None:
             alt = self.alt_model is not None and self._global_step % 2 == 1
@@ -505,32 +716,32 @@ class Trainer:
             raise ValueError("train_step(alt=True) needs an alt_model")
         if alt:
             model = self.alt_model
-        with PL.grad_anchors() as anchors:  # the pipelined backward's sends
-            total, logs = self.loss(model, batch, generator, *self.step_inputs())
-        params = [p for _, p in self._trainable]
-        got = torch.autograd.grad(total, params + anchors, allow_unused=True)[:len(params)]
-        self._apply([torch.zeros_like(p) if g is None else g
-                     for (_, p), g in zip(self._trainable, got)])
+        k = max(1, self.cfg.accumulation_steps)
+        update = self._mini_step == k - 1
+        inputs = self._step_inputs(batch, update)
+        seeds = self._streams(batch, generator)
+        if self.graphs is None or eager:
+            dev = self.device
+            gens = {s: torch.Generator(dev).manual_seed(v) for s, v in seeds.items()}
+            with torch.enable_grad():
+                logs = self._step_body(model, {n: v.to(dev, non_blocking=True)
+                                               for n, v in inputs.items()}, gens, update)
+        else:
+            key = StepKey(bool(alt), update, NOISE_STREAMS[0] in seeds, GUIDE_STREAM in seeds)
+            logs = self.graphs.run(key, inputs, functools.partial(
+                self._step_body, model, update=update), seeds, stateful=True, grad=True,
+                what="the training step")
+        self._mini_step = (self._mini_step + 1) % k
+        if update:
+            for group in self._groups.values():
+                group.updates += 1
         self._global_step += 1
-        logs = {k: v.detach() for k, v in logs.items()}
         if fetch_logs:
             return {k: float(v) for k, v in logs.items()}
         return logs
 
     def device_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        dev = self.device
-
-        def t(v, dtype=None):
-            return torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
-                                   dtype=dtype).to(dev)
-
-        out = {"images": t(batch["images"], torch.float32),
-               "depths": t(batch["depths"], torch.float32)}
-        if "guidance" in batch:
-            out["guidance"] = t(batch["guidance"], torch.long)
-        if "exif" in batch:
-            out["exif"] = {k: t(v) for k, v in batch["exif"].items()}
-        return out
+        return _nest({k: v.to(self.device) for k, v in _batch_tensors(batch).items()})
 
     # ----------------------------------------------------------- loops ----
     def train_epoch(self, loader, generator: Optional[torch.Generator]) -> Dict[str, float]:
@@ -549,10 +760,24 @@ class Trainer:
                 for k in device_logs[0]}
 
     @torch.no_grad()
-    def eval_forward(self, images: torch.Tensor, exif=None):
+    def eval_forward(self, images: torch.Tensor, exif=None, eager: bool = False):
         """The validation forward: no dropout, the noise of
-        ``cfg.eval_noise_mode`` from a generator seeded 0."""
-        return self.model(images, exif, generator=torch.Generator(self.device).manual_seed(0),
+        ``cfg.eval_noise_mode`` from a generator seeded 0. On the card one
+        CUDA graph a batch shape (a last partial batch gets its own, as a
+        retrace of the JAX trainer's jitted eval would); ``eager=True`` runs
+        it eagerly."""
+        if self.graphs is None or eager:
+            return self._eval_body(images, exif, torch.Generator(self.device).manual_seed(0))
+        inputs = {"images": images, **{f"exif/{k}": v for k, v in (exif or {}).items()}}
+        return self.graphs.run(("eval", self.cfg.eval_noise_mode), inputs, self._eval_fn,
+                               {"eval": 0}, what="the eval forward")
+
+    def _eval_fn(self, inputs: Dict[str, torch.Tensor], generators):
+        exif = {k[len("exif/"):]: v for k, v in inputs.items() if k.startswith("exif/")}
+        return self._eval_body(inputs["images"], exif or None, generators["eval"])
+
+    def _eval_body(self, images, exif, generator):
+        return self.model(images, exif, generator=generator,
                           noise_mode=NoiseMode(self.cfg.eval_noise_mode))
 
     def validate(self, loader) -> Dict[str, float]:
@@ -683,7 +908,7 @@ class Trainer:
         the whole parameters (gathered on a tensor-parallel mesh), written by
         rank 0."""
         path = os.path.join(self.output_dir, filename)
-        with unsharded(self.model):
+        with self._same_storage(), unsharded(self.model):
             flat = flat_params(self.model)
         if self.mesh.rank != 0:
             return
@@ -732,7 +957,8 @@ class Trainer:
             take("exif_prior/", lambda: ct.convert_exif_prior(sd))
             take("curiosity_module/", lambda: ct.convert_curiosity(sd))
             take("", lambda: ct.convert_heads(sd))
-            with unsharded(self.model):  # sharded again on the mesh after the merge
+            # sharded again on the mesh after the merge, into the same storage
+            with self._same_storage(), unsharded(self.model):
                 merged, loaded, skipped = ct.filter_and_merge(flat_params(self.model),
                                                               incoming)
                 load_flat_params(self.model, merged)
@@ -744,7 +970,7 @@ class Trainer:
             flat = {k[len("params/"):]: data[k] for k in data.files if k.startswith("params/")}
             epoch = int(data["meta/epoch"])
             best = float(data["meta/best_val_loss"])
-        with unsharded(self.model):
+        with self._same_storage(), unsharded(self.model):
             load_flat_params(self.model, flat)
         self._reset_optimizer()
         self.epoch = epoch + 1

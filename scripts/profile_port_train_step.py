@@ -6,12 +6,16 @@
 
 Builds the config's model on the card (seeded weights, the default policy,
 attn_impl="pallas_packed"), runs ``Trainer.train_step`` on a seeded device batch
-(dropout on) until the accumulation counter is mid-cycle, then profiles one
-micro-step that makes no optimizer update and one that does, under
-``torch.profiler``: device time by kernel (top 20), grouped (K1's and K6's forward
-kernels, the plain recompute of their backward, GEMMs, everything else), the
-device's busy time against the step's wall time (the idle share), and the host
-time to enqueue the step. Prints the card's name and power limit and, last, one
+(dropout on) through one accumulation cycle and one more step, which captures
+the trainer's CUDA graph of each micro-step kind, then profiles, eager
+(``train_step(eager=True)``) and replayed, one micro-step that makes no
+optimizer update and one that does, under ``torch.profiler``: device time by
+kernel (top 20), grouped (K1's and K6's forward kernels, the plain recompute of
+their backward, GEMMs, everything else), the device's busy time against the
+step's wall time (the idle share), and the host time of the call (the eager
+step's enqueue; a replay's copies in, seeding, launch and copies out). A
+replay runs no Python, so the recompute's ``recompute_vjp`` ranges show for
+the eager step only. Prints the card's name and power limit and, last, one
 JSON line.
 """
 
@@ -70,19 +74,21 @@ def main() -> int:
     tr = Trainer(model, TrainConfig.from_raw(raw, steps_per_epoch=4),
                  output_dir=os.path.join(ROOT, "build", "profile_train_step"))
     k = max(1, tr.cfg.accumulation_steps)
-    for _ in range(k + 1):  # warm up; the next micro-step is mid-cycle
+    for _ in range(k + 1):  # captures each micro-step kind; the next is mid-cycle
         tr.train_step(batch, g, fetch_logs=False)
     torch.cuda.synchronize()
 
     result = {"card": smi, "config": os.path.relpath(args.config, ROOT), "batch": B,
               "remat": args.remat}
-    for name in ("micro_step", "update_step"):
+    for mode, name in ((m, n) for m in ("eager", "replayed")
+                       for n in ("micro_step", "update_step")):
+        eager = mode == "eager"
         while (tr._mini_step == k - 1) != (name == "update_step") and k > 1:
-            tr.train_step(batch, g, fetch_logs=False)
+            tr.train_step(batch, g, fetch_logs=False, eager=eager)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            tr.train_step(batch, g, fetch_logs=False)
+            tr.train_step(batch, g, fetch_logs=False, eager=eager)
             host_ms = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
@@ -121,13 +127,15 @@ def main() -> int:
                                  getattr(e, "cuda_time_total", 0)) / 1e3
         top = [{"kernel": n[:110], "ms": t, "calls": calls[n]}
                for n, t in by_name.most_common(20)]
-        result[name] = {"device_busy_ms": busy, "device_span_ms": span, "wall_ms": wall_ms,
-                        "host_enqueue_ms": host_ms,
-                        "idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
-                        "groups_ms": dict(groups.most_common()), "recompute_ranges_ms": ranges,
-                        "device_kernels": len(ev), "top_kernels": top}
-        print(f"{name}: device busy {busy:.1f} ms, wall {wall_ms:.1f} ms, host enqueue "
-              f"{host_ms:.1f} ms, {len(ev)} device operations ({smi})")
+        result[f"{mode}_{name}"] = {
+            "device_busy_ms": busy, "device_span_ms": span, "wall_ms": wall_ms,
+            "host_enqueue_ms": host_ms,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
+            "groups_ms": dict(groups.most_common()), "recompute_ranges_ms": ranges,
+            "device_kernels": len(ev), "top_kernels": top}
+        print(f"{mode} {name}: device busy {busy:.1f} ms, wall {wall_ms:.1f} ms, idle "
+              f"{result[f'{mode}_{name}']['idle_share'] * 100:.1f}%, host a call "
+              f"{host_ms:.2f} ms, {len(ev)} device operations ({smi})")
         for gname, t in groups.most_common():
             print(f"  {gname}: {t:.1f} ms")
         for r, t in ranges.items():

@@ -2090,3 +2090,182 @@ def test_compiled_forward_serves_two_threads_at_once(cuda_device, tmp_path):
         assert len(eng.compiled.graphs) == n_graphs + 2  # B 1 guided and unguided again
     finally:
         server.stop()
+
+
+# ----------------------------------------------------- compiled training ----
+LORA_TRAIN = dict(use_lora=True, lora_rank=4, lora_targets=("attn_out", "fc1"))
+# name: (TrainConfig overrides, arch overrides), tests/test_torch_train.py's STEP_CASES
+STEP_GROUPS = {
+    "cosine": (dict(scheduler="cosine"), {}),
+    "warmup_cosine": (dict(scheduler="warmup_cosine", warmup_epochs=1, steps_per_epoch=2,
+                           epochs=3), {}),
+    "step": (dict(scheduler="step", steps_per_epoch=1), {}),
+    "accumulation_steps_2": (dict(accumulation_steps=2), {}),
+    "freeze_backbone": (dict(freeze_backbone=True), LORA_TRAIN),
+    "train_only_lora": (dict(train_only_lora=True), LORA_TRAIN),
+    "sandwich_heads_lr": (dict(train_only_lora=True, sandwich_heads=True, heads_lr=1e-3),
+                          LORA_TRAIN),
+}
+TRAIN_BASE = dict(learning_rate=3e-3, epochs=1, batch_size=8, steps_per_epoch=30,
+                  freeze_backbone=False, weight_decay=0.015, attention_entropy_weight=0.01,
+                  beta_schedule="cosine", beta_start=0.05, beta_end=1.5, guided_training=True)
+
+
+def _train_model(arch_kw, seed=1, filtered=False):
+    import dataclasses
+
+    from cognitive_aim_tpu_torch.core.precision import DEFAULT_POLICY
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import ModelArchConfig
+    from cognitive_aim_tpu_torch.nn.dinov2 import DinoV2Config
+
+    arch = ModelArchConfig(num_iterations=2, image_size=56, freeze_backbone=False, **arch_kw)
+    if filtered:
+        arch = dataclasses.replace(arch, token_filter_layer=1, token_filter_keep=0.5,
+                                   token_filter_train=True)
+    model = CognitiveAimModel(arch, DEFAULT_POLICY, "pallas_packed",
+                              vit_cfg=DinoV2Config(**SMALL_VIT))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    model.init(g)
+    with torch.no_grad():  # lora_B 0 (its init) would leave lora_A's gradient 0
+        for name, p in model.named_parameters():
+            if "lora" in name and name.endswith("B"):
+                p.normal_(0.0, 0.02, generator=g)
+    return model
+
+
+def _train_batches(n=2, B=8):
+    g = torch.Generator(device="cuda").manual_seed(7)
+    return [{"images": torch.randn(B, 56, 56, 3, generator=g, device="cuda"),
+             "depths": torch.rand(B, generator=g, device="cuda") + 0.5,
+             "exif": {"camera_idx": torch.zeros(B, dtype=torch.int32, device="cuda"),
+                      "focal_length": torch.full((B,), 0.25, device="cuda"),
+                      "aperture": torch.full((B,), 0.127, device="cuda"),
+                      "iso": torch.full((B,), 0.016, device="cuda")}} for _ in range(n)]
+
+
+def _assert_replays_are_eager(tr, steps=6):
+    """``steps`` micro-steps from the trainer's weights and a fresh
+    optimizer, eager twice and through the graphs twice (the first run
+    captures each kind at its first call): each replayed run bit for bit
+    the eager one where eager repeats its bits, else within twice eager's
+    own spread (losses and parameters)."""
+    start = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    batches = _train_batches()
+
+    def run(eager):
+        with torch.no_grad():
+            for n, p in tr.model.named_parameters():
+                p.copy_(start[n])
+        tr.reset_params()
+        losses = [tr.train_step(batches[i % 2], torch.Generator(device="cuda").manual_seed(i),
+                                fetch_logs=False, eager=eager)["loss"] for i in range(steps)]
+        return (torch.stack(losses), {n: p.detach().clone()
+                                      for n, p in tr.model.named_parameters()})
+
+    def apart(a, b):
+        return (float((a[0] - b[0]).abs().max()),
+                max(float((a[1][n] - b[1][n]).abs().max()) for n in a[1]))
+
+    eager, again = run(True), run(True)
+    spread = apart(eager, again)
+    for replayed in (run(False), run(False)):
+        d = apart(replayed, eager)
+        if spread == (0.0, 0.0):
+            assert d == (0.0, 0.0), d
+        else:
+            assert d[0] <= 2 * spread[0] and d[1] <= 2 * spread[1], (d, spread)
+    assert torch.isfinite(eager[0]).all()
+    return tr.graphs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["1", "0"])
+@pytest.mark.parametrize("group", list(STEP_GROUPS))
+def test_compiled_step_replays_the_eager_step(group, remat, cuda_device, tmp_path,
+                                              monkeypatch):
+    """Each option group of the trainer's step (schedules, MultiSteps,
+    parameter groups; guided sampling and noise on), per-block recompute on
+    and off (read at capture): the replayed micro-steps against the eager
+    ones, one graph a micro-step kind."""
+    from cognitive_aim_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    monkeypatch.setenv("CAIM_TRAIN_REMAT", remat)
+    over, arch_kw = STEP_GROUPS[group]
+    tr = Trainer(_train_model(arch_kw), TrainConfig(**{**TRAIN_BASE, **over}),
+                 output_dir=str(tmp_path / "t"))
+    graphs = _assert_replays_are_eager(tr)
+    k = tr.cfg.accumulation_steps
+    assert len(graphs.graphs) == (2 if k > 1 else 1)
+    assert all(len(e.generators) == 5 for e in graphs.graphs.values())  # noise + guided draw
+
+
+@pytest.mark.cuda
+def test_compiled_alt_model_pair_replays_the_eager_steps(cuda_device, tmp_path):
+    """The token filter in training, alternating with the model without it
+    on the same parameters, accumulating 3 micro-steps: four graphs (each
+    model accumulating and updating) and the eager steps' results."""
+    from cognitive_aim_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    alt = _train_model({}, seed=9)
+    tr = Trainer(_train_model({}, filtered=True), TrainConfig(**{**TRAIN_BASE,
+                                                                 "accumulation_steps": 3}),
+                 output_dir=str(tmp_path / "t"), alt_model=alt)
+    graphs = _assert_replays_are_eager(tr, steps=8)
+    assert sorted((k.alt, k.update) for k, _ in graphs.graphs) == [
+        (False, False), (False, True), (True, False), (True, True)]
+
+
+@pytest.mark.cuda
+def test_compiled_step_on_a_world_1_nccl_mesh(cuda_device, tmp_path):
+    """tensor_parallel on make_mesh() (NCCL, world 1): the gathers of the
+    loss, the gradient all-reduce and the clip's all-reduce inside the
+    graph; the replays against the eager steps, and the eval forward's
+    graph against its eager run."""
+    from cognitive_aim_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    with _nccl_world1(tmp_path) as mesh:
+        tr = Trainer(_train_model(LORA_TRAIN), TrainConfig(**{**TRAIN_BASE,
+                                                               "tensor_parallel": True}),
+                     output_dir=str(tmp_path / "t"), mesh=mesh)
+        assert tr.mesh.distributed and tr.graphs is not None
+        _assert_replays_are_eager(tr)
+        x = _train_batches(1)[0]
+        got = tr.eval_forward(x["images"], x["exif"])
+        want = tr.eval_forward(x["images"], x["exif"], eager=True)
+        assert torch.equal(got.depth, want.depth) and torch.equal(got.attention, want.attention)
+
+
+@pytest.mark.cuda
+def test_certification_loops_replay_the_trainers_graphs(cuda_device, tmp_path):
+    """The callers that reach the compiled step with no change of their own:
+    certify.pretrain with --train-filter (the filtered step and the exact
+    one in turns, two models on one set of parameters) and synth_train's
+    loop over staged batches; each trains through the trainer's graphs
+    (one a micro-step kind, replayed after its first call), finite losses."""
+    import numpy as np
+
+    from cognitive_aim_tpu_torch.certify import pretrain as PT
+    from cognitive_aim_tpu_torch.certify import synth_train as ST
+    from cognitive_aim_tpu_torch.train.trainer import StepKey, TrainConfig, Trainer
+
+    # ViT-B's width at 4 blocks (--tiny's heads of 16 are no K1 shape)
+    summ = PT.main(["--layers", "4", "--guided", "--steps", "8", "--n-images", "16",
+                    "--batch", "4", "--image-size", "56", "--n-eval", "4", "--eval-every", "8",
+                    "--train-filter", "2:0.35", "--ckpt-dir", str(tmp_path / "ck"),
+                    "--data-cache", str(tmp_path / "dc")])
+    graphs = summ["trainer"].graphs.graphs
+    steps = {k: e for (k, _), e in graphs.items() if isinstance(k, StepKey)}
+    assert {k.alt for k in steps} == {False, True}
+    assert sum(e.replays for e in steps.values()) == 8 - len(steps)
+    assert np.isfinite([float(x) for x in summ["losses"]]).all()
+
+    tr = Trainer(_train_model({}), TrainConfig(epochs=1, batch_size=4, steps_per_epoch=6,
+                                               learning_rate=1e-4, freeze_backbone=False),
+                 output_dir=str(tmp_path / "st"))
+    rng = np.random.RandomState(2)
+    imgs01 = rng.rand(8, 56, 56, 3).astype(np.float32)
+    staged = ST.stage_batches(tr, (imgs01 - 0.5) / 0.25, ST.depth_law(imgs01), 4)
+    losses = ST.run_training(tr, staged, 6)
+    assert len(tr.graphs.graphs) == 1 and next(iter(tr.graphs.graphs.values())).replays == 5
+    assert np.isfinite(losses).all()

@@ -611,7 +611,7 @@ def test_port_imports_no_jax():
     port (the engine, the server, the host IO, the utilities, the
     certification toolchain, the parallel layer and the compiled forward
     among them, which start no process group) and scripts/torch_export_model.py
-    and the serving benchmarks, neither jax nor any
+    and the serving and training benchmarks, neither jax nor any
     module of the
     JAX package or of its scripts is loaded; and PIL,
     matplotlib and yaml, which the functions that need them import, are not
@@ -632,11 +632,12 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "sys.path.insert(0, 'scripts')\n"
-        "for script in ('torch_export_model', 'torch_bench_serving', 'torch_bench_serving_http'):\n"
+        "for script in ('torch_export_model', 'torch_bench_serving', 'torch_bench_serving_http',\n"
+        "               'torch_bench_train', 'torch_bench_train_table'):\n"
         "    importlib.import_module(script)\n"
         "scripts = {'procedural_scenes', 'policy_delta', 'train_synth_ckpt',\n"
         "           'pretrain_procedural', 'attention_stats', 'delta_sweep', 'certify_filter',\n"
-        "           'export_model'}\n"
+        "           'export_model', 'bench_train', 'bench_train_table'}\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cognitive_aim_tpu' or m.startswith('cognitive_aim_tpu.')\n"
         "       or m.split('.')[0] in scripts]\n"
