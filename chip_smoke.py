@@ -127,8 +127,8 @@ kernels compile for sm_90a) and the CUDA toolkit:
       with CAIM_FUSE_AOMLP off and on, and the hand-assembled 12 blocks
       through K1 + K3, K11 and K9; K2, K3, K4b, K5, K13 and K15 also by CUDA
       graphs, each beside torch._int_mm at its [M, K] x [K, N] (a yardstick of
-      the product alone, not a port); K4a, K14, K12 and K6 also by CUDA graphs,
-      K6 and K4a also at ViT-L's widths (D 1024, F 4096), and the device
+      the product alone, not a port); K4a, K14, K12 and K6 also by CUDA graphs
+      (at ViT-L's widths in phase (m)), and the device
       time of one exact forward under each policy (torch.profiler, kernels
       summed);
   (f) serving: the port's engine (cognitive_aim_tpu_torch.api) and HTTP
@@ -282,7 +282,31 @@ kernels compile for sm_90a) and the CUDA toolkit:
       (2:0.35 in training, alternating with the model without it) at 4
       blocks, batch 32, the same way. A ``training_compiled`` JSON line holds
       them, each kernel row its launches a replay
-      (``launches_training_compiled``).
+      (``launches_training_compiled``);
+  (m) ViT-L (the JAX package's backbone_size: large, bench.py --backbone
+      large): phase (f)'s config with the ViT-L backbone (24 blocks, D 1024,
+      16 heads of 64, MLP 4096), int8, pallas_packed, 2 focal iterations,
+      seeded weights, noise zeros, through the engine exact and at 4:0.25,
+      at B 8 and 24: each signature captured, one replay bit for bit the
+      eager ``engine.model(...)``, host time a replay, both forwards by CUDA
+      events and images/s; at B 8 the launches of a replay read from its
+      trace (K1, K2, K3, K4, K4a, K4b 24; K5, K6 2) and the forward through
+      the kernels against the plain versions (depth and confidence within
+      2e-2) and, at 4:0.25, the stream lengths (1370 to block 3, 344 after),
+      the frozen dropped tokens and kept sets overlapping by at least 0.98;
+      the exact engine's graph captured again under CAIM_FUSE_AOMLP=1 (K12
+      24, K3 = K4 = K4a = K4b = 0), against its plain twin and within 2e-2 of
+      the unfused forward; the strict policy on the same weights at B 8 (K1
+      and K6 on their f32 programs, 24 and 2; within 1e-4 of the plain
+      path) and the int8 and int8 + 4:0.25 worst-instruction depth AbsRel
+      against it on 8 structured scenes, labelled as taken on seeded
+      weights (no budget); experiment_B's trainer with the ViT-L backbone
+      at 518, B 8, accumulation 2, 3 micro-steps eagerly twice and through
+      the trainer's graphs twice, bit for bit, with peak memory (K1 48, K6 6
+      a replay); and each kernel of the path at its ViT-L shape beside its
+      plain version, bound and (K1) scaled_dot_product_attention. A
+      ``vit_l`` JSON line holds them; each kernel row its launches there
+      (``launches_vit_l``) and its ViT-L times (``vit_l``).
 
 The line before the last is one JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -290,8 +314,8 @@ Any failure raises and exits non-zero. Without a CUDA device it exits 2.
 ``--kernels-only`` checks and times the kernels alone, drives no slice and
 prints no result; ``--parallel-only`` builds the kernels and runs phase (i)
 alone, ``--export-only`` phase (j) alone, ``--compiled-only`` phase (k)
-alone, ``--training-compiled-only`` phase (l) alone, and none prints a
-result.
+alone, ``--training-compiled-only`` phase (l) alone, ``--vit-l-only``
+phase (m) alone, and none prints a result.
 """
 
 from __future__ import annotations
@@ -542,6 +566,33 @@ def focal_tol(ref):
     return TOL_FOCAL_REL * float(ref[0].float().abs().max())
 
 
+def _flash_check(got, ref, dt):
+    """K1's output against its plain version's on the inputs in f32:
+    (max abs error, within tolerance, detail)."""
+    import torch
+
+    err = max_err(got, ref)
+    tol = TOL_BF16_OUT if dt == torch.bfloat16 else TOL_F32_OUT
+    ok = err <= tol and bool(torch.isfinite(got).all())
+    return err, ok, f"max_abs_err {err:.3e} (tol {tol:.0e})"
+
+
+def _focal_check(got, ref, dt):
+    """K6's four outputs against its plain version's on the inputs in f32:
+    (worst abs error, within tolerance, detail). The attended at focal_tol
+    in bf16 and TOL_F32_OUT in f32, the three f32 views at TOL_VIEWS."""
+    import torch
+
+    errs = [max_err(a, b) for a, b in zip(got, ref)]
+    tols = [focal_tol(ref) if dt == torch.bfloat16 else TOL_F32_OUT, TOL_VIEWS, TOL_VIEWS,
+            TOL_VIEWS]
+    ok = all(e <= t for e, t in zip(errs, tols)) and all(
+        bool(torch.isfinite(t).all()) for t in got)
+    names = ("attended", "colmean", "diag", "rowmax")
+    return max(errs), ok, ", ".join(f"{n} {e:.3e} (tol {t:.2e})"
+                                    for n, e, t in zip(names, errs, tols))
+
+
 def phase_kernels():
     """K1 and K6 against their plain versions at the slice shapes."""
     import torch
@@ -553,42 +604,34 @@ def phase_kernels():
     worst = {}
     B, H, Dh = 8, 12, 64
     for N in (257, 416, 481, 826, 1370):  # 826 and 416: the progressive filter's streams
-        for dt, tol in ((torch.bfloat16, TOL_BF16_OUT), (torch.float32, TOL_F32_OUT)):
+        for dt in (torch.bfloat16, torch.float32):
             q, k, v = (_rand((B, N, H * Dh), g, dt) for _ in range(3))
             got = FA.flash_attention_packed(q, k, v, Dh ** -0.5, H)
             ref = FA.flash_attention_packed_plain(q.float(), k.float(), v.float(),
                                                   Dh ** -0.5, H)
             torch.cuda.synchronize()
-            err = max_err(got, ref)
-            ok = err <= tol and bool(torch.isfinite(got).all())
+            err, ok, detail = _flash_check(got, ref, dt)
             log(f"  K1 flash_attention_packed B{B} N{N} H{H} Dh{Dh} {str(dt)[6:]}: "
-                f"max_abs_err {err:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+                f"{detail} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K1 disagrees with its plain version at N={N} {dt}")
             if N == 1370 and dt == torch.bfloat16:
                 worst["K1"] = err
 
-    for B, N, D, dt, tol in ((8, 1369, 768, torch.bfloat16, TOL_BF16_OUT),
-                             (3, 77, 128, torch.bfloat16, TOL_BF16_OUT),
-                             (3, 77, 128, torch.float32, TOL_F32_OUT)):
+    for B, N, D, dt in ((8, 1369, 768, torch.bfloat16), (3, 77, 128, torch.bfloat16),
+                        (3, 77, 128, torch.float32)):
         q, k, v = (_rand((B, N, D), g, dt, 0.5) for _ in range(3))
         scale = (D // 8) ** 0.5
         got = FO.focal_attention_fused(q, k, v, scale)
         ref = FO.focal_attention_plain(q.float(), k.float(), v.float(), scale)
         torch.cuda.synchronize()
-        errs = [max_err(a, b) for a, b in zip(got, ref)]
-        tols = [focal_tol(ref) if dt == torch.bfloat16 else tol, TOL_VIEWS, TOL_VIEWS,
-                TOL_VIEWS]
-        ok = all(e <= t for e, t in zip(errs, tols)) and all(
-            bool(torch.isfinite(t).all()) for t in got)
-        names = ("attended", "colmean", "diag", "rowmax")
-        detail = ", ".join(f"{n} {e:.3e} (tol {t:.2e})" for n, e, t in zip(names, errs, tols))
+        err, ok, detail = _focal_check(got, ref, dt)
         log(f"  K6 focal_attention_fused B{B} N{N} D{D} {str(dt)[6:]}: {detail} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K6 disagrees with its plain version at N={N} {dt}")
         if N == 1369:
-            worst["K6"] = max(errs)
+            worst["K6"] = err
     return worst
 
 
@@ -1024,6 +1067,34 @@ def _int8_calls(t, eps=1e-6):
     }
 
 
+def _int8_check(name, got, want):
+    """An int8 kernel's output against its plain version's: (max abs error,
+    within tolerance, detail). K4a: its int8 hidden and row scales, the error
+    of the dequantised hidden; the others (K12 too): TOL_INT8_REL of the
+    plain output's largest value (at least 1)."""
+    import torch
+
+    if name == "K4a":
+        (h8, sh), (h8p, shp) = got, want
+        diff = (h8.int() - h8p.int()).abs()
+        share, worst = float((diff > 0).float().mean()), int(diff.max())
+        srel = (sh - shp).abs() / shp
+        srows, sworst = float((srel > TOL_INT8_SCALE).float().mean()), float(srel.max())
+        ok = (share < TOL_INT8_SHARE and worst <= 1
+              and srows < TOL_INT8_SCALE_ROWS and sworst <= TOL_INT8_SCALE_WORST)
+        return max_err(h8.float() * sh, h8p.float() * shp), ok, (
+            f"int8 differ {share:.2e} (tol {TOL_INT8_SHARE:.0e}) by at most "
+            f"{worst} (tol 1), scales rel > {TOL_INT8_SCALE:.0e} in {srows:.2e} of "
+            f"rows (tol {TOL_INT8_SCALE_ROWS:.0e}), worst {sworst:.2e} "
+            f"(tol {TOL_INT8_SCALE_WORST:.0e})")
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    lim = TOL_INT8_REL * max(1.0, max(float(b.float().abs().max()) for b in want))
+    ok = err <= lim and all(a.is_contiguous() and bool(torch.isfinite(a).all()) for a in got)
+    return err, ok, f"max_abs_err {err:.3e} (tol {lim:.2e})"
+
+
 def _check_int8_case(tag, t):
     """Every int8 kernel against its plain version on inputs t; returns
     name -> max abs error (K4a: of the dequantised hidden)."""
@@ -1033,28 +1104,7 @@ def _check_int8_case(tag, t):
     for name, (kernel, plain) in _int8_calls(t).items():
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        if name == "K4a":
-            (h8, sh), (h8p, shp) = got, want
-            diff = (h8.int() - h8p.int()).abs()
-            share, worst = float((diff > 0).float().mean()), int(diff.max())
-            srel = (sh - shp).abs() / shp
-            srows, sworst = float((srel > TOL_INT8_SCALE).float().mean()), float(srel.max())
-            errs[name] = max_err(h8.float() * sh, h8p.float() * shp)
-            ok = (share < TOL_INT8_SHARE and worst <= 1
-                  and srows < TOL_INT8_SCALE_ROWS and sworst <= TOL_INT8_SCALE_WORST)
-            detail = (f"int8 differ {share:.2e} (tol {TOL_INT8_SHARE:.0e}) by at most "
-                      f"{worst} (tol 1), scales rel > {TOL_INT8_SCALE:.0e} in {srows:.2e} of "
-                      f"rows (tol {TOL_INT8_SCALE_ROWS:.0e}), worst {sworst:.2e} "
-                      f"(tol {TOL_INT8_SCALE_WORST:.0e})")
-        else:
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            err = max(max_err(a, b) for a, b in zip(got, want))
-            lim = TOL_INT8_REL * max(1.0, max(float(b.float().abs().max()) for b in want))
-            ok = err <= lim and all(a.is_contiguous() and bool(torch.isfinite(a).all())
-                                    for a in got)
-            errs[name] = err
-            detail = f"max_abs_err {err:.3e} (tol {lim:.2e})"
+        errs[name], ok, detail = _int8_check(name, got, want)
         log(f"  {name} {tag}: {detail} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version at {tag}")
@@ -2349,6 +2399,122 @@ def _host_enqueue_ms(fn, iters: int = 5) -> float:
     return total / iters * 1e3
 
 
+def _time_kernel(name, shape, kernel, plain, bound_, library=None, check=None,
+                 device=False):
+    """{shape, ms, plain_ms, bound_ms, bound_by, library_ms}: the wrapper and
+    its plain version by CUDA events, the bound, and the library call where
+    one PyTorch call computes the same function. With ``check`` (a call that
+    runs the wrapper and its plain version and returns (max abs error, within
+    tolerance, detail)) first the outputs, held to their tolerance, and
+    ``max_abs_err``; with ``device`` also ``device_ms``, the wrapper's device
+    time by CUDA graphs, which the host's launch rate does not mask."""
+    import torch
+
+    t = {"shape": shape}
+    if check is not None:
+        err, ok, detail = check()
+        torch.cuda.synchronize()
+        log(f"  {name} {shape} against its plain version: {detail} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at {shape}")
+        t["max_abs_err"] = err
+    t.update({"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+              "bound_ms": bound_[0], "bound_by": bound_[1],
+              "library_ms": cuda_ms(library) if library else None})
+    if device:
+        t["device_ms"] = graph_ms(kernel)
+    lib = f", library call {t['library_ms']:.3f} ms" if library else ""
+    dev = f", device time by CUDA graphs {t['device_ms']:.4f} ms" if device else ""
+    log(f"  {name} {shape}: kernel {t['ms']:.3f} ms{dev}, plain {t['plain_ms']:.3f} ms{lib}, "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return t
+
+
+def _attention_case(B, N, D, H, dtype, g):
+    """K1 on seeded [B, N, D] q, k, v of ``dtype`` over H heads of 64:
+    (shape, kernel, plain, bound, library call, check) for _time_kernel; the
+    check against the plain version on the inputs in f32, as phase (c)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cognitive_aim_tpu_torch.kernels import flash_attention as FA
+
+    q, k, v = (_rand((B, N, D), g, dtype) for _ in range(3))
+    heads = [t.view(B, N, H, D // H).transpose(1, 2) for t in (q, k, v)]
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+
+    def kernel():
+        return FA.flash_attention_packed(q, k, v, 0.125, H)
+
+    def check():
+        ref = FA.flash_attention_packed_plain(q.float(), k.float(), v.float(), 0.125, H)
+        return _flash_check(kernel(), ref, dtype)
+
+    # 4 B H N^2 Dh operations; q, k, v read and out written once
+    return (f"B{B} N{N} H{H} {kind}", kernel,
+            lambda: FA.flash_attention_packed_plain(q, k, v, 0.125, H),
+            bound(4 * B * N * D * dtype.itemsize, 4 * B * N * N * D, kind),
+            lambda: F.scaled_dot_product_attention(*heads, scale=0.125), check)
+
+
+def _kernel_table(B, N, D, Fh, H, g):
+    """The kernels of the int8 and strict forwards at one model's shapes (B
+    images of N tokens, D wide, H heads, MLP Fh; K5 and K6 on the N - 1
+    patches): name -> (shape, kernel, plain, bound, library call, check) for
+    _time_kernel, each held to phase (c)'s tolerance; and the int8 inputs."""
+    import torch
+
+    from cognitive_aim_tpu_torch.kernels import focal_attention as FO
+
+    table = {"K1": _attention_case(B, N, D, H, torch.bfloat16, g),
+             "K1f32": _attention_case(B, N, D, H, torch.float32, g)}
+    Nf, scale = N - 1, (D // 8) ** 0.5
+    for name, dtype, kind in (("K6", torch.bfloat16, "bf16"), ("K6f32", torch.float32, "f32")):
+        q, k, v = (_rand((B, Nf, D), g, dtype, 0.5) for _ in range(3))
+
+        def kernel(q=q, k=k, v=v):
+            return FO.focal_attention_fused(q, k, v, scale)
+
+        def check(q=q, k=k, v=v, dtype=dtype, kernel=kernel):
+            ref = FO.focal_attention_plain(q.float(), k.float(), v.float(), scale)
+            return _focal_check(kernel(), ref, dtype)
+
+        # 4 B N^2 D operations; q, k, v, attended once (the three views are 3 B N f32)
+        table[name] = (f"B{B} N{Nf} D{D} {kind}", kernel,
+                       lambda q=q, k=k, v=v: FO.focal_attention_plain(q, k, v, scale),
+                       bound(4 * B * Nf * D * dtype.itemsize + 3 * B * Nf * 4,
+                             4 * B * Nf * Nf * D, kind), None, check)
+
+    def int8_case(name, shape, calls, bnd):
+        kernel, plain = calls
+        return (shape, kernel, plain, bnd, None, lambda: _int8_check(name, kernel(), plain()))
+
+    # int8 kernels: 2 M K N int8 operations; bytes: activations in and out
+    # once (bf16 2 bytes, int8 1), the int8 weight, the f32 vectors
+    t = _int8_inputs(B, N, D, Fh, g)
+    calls = _int8_calls(t)
+    M, act = B * N, B * N * D * 2
+    for name, bnd in (
+            ("K2", bound(act + 3 * D * D + 3 * act + 8 * D + 24 * D, 2 * M * D * 3 * D, "int8")),
+            ("K3", bound(3 * act + D * D + 12 * D, 2 * M * D * D, "int8")),
+            ("K4a", bound(act + Fh * D + M * Fh + 4 * M + 8 * D + 8 * Fh, 2 * M * D * Fh,
+                          "int8")),
+            ("K4b", bound(M * Fh + 4 * M + Fh * D + 2 * act + 12 * D, 2 * M * D * Fh, "int8")),
+            ("K4", bound(2 * act + 2 * Fh * D + 8 * Fh + 20 * D, 4 * M * D * Fh, "int8"))):
+        table[name] = int8_case(name, f"B{B} N{N} D{D} F{Fh}", calls[name], bnd)
+    # K12: ctx and res in, out out, the three int8 weights, the f32 vectors;
+    # the three products
+    table["K12"] = int8_case("K12", f"B{B} N{N} D{D} F{Fh}", _k12_calls(t)[:2],
+                             bound(3 * act + D * D + 2 * Fh * D + 4 * Fh + 40 * D,
+                                   2 * M * D * D + 4 * M * D * Fh, "int8"))
+    M5 = B * Nf
+    table["K5"] = int8_case("K5", f"B{B} N{Nf} D{D}",
+                            _int8_calls(_int8_inputs(B, Nf, D, Fh, g))["K5"],
+                            bound(4 * M5 * D * 2 + 3 * D * D + 24 * D, 2 * M5 * D * 3 * D,
+                                  "int8"))
+    return table, t
+
+
 def phase_kernel_times(smi):
     """name -> {ms, plain_ms, bound_ms, bound_by, library_ms} at the slice's
     shapes (B 8, N 1370, K5 and K6 N 1369)."""
@@ -2357,7 +2523,6 @@ def phase_kernel_times(smi):
 
     from cognitive_aim_tpu_torch.kernels import _build
     from cognitive_aim_tpu_torch.kernels import flash_attention as FA
-    from cognitive_aim_tpu_torch.kernels import focal_attention as FO
     from cognitive_aim_tpu_torch.kernels import int8_block as IB
     from cognitive_aim_tpu_torch.kernels import int8_gemm as IG
     from cognitive_aim_tpu_torch.kernels import int8_ops as I8
@@ -2381,14 +2546,15 @@ def phase_kernel_times(smi):
             f"call {l_ms[0]:.4f}/{l_ms[1]:.4f} ms, ratio {t['library_ratio']:.3f}")
 
     def record(name, shape, kernel, plain, bound_, library=None):
-        t = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
-             "bound_ms": bound_[0], "bound_by": bound_[1],
-             "library_ms": cuda_ms(library) if library else None}
-        lib = f", library call {t['library_ms']:.3f} ms" if library else ""
-        log(f"  {name} {shape}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms{lib}, "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-        times[name] = {"shape": shape, **t}
+        times[name] = _time_kernel(name, shape, kernel, plain, bound_, library)
 
+    # K1, K1 f32, K6, K6 f32, K2-K5 and K12, each held to its plain version
+    # first, as phase (m) at ViT-L's shapes
+    table, int8_in = _kernel_table(B, N, D, Fh, H, g)
+    for name, case in table.items():
+        times[name] = _time_kernel(name, *case, device=True)
+    ratio("K1", table["K1"][1], table["K1"][4])
+    ratio("K1f32", table["K1f32"][1], table["K1f32"][4])
     q, k, v = (_rand((B, N, D), g, torch.bfloat16) for _ in range(3))
 
     def heads(t):
@@ -2397,15 +2563,7 @@ def phase_kernel_times(smi):
     def sdpa():
         return F.scaled_dot_product_attention(heads(q), heads(k), heads(v), scale=0.125)
 
-    # K1: 4 B H N^2 Dh operations; q, k, v read and out written once
-    def k1():
-        return FA.flash_attention_packed(q, k, v, 0.125, H)
-
-    record("K1", f"B{B} N{N} H{H} bf16", k1,
-           lambda: FA.flash_attention_packed_plain(q, k, v, 0.125, H),
-           bound(4 * B * N * D * 2, 4 * B * N * N * D, "bf16"), sdpa)
-    ratio("K1", k1, sdpa)
-    # K8: K1's work on [B, N, H, 64] views of the same memory
+    # K8: K1's work on [B, N, H, 64] views
     q4, k4, v4 = (t.view(B, N, H, D // H) for t in (q, k, v))
     def k8():
         return FA.flash_attention(q4, k4, v4, 0.125)
@@ -2504,17 +2662,9 @@ def phase_kernel_times(smi):
     for name in main:
         times[name] = {**main[name], "other_shape": other[name]}
 
-    Nf = N - 1
-    q6, k6, v6 = (_rand((B, Nf, D), g, torch.bfloat16, 0.5) for _ in range(3))
-    scale = 96 ** 0.5
-    # K6: 4 B N^2 D operations; q, k, v, attended once (the three views are 3 B N f32)
-    record("K6", f"B{B} N{Nf} D{D} bf16",
-           lambda: FO.focal_attention_fused(q6, k6, v6, scale),
-           lambda: FO.focal_attention_plain(q6, k6, v6, scale),
-           bound(4 * B * Nf * D * 2 + 3 * B * Nf * 4, 4 * B * Nf * Nf * D, "bf16"))
-
-    # the strict policy's f32 programs: the same operations on the f32 FMA pipes
-    # (TF32 off), q, k, v, out read and written once in f32; SDPA in f32 beside
+    # the strict policy's f32 programs of K7 and K8: the same operations on the
+    # f32 FMA pipes (TF32 off), q, k, v, out read and written once in f32; SDPA
+    # in f32 beside
     qf, kf, vf = (_rand((B, N, D), g, torch.float32) for _ in range(3))
     bias = _bias_rows(B, N, g)["every_key"]
     f32_bytes = 4 * B * N * D * 4
@@ -2523,13 +2673,6 @@ def phase_kernel_times(smi):
         hf = [t.view(B, N, H, D // H).transpose(1, 2) for t in (qf, kf, vf)]
         return F.scaled_dot_product_attention(*hf, attn_mask=mask, scale=0.125)
 
-    def k1f():
-        return FA.flash_attention_packed(qf, kf, vf, 0.125, H)
-
-    record("K1f32", f"B{B} N{N} H{H} f32", k1f,
-           lambda: FA.flash_attention_packed_plain(qf, kf, vf, 0.125, H),
-           bound(f32_bytes, 4 * B * N * N * D, "f32"), sdpa_f32)
-    ratio("K1f32", k1f, sdpa_f32)
     mask = bias[:, None, None, :]
     record("K7f32", f"B{B} N{N} H{H} f32, bias on every key",
            lambda: FA.flash_attention_packed_bias(qf, kf, vf, bias, 0.125, H),
@@ -2539,32 +2682,11 @@ def phase_kernel_times(smi):
     record("K8f32", f"B{B} N{N} H{H} f32", lambda: FA.flash_attention(qf4, kf4, vf4, 0.125),
            lambda: FA.attention_reference(qf4, kf4, vf4, 0.125),
            bound(f32_bytes, 4 * B * N * N * D, "f32"), sdpa_f32)
-    q6f, k6f, v6f = (_rand((B, Nf, D), g, torch.float32, 0.5) for _ in range(3))
-    record("K6f32", f"B{B} N{Nf} D{D} f32",
-           lambda: FO.focal_attention_fused(q6f, k6f, v6f, scale),
-           lambda: FO.focal_attention_plain(q6f, k6f, v6f, scale),
-           bound(4 * B * Nf * D * 4 + 3 * B * Nf * 4, 4 * B * Nf * Nf * D, "f32"))
-    del qf, kf, vf, qf4, kf4, vf4, q6f, k6f, v6f
+    del qf, kf, vf, qf4, kf4, vf4
 
-    # int8 kernels: 2 M K N int8 operations; bytes: activations in and out
-    # once (bf16 2 bytes, int8 1), the int8 weight, the f32 vectors
-    t = _int8_inputs(B, N, D, Fh, g)
-    calls = _int8_calls(t)
-    M = B * N
+    t = int8_in
+    M, Nf = B * N, N - 1
     act = M * D * 2
-    int8_bounds = {
-        "K2": bound(act + 3 * D * D + 3 * act + 8 * D + 24 * D, 2 * M * D * 3 * D, "int8"),
-        "K3": bound(3 * act + D * D + 12 * D, 2 * M * D * D, "int8"),
-        "K4a": bound(act + Fh * D + M * Fh + 4 * M + 8 * D + 8 * Fh, 2 * M * D * Fh, "int8"),
-        "K4b": bound(M * Fh + 4 * M + Fh * D + 2 * act + 12 * D, 2 * M * D * Fh, "int8"),
-        "K4": bound(2 * act + 2 * Fh * D + 8 * Fh + 20 * D, 4 * M * D * Fh, "int8"),
-    }
-    for name in ("K2", "K3", "K4a", "K4b", "K4"):
-        record(name, f"B{B} N{N} D{D} F{Fh}", *calls[name], int8_bounds[name])
-    t5 = _int8_inputs(B, Nf, D, Fh, g)
-    M5 = B * Nf
-    record("K5", f"B{B} N{Nf} D{D}", *_int8_calls(t5)["K5"],
-           bound(4 * M5 * D * 2 + 3 * D * D + 24 * D, 2 * M5 * D * 3 * D, "int8"))
 
     def linear_bound(M, K, Nout):
         """bf16 rows in and out once, the int8 weight, the two f32 vectors."""
@@ -2584,15 +2706,17 @@ def phase_kernel_times(smi):
 
     def gemm_graphs(name, fn, Mg, Kg, Ng):
         t = times[name]
-        t["device_ms"], t["int_mm_yardstick_ms"] = graph_ms(fn), int_mm_ms(Mg, Kg, Ng)
+        if "device_ms" not in t:  # the table's kernels have theirs
+            t["device_ms"] = graph_ms(fn)
+        t["int_mm_yardstick_ms"] = int_mm_ms(Mg, Kg, Ng)
         log(f"  {name} [{Mg}, {Kg}] x [{Kg}, {Ng}] device time by CUDA graphs: "
             f"{t['device_ms']:.4f} ms (events {t['ms']:.4f}); torch._int_mm yardstick "
             f"{t['int_mm_yardstick_ms']:.4f} ms")
 
-    gemm_graphs("K2", calls["K2"][0], M, D, 3 * D)
-    gemm_graphs("K3", calls["K3"][0], M, D, D)
-    gemm_graphs("K4b", calls["K4b"][0], M, Fh, D)
-    gemm_graphs("K5", _int8_calls(t5)["K5"][0], M5, D, 3 * D)
+    gemm_graphs("K2", table["K2"][1], M, D, 3 * D)
+    gemm_graphs("K3", table["K3"][1], M, D, D)
+    gemm_graphs("K4b", table["K4b"][1], M, Fh, D)
+    gemm_graphs("K5", table["K5"][1], B * Nf, D, 3 * D)
     gemm_graphs("K15", lambda: IG.int8_gemm_fused(x, w["q"], w["s"], b), M, D, 3 * D)
     # K13 at the three shapes at which the unchained block calls
     # int8_ops.int8_linear (attn_out, fc1, fc2), beside that function
@@ -2612,44 +2736,18 @@ def phase_kernel_times(smi):
            lambda: IB.int8_fc1_gelu_plain(t["x"], *t["fc1"]),
            bound(act + Fh * D + M * Fh + 4 * M + 8 * Fh, 2 * M * D * Fh, "int8"))
 
-    # K4a, K14 and K6 also by CUDA graphs: their device time without the
-    # host's launch rate
-    graphed = {"K4a": calls["K4a"][0], "K14": lambda: IB.int8_fc1_gelu(t["x"], *t["fc1"]),
-               "K6": lambda: FO.focal_attention_fused(q6, k6, v6, scale)}
-    for name, fn in graphed.items():
-        times[name]["device_ms"] = graph_ms(fn)
-        log(f"  {name} device time by CUDA graphs: {times[name]['device_ms']:.4f} ms "
-            f"(events {times[name]['ms']:.4f})")
+    # K14 also by CUDA graphs: its device time without the host's launch rate
+    times["K14"]["device_ms"] = graph_ms(lambda: IB.int8_fc1_gelu(t["x"], *t["fc1"]))
+    log(f"  K14 device time by CUDA graphs: {times['K14']['device_ms']:.4f} ms "
+        f"(events {times['K14']['ms']:.4f})")
     log(f"  fc1 GEMM at F {Fh}: {IB.fc1_cluster_shape(Fh)[0]} CTAs a cluster, "
         f"{_build.library().caim_fc1_active_clusters(Fh)} clusters resident at once; "
         f"GEMM launches per K4a call: "
-        f"{sum('quant_rows' not in n for n in device_kernels(calls['K4a'][0]))}")
-    # K6 and K4a at ViT-L's widths (D 1024, F 4096), whose builds spill
-    # registers (phase b): events and CUDA graphs, beside their bounds
-    DL, FL = 1024, 4096
-    qL, kL, vL = (_rand((B, Nf, DL), g, torch.bfloat16, 0.5) for _ in range(3))
-    tL = _int8_inputs(B, N, DL, FL, g)
-    vit_l = {
-        "K6": (f"B{B} N{Nf} D{DL} bf16",
-               lambda: FO.focal_attention_fused(qL, kL, vL, (DL // 8) ** 0.5),
-               bound(4 * B * Nf * DL * 2 + 3 * B * Nf * 4, 4 * B * Nf * Nf * DL, "bf16")),
-        "K4a": (f"B{B} N{N} D{DL} F{FL}",
-                lambda: IB.int8_fc1_gelu_ln(tL["x"], tL["gamma"], tL["beta"], *tL["fc1"]),
-                bound(2 * M * DL + FL * DL + M * FL + 4 * M + 8 * DL + 8 * FL,
-                      2 * M * DL * FL, "int8")),
-    }
-    for name, (shape, fn, bnd) in vit_l.items():
-        t_l = {"shape": shape, "ms": cuda_ms(fn), "device_ms": graph_ms(fn),
-               "bound_ms": bnd[0], "bound_by": bnd[1]}
-        times[name]["vit_l"] = t_l
-        log(f"  {name} at ViT-L's widths {shape}: kernel {t_l['ms']:.4f} ms (CUDA graphs "
-            f"{t_l['device_ms']:.4f}), bound {t_l['bound_ms']:.4f} ms ({t_l['bound_by']})")
-
+        f"{sum('quant_rows' not in n for n in device_kernels(table['K4a'][1]))}")
     # The fused variants, each beside the kernels it fuses, timed here in turns
-    # (fused, parts, parts, fused). K12: ctx and res in, out out, the three int8
-    # weights, the f32 vectors; the three products. K11: q, k, v, res in, out
-    # out, the attn_out weight; K1's two bf16 products and K3's int8 one. K9:
-    # K10's work on bf16 q and k.
+    # (fused, parts, parts, fused). K11: q, k, v, res in, out out, the attn_out
+    # weight; K1's two bf16 products and K3's int8 one. K9: K10's work on bf16
+    # q and k.
     def beside(name, fused, parts, what):
         a = [cuda_ms(fused), cuda_ms(parts), cuda_ms(parts), cuda_ms(fused)]
         times[name]["fuses"] = what
@@ -2657,13 +2755,7 @@ def phase_kernel_times(smi):
         log(f"  {name} in turns with {what}: fused {a[0]:.3f}/{a[3]:.3f} ms, "
             f"{what} {a[1]:.3f}/{a[2]:.3f} ms")
 
-    k12, k12_plain, k3_k4 = _k12_calls(t)
-    record("K12", f"B{B} N{N} D{D} F{Fh}", k12, k12_plain,
-           bound(3 * act + D * D + 2 * Fh * D + 4 * Fh + 40 * D,
-                 2 * M * D * D + 4 * M * D * Fh, "int8"))
-    times["K12"]["device_ms"] = graph_ms(k12)
-    log(f"  K12 device time by CUDA graphs: {times['K12']['device_ms']:.4f} ms")
-    beside("K12", k12, k3_k4, "K3 + K4")
+    beside("K12", table["K12"][1], _k12_calls(t)[2], "K3 + K4")
     # K12 and K3 -> K4 by CUDA graphs in turns (K12, pair, pair, K12), at the
     # exact slice's rows and the filtered stream's
     times["K12"]["graphs_in_turns"] = {}
@@ -4790,14 +4882,14 @@ COMPILED_TRAIN_STEPS = 8
 ALT_LAYERS, ALT_BATCH = 4, 32
 
 
-def _training_runs(tr, batches, eager, seed0, alt=None):
-    """``COMPILED_TRAIN_STEPS`` micro-steps of ``tr`` from its current
-    weights and a fresh optimizer: per step the loss, the device time by
-    CUDA events and the host time of the call; the parameters after."""
+def _training_runs(tr, batches, eager, seed0, alt=None, steps=COMPILED_TRAIN_STEPS):
+    """``steps`` micro-steps of ``tr`` from its current weights and a fresh
+    optimizer: per step the loss, the device time by CUDA events and the
+    host time of the call; the parameters after."""
     import torch
 
     losses, events, host = [], [], []
-    for i in range(COMPILED_TRAIN_STEPS):
+    for i in range(steps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         t = time.perf_counter()
@@ -4821,7 +4913,8 @@ def _runs_apart(a, b):
     return loss, par
 
 
-def _compiled_pair(tag, tr, batches, seed0, start, wrappers, alt_launch=False):
+def _compiled_pair(tag, tr, batches, seed0, start, wrappers, alt_launch=False,
+                   steps=COMPILED_TRAIN_STEPS):
     """Eager twice and replayed twice from ``start`` (the first replayed run
     captures each micro-step kind at its first call): the runs against
     eager, eager's own spread, the launches of a replay read from a trace
@@ -4841,7 +4934,7 @@ def _compiled_pair(tag, tr, batches, seed0, start, wrappers, alt_launch=False):
         reset()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        runs[name] = _training_runs(tr, batches, eager, seed0)
+        runs[name] = _training_runs(tr, batches, eager, seed0, steps=steps)
         runs[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         runs[name]["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2 ** 30
     spread = _runs_apart(runs["eager"], runs["eager_again"])
@@ -4986,6 +5079,347 @@ def phase_training_compiled(smi):
     return out, launches
 
 
+# --------------------------------------------------------------- ViT-L (m) ----
+# the JAX package's second configuration, backbone_size: large (bench.py
+# --backbone large): ViT-L 518 (24 blocks, D 1024, 16 heads of 64, MLP 4096)
+# on the int8 policy, pallas_packed, 2 focal iterations, through the engine
+# built from phase (f)'s config with the ViT-L backbone, exact and at the
+# JAX package's 4:0.25 filter point, at its bench batches 8 and 24
+VITL_DIR = os.path.join(ROOT, "build", "smoke_vitl")  # listed in .gitignore
+VITL_FILTER = "4:0.25"
+VITL_BATCHES = (8, 24)
+# the trainer at ViT-L 518: experiment_B's recipe (LoRA 16 on attn_out, 6 focal
+# iterations, default policy, recompute) at batch 8, accumulation 2, so that 3
+# micro-steps hold both kinds (accumulate, update)
+VITL_TRAIN_STEPS, VITL_TRAIN_BATCH, VITL_TRAIN_ACCUM = 3, 8, 2
+
+
+def _vit_l_config():
+    """Phase (f)'s serving config with the ViT-L backbone, exact (no token
+    filter keys: the engine's ``token_filter`` sets them), adapters off, as
+    JSON (JSON is YAML); returns its path."""
+    import copy
+
+    from cognitive_aim_tpu_torch.api import load_config
+
+    cfg = copy.deepcopy(load_config(os.path.join(ROOT, SERVE_CONFIG)))
+    for d in (cfg, cfg.setdefault("model", {})):
+        d["use_lora"] = False
+        d["backbone_size"] = "large"
+        for k in [k for k in d if k.startswith("token_filter")]:
+            del d[k]
+    path = os.path.join(VITL_DIR, "vit_l.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _vit_l_images(B, S, seed):
+    """Seeded normalised images, the dataset's EXIF and mixed instructions."""
+    import torch
+
+    x, exif, _ = _compiled_inputs(B, S, "cuda", False, True, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return x, exif, torch.randint(0, 9, (B,), generator=gen, device="cuda")
+
+
+def _vit_l_kernel_times(n_kept):
+    """Each kernel of the ViT-L path at its shape there (B 8, N 1370, D 1024,
+    16 heads, F 4096; K1 also at the filtered stream's ``n_kept``; K5 and K6
+    at the 1369 patches), held to its plain version, then timed, with phase
+    (e)'s table of bounds."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    B, N, D, Fh, H = 8, 1370, 1024, 4096, 16
+    table, _ = _kernel_table(B, N, D, Fh, H, g)
+    times = {name: _time_kernel(name, *case, device=True) for name, case in table.items()}
+    del table
+    times["K1"]["at_kept"] = _time_kernel(
+        "K1", *_attention_case(B, n_kept, D, H, torch.bfloat16, g), device=True)
+    return times
+
+
+def _vit_l_point(tag, eng, B, wrappers, trace):
+    """One (engine, batch) point: the capture, one replay against the eager
+    ``engine.model(...)`` (bit-equal expected), with ``trace`` the launches
+    of a replay read from its trace, host time a replay and the eager
+    enqueue, both forwards by CUDA events (median of 3, range), images/s."""
+    import torch
+
+    from cognitive_aim_tpu_torch.core.rng import NoiseMode
+
+    S = eng.image_size
+    n_before = len(eng.compiled.graphs)
+    x, exif, g = _vit_l_images(B, S, seed=B)
+    eng._forward(x, exif, g)  # the first forward of the signature: its capture
+    torch.cuda.synchronize()
+    entry = list(eng.compiled.graphs.values())[n_before]
+    x, exif, g = _vit_l_images(B, S, seed=B + 100)
+
+    def eager():
+        return eng.model(x, exif, guidance=g, noise_mode=NoiseMode.ZEROS)
+
+    def replay():
+        return eng._forward(x, exif, g)
+
+    if trace:
+        got, launches, n_kernels = _replay_launches(f"(m) {tag}", eager, replay, wrappers)
+    else:
+        got, launches, n_kernels = replay(), None, None
+    want = eager()
+    fields = ("depth", "confidence", "attention", "curiosity", "fused_features")
+    bit_equal = all(torch.equal(getattr(got, f), getattr(want, f)) for f in fields)
+    _check_outputs(f"(m) {tag}", got, B, (S // 14) ** 2)
+    host_replay, host_eager = _host_enqueue_ms(replay) * 1e3, _host_enqueue_ms(eager) * 1e3
+    t_replay, t_eager = [], []
+    for _ in range(3):
+        t_eager += _events_ms(eager, 1)
+        t_replay += _events_ms(replay, 1)
+    med = {"replay": float(np.median(t_replay)), "eager": float(np.median(t_eager))}
+    out = {"batch": B, "capture_s": entry.capture_s, "pool_mib": entry.pool_bytes / 2 ** 20,
+           "bit_equal": bit_equal, "caim_kernels_replay": n_kernels,
+           "host_us_replay": host_replay, "host_us_eager": host_eager,
+           "ms_replay": med["replay"], "ms_eager": med["eager"],
+           "ms_replay_all": t_replay, "ms_eager_all": t_eager,
+           "images_per_s_replay": B / med["replay"] * 1e3,
+           "images_per_s_eager": B / med["eager"] * 1e3}
+    log(f"  {tag}: captured in {entry.capture_s:.2f} s ({out['pool_mib']:.1f} MiB added to the "
+        f"pool); a replay bit-equal to the eager forward: {bit_equal}"
+        + ("" if launches is None else
+           f"; launches a replay, read from its trace ({n_kernels} caim kernels, the eager "
+           f"forward's in its order): " + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+        + f"; host {host_replay:.0f} us a replay, eager enqueue {host_eager:.0f} us; by CUDA "
+        f"events, median of 3 (range): replay {med['replay']:.3f} ms ({min(t_replay):.3f}-"
+        f"{max(t_replay):.3f}), {out['images_per_s_replay']:.1f} images/s; eager "
+        f"{med['eager']:.3f} ms ({min(t_eager):.3f}-{max(t_eager):.3f}), "
+        f"{out['images_per_s_eager']:.1f} images/s")
+    if not bit_equal:
+        raise AssertionError(f"(m) {tag}: the replay differs from the eager forward")
+    return out, launches, (x, exif, g), eager
+
+
+def _vit_l_plain(tag, model, x, exif, g, eager_out):
+    """The kernel path's forward against the plain versions' on the same
+    weights and inputs: depth and confidence within TOL_SLICE_BF16."""
+    from cognitive_aim_tpu_torch.core.rng import NoiseMode
+
+    with _plain_versions(model):
+        plain = model(x, exif, guidance=g, noise_mode=NoiseMode.ZEROS)
+    rd, rc = _rel(eager_out.depth, plain.depth), _rel(eager_out.confidence, plain.confidence)
+    ok = rd <= TOL_SLICE_BF16 and rc <= TOL_SLICE_BF16
+    log(f"  {tag} kernels vs plain: depth rel {rd:.2e}, confidence rel {rc:.2e} "
+        f"(tol {TOL_SLICE_BF16:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(m) {tag}: the kernel path disagrees with the plain path")
+    return {"depth_rel": rd, "confidence_rel": rc}
+
+
+def phase_vit_l(smi, packages):
+    """(m) ViT-L 518: the int8 forward through the engine exact and at
+    4:0.25, B 8 and 24, eagerly and replayed; kernels against plain
+    versions; the launches of a replay, also under CAIM_FUSE_AOMLP=1; the
+    strict forward and the int8-vs-f32 worst-instruction delta on seeded
+    weights; 3 captured training micro-steps against eager; each kernel's
+    time at its ViT-L shape."""
+    import dataclasses
+
+    import torch
+    import yaml
+
+    from cognitive_aim_tpu_torch.api import CognitiveAimInference
+    from cognitive_aim_tpu_torch.certify.policy_delta import synth_images, tables
+    from cognitive_aim_tpu_torch.convert import load_flat_params
+    from cognitive_aim_tpu_torch.core.precision import DEFAULT_POLICY, STRICT_F32
+    from cognitive_aim_tpu_torch.core.rng import NoiseMode
+    from cognitive_aim_tpu_torch.io.preprocess import normalize_np
+    from cognitive_aim_tpu_torch.models.cognitive_aim import CognitiveAimModel
+    from cognitive_aim_tpu_torch.models.config import resolve_model_config
+    from cognitive_aim_tpu_torch.models.guidance import INSTRUCTIONS
+    from cognitive_aim_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    wrappers = _wrappers()
+    log(f"(m) ViT-L 518 on {smi}: {SERVE_CONFIG} with backbone_size large (use_lora off), "
+        f"int8, pallas_packed, noise zeros, exact and {VITL_FILTER}, B "
+        f"{' and '.join(map(str, VITL_BATCHES))}; the strict forward; the trainer")
+    if packages["yaml"] is None:
+        raise RuntimeError("phase (m) needs PyYAML for the config")
+    os.makedirs(VITL_DIR, exist_ok=True)
+    out, launches, engines = {"card": smi, "config": SERVE_CONFIG, "backbone_size": "large"}, {}, {}
+    try:
+        cfg_path = _vit_l_config()
+        with torch.no_grad():
+            for name, spec in (("exact", ""), (VITL_FILTER, VITL_FILTER)):
+                t1 = time.perf_counter()
+                engines[name] = eng = CognitiveAimInference(
+                    cfg_path, None, seed=0, policy="int8", attn_impl="pallas_packed",
+                    noise_mode="zeros", save_images=False, token_filter=spec)
+                torch.cuda.synchronize()
+                vc = eng.model.vit_cfg
+                shape = (vc.num_layers, vc.hidden_size, vc.num_heads, vc.mlp_dim, eng.image_size)
+                log(f"  engine {name}: built in {time.perf_counter() - t1:.1f} s, "
+                    f"{sum(v.size for v in eng.params.values()) / 1e6:.1f} M parameters; "
+                    f"blocks, D, heads, MLP, image {shape}")
+                if shape != (24, 1024, 16, 4096, 518) or not eng.model.backbone.layers[0].quantized:
+                    raise AssertionError(f"(m) engine {name}: not the int8 ViT-L 518 ({shape})")
+            layers, iters = 24, eng.arch.num_iterations
+            n_kept = 1 + round(0.25 * 1369) + 1  # CLS, the kept patches, the context token
+            chained = {k: layers for k in ("K1", "K2", "K3", "K4", "K4a", "K4b")}
+            want = {**chained, "K5": iters, "K6": iters}
+            fwd = {}
+            for name, eng in engines.items():
+                for B in VITL_BATCHES:
+                    # a replay's launches, read from its trace at B 8: the graphs
+                    # of other batches run the same code (each trace costs ~7 s)
+                    tag = f"{name} B{B}"
+                    out[tag], replay, inputs, eager = _vit_l_point(tag, eng, B, wrappers, B == 8)
+                    if B != 8:
+                        continue
+                    if {k: v for k, v in replay.items() if v} != want:
+                        raise AssertionError(f"(m) {tag}: launches a replay {replay} != {want}")
+                    launches[tag] = replay
+                    fwd[name] = inputs, eager()
+                    out[tag]["vs_plain"] = _vit_l_plain(tag, eng.model, *inputs, fwd[name][1])
+            # the filter: the stream lengths per block, the frozen dropped
+            # tokens and the kept sets of kernels and plain versions
+            filt = engines[VITL_FILTER].model
+            x, _, g = fwd[VITL_FILTER][0]
+            _check_filtered_backbone(f"(m) {VITL_FILTER} B8", filt, x, g, (1370, n_kept))
+            # CAIM_FUSE_AOMLP=1: K12 in place of K3 -> K4, captured anew
+            eng = engines["exact"]
+            os.environ["CAIM_FUSE_AOMLP"] = "1"
+            eng.compiled.graphs.clear()
+            try:
+                out["fused B8"], replay, inputs, eager = _vit_l_point(
+                    "exact B8, CAIM_FUSE_AOMLP=1", eng, 8, wrappers, True)
+                fused_want = {"K1": layers, "K2": layers, "K12": layers, "K5": iters,
+                              "K6": iters}
+                if {k: v for k, v in replay.items() if v} != fused_want:
+                    raise AssertionError(f"(m) fused: launches a replay {replay} != "
+                                         f"{fused_want}")
+                launches["fused B8"] = replay
+                fused = eager()
+                out["fused B8"]["vs_plain"] = _vit_l_plain("fused B8", eng.model, *inputs, fused)
+            finally:
+                os.environ.pop("CAIM_FUSE_AOMLP", None)
+                eng.compiled.graphs.clear()
+            unfused = fwd["exact"][1]
+            rf = _rel(fused.depth, unfused.depth)
+            log(f"  fused against unfused: depth rel {rf:.2e} (tol {TOL_K12_SPLIT:.0e})")
+            if rf > TOL_K12_SPLIT:
+                raise AssertionError("(m) the fused ViT-L forward strays from the unfused one")
+            out["fused B8"]["vs_unfused_depth_rel"] = rf
+
+            # the strict policy on the same weights, B 8; then the int8 (and
+            # int8 + filter) against f32 worst-instruction depth AbsRel
+            strict = load_flat_params(
+                CognitiveAimModel(eng.arch, STRICT_F32, "pallas_packed"), eng.params)
+            strict.prepare_params()
+            x, exif, g = fwd["exact"][0]
+            _zero_launches(wrappers)
+            a = strict(x, exif, guidance=g, noise_mode=NoiseMode.ZEROS)
+            strict_launches = _launch_counts(wrappers)
+            want_f32 = {"K1": layers, "K6": iters}
+            log("  strict f32 B8 launches in one forward (the f32 programs): " + ", ".join(
+                f"{k} {v}" for k, v in strict_launches.items() if v) + f" (want {want_f32})")
+            if {k: v for k, v in strict_launches.items() if v} != want_f32:
+                raise AssertionError(f"(m) strict launches {strict_launches} != {want_f32}")
+            launches["strict B8"] = strict_launches
+            strict.attn_impl = "plain"
+            b = strict(x, exif, guidance=g, noise_mode=NoiseMode.ZEROS)
+            strict.attn_impl = "pallas_packed"
+            rd = max(_rel(a.depth, b.depth), _rel(a.confidence, b.confidence))
+            ra = max_err(a.attention, b.attention)
+            log(f"  strict f32 B8 kernels vs plain: depth/confidence rel {rd:.2e}, attention "
+                f"abs {ra:.2e} (tol {TOL_SLICE_F32:.0e})")
+            if rd > TOL_SLICE_F32 or ra > TOL_SLICE_F32:
+                raise AssertionError("(m) the strict kernel path disagrees with the plain path")
+            t_strict = _events_ms(lambda: strict(x, exif, guidance=g,
+                                                 noise_mode=NoiseMode.ZEROS), 3)
+            norm = torch.from_numpy(normalize_np(synth_images(8, 518, seed=0))).cuda()
+            models = {"f32": strict, "int8": engines["exact"].model,
+                      "int8+tf": engines[VITL_FILTER].model}
+            preds = {n: {} for n in models}
+            confs = {n: {} for n in models}
+            for gi, gname in enumerate(INSTRUCTIONS):
+                gv = torch.full((8,), gi, dtype=torch.long, device="cuda")
+                for n, m in models.items():
+                    o = m(norm, exif, guidance=gv, noise_mode=NoiseMode.ZEROS)
+                    preds[n][gname] = o.depth[:, 0].double().cpu().numpy()
+                    confs[n][gname] = o.confidence[:, 0].double().cpu().numpy()
+            delta = tables(preds, confs)
+            out["strict B8"] = {"vs_plain_rel": rd, "attention_abs": ra,
+                                "ms": float(np.median(t_strict)), "ms_all": t_strict,
+                                "worst_instruction_absrel": {n: d["worst"]
+                                                             for n, d in delta.items()}}
+            log(f"  strict f32 B8: {out['strict B8']['ms']:.2f} ms a forward by CUDA events; "
+                f"worst-instruction depth AbsRel against it on seeded weights (8 structured "
+                f"scenes x 9 instructions; no budget: the 1% budget is for trained weights): "
+                f"int8 {delta['int8']['worst']:.5f}, int8 + {VITL_FILTER} "
+                f"{delta['int8+tf']['worst']:.5f}")
+            del strict, models, a, b, eng, filt, inputs, eager, fused, unfused
+        engines.clear()
+        fwd.clear()
+        torch.cuda.empty_cache()
+
+        # the trainer: 3 micro-steps at ViT-L 518, B 8, eager and replayed
+        with open(os.path.join(ROOT, TRAIN_CONFIG)) as f:
+            raw = yaml.safe_load(f)
+        raw["training"]["accumulation_steps"] = VITL_TRAIN_ACCUM
+        arch = dataclasses.replace(resolve_model_config(raw, lookup="nested"),
+                                   backbone_size="large", image_size=518)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        model = CognitiveAimModel(arch, DEFAULT_POLICY, "pallas_packed").init(gen)
+        with torch.no_grad():  # lora_B 0 (its init) would leave lora_A's gradient 0
+            for blk in model.backbone.layers:
+                blk.lora_B.normal_(0.0, 0.02, generator=gen)
+        os.environ["CAIM_TRAIN_REMAT"] = "1"
+        try:
+            tr = Trainer(model, TrainConfig.from_raw(raw, steps_per_epoch=4),
+                         output_dir=os.path.join(VITL_DIR, "training"))
+            start = {n: p.detach().clone() for n, p in model.named_parameters()}
+            batches = [_train_batch(VITL_TRAIN_BATCH, 518, torch.Generator(device="cuda")
+                                    .manual_seed(80 + i)) for i in range(2)]
+            got, ok, replay = _compiled_pair("ViT-L training", tr, batches, 90, start, wrappers,
+                                             steps=VITL_TRAIN_STEPS)
+        finally:
+            os.environ.pop("CAIM_TRAIN_REMAT", None)
+        launches["training"] = replay
+        out["training"] = got
+        e, r = got["ms_eager"], got["ms_replayed"]
+        log(f"  training, ViT-L 518 B{VITL_TRAIN_BATCH}, accumulation {VITL_TRAIN_ACCUM}, "
+            f"{VITL_TRAIN_STEPS} micro-steps: replayed against eager: loss "
+            f"{got['replayed_vs_eager_loss']:.2e}, parameters {got['replayed_vs_eager_params']:.2e} "
+            f"(eager against eager {got['eager_spread_loss']:.2e}, "
+            f"{got['eager_spread_params']:.2e}) {'ok' if ok else 'FAIL'}; micro-step by CUDA "
+            f"events (median of the steps after the first, range): eager {e[0]:.1f} ms "
+            f"({e[1]:.1f}-{e[2]:.1f}), replayed {r[0]:.1f} ms ({r[1]:.1f}-{r[2]:.1f}); peak "
+            f"allocated eager {got['peak_gib_eager']:.2f} GiB, replayed "
+            f"{got['peak_gib_replayed']:.2f} GiB (reserved {got['peak_reserved_gib_replayed']:.2f}); "
+            f"launches a replay: " + ", ".join(f"{k} {v}" for k, v in
+                                               got["launches_replay"].items()))
+        want_train = {"K1": 2 * layers, "K6": arch.num_iterations}
+        if got["launches_replay"] != want_train:
+            raise AssertionError(f"(m) training: launches a replay {got['launches_replay']} != "
+                                 f"{want_train}")
+        if not ok or not got["bit_equal_replayed"]:
+            raise AssertionError("(m) training: the replayed micro-steps differ from eager")
+        del tr, model, start, batches
+        torch.cuda.empty_cache()
+        times = _vit_l_kernel_times(n_kept)
+    finally:
+        engines.clear()
+        torch.cuda.empty_cache()
+        shutil.rmtree(VITL_DIR, ignore_errors=True)
+    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
+    if foreign:
+        raise AssertionError(f"phase (m) imported JAX or the JAX package: {foreign}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase (m) took {out['seconds']:.1f} s")
+    return out, launches, times
+
+
 KERNELS = {
     # id: (wrapper name, source, TPU kernel body it replaces)
     # K1, K7 and K8 launch one bf16 program, flash_wgmma.cu (their f32
@@ -5079,6 +5513,12 @@ def main() -> int:
         log(f"compiled training only: phases (c)-(k) were not driven, "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
+    if "--vit-l-only" in sys.argv[1:]:
+        vit_l, _, vit_l_times = phase_vit_l(smi, packages)
+        log(f"vit_l {json.dumps({**vit_l, 'kernel_times': vit_l_times}, default=float)}")
+        log(f"ViT-L only: phases (c)-(l) were not driven, "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if "--export-only" in sys.argv[1:]:
         with torch.no_grad():
             export, _ = phase_export(smi, packages)
@@ -5135,6 +5575,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     compiled_training, launches_training_compiled = phase_training_compiled(smi)
     log(f"training_compiled {json.dumps(compiled_training, default=float)}")
+    torch.cuda.empty_cache()
+    vit_l, launches_vit_l, vit_l_times = phase_vit_l(smi, packages)
+    log(f"vit_l {json.dumps(vit_l, default=float)}")
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "cognitive_aim_tpu")]
     if foreign:
@@ -5157,7 +5600,8 @@ def main() -> int:
          "launches_compiled": {n: c[kid] for n, c in launches_compiled.items()},
          "launches_training_compiled": {n: c[kid]
                                         for n, c in launches_training_compiled.items()},
-         "max_abs_err": errs[kid], **times[kid]}
+         "launches_vit_l": {n: c[kid] for n, c in launches_vit_l.items() if n != "strict B8"},
+         **times[kid], "max_abs_err": errs[kid], "vit_l": vit_l_times.get(kid)}
         for kid, (name, src, body) in KERNELS.items()]
     kernels += [
         {"id": kid, "name": name, "route": "cuda",
@@ -5169,7 +5613,10 @@ def main() -> int:
          "launches_export": {n: 0 for n in launches_export},
          "launches_compiled": {n: 0 for n in launches_compiled},
          "launches_training_compiled": {n: 0 for n in launches_training_compiled},
-         "max_abs_err": errs[kid], **times[kid]}
+         # phase (m): the strict ViT-L forward runs the f32 programs of K1 and K6
+         "launches_vit_l": {n: c[wrapper] if n == "strict B8" else 0
+                            for n, c in launches_vit_l.items()},
+         **times[kid], "max_abs_err": errs[kid], "vit_l": vit_l_times.get(kid)}
         for kid, (name, src, body, wrapper) in F32_KERNELS.items()]
     from cognitive_aim_tpu_torch.utils import profiling
 
