@@ -3086,7 +3086,7 @@ def _serve_engine(tag, engine, smi, rng, image_root, image_paths):
     import torch
 
     from cognitive_aim_tpu_torch.models.guidance import INSTRUCTIONS
-    from cognitive_aim_tpu_torch.serve import _decode_request_image, serve
+    from cognitive_aim_tpu_torch.serve import _decode_request_image, serve, stage_ms
 
     wrappers = _wrappers()
     engine.compiled.graphs.clear()  # the server's warm-up captures its graph anew
@@ -3195,9 +3195,9 @@ def _serve_engine(tag, engine, smi, rng, image_root, image_paths):
         if any(c != 200 for c, _, _ in timed):
             raise AssertionError(f"{tag}: load codes {[c for c, _, _ in timed]}")
         lat = np.asarray([s for _, _, s in timed]) * 1e3
+        batcher.stop()  # every record whole: a batch's reply is written after its answers
         bt = list(batcher.batches)
-        stage = {k: float(np.mean([b[k] for b in bt if b[k] is not None] or [np.nan]))
-                 for k in ("dispatch_ms", "device_ms", "drain_ms")}
+        stage = stage_ms(bt)
         numbers = {
             "requests_per_s": len(load) / wall, "p50_ms": float(np.percentile(lat, 50)),
             "p99_ms": float(np.percentile(lat, 99)), "first_ms": first_s * 1e3,
@@ -3211,10 +3211,11 @@ def _serve_engine(tag, engine, smi, rng, image_root, image_paths):
             f"{numbers['p50_ms']:.1f} ms, p99 {numbers['p99_ms']:.1f} ms ({smi})")
         log(f"  {tag}: per stage: host decode + resize {numbers['decode_ms']:.1f} ms a "
             f"request (handler threads); {len(bt)} batches of {numbers['mean_batch']:.2f} on "
-            f"average: dispatch {stage['dispatch_ms']:.2f} ms (stack, pad, the copies into "
-            f"the graph's inputs, its replay), the forward on the stream "
-            f"{stage['device_ms']:.2f} ms (CUDA events around the replay), drain "
-            f"{stage['drain_ms']:.2f} ms (wait for the outputs)")
+            f"average: dispatch {stage['dispatch_ms']:.2f} ms (from_numpy, the engine call); "
+            f"the server's records, mean ms: queue wait {stage['queue_wait_ms']:.2f} a request; "
+            + ", ".join(f"{k[:-3]} {stage[k]:.2f}" for k in stage
+                        if k not in ("dispatch_ms", "queue_wait_ms", "wake_ms"))
+            + f" a batch; wake {stage['wake_ms']:.2f} a request")
         return numbers
     finally:
         httpd.shutdown()

@@ -61,6 +61,7 @@ import contextlib
 import json
 import os
 import threading
+import time
 import weakref
 from typing import Dict, List, Optional, Tuple
 
@@ -68,7 +69,7 @@ import numpy as np
 import torch
 
 from cognitive_aim_tpu_torch.convert import flat_params, load_flat_params
-from cognitive_aim_tpu_torch.core.compiled import CompiledForward, Signature
+from cognitive_aim_tpu_torch.core.compiled import CompiledForward, Signature, call_record
 from cognitive_aim_tpu_torch.core.device import resolve_device
 from cognitive_aim_tpu_torch.core.precision import policy_from_name
 from cognitive_aim_tpu_torch.core.rng import NoiseMode
@@ -169,6 +170,7 @@ class CognitiveAimInference:
         # predict_paths_batched ('native' or 'pil')
         self.batch_sizes: collections.Counter = collections.Counter()
         self.last_decoder: Optional[str] = None
+        self._calls = threading.local()  # each thread's last eager forward's readings
 
         self._params = flat_params(
             self._new_model().init(torch.Generator(self.device).manual_seed(seed)))
@@ -386,13 +388,20 @@ class CognitiveAimInference:
         vector of them. On the card: one replay of the graph of this
         forward's ``Signature``, captured at its first call (the inputs are
         copied into its static inputs, host ones straight from the host);
-        on the CPU: the eager forward."""
+        on the CPU: the eager forward. ``last_call()`` then holds the
+        call's host split, on this thread."""
         B = int(images.shape[0])
         with self._rng_lock:  # handler and dispatcher threads both count
             self.batch_sizes[B] += 1
         if self.compiled is None:
+            t0 = time.perf_counter_ns()
+            images = images.to(self.device)
             exif = None if exif is None else {k: v.to(self.device) for k, v in exif.items()}
-            return self._eager(images.to(self.device), exif, guidance, self._next_key())
+            t1 = time.perf_counter_ns()
+            out = self._eager(images, exif, guidance, self._next_key())
+            t2 = time.perf_counter_ns()
+            self._calls.last = (t0, t0, t0, t1, t2, t2)
+            return out
         inputs = {"images": images,
                   **{f"exif/{k}": v for k, v in (exif or {}).items()}}
         if guidance is not None:
@@ -401,6 +410,16 @@ class CognitiveAimInference:
         key = Signature(guidance is not None, images.dtype == torch.uint8, B,
                         int(images.shape[1]), int(images.shape[2]), comm.current_shard())
         return self.compiled(key, inputs, self._next_seed())
+
+    def last_call(self) -> Optional[Dict]:
+        """The host split of this thread's last ``_forward``
+        (``core.compiled.call_record``), or None. On the card: the graph
+        cache's record of its replay. On the CPU: no lock, the inputs' move
+        to the device as ``copy_in``, the eager forward as ``launch``, no
+        ``copy_out``."""
+        if self.compiled is not None:
+            return self.compiled.last_call()
+        return call_record(*self._calls.last) if getattr(self._calls, "last", None) else None
 
     def _to_device(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)

@@ -33,6 +33,14 @@ to one ``Captured`` forward:
     call enqueues after the previous call's copies out, whatever stream it
     runs on: it waits for an event the previous call recorded.
 
+Each call keeps its clock readings per thread; ``GraphCache.last_call()``
+turns them into its host split (``call_record``: the lock's wait, the
+copies in, the replay's launch and the copies out, whether it captured
+first) for the caller on the same thread, so two threads calling at once
+cannot mix their records. A call pays a few clock reads for it and opens
+no profiler range: a range around a copy or a launch would count as
+device work in a trace.
+
 What the captured forward reads from Python (``CAIM_FUSE_AOMLP``, the model's
 modules, the batch shard's rows) is read while capturing, as JAX reads it
 while tracing: a later change does not reach a graph already captured.
@@ -255,6 +263,18 @@ def _layout(inputs: Dict[str, torch.Tensor]) -> tuple:
     return tuple((n, tuple(t.shape), t.dtype) for n, t in sorted(inputs.items()))
 
 
+def call_record(entered: int, locked: int, copy_in: int, launch: int, copy_out: int,
+                done: int, captured: bool = False) -> Dict[str, Any]:
+    """One call's host split from its ``time.perf_counter_ns()`` readings,
+    each span a (start, end) pair: ``lock_wait`` (entered to locked),
+    ``copy_in`` (the copies into the graph's static inputs), ``launch``
+    (the generators' seeds and the replay's launch), ``copy_out`` (the clone
+    of the outputs out of the graph's buffers); ``captured``: the call
+    captured its graph first, between ``lock_wait`` and ``copy_in``."""
+    return {"lock_wait": (entered, locked), "copy_in": (copy_in, launch),
+            "launch": (launch, copy_out), "copy_out": (copy_out, done), "captured": captured}
+
+
 class GraphCache:
     """Captured functions on one device, in one memory pool, replayed under
     one lock (see the module docstring). ``graphs`` maps (key, the inputs'
@@ -274,6 +294,13 @@ class GraphCache:
         self.lock = threading.Lock()
         self._pool = None
         self._done = None  # the last call's event, after its copies out
+        self._calls = threading.local()  # each thread's last call's readings
+
+    def last_call(self) -> Optional[Dict[str, Any]]:
+        """The host split of this thread's last ``run`` (``call_record``),
+        or None: none yet, or the last one raised or ran a stateful key's
+        warm-up. Another thread's calls do not touch it."""
+        return call_record(*self._calls.last) if getattr(self._calls, "last", None) else None
 
     def run(self, key: Hashable, inputs: Dict[str, torch.Tensor], fn: Callable,
             seeds: Optional[Dict[Hashable, int]] = None, *, stateful: bool = False,
@@ -285,28 +312,38 @@ class GraphCache:
         fresh generator seeded so draws. ``fn`` is read only when the graph
         is captured. ``grad``: autograd on (a step's backward). ``what``
         names the function in a ``CaptureError``. Returns the outputs,
-        copied."""
+        copied; ``last_call()`` then holds the call's host split."""
         be, dev = self.backend, self.device
         seeds = dict(seeds or {})
         full = (key, _layout(inputs))
+        self._calls.last = None
+        t_enter = time.perf_counter_ns()
         with self.lock, torch.enable_grad() if grad else torch.no_grad():
+            t_locked = time.perf_counter_ns()
             if self._done is not None:
                 be.wait(self._done, dev)
             entry = self.graphs.get(full)
-            if entry is None:
+            captured = entry is None
+            if captured:
                 entry, warm = self._capture(full, inputs, fn, seeds, stateful, what)
                 self.graphs[full] = entry
                 if stateful:  # the warm-up was this call
                     self._done = be.fence(dev)
                     return warm
+            t_copy = time.perf_counter_ns()
             for name, t in inputs.items():
                 entry.inputs[name].copy_(t, non_blocking=True)
+            t_launch = time.perf_counter_ns()
             for stream, gen in entry.generators.items():
                 gen.manual_seed(int(seeds[stream]))
             entry.graph.replay()
             entry.replays += 1
+            t_out = time.perf_counter_ns()
             out = _clone(entry.outputs)
+            t_end = time.perf_counter_ns()
             self._done = be.fence(dev)
+            # the readings alone: the record is built when it is read
+            self._calls.last = (t_enter, t_locked, t_copy, t_launch, t_out, t_end, captured)
             return out
 
     def _capture(self, key, inputs, fn, seeds, stateful, what):

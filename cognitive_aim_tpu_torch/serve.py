@@ -20,10 +20,47 @@ JAX server compiles its one graph, so every batch after is one graph replay.
 ``max_batch`` (its uint8 graph, captured at its first request); a client
 ``batch_size`` is ignored.
 
-Each batch's times are kept in ``BatchingServer.batches`` (dispatch: stack,
-pad, copy and enqueue on the host, on the card the copies into the graph's
-inputs and its replay; device: CUDA events around the forward; drain: the
-wait for the outputs), each request's host decode in ``decode_ms``.
+**The records.** ``BatchingServer.batches`` keeps, in memory, one record
+for each of the last 4096 batches the dispatcher ran. Every time in it is
+a ``time.perf_counter_ns()`` reading, and every span a (start, end) pair
+of them:
+
+  * ``id``, ``n`` (its requests) and ``requests``, one entry a request:
+    its ``id``, ``submitted`` (``submit`` entered), ``taken`` (the
+    dispatcher dequeued it), ``answered`` (its result and event set) and
+    ``returned`` (``submit`` returns; the caller's thread writes it, None
+    if the caller timed out);
+  * the dispatcher's spans, which tile its time: ``wait`` (in
+    ``queue.get`` with no request, from the previous batch's last answer
+    to this batch's first take), ``fill`` (first take to the batch closed:
+    the ``max_delay_ms`` wait for more), ``stack`` (closed to the engine
+    call: the stack, the pad, the EXIF arrays, ``from_numpy``), ``engine``
+    (the engine's ``_forward``), ``drain`` (the ``.cpu()`` wait for the
+    outputs) and ``reply`` (setting the results and events);
+  * inside ``engine``, the engine's host split
+    (``CognitiveAimInference.last_call()``): ``lock_wait``, ``copy_in``
+    (on the card the copies into the graph's static inputs, the batch's
+    host-to-device copy), ``launch`` (the replay), ``copy_out`` (the
+    outputs' clone), and ``captured`` (the call captured its graph first);
+  * ``dispatch_ms`` (``from_numpy`` and the engine call) and ``drain_ms``
+    (``drain``), in milliseconds.
+
+A request's stages tile its time in the server: its queue wait (taken -
+submitted), the rest of its batch's fill (closed - taken), the batch's
+stack, engine and drain, its own reply (answered - drain's end) and its
+thread's wake (returned - answered). ``stage_ms(batches)`` averages them.
+A record joins ``batches`` before its waiters wake; its ``reply`` and
+its answers are written after, so read whole records after ``stop()``.
+
+To place a span against a ``torch.profiler`` trace: ``clock`` holds one
+reading of ``perf_counter_ns`` and one of ``time.time_ns()``, taken when
+the server starts, and ``epoch_ns(t)`` moves a reading onto the Unix-epoch
+nanoseconds the profiler's host events carry; the trace's skew between
+the host's and the device's clocks (``benchmark/trace.py``) then places it
+against the device's work. The server opens no profiler range: the
+profiler records ranges only from the thread that started it, and one
+around a copy or a launch would count as device work. Each request's
+host decode is kept in ``decode_ms``.
 
 Run: python -m cognitive_aim_tpu_torch.serve --config configs/experiment_B.yaml \\
          [--checkpoint ckpt.pth] [--port 8321] [--policy int8]
@@ -36,6 +73,7 @@ import argparse
 import base64
 import collections
 import io as _io
+import itertools
 import json
 import queue
 import threading
@@ -47,19 +85,41 @@ import torch
 
 
 class _Pending:
-    __slots__ = ("image", "exif", "gidx", "event", "result", "abandoned")
+    __slots__ = ("image", "exif", "gidx", "event", "result", "abandoned", "entry")
 
-    def __init__(self, image, exif, gidx):
+    def __init__(self, image, exif, gidx, entry):
         self.image = image      # [H, W, 3] float32 normalized
         self.exif = exif        # dict of scalars
         self.gidx = int(gidx)
         self.event = threading.Event()
         self.result = None      # (depth, confidence) | Exception
         self.abandoned = False  # waiter timed out; don't spend device time
+        self.entry = entry      # the request's entry in its batch's record
+
+
+# a batch's spans in the order they run, each a (start, end) pair of
+# time.perf_counter_ns() readings; the engine's split lies inside ``engine``
+BATCH_SPANS = ("wait", "fill", "stack", "engine", "lock_wait", "copy_in", "launch",
+               "copy_out", "drain", "reply")
+
+
+def stage_ms(batches) -> dict:
+    """Mean milliseconds of each of ``BATCH_SPANS`` and of ``dispatch_ms``
+    over the batch records ``batches`` (``BatchingServer.batches``, read
+    after ``stop()``), and of each answered request's ``queue_wait``
+    (submitted to taken) and ``wake`` (answered to returned); keys end in
+    ``_ms``."""
+    reqs = [r for b in batches for r in b["requests"] if r["returned"] is not None]
+    spans = {f"{k}_ms": [(b[k][1] - b[k][0]) / 1e6 for b in batches] for k in BATCH_SPANS}
+    spans["dispatch_ms"] = [b["dispatch_ms"] for b in batches]
+    spans["queue_wait_ms"] = [(r["taken"] - r["submitted"]) / 1e6 for r in reqs]
+    spans["wake_ms"] = [(r["returned"] - r["answered"]) / 1e6 for r in reqs]
+    return {k: float(np.mean(v)) if v else float("nan") for k, v in spans.items()}
 
 
 class BatchingServer:
-    """Owns the engine and the micro-batching dispatcher thread."""
+    """Owns the engine and the micro-batching dispatcher thread, and the
+    records of each batch it ran (``batches``; see the module docstring)."""
 
     def __init__(self, engine, max_batch: int = 16, max_delay_ms: float = 5.0,
                  request_timeout: float = 120.0, warmup: bool = True):
@@ -71,6 +131,11 @@ class BatchingServer:
         self._stop = threading.Event()
         self.batches: collections.deque = collections.deque(maxlen=4096)
         self.decode_ms: collections.deque = collections.deque(maxlen=4096)
+        # one reading of both clocks: epoch_ns() moves a record's time onto
+        # the Unix-epoch clock of the profiler's host events
+        self.clock = (time.perf_counter_ns(), time.time_ns())
+        self._request_ids = itertools.count()  # next() is one atomic call
+        self._batch_ids = itertools.count()
         self.warmed_up = False
         if warmup:
             # the dispatcher's exact shape and dtypes, so nothing one-time is
@@ -82,56 +147,65 @@ class BatchingServer:
                  "focal_length": np.full((max_batch,), 50.0, np.float32),
                  "aperture": np.full((max_batch,), 2.8, np.float32),
                  "iso": np.full((max_batch,), 100.0, np.float32)},
-                np.zeros((max_batch,), np.int64), max_batch, record=False)
+                np.zeros((max_batch,), np.int64), max_batch)
             self.warmed_up = True
         self.dispatcher = threading.Thread(target=self._run, daemon=True)
         self.dispatcher.start()
+
+    def epoch_ns(self, t: int) -> int:
+        """A record's ``time.perf_counter_ns()`` reading on the Unix-epoch
+        clock (``time.time_ns()``) that ``torch.profiler``'s host events
+        carry."""
+        return t - self.clock[0] + self.clock[1]
 
     # ------------------------------------------------------------ intake ----
     def submit(self, image_np, exif_scalars, instruction: str, timeout=None):
         from cognitive_aim_tpu_torch.models import guidance as G
 
-        p = _Pending(image_np, exif_scalars, G.instruction_index(instruction))
+        entry = {"id": next(self._request_ids), "submitted": time.perf_counter_ns(),
+                 "taken": None, "answered": None, "returned": None}
+        p = _Pending(image_np, exif_scalars, G.instruction_index(instruction), entry)
         self.queue.put(p)
         if not p.event.wait(timeout or self.request_timeout):
             p.abandoned = True  # dispatcher drops it instead of computing
             raise TimeoutError("inference timed out")
+        entry["returned"] = time.perf_counter_ns()
         if isinstance(p.result, Exception):
             raise p.result
         return p.result
 
     # -------------------------------------------------------- dispatcher ----
-    def _forward(self, imgs, exif, gidx, n, record=True):
-        """One padded forward; returns (depths, confidences) of the first n."""
+    def _forward(self, imgs, exif, gidx, n, rec=None):
+        """One padded forward; returns (depths, confidences) of the first n.
+        ``rec``: the batch's record, which gets its ``stack`` end, the
+        engine's spans and ``drain``, ``dispatch_ms`` and ``drain_ms``."""
         eng = self.engine
-        cuda = eng.device.type == "cuda"
-        t0 = time.perf_counter()
+        t_np = time.perf_counter_ns()
         # host tensors: the engine copies them into its graph's inputs
         x = torch.from_numpy(imgs)
         e = {k: torch.from_numpy(v) for k, v in exif.items()}
         g = torch.from_numpy(gidx)
-        if cuda:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
+        t_call = time.perf_counter_ns()
         out = eng._forward(x, e, g)
-        if cuda:
-            ev[1].record()
-        t1 = time.perf_counter()
+        split = eng.last_call()
+        t_back = time.perf_counter_ns()
         depths = out.depth[:n, 0].cpu().numpy()
         confs = out.confidence[:n, 0].cpu().numpy()
-        t2 = time.perf_counter()
-        if record:
-            self.batches.append({
-                "n": n, "dispatch_ms": (t1 - t0) * 1e3, "drain_ms": (t2 - t1) * 1e3,
-                "device_ms": ev[0].elapsed_time(ev[1]) if cuda else None})
+        t_drained = time.perf_counter_ns()
+        if rec is not None:
+            rec.update(split, stack=(rec["fill"][1], t_call), engine=(t_call, t_back),
+                       drain=(t_back, t_drained), dispatch_ms=(t_back - t_np) / 1e6,
+                       drain_ms=(t_drained - t_back) / 1e6)
         return depths, confs
 
     def _run(self):
+        idle = time.perf_counter_ns()  # the last batch's last answer set
         while not self._stop.is_set():
             try:
                 first = self.queue.get(timeout=0.1)
             except queue.Empty:
                 continue
+            t_first = first.entry["taken"] = time.perf_counter_ns()
             batch = [] if first.abandoned else [first]
             deadline = time.perf_counter() + self.max_delay
             while len(batch) < self.max_batch:
@@ -142,11 +216,14 @@ class BatchingServer:
                     p = self.queue.get(timeout=left)
                 except queue.Empty:
                     break
+                p.entry["taken"] = time.perf_counter_ns()
                 if not p.abandoned:  # no device time for dead waiters
                     batch.append(p)
             if not batch:
                 continue
             n = len(batch)
+            rec = {"id": next(self._batch_ids), "n": n, "requests": [p.entry for p in batch],
+                   "wait": (idle, t_first), "fill": (t_first, time.perf_counter_ns())}
             try:
                 # pad to the one forward shape
                 pad = self.max_batch - n
@@ -162,14 +239,19 @@ class BatchingServer:
                     for k, v in exif.items()
                 }
                 gidx = np.asarray([p.gidx for p in batch] + [0] * pad, np.int64)
-                depths, confs = self._forward(imgs, exif, gidx, n)
+                depths, confs = self._forward(imgs, exif, gidx, n, rec)
+                self.batches.append(rec)  # before any waiter wakes and reads it
                 for p, d, c in zip(batch, depths, confs):
                     p.result = (float(d), float(c))
+                    p.entry["answered"] = time.perf_counter_ns()
                     p.event.set()
+                idle = time.perf_counter_ns()
+                rec["reply"] = (rec["drain"][1], idle)
             except Exception as e:  # surface to every waiter
                 for p in batch:
                     p.result = e
                     p.event.set()
+                idle = time.perf_counter_ns()
 
     def stop(self):
         self._stop.set()

@@ -2,7 +2,10 @@
 (cognitive_aim_tpu_torch/serve.py; counterpart of scripts/bench_serving_http.py):
 spin the server in-process, fire concurrent /predict requests (base64 JPEGs,
 mixed instructions) and report sustained requests/s, with the server's own
-per-stage times (host decode a request; dispatch, device and drain a batch).
+per-stage times: host decode a request, the mean of each stage of the
+server's records (``serve.stage_ms``: a request's queue wait and wake, a
+batch's wait, fill, stack, the engine's lock wait, copy in, launch and
+copy out, drain, reply; ``dispatch_ms``).
 
 The server's warm-up captures its one ``max_batch`` graph before it takes
 traffic (the original's compile); every batch after is one graph replay.
@@ -50,7 +53,7 @@ def main(argv=None, vit_cfg=None):
 
     from cognitive_aim_tpu_torch.api import CognitiveAimInference
     from cognitive_aim_tpu_torch.models.guidance import INSTRUCTIONS
-    from cognitive_aim_tpu_torch.serve import serve
+    from cognitive_aim_tpu_torch.serve import serve, stage_ms
 
     tmp = tempfile.mkdtemp(prefix="serve_bench_http_")
     try:
@@ -129,8 +132,7 @@ def main(argv=None, vit_cfg=None):
         httpd.server_close()
         batcher.stop()
     bt = list(batcher.batches)
-    stage = {k: float(np.mean([b[k] for b in bt if b[k] is not None] or [np.nan]))
-             for k in ("dispatch_ms", "device_ms", "drain_ms")}
+    stage = stage_ms(bt)
     numbers = {"requests": len(done), "seconds": dt, "requests_per_s": len(done) / dt,
                "p50_ms": float(np.percentile(lat, 50) * 1e3),
                "p99_ms": float(np.percentile(lat, 99) * 1e3), "threads": args.threads,

@@ -405,6 +405,69 @@ def test_each_call_waits_for_the_previous_copies_out():
     assert cache.backend.fences == 4 and cache.backend.waits == [1, 2, 3]
 
 
+def _spans_in_order(rec, t0, t1):
+    spans = [rec[k] for k in ("lock_wait", "copy_in", "launch", "copy_out")]
+    assert t0 <= spans[0][0] and spans[-1][1] <= t1
+    assert all(a <= b for a, b in spans)
+    assert all(b <= c for (_, b), (c, _) in zip(spans, spans[1:]))
+    assert spans[1][1] == spans[2][0] and spans[2][1] == spans[3][0]
+
+
+def test_each_thread_reads_its_own_last_call(cfg_path):
+    """``last_call()``: the lock's wait, the copies in, the launch and the
+    copies out of this thread's last call, in order on the host's clock,
+    its capture flagged; another thread's calls made between a call and its
+    read leave that thread's record as it was. The engine hands the cache's
+    record on, and its eager forward on the CPU fills the same one."""
+    cache = CF.CompiledForward(lambda inp, gen: {"y": inp["x"] + 1}, "cpu",
+                               backend=StandInGraphs())
+    assert cache.last_call() is None
+    called, other_done, seen = threading.Event(), threading.Event(), {}
+
+    def first():
+        t0 = time.perf_counter_ns()
+        cache(2, {"x": torch.zeros(2)})  # warm-up, capture, replay
+        t1 = time.perf_counter_ns()
+        called.set()
+        other_done.wait(timeout=60)
+        seen["first"] = (t0, t1, cache.last_call())
+
+    def second():
+        called.wait(timeout=60)
+        for _ in range(3):
+            cache(2, {"x": torch.ones(2)})
+        seen["second"] = cache.last_call()
+        other_done.set()
+
+    threads = [threading.Thread(target=first), threading.Thread(target=second)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    t0, t1, rec = seen["first"]
+    assert rec["captured"] is True and seen["second"]["captured"] is False
+    _spans_in_order(rec, t0, t1)
+    assert cache.last_call() is None  # this thread called nothing
+
+    eng = _engine(cfg_path, "int8_exact", noise="zeros")
+    inputs = _inputs(0, False, True)
+    exif = {k[5:]: v for k, v in inputs.items() if k.startswith("exif/")}
+    for compiled in (None, CF.CompiledForward(eng._compiled_fn, "cpu", backend=StandInGraphs())):
+        eng.compiled = compiled
+        for captured in ((False,) if compiled is None else (True, False)):
+            t0 = time.perf_counter_ns()
+            eng._forward(inputs["images"], exif, inputs["guidance"])
+            rec = eng.last_call()
+            _spans_in_order(rec, t0, time.perf_counter_ns())
+            assert rec["captured"] is captured
+            if compiled is None:  # no lock and no copies out: the eager forward
+                assert rec["lock_wait"][1] == rec["lock_wait"][0]
+                assert rec["copy_out"][1] == rec["copy_out"][0]
+            else:
+                assert rec == compiled.last_call()
+
+
 def test_replays_are_serialised_across_threads(cfg_path):
     """More threads than cores through one cache, the interpreter switching
     threads every microsecond: no two replays overlap, and each thread gets
@@ -448,7 +511,7 @@ def test_a_capture_that_syncs_raises_naming_the_operation():
     cache = CF.CompiledForward(fn, "cpu", backend=StandInGraphs())
     with pytest.raises(CF.CaptureError, match=r"forward of .*'k'.* aten::_local_scalar_dense"):
         cache(("k",), {"x": torch.ones(3)})
-    assert not cache.graphs
+    assert not cache.graphs and cache.last_call() is None
 
 
 # ------------------------------------------------------ the engine's route ----

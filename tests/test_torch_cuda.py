@@ -2090,6 +2090,11 @@ def test_compiled_forward_serves_two_threads_at_once(cuda_device, tmp_path):
         assert len(eng.compiled.graphs) == n_graphs + 2  # B 1 guided and unguided again
     finally:
         server.stop()
+    # the server's records hold its own replays' split, never predict's captures
+    recs = list(server.batches)
+    assert sum(b["n"] for b in recs) == 13 and not any(b["captured"] for b in recs)
+    for b in recs:
+        assert b["engine"][0] <= b["lock_wait"][0] <= b["copy_out"][1] <= b["engine"][1]
 
 
 # ----------------------------------------------------- compiled training ----

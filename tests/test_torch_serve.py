@@ -245,3 +245,94 @@ def test_abandoned_waiters_are_dropped_and_timeouts_are_504(tmp_path):
     p = srv.queue.get_nowait()
     assert isinstance(p, _Pending) and p.abandoned
     assert not srv.warmed_up and not eng.batch_sizes
+
+
+# ------------------------------------------------------------ the records ----
+def _submit_all(srv, n):
+    """``n`` requests from ``n`` threads at once, mixed instructions."""
+    from cognitive_aim_tpu_torch.models.guidance import INSTRUCTIONS
+
+    img = np.random.RandomState(5).randn(56, 56, 3).astype(np.float32)
+    exif = {"camera_idx": 1, "focal_length": 35.0, "aperture": 2.0, "iso": 200.0}
+    answers = [None] * n
+
+    def call(i):
+        answers[i] = srv.submit(img, exif, INSTRUCTIONS[i % 9], timeout=60)
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    return answers
+
+
+def test_batch_records_link_requests_and_tile_their_time(server):
+    """Each batch's record lists the ids of its requests, every request once;
+    no span is negative and the dispatcher's spans follow one another; each
+    request's stages sum to its returned - submitted; the parent's keys
+    stay, and the engine's split lies inside its call."""
+    from cognitive_aim_tpu_torch.serve import BATCH_SPANS, BatchingServer, stage_ms
+
+    _, _, engine, _ = server
+    srv = BatchingServer(engine, max_batch=4, max_delay_ms=20)
+    try:
+        answers = _submit_all(srv, 10)
+    finally:
+        srv.stop()
+    assert not srv.dispatcher.is_alive() and all(a is not None for a in answers)
+    recs = list(srv.batches)
+    assert [b["id"] for b in recs] == list(range(len(recs)))
+    assert sorted(r["id"] for b in recs for r in b["requests"]) == list(range(10))
+    order = ["wait", "fill", "stack", "engine", "drain", "reply"]
+    for b in recs:
+        assert b["n"] == len(b["requests"]) and 1 <= b["n"] <= 4
+        assert b["dispatch_ms"] >= 0 and b["drain_ms"] >= 0 and b["captured"] is False
+        for k in BATCH_SPANS:
+            assert b[k][1] >= b[k][0], (k, b[k])
+        for a, c in zip(order, order[1:]):
+            assert b[a][1] == b[c][0], (a, c)
+        assert b["drain_ms"] == (b["drain"][1] - b["drain"][0]) / 1e6
+        e0, e1 = b["engine"]
+        assert e0 <= b["lock_wait"][0] and b["copy_out"][1] <= e1
+        assert b["copy_in"][1] == b["launch"][0] and b["launch"][1] == b["copy_out"][0]
+        closed, drained = b["fill"][1], b["drain"][1]
+        for r in b["requests"]:
+            assert r["submitted"] <= r["taken"] <= closed <= drained <= r["answered"]
+            assert r["answered"] <= b["reply"][1] and r["answered"] <= r["returned"]
+            stages = [r["taken"] - r["submitted"], closed - r["taken"],
+                      *(b[k][1] - b[k][0] for k in ("stack", "engine", "drain")),
+                      r["answered"] - drained, r["returned"] - r["answered"]]
+            assert min(stages) >= 0
+            assert abs(sum(stages) - (r["returned"] - r["submitted"])) <= 1_000_000
+    means = stage_ms(recs)
+    assert all(np.isfinite(v) and v >= 0 for v in means.values()), means
+
+
+def test_a_record_lands_on_the_profiler_host_clock(server):
+    """``epoch_ns`` places a request's ``submitted`` inside the profiler's
+    range around its ``submit``, on the Unix-epoch clock of kineto's host
+    events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from cognitive_aim_tpu_torch.serve import BatchingServer
+
+    _, _, engine, _ = server
+    srv = BatchingServer(engine, max_batch=4, max_delay_ms=1, warmup=False)
+    img = np.zeros((56, 56, 3), np.float32)
+    exif = {"camera_idx": 0, "focal_length": 50.0, "aperture": 2.8, "iso": 100.0}
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with record_function("caim.test_submit"):
+                srv.submit(img, exif, "center", timeout=60)
+    finally:
+        srv.stop()
+    (ev,) = [e for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CPU and e.name() == "caim.test_submit"]
+    (rec,) = list(srv.batches)
+    r = rec["requests"][0]
+    slack = 2_000_000  # ns: the two clocks' readings are not simultaneous
+    assert ev.start_ns() - slack <= srv.epoch_ns(r["submitted"]) <= ev.end_ns() + slack
+    assert ev.start_ns() - slack <= srv.epoch_ns(r["returned"]) <= ev.end_ns() + slack
