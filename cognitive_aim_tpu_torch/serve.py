@@ -16,6 +16,13 @@ Before the server accepts traffic, ``BatchingServer`` runs one padded
 ``max_batch`` graph (core/compiled.py: one eager forward builds and loads the
 kernel library and sets each launcher's attributes, then the capture), as the
 JAX server compiles its one graph, so every batch after is one graph replay.
+The dispatcher stages every batch in one host buffer it keeps for its
+lifetime, ``[max_batch, image_size, image_size, 3]`` float32, page-locked
+when the engine runs on the card: each request's image is copied into its
+row and the pad rows take the batch's last image, so the engine's copy into
+its graph's input is an asynchronous DMA that the host only enqueues. The
+warm-up forward reads the same buffer. A batch with an image of another
+shape or dtype is stacked into fresh arrays instead.
 ``/predict_batch`` runs ``predict_paths_batched`` at the server's
 ``max_batch`` (its uint8 graph, captured at its first request); a client
 ``batch_size`` is ignored.
@@ -34,16 +41,22 @@ of them:
     ``queue.get`` with no request, from the previous batch's last answer
     to this batch's first take), ``fill`` (first take to the batch closed:
     the ``max_delay_ms`` wait for more), ``stack`` (closed to the engine
-    call: the stack, the pad, the EXIF arrays, ``from_numpy``), ``engine``
+    call: the copies of the images into the kept buffer, the pad rows, the
+    EXIF arrays), ``engine``
     (the engine's ``_forward``), ``drain`` (the ``.cpu()`` wait for the
     outputs) and ``reply`` (setting the results and events);
   * inside ``engine``, the engine's host split
     (``CognitiveAimInference.last_call()``): ``lock_wait``, ``copy_in``
-    (on the card the copies into the graph's static inputs, the batch's
-    host-to-device copy), ``launch`` (the replay), ``copy_out`` (the
-    outputs' clone), and ``captured`` (the call captured its graph first);
-  * ``dispatch_ms`` (``from_numpy`` and the engine call) and ``drain_ms``
-    (``drain``), in milliseconds.
+    (on the card the copies into the graph's static inputs: the host's
+    enqueue of the page-locked batch's copy, whose device time lands in
+    ``drain``, and the EXIF and guidance vectors' few bytes), ``launch``
+    (the replay), ``copy_out`` (the outputs' clone), and ``captured`` (the
+    call captured its graph first);
+  * ``dispatch_ms`` (the EXIF arrays' ``from_numpy`` and the engine call)
+    and ``drain_ms`` (``drain``), in milliseconds;
+  * ``staged``: True where the batch's images went through the kept buffer,
+    False where one of them did not fit it and the batch was stacked into
+    fresh arrays: the count of how often the buffer serves.
 
 A request's stages tile its time in the server: its queue wait (taken -
 submitted), the rest of its batch's fill (closed - taken), the batch's
@@ -136,13 +149,17 @@ class BatchingServer:
         self.clock = (time.perf_counter_ns(), time.time_ns())
         self._request_ids = itertools.count()  # next() is one atomic call
         self._batch_ids = itertools.count()
+        # every batch's images, padded; page-locked where the engine is on the
+        # card (pinning needs one), so its copy into the graph is an async DMA
+        size = engine.image_size
+        self._staging = torch.zeros((max_batch, size, size, 3), dtype=torch.float32,
+                                    pin_memory=engine.device.type == "cuda")
         self.warmed_up = False
         if warmup:
             # the dispatcher's exact shape and dtypes, so nothing one-time is
             # left for the first real batch (on the card: its graph's capture)
-            size = engine.image_size
             self._forward(
-                np.zeros((max_batch, size, size, 3), np.float32),
+                self._staging,
                 {"camera_idx": np.zeros((max_batch,), np.int32),
                  "focal_length": np.full((max_batch,), 50.0, np.float32),
                  "aperture": np.full((max_batch,), 2.8, np.float32),
@@ -175,22 +192,45 @@ class BatchingServer:
         return p.result
 
     # -------------------------------------------------------- dispatcher ----
-    def _forward(self, imgs, exif, gidx, n, rec=None):
-        """One padded forward; returns (depths, confidences) of the first n.
-        ``rec``: the batch's record, which gets its ``stack`` end, the
-        engine's spans and ``drain``, ``dispatch_ms`` and ``drain_ms``."""
+    def _stage(self, batch):
+        """The batch's images padded to ``max_batch`` with its last one, as
+        one host tensor, and whether that is the kept buffer (each image of
+        its shape and dtype) or a fresh stack."""
+        buf = self._staging.numpy()
+        n = len(batch)
+        if not all(isinstance(p.image, np.ndarray) and p.image.shape == buf.shape[1:]
+                   and p.image.dtype == buf.dtype for p in batch):
+            imgs = np.stack([p.image for p in batch])
+            if n < self.max_batch:
+                imgs = np.concatenate([imgs, np.repeat(imgs[-1:], self.max_batch - n, axis=0)])
+            return torch.from_numpy(imgs), False
+        for row, p in zip(buf, batch):
+            row[...] = p.image
+        buf[n:] = buf[n - 1]
+        return self._staging, True
+
+    def _forward(self, x, exif, gidx, n, rec=None):
+        """One padded forward of the host images ``x``; returns (depths,
+        confidences) of the first n. ``rec``: the batch's record, which gets
+        its ``stack`` end, the engine's spans and ``drain``, ``dispatch_ms``
+        and ``drain_ms``."""
         eng = self.engine
         t_np = time.perf_counter_ns()
         # host tensors: the engine copies them into its graph's inputs
-        x = torch.from_numpy(imgs)
         e = {k: torch.from_numpy(v) for k, v in exif.items()}
         g = torch.from_numpy(gidx)
         t_call = time.perf_counter_ns()
-        out = eng._forward(x, e, g)
-        split = eng.last_call()
-        t_back = time.perf_counter_ns()
-        depths = out.depth[:n, 0].cpu().numpy()
-        confs = out.confidence[:n, 0].cpu().numpy()
+        try:
+            out = eng._forward(x, e, g)
+            split = eng.last_call()
+            t_back = time.perf_counter_ns()
+            # the drain waits for the stream: the copy out of ``x`` has landed
+            depths = out.depth[:n, 0].cpu().numpy()
+            confs = out.confidence[:n, 0].cpu().numpy()
+        except Exception:
+            if x.is_pinned():  # a copy out of it may be in flight: let it land before a refill
+                torch.cuda.synchronize(eng.device)
+            raise
         t_drained = time.perf_counter_ns()
         if rec is not None:
             rec.update(split, stack=(rec["fill"][1], t_call), engine=(t_call, t_back),
@@ -227,9 +267,7 @@ class BatchingServer:
             try:
                 # pad to the one forward shape
                 pad = self.max_batch - n
-                imgs = np.stack([p.image for p in batch])
-                if pad:
-                    imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, axis=0)])
+                x, rec["staged"] = self._stage(batch)
                 exif = {
                     k: np.asarray([p.exif[k] for p in batch] + [batch[-1].exif[k]] * pad)
                     for k in batch[0].exif
@@ -239,7 +277,7 @@ class BatchingServer:
                     for k, v in exif.items()
                 }
                 gidx = np.asarray([p.gidx for p in batch] + [0] * pad, np.int64)
-                depths, confs = self._forward(imgs, exif, gidx, n, rec)
+                depths, confs = self._forward(x, exif, gidx, n, rec)
                 self.batches.append(rec)  # before any waiter wakes and reads it
                 for p, d, c in zip(batch, depths, confs):
                     p.result = (float(d), float(c))

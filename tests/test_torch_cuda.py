@@ -2097,6 +2097,58 @@ def test_compiled_forward_serves_two_threads_at_once(cuda_device, tmp_path):
         assert b["engine"][0] <= b["lock_wait"][0] <= b["copy_out"][1] <= b["engine"][1]
 
 
+@pytest.mark.cuda
+def test_served_batches_stage_in_one_pinned_buffer(cuda_device, tmp_path):
+    """The server's kept buffer is page-locked on the card; a full batch and
+    then a lone request go through it, and each answer is the replay of the
+    same batch stacked into pageable memory, bit for bit."""
+    from cognitive_aim_tpu_torch.models.guidance import INSTRUCTIONS, instruction_index
+    from cognitive_aim_tpu_torch.serve import BatchingServer
+
+    eng = _compiled_engine(tmp_path, "int8_exact", noise="zeros")
+    rng = np.random.RandomState(9)
+    exif = {"camera_idx": 1, "focal_length": 35.0, "aperture": 2.0, "iso": 200.0}
+    server = BatchingServer(eng, max_batch=4, max_delay_ms=1000.0)
+    assert server._staging.is_pinned()
+    forward, calls = eng._forward, []
+
+    def spy(images, e, g):
+        calls.append((images.clone(), {k: v.clone() for k, v in e.items()}, g.clone()))
+        return forward(images, e, g)
+
+    eng._forward = spy
+    sent = [[rng.randn(56, 56, 3).astype(np.float32) for _ in range(n)] for n in (4, 1)]
+    answers = []
+    try:
+        for imgs in sent:
+            got = [None] * len(imgs)
+
+            def call(i, imgs=imgs, got=got):
+                got[i] = server.submit(imgs[i], exif, INSTRUCTIONS[i], timeout=120)
+
+            threads = [threading.Thread(target=call, args=(i,)) for i in range(len(imgs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            assert not any(t.is_alive() for t in threads)
+            answers.append(got)
+    finally:
+        server.stop()
+        del eng._forward
+    assert [(b["n"], b["staged"]) for b in server.batches] == [(4, True), (1, True)]
+    for (x, e, g), imgs, got in zip(calls, sent, answers):
+        n = len(imgs)
+        order = [next(i for i in range(n) if np.array_equal(r, imgs[i])) for r in x[:n].numpy()]
+        stacked = np.stack([imgs[i] for i in order])
+        stacked = np.concatenate([stacked, np.repeat(stacked[-1:], 4 - n, axis=0)])
+        assert np.array_equal(x.numpy(), stacked)
+        assert g.tolist() == [instruction_index(INSTRUCTIONS[i]) for i in order] + [0] * (4 - n)
+        want = eng._forward(torch.from_numpy(stacked), e, g)
+        for row, i in enumerate(order):
+            assert got[i] == (float(want.depth[row, 0]), float(want.confidence[row, 0]))
+
+
 # ----------------------------------------------------- compiled training ----
 LORA_TRAIN = dict(use_lora=True, lora_rank=4, lora_targets=("attn_out", "fc1"))
 # name: (TrainConfig overrides, arch overrides), tests/test_torch_train.py's STEP_CASES

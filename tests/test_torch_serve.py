@@ -283,6 +283,7 @@ def test_batch_records_link_requests_and_tile_their_time(server):
         srv.stop()
     assert not srv.dispatcher.is_alive() and all(a is not None for a in answers)
     recs = list(srv.batches)
+    assert all(b["staged"] is True for b in recs)  # every image fits the kept buffer
     assert [b["id"] for b in recs] == list(range(len(recs)))
     assert sorted(r["id"] for b in recs for r in b["requests"]) == list(range(10))
     order = ["wait", "fill", "stack", "engine", "drain", "reply"]
@@ -336,3 +337,105 @@ def test_a_record_lands_on_the_profiler_host_clock(server):
     slack = 2_000_000  # ns: the two clocks' readings are not simultaneous
     assert ev.start_ns() - slack <= srv.epoch_ns(r["submitted"]) <= ev.end_ns() + slack
     assert ev.start_ns() - slack <= srv.epoch_ns(r["returned"]) <= ev.end_ns() + slack
+
+
+# ------------------------------------------------------ the kept buffer ----
+EXIF = {"camera_idx": 2, "focal_length": 35.0, "aperture": 2.0, "iso": 200.0}
+
+
+def _one_batch(srv, imgs, names):
+    """``imgs`` from as many threads at once, which the dispatcher's long
+    ``max_delay_ms`` keeps in one batch; the answers in order."""
+    answers = [None] * len(imgs)
+
+    def call(i):
+        answers[i] = srv.submit(imgs[i], EXIF, names[i], timeout=60)
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(len(imgs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    return answers
+
+
+def _spied(monkeypatch, engine):
+    """The engine's ``_forward`` and a list that gets a copy of the inputs
+    of each later call (the kept buffer is refilled after it)."""
+    forward, calls = engine._forward, []
+
+    def spy(images, exif, guidance=None):
+        calls.append((images.clone(), {k: v.clone() for k, v in exif.items()}, guidance.clone()))
+        return forward(images, exif, guidance)
+
+    monkeypatch.setattr(engine, "_forward", spy)
+    return forward, calls
+
+
+def _assert_the_stacked_batch(forward, call, imgs, names, answers, max_batch):
+    """The images the engine got are ``np.stack`` of the batch's images in
+    the dispatcher's order, padded with ``np.repeat`` of the last, and each
+    answer is the engine's forward of that stacked batch, bit for bit."""
+    import torch
+
+    from cognitive_aim_tpu_torch.models.guidance import instruction_index
+
+    got, exif, g = call
+    n = len(imgs)
+    order = [next(i for i in range(n) if np.array_equal(row, imgs[i])) for row in got[:n].numpy()]
+    assert sorted(order) == list(range(n))
+    stacked = np.stack([imgs[i] for i in order])
+    stacked = np.concatenate([stacked, np.repeat(stacked[-1:], max_batch - n, axis=0)])
+    assert np.array_equal(got.numpy(), stacked)
+    assert g.tolist() == [instruction_index(names[i]) for i in order] + [0] * (max_batch - n)
+    want = forward(torch.from_numpy(stacked), exif, g)
+    for row, i in enumerate(order):
+        assert answers[i] == (float(want.depth[row, 0]), float(want.confidence[row, 0]))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_staged_batches_are_the_stacked_batches(server, monkeypatch, n):
+    """A full batch, then one of ``n``, through the kept buffer: the engine
+    gets the bytes ``np.stack`` and the pad give (no row of the earlier
+    batch left in the pad) and each answer is its forward of them."""
+    from cognitive_aim_tpu_torch.models.guidance import INSTRUCTIONS
+    from cognitive_aim_tpu_torch.serve import BatchingServer
+
+    _, _, engine, _ = server
+    rng = np.random.RandomState(60 + n)
+    full = [rng.randn(56, 56, 3).astype(np.float32) for _ in range(4)]
+    small = [rng.randn(56, 56, 3).astype(np.float32) for _ in range(n)]
+    srv = BatchingServer(engine, max_batch=4, max_delay_ms=1000)
+    forward, calls = _spied(monkeypatch, engine)
+    try:
+        sent = [(full, INSTRUCTIONS[:4]), (small, INSTRUCTIONS[4:4 + n])]
+        answers = [_one_batch(srv, imgs, names) for imgs, names in sent]
+    finally:
+        srv.stop()
+    assert [(b["n"], b["staged"]) for b in srv.batches] == [(4, True), (n, True)]
+    assert len(calls) == 2
+    for call, (imgs, names), got in zip(calls, sent, answers):
+        _assert_the_stacked_batch(forward, call, imgs, names, got, 4)
+
+
+def test_an_image_of_another_shape_is_stacked(server, monkeypatch):
+    """A request whose image is not the buffer's shape takes the stack of
+    fresh arrays (``staged`` False) and is answered as the engine's forward
+    of that stack; the next batch fits the buffer again."""
+    from cognitive_aim_tpu_torch.serve import BatchingServer
+
+    _, _, engine, _ = server
+    rng = np.random.RandomState(70)
+    odd = [rng.randn(28, 28, 3).astype(np.float32)]
+    fits = [rng.randn(56, 56, 3).astype(np.float32)]
+    srv = BatchingServer(engine, max_batch=4, max_delay_ms=1)
+    forward, calls = _spied(monkeypatch, engine)
+    try:
+        answers = [_one_batch(srv, imgs, ["left"]) for imgs in (odd, fits)]
+    finally:
+        srv.stop()
+    assert [b["staged"] for b in srv.batches] == [False, True]
+    assert calls[0][0].shape == (4, 28, 28, 3) and not srv._staging.is_pinned()
+    for call, imgs, got in zip(calls, (odd, fits), answers):
+        _assert_the_stacked_batch(forward, call, imgs, ["left"], got, 4)
