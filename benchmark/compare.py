@@ -55,14 +55,14 @@ def numbers(out: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor]) -> Dict[
 def against_reference(ctx, flat, cases, control_bits: int = 0) -> Dict[str, float]:
     """The widest of each number over ``cases``: (inputs, outputs) pairs of
     one batch each, inputs {images, exif, guidance} as the program was
-    given them, outputs as it produced them. The reference runs on the
-    run's device, from the flat weights, with the configuration's int8
-    projections. With ``control_bits`` the control takes the program's
-    place: the reference at those bits (4: int4) on the same inputs."""
+    given them, outputs as it produced them. The configuration's reference
+    module (``ctx.ref``) runs on the run's device, from the flat weights,
+    with the configuration's int8 projections. With ``control_bits`` the
+    control takes the program's place: the reference at those bits (4:
+    int4) on the same inputs."""
     from benchmark import inputs
-    from benchmark.reference import model as ref
 
-    dev = ctx.device
+    ref, dev = ctx.ref, ctx.device
     params = inputs.on_device(flat, dev)
     worst: Dict[str, float] = {}
     for inp, out in cases:

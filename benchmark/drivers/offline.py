@@ -168,7 +168,7 @@ def run(ctx) -> Outcome:
     t0 = time.perf_counter()
     numbers = compare.against_reference(ctx, flat, cases)
     ctx.log(f"reference over {len(cases)} batches of the window: {time.perf_counter() - t0:.1f} s")
-    records = {"dims": ctx.dims, "batch": B, "token_filter": ctx.token_filter,
+    records = {"ref": ctx.ref, "dims": ctx.dims, "batch": B, "token_filter": ctx.token_filter,
                "host_ms": host_ms, "stretch": stretch, "forwards": forwards}
     return Outcome(e2e={"images_per_s": rate}, setup_s=setup_s,
                    attempted=B * len(done), failed=0, numbers=numbers,

@@ -183,8 +183,9 @@ def run(ctx) -> Outcome:
     t0 = time.perf_counter()
     numbers = compare.against_reference(ctx, flat, cases)
     ctx.log(f"reference over {len(pick)} requests of the window: {time.perf_counter() - t0:.1f} s")
-    records = {"dims": d, "batch": int(t["max_batch"]), "token_filter": ctx.token_filter,
-               "batches": batches, "max_batch": int(t["max_batch"]), "stretch": stretch}
+    records = {"ref": ctx.ref, "dims": d, "batch": int(t["max_batch"]),
+               "token_filter": ctx.token_filter, "batches": batches,
+               "max_batch": int(t["max_batch"]), "stretch": stretch}
     return Outcome(e2e={"latency_p95_ms": p95 * 1e3}, setup_s=setup_s, attempted=len(due),
                    failed=failed, numbers=numbers, memory_peak_bytes=mem, records=records,
                    stretch=stretch, cases=cases, flat=flat)

@@ -21,10 +21,11 @@ import math
 import os
 import sys
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional
 
 from benchmark import spec, system
-from benchmark.reference.layout import Dims, dims_of
+from benchmark.reference.layout import Dims
 
 EXIT_NO_DEVICE, EXIT_FORBIDDEN = 5, 6
 
@@ -50,6 +51,7 @@ class Ctx:
     cell: dict
     config_file: str
     cfg: dict
+    ref: ModuleType  # the configuration's plain reference module
     traffic: dict
     dims: Dims
     seed: int
@@ -119,9 +121,10 @@ def context(cell_name: str, seed: int, seconds: float, trace: bool, *,
     cfg = spec.config(root, b, cell["config"])
     if tiny is not None:
         cfg = tiny_config(cfg, tiny)
+    ref = spec.reference(root, cell["config"])
     return Ctx(root=root, cell=cell, config_file=spec.config_entry(b, cell["config"])["file"],
-               cfg=cfg, traffic=spec.traffic(root, cell_name), dims=dims_of(cfg), seed=seed,
-               seconds=seconds, trace=trace, device=torch.device(device), tiny=tiny)
+               cfg=cfg, ref=ref, traffic=spec.traffic(root, cell_name), dims=ref.dims(cfg),
+               seed=seed, seconds=seconds, trace=trace, device=torch.device(device), tiny=tiny)
 
 
 def execute(cell_name: str, seed: int, seconds: float, trace: bool, *, root: Path = spec.ROOT,

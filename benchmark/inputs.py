@@ -13,7 +13,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from benchmark.reference.layout import Dims, param_shapes
+from benchmark.reference.layout import Dims
 
 N_INSTRUCTIONS = 9
 
@@ -50,44 +50,19 @@ def instructions(n: int, seed: int, tag: str) -> np.ndarray:
     return np.random.default_rng(sub_seed(seed, tag)).integers(0, N_INSTRUCTIONS, n)
 
 
-# The heads' draws, (centre, half width or None for 1/sqrt(fan_in)): the
-# output biases at the model's own init (depth 1.0, confidence 2.0). The
-# confidence head's hidden unit (192 -> 1 under a ReLU, on the fusion's
-# ReLU output) gets a bias of 2, above what its inputs swing, so that the
-# ReLU never zeroes it; its output weight about -1 against the bias of 2
-# puts the confidence about 0.5, where it follows the unit.
-HEADS = {"decision_head/fc0/b": (1.0, None), "confidence_head/fc0/b": (2.0, None),
-         "confidence_head/fc1/w": (-1.0, 0.1), "confidence_head/fc1/b": (2.0, None)}
-
-
-def _rule(key: str, shapes) -> Tuple[float, float]:
-    """(centre, half width) of the uniform draw of one parameter: linear
-    weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)), as torch's
-    Linear, but for ``HEADS``; LayerNorm and LayerScale about 1 and 0; unit
-    variance for the tokens, position embeddings and the camera table."""
-    leaf = key.rsplit("/", 1)[-1]
-    if leaf in ("w", "b"):
-        centre, half = HEADS.get(key, (0.0, None))
-        return centre, half or 1.0 / math.sqrt(shapes[key[:-1] + "w"][-2])
-    return {"scale": (1.0, 0.1), "bias": (0.0, 0.1), "ls1": (1.0, 0.1), "ls2": (1.0, 0.1),
-            "cls_token": (0.0, math.sqrt(3)), "pos_embed": (0.0, math.sqrt(3)),
-            "mask_token": (0.0, math.sqrt(3)), "table": (0.0, math.sqrt(3)),
-            "initial_focus": (0.0, 0.02 * math.sqrt(3)), "adaptive_weight": (0.5, 0.1),
-            "curiosity_weights": (1.0 / 3.0, 0.1)}[leaf]
-
-
-def weights(d: Dims, seed: int, device) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
-    """The model's float32 parameters in the flat layout, drawn on
-    ``device`` in one call and copied to the host in one: (the host buffer,
+def weights(ref, d: Dims, seed: int, device) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """The float32 parameters of the reference module ``ref``'s model in the
+    flat layout, drawn on ``device`` in one call (keys in sorted order,
+    each by ``ref.rule``) and copied to the host in one: (the host buffer,
     key -> a view of it)."""
-    shapes = param_shapes(d)
+    shapes = ref.param_shapes(d)
     keys = sorted(shapes)
     sizes = [math.prod(shapes[k]) for k in keys]
     g = torch.Generator(device).manual_seed(sub_seed(seed, "weights"))
     buf = torch.rand(sum(sizes), generator=g, device=device).mul_(2.0).sub_(1.0)
     off = 0
     for k, n in zip(keys, sizes):
-        centre, half = _rule(k, shapes)
+        centre, half = ref.rule(k, shapes)
         buf[off:off + n].mul_(half).add_(centre)
         off += n
     host = buf.cpu().numpy()

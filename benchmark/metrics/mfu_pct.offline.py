@@ -9,5 +9,5 @@ def read(rec):
     stretch, forwards = rec.get("stretch"), rec.get("forwards")
     if stretch is None or not forwards:
         return None
-    least = work.matmul_least_s(rec["dims"], rec["batch"], rec["token_filter"])
+    least = work.matmul_least_s(rec["ref"], rec["dims"], rec["batch"], rec["token_filter"])
     return 100.0 * least * forwards / stretch.window_s

@@ -1,4 +1,7 @@
-"""The plain reference of the served forward, in float32 PyTorch.
+"""The parts of the plain reference that every block kind shares, in
+float32 PyTorch. A configuration's reference module
+(``benchmark/reference/<module>.py``) subclasses ``Backbone`` with its
+block's feed-forward and hands the subclass to ``forward``.
 
 It follows the model as the configuration states it, from the flat
 parameters the benchmark made (``layout.param_shapes``) and from nothing
@@ -6,23 +9,24 @@ that the program under test made:
 
   * the backbone's and the focal streams' float parameters at their
     bfloat16 values (the policy's compute dtype); the heads' in float32;
-  * each dense projection of a block (q, k, v, attn_out, fc1, fc2) and each
-    focal iteration's fused q/k/v projection at ``bits`` (8 for the int8
-    policy): the weight quantised per output channel from its float32
-    value, the activations per row, symmetric, round half to even; the
-    product of the dequantised values in float32;
-  * every activation in float32 (TF32 off), tanh GELU.
+  * each dense projection of a block (q, k, v, attn_out and the
+    feed-forward's) and each focal iteration's fused q/k/v projection at
+    ``bits`` (8 for the int8 policy): the weight quantised per output
+    channel from its float32 value, the activations per row, symmetric,
+    round half to even; the product of the dequantised values in float32;
+  * every activation in float32 (TF32 off).
 
 Layers, in order: ImageNet normalisation of uint8 images; the patch
 embedding with the bicubic interpolation of the position embeddings (half
 pixel, A = -0.75, border replicated; none where the grid is the pretrain
-grid); the pre-LN blocks with LayerScale; the token filter (CLS attention
-of the next block averaged over heads, the guidance priority, the kept set
-and the fused context token, the frozen dropped tokens put back); the final
-LayerNorm; the curiosity VAE with its hierarchical terms; the ambient MLP;
-the iterative focal streams with their fallbacks and re-focus; the guided
-blend and re-pool; the EXIF prior; the fusion and the depth and confidence
-heads. Noise is zero (the configuration's ``noise_mode``).
+grid); the pre-LN blocks with LayerScale (the feed-forward the module's);
+the token filter (CLS attention of the next block averaged over heads, the
+guidance priority, the kept set and the fused context token, the frozen
+dropped tokens put back); the final LayerNorm; the curiosity VAE with its
+hierarchical terms; the ambient MLP; the iterative focal streams with their
+fallbacks and re-focus; the guided blend and re-pool; the EXIF prior; the
+fusion and the depth and confidence heads. Noise is zero (the
+configuration's ``noise_mode``).
 
 Its tables (guidance masks, focal positional encoding, centre bias, resize
 matrices) are built here.
@@ -32,7 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Type
 
 import torch
 import torch.nn.functional as F
@@ -184,6 +188,9 @@ def unbiased_var(x):
 
 # --------------------------------------------------------------- backbone ----
 class Backbone:
+    """The embedding, the pre-LN blocks with LayerScale, the token filter
+    and the final LayerNorm; a subclass supplies ``feed_forward``."""
+
     def __init__(self, p: Dict[str, torch.Tensor], d: Dims, bits: int):
         self.p, self.d, self.bits = p, d, bits
 
@@ -208,7 +215,8 @@ class Backbone:
         cls = bf16(p["backbone/cls_token"]).expand(B, 1, -1)
         return torch.cat([cls, x], dim=1) + pos
 
-    def block(self, i: int, x: torch.Tensor) -> torch.Tensor:
+    def attention(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """x plus block i's LayerScaled attention."""
         d, L, q = self.d, self.layer, self.bits
         B, N, D = x.shape
         hd = D // d.heads
@@ -218,10 +226,18 @@ class Backbone:
         qh, kh, vh = (t.reshape(B, N, d.heads, hd).transpose(1, 2) for t in qkv)
         att = torch.softmax(qh @ kh.transpose(-1, -2) * hd ** -0.5, dim=-1)
         ctx = (att @ vh).transpose(1, 2).reshape(B, N, D)
-        x = x + bf16(L(i, "ls1")) * qlinear(ctx, L(i, "attn_out/w"), bf16(L(i, "attn_out/b")), q)
-        h = layer_norm(x, L(i, "norm2/scale"), L(i, "norm2/bias"), d.eps)
-        u = gelu_tanh(qlinear(h, L(i, "fc1/w"), bf16(L(i, "fc1/b")), q))
-        return x + bf16(L(i, "ls2")) * qlinear(u, L(i, "fc2/w"), bf16(L(i, "fc2/b")), q)
+        out = qlinear(ctx, L(i, "attn_out/w"), bf16(L(i, "attn_out/b")), q)
+        return x + bf16(L(i, "ls1")) * out
+
+    def feed_forward(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        """Block i's feed-forward of its normalised input ``h``: the
+        reference module's."""
+        raise NotImplementedError
+
+    def block(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        x = self.attention(i, x)
+        h = layer_norm(x, self.layer(i, "norm2/scale"), self.layer(i, "norm2/bias"), self.d.eps)
+        return x + bf16(self.layer(i, "ls2")) * self.feed_forward(i, h)
 
     def cls_importance(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """[B, P]: the CLS row of block i's attention, averaged over heads,
@@ -333,11 +349,12 @@ def normalize_u8(images: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def forward(p: Dict[str, torch.Tensor], d: Dims, images: torch.Tensor,
+def forward(backbone: Type[Backbone], p: Dict[str, torch.Tensor], d: Dims, images: torch.Tensor,
             exif: Dict[str, torch.Tensor], guidance: Optional[torch.Tensor], *,
             token_filter: Optional[Tuple[int, float]] = None, bits: int = 8,
             rows: int = 8) -> Dict[str, torch.Tensor]:
-    """The forward of a batch: images [B, H, W, 3] (uint8, or float32
+    """The forward of a batch through the blocks of ``backbone``, a
+    ``Backbone`` subclass: images [B, H, W, 3] (uint8, or float32
     normalised), exif {camera_idx, focal_length, aperture, iso} [B],
     guidance [B] instruction indices or None. The backbone runs ``rows``
     images at a time; the streams see the whole batch, whose variance the
@@ -349,7 +366,7 @@ def forward(p: Dict[str, torch.Tensor], d: Dims, images: torch.Tensor,
         B = x.shape[0]
         table = mask_table(d.grid, dev)
         kw = None if guidance is None else table[guidance.long()]
-        bb = Backbone(p, d, bits)
+        bb = backbone(p, d, bits)
         hs = torch.cat([bb.forward(x[a:a + rows], None if kw is None else kw[a:a + rows],
                                    token_filter) for a in range(0, B, rows)])
         cls, patches = hs[:, 0], hs[:, 1:]

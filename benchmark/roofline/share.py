@@ -1,6 +1,7 @@
 """A kernel family's share of its roofline in a traced stretch: the least
-time of the family's work in the stretch's forwards (``work``) over the
-device time of the family's kernels there."""
+time of the family's work in the stretch's forwards (``work``, through the
+records' reference module) over the device time of the family's kernels
+there."""
 
 from __future__ import annotations
 
@@ -22,5 +23,6 @@ def roofline_pct(rec: dict, family: str, names: Sequence[str]) -> Optional[float
     t = family_seconds(stretch.kernels, names)
     if t <= 0.0:
         return None
-    least = work.family_least_s(rec["dims"], rec["batch"], rec["token_filter"])[family]
+    least = work.family_least_s(rec["ref"], rec["dims"], rec["batch"],
+                                rec["token_filter"])[family]
     return 100.0 * least * forwards / t

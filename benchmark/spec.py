@@ -1,6 +1,14 @@
 """Everything of a cell is found by its name in ``BENCHMARK.json``:
 
   * its configuration: the ``file`` of its ``configs`` entry;
+  * its configuration's plain reference: the module under
+    ``benchmark/reference/`` that ``benchmark/configs/<config>.reference.json``
+    names (``{"reference": "benchmark/reference/<module>.py"}``), which
+    holds everything that depends on the block: the sizes, the parameter
+    layout and draws, the forward, the units of work and the program's
+    backbone settings at a test's tiny widths (``reference/dinov2_gelu.py``
+    lists them). The name sits beside the configuration file and not in
+    it, since the program reads that file;
   * its traffic: ``benchmark/traffic/<cell>.json``, the driver's kind and its
     parameters, and the limits of the outputs' comparison;
   * its driver: ``benchmark/drivers/<kind>.py`` (``run(ctx) -> Outcome``);
@@ -8,14 +16,15 @@
     ``per_layer`` entry whose ``workloads`` list the cell; each holds
     ``read(records) -> float | None``.
 
-A later cell, traffic mix or metric is new files and new entries: nothing
-here names one.
+A later cell, configuration, block kind, traffic mix or metric is new files
+and new entries: nothing here names one.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
 from types import ModuleType
 from typing import Dict, List
@@ -55,8 +64,20 @@ def _load(path: Path, name: str) -> ModuleType:
         raise FileNotFoundError(f"{path} is missing")
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # a dataclass in the module looks itself up there
     spec.loader.exec_module(mod)
     return mod
+
+
+def reference(root: Path, config_name: str) -> ModuleType:
+    """The plain reference module of a configuration."""
+    with open(root / "benchmark" / "configs" / f"{config_name}.reference.json",
+              encoding="utf-8") as f:
+        path = Path(json.load(f)["reference"])
+    if path.parent != Path("benchmark/reference") or path.suffix != ".py":
+        raise ValueError(f"{config_name}'s reference {path} is not a module of "
+                         f"benchmark/reference/")
+    return _load(root / path, "benchmark_reference_" + path.stem)
 
 
 def driver(root: Path, kind: str) -> ModuleType:
@@ -89,9 +110,11 @@ def cells(root: Path = ROOT) -> Dict[str, dict]:
     for w in b["workloads"]:
         t = traffic(root, w["name"])
         config(root, b, w["config"])
+        ref = reference(root, w["config"])
         driver(root, t["driver"])
         for m in per_layer(b, w["name"]):
             metric(root, m["name"])
-        out[w["name"]] = {"config": w["config"], "driver": t["driver"], "chips": w["chips"],
+        out[w["name"]] = {"config": w["config"], "reference": Path(ref.__file__).name,
+                          "driver": t["driver"], "chips": w["chips"],
                           "per_layer": [m["name"] for m in per_layer(b, w["name"])]}
     return out

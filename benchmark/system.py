@@ -16,7 +16,6 @@ from typing import Dict, Tuple
 import numpy as np
 
 from benchmark import inputs
-from benchmark.reference.layout import param_shapes
 
 # what the benchmark may never find loaded: JAX and the JAX package
 FORBIDDEN = ("jax", "jaxlib", "flax", "cognitive_aim_tpu")
@@ -54,26 +53,24 @@ def build(ctx, token_filter: str) -> Tuple[object, Dict[str, np.ndarray]]:
     if ctx.tiny is not None:  # tests: the tiny backbone of the configuration copy
         from cognitive_aim_tpu_torch.nn.dinov2 import DinoV2Config
 
-        d = ctx.dims
-        vit_cfg = DinoV2Config(hidden_size=d.hidden, num_layers=d.layers, num_heads=d.heads,
-                               mlp_ratio=d.mlp // d.hidden, patch_size=d.patch,
-                               pretrain_image_size=d.pretrain_image, gelu_approx=True)
+        vit_cfg = DinoV2Config(**ctx.ref.program_backbone(ctx.dims))
     with contextlib.redirect_stdout(io.StringIO()):
         eng = CognitiveAimInference(engine_config_path(ctx), None, device=str(ctx.device),
                                     policy=e["policy"], attn_impl=e["attn_impl"],
                                     noise_mode=e["noise_mode"], save_images=False,
                                     vit_cfg=vit_cfg, token_filter=token_filter)
     t1 = time.perf_counter()
+    # the sizes the parameter layout does not show (the feed-forward's width
+    # it does: the layout is compared next)
     v, d = eng.model.vit_cfg, ctx.dims
-    got = (v.hidden_size, v.num_layers, v.num_heads, v.mlp_dim, v.patch_size,
-           v.pretrain_image_size, eng.image_size, eng.arch.num_iterations)
-    want = (d.hidden, d.layers, d.heads, d.mlp, d.patch, d.pretrain_image, d.image,
-            d.num_iterations)
+    got = (v.hidden_size, v.num_layers, v.num_heads, v.patch_size, v.pretrain_image_size,
+           eng.image_size, eng.arch.num_iterations)
+    want = (d.hidden, d.layers, d.heads, d.patch, d.pretrain_image, d.image, d.num_iterations)
     if got != want:
         raise ValueError(f"the engine built {got}, the configuration states {want}")
-    _, flat = inputs.weights(d, ctx.seed, ctx.device)
+    _, flat = inputs.weights(ctx.ref, d, ctx.seed, ctx.device)
     theirs = {k: tuple(np.shape(a)) for k, a in eng.params.items()}
-    ours = param_shapes(d)
+    ours = ctx.ref.param_shapes(d)
     if theirs != ours:
         diff = sorted(set(theirs.items()) ^ set(ours.items()))
         raise ValueError(f"the engine's parameter layout differs from the reference's: {diff}")

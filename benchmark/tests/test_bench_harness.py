@@ -187,6 +187,8 @@ def test_a_cell_is_added_by_data_alone(tmp_path):
     cfg = json.loads((ROOT / "benchmark/configs/vitb14_518_int8.json").read_text())
     cfg["name"] = "vitb14_518_int8_copy"
     (tmp_path / "benchmark/configs/vitb14_518_int8_copy.json").write_text(json.dumps(cfg))
+    (tmp_path / "benchmark/configs/vitb14_518_int8_copy.reference.json").write_text(
+        json.dumps({"reference": "benchmark/reference/dinov2_gelu.py"}))
     traffic = json.loads((ROOT / "benchmark/traffic/vitb14_518_int8.offline_b16.json").read_text())
     traffic["batch"] = 8
     (tmp_path / "benchmark/traffic/vitb14_518_int8_copy.offline_b8.json").write_text(

@@ -1,6 +1,7 @@
 """The plain reference (benchmark/reference/) against the program's CPU
-forward at tiny widths. Only this file imports both; the reference itself
-imports nothing of the program (test_bench_harness.py checks that)."""
+forward at tiny widths, through the configuration's reference module. Only
+this file imports both; the reference itself imports nothing of the
+program (test_bench_harness.py checks that)."""
 
 import numpy as np
 import pytest
@@ -9,8 +10,9 @@ import torch
 from benchmark import inputs, spec
 from benchmark.harness import tiny_config
 from benchmark.reference import model as ref
-from benchmark.reference.layout import dims_of, param_shapes
 from conftest import TINY
+
+GELU = spec.reference(spec.ROOT, "vitb14_518_int8")
 
 
 def test_tables_match_the_programs():
@@ -65,8 +67,7 @@ def _program_forward(d, flat, images, exif, gidx, token_filter):
                                                token_filter_keep=token_filter[1])
     arch = ModelArchConfig(num_iterations=d.num_iterations, focus_strength=d.focus_strength,
                            image_size=d.image, num_cameras=d.num_cameras, **kw)
-    vit = DinoV2Config(hidden_size=d.hidden, num_layers=d.layers, num_heads=d.heads,
-                       mlp_ratio=d.mlp // d.hidden, gelu_approx=True)
+    vit = DinoV2Config(**GELU.program_backbone(d))
     model = CognitiveAimModel(arch, INT8_BACKBONE, attn_impl="pallas_packed", vit_cfg=vit,
                               device="cpu")
     load_flat_params(model, flat).prepare_params()
@@ -82,16 +83,16 @@ def test_reference_agrees_with_the_programs_cpu_forward(token_filter, seed):
     from benchmark import compare
 
     cfg = tiny_config(spec.config(spec.ROOT, spec.bench(), "vitb14_518_int8"), TINY)
-    d = dims_of(cfg)
-    _, flat = inputs.weights(d, seed, "cpu")
-    assert {k: v.shape for k, v in flat.items()} == param_shapes(d)
+    d = GELU.dims(cfg)
+    _, flat = inputs.weights(GELU, d, seed, "cpu")
+    assert {k: v.shape for k, v in flat.items()} == GELU.param_shapes(d)
     B = 6
     images = inputs.images_u8(B, d.image, seed, "t", "cpu")
     exif = {k: torch.from_numpy(v) for k, v in inputs.exif(B, seed, "t", d.num_cameras).items()}
     gidx = torch.from_numpy(inputs.instructions(B, seed, "t").astype(np.int64))
     got = _program_forward(d, flat, images, exif, gidx, token_filter)
-    want = ref.forward(inputs.on_device(flat, "cpu"), d, images, exif, gidx,
-                       token_filter=token_filter)
+    want = GELU.forward(inputs.on_device(flat, "cpu"), d, images, exif, gidx,
+                        token_filter=token_filter)
     n = compare.numbers(got, want)
     # the program runs the backbone and the focal streams in bfloat16 (8
     # significant bits), the reference in float32; a rounding that moves
